@@ -1,0 +1,133 @@
+"""Model builders and synthetic inputs for the port's main path.
+
+Counterpart of ``bevfusion_tpu/runtime/flagship.py``. The port's first
+slice is TransFusion-L at full width
+(configs/nuscenes/det/transfusion/secfpn/lidar/voxelnet_0p075.yaml,
+reference val mAP 64.68 / NDS 69.28): the flagship's LiDAR branch and
+BEV tail, run as eval forward on one synthetic beam-model scan.
+"""
+from __future__ import annotations
+
+import os
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from ..config import Config, load_config
+from ..models import build_model
+from ..models.sparse_encoder import SparseConv3d
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+LIDAR_SLICE_CONFIG = os.path.join(
+    REPO_ROOT, "configs/nuscenes/det/transfusion/secfpn/lidar/voxelnet_0p075.yaml")
+
+
+def synthetic_lidar_scan(num_points: int, pcr, seed: int = 0, n_beams: int = 32,
+                         n_sweeps: int = 10):
+    """Ring-structured synthetic lidar (byte-equal to the JAX package's):
+    a beam-model scan of 10 aggregated HDL-32E-like sweeps with ground
+    rings and car-sized obstacles, so site density falls with range as in
+    real nuScenes scans. Returns (points [num_points, 5] float32
+    (x, y, z, intensity, time_lag), mask [num_points] bool); points
+    outside the cloud range are masked."""
+    rng = np.random.RandomState(seed)
+    pcr = np.asarray(pcr, np.float32)
+    h_lidar = 1.84  # nuScenes LIDAR_TOP mount height
+    elev = np.deg2rad(np.linspace(-30.67, 10.67, n_beams)).astype(np.float32)
+
+    rays_per_sweep = max(num_points // max(n_sweeps, 1), n_beams)
+    n_az = max(rays_per_sweep // n_beams, 8)
+
+    n_obs = 48
+    obs_r = rng.uniform(5.0, 52.0, n_obs).astype(np.float32)
+    obs_az = rng.uniform(-np.pi, np.pi, n_obs).astype(np.float32)
+    obs_rad = rng.uniform(0.8, 2.4, n_obs).astype(np.float32)
+    obs_h = rng.uniform(1.4, 3.2, n_obs).astype(np.float32)
+
+    pts, lags = [], []
+    ego_speed = 4.0  # m/s, sweeps displace backwards along x
+    for s in range(n_sweeps):
+        az = (np.linspace(-np.pi, np.pi, n_az, endpoint=False)
+              + rng.uniform(0, 2 * np.pi / n_az)).astype(np.float32)
+        A, E = np.meshgrid(az, elev)
+        A, E = A.reshape(-1), E.reshape(-1)
+        rng_ground = np.where(
+            E < -0.008, h_lidar / np.tan(np.maximum(-E, 1e-3)), 1e4).astype(np.float32)
+        dalt = np.abs(((A[:, None] - obs_az[None, :]) + np.pi) % (2 * np.pi) - np.pi)
+        ang_rad = obs_rad[None, :] / np.maximum(obs_r[None, :], 1.0)
+        z_at = -h_lidar + obs_r[None, :] * np.tan(E)[:, None]
+        hit = (dalt < ang_rad) & (z_at > -h_lidar) & (z_at < -h_lidar + obs_h)
+        rng_obs = np.where(hit, obs_r[None, :], 1e4).min(axis=1)
+
+        r = np.minimum(rng_ground, rng_obs)
+        r = r * (1 + rng.normal(0, 0.01, r.shape).astype(np.float32))
+        x = r * np.cos(E) * np.cos(A) - ego_speed * 0.05 * s
+        y = r * np.cos(E) * np.sin(A)
+        z = -h_lidar + r * np.sin(E) + rng.normal(0, 0.02, r.shape)
+        inten = rng.rand(r.shape[0]).astype(np.float32)
+        pts.append(np.stack([x, y, z, inten], -1).astype(np.float32))
+        lags.append(np.full((r.shape[0], 1), 0.05 * s, np.float32))
+
+    pts = np.concatenate(pts)
+    pts = np.concatenate([pts, np.concatenate(lags)], -1)
+    in_range = (
+        (pts[:, 0] >= pcr[0]) & (pts[:, 0] < pcr[3])
+        & (pts[:, 1] >= pcr[1]) & (pts[:, 1] < pcr[4])
+        & (pts[:, 2] >= pcr[2]) & (pts[:, 2] < pcr[5]))
+    pts = pts[in_range]
+    rng.shuffle(pts)
+    n = min(len(pts), num_points)
+    out = np.zeros((num_points, 5), np.float32)
+    out[:n] = pts[:n]
+    mask = np.zeros((num_points,), bool)
+    mask[:n] = True
+    return out, mask
+
+
+def _fan_in(module: nn.Module, weight: torch.Tensor) -> int:
+    if isinstance(module, SparseConv3d):  # [kx, ky, kz, Cin, Cout]
+        return weight.numel() // weight.shape[-1]
+    if isinstance(module, nn.ConvTranspose2d):  # [Cin, Cout, k, k] with k == stride
+        return weight.shape[0]
+    return weight[0].numel()  # [out, in, ...]
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Random weights from a seeded ``torch.Generator``: He-normal weights,
+    small biases, and randomised BatchNorm / LayerNorm affines and running
+    statistics, so every eval normalisation does real work."""
+    g = torch.Generator().manual_seed(seed)
+
+    def fill(t, std, mean=0.0):
+        t.copy_(torch.randn(t.shape, generator=g) * std + mean)
+
+    for mod in model.modules():
+        if isinstance(mod, nn.modules.batchnorm._BatchNorm):
+            fill(mod.weight, 0.1, 1.0)
+            fill(mod.bias, 0.1)
+            fill(mod.running_mean, 0.1)
+            mod.running_var.copy_(torch.rand(mod.running_var.shape, generator=g) + 0.5)
+        elif isinstance(mod, nn.LayerNorm):
+            fill(mod.weight, 0.1, 1.0)
+            fill(mod.bias, 0.1)
+        else:
+            for p in mod.parameters(recurse=False):
+                std = 0.1 if p.dim() == 1 else (2.0 / _fan_in(mod, p)) ** 0.5
+                fill(p, std)
+    return model
+
+
+def build_lidar_slice(device="cpu", num_points: int = 120000,
+                      seed: int = 0) -> Tuple[Config, nn.Module, Dict[str, torch.Tensor]]:
+    """TransFusion-L (voxelnet_0p075) at full width with seeded random
+    weights on ``device``, and a batch of one 120k-point scan (the point
+    count ``bench.py`` drives)."""
+    cfg = load_config(LIDAR_SLICE_CONFIG)
+    model = init_weights(build_model(cfg.model), seed).to(device)
+    points, mask = synthetic_lidar_scan(num_points, cfg.point_cloud_range, seed=seed)
+    batch = {"points": torch.from_numpy(points)[None].to(device),
+             "points_mask": torch.from_numpy(mask)[None].to(device)}
+    return cfg, model, batch
