@@ -36,4 +36,6 @@ class Registry:
 BACKBONES = Registry("backbones")
 NECKS = Registry("necks")
 HEADS = Registry("heads")
+VTRANSFORMS = Registry("vtransforms")
+FUSERS = Registry("fusers")
 FUSIONMODELS = Registry("fusion_models")

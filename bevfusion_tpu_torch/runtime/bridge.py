@@ -14,7 +14,9 @@ to the torch layout:
 The port's modules carry the reference checkpoint's names, so the
 result loads with ``load_state_dict(strict=True)``; so would a released
 ``.pth``. Strict like ``load_reference_weights(strict=True)``: a flax
-path without a rule, or two paths claiming one key, raise.
+path without a rule, or two paths claiming one key, raise. Swin's
+``relative_position_index`` buffers, constants with no flax counterpart,
+are emitted beside each bias table from the window size it implies.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from bevfusion_tpu.runtime import adapter
+from bevfusion_tpu_torch.models.swin import relative_position_index
 
 __all__ = ["jax_to_torch_state_dict"]
 
@@ -98,6 +101,10 @@ def jax_to_torch_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
             put(key, np.array(_INVERSE[cv](a, key), order="C"), path)
             if key.endswith("running_mean"):
                 put(key[:-len("running_mean")] + "num_batches_tracked", np.array(0), path)
+            if key.endswith("relative_position_bias_table"):  # [(2*ws - 1)**2, heads]
+                ws = (round(a.shape[0] ** 0.5) + 1) // 2
+                put(key.replace("bias_table", "index"),
+                    relative_position_index(ws).astype(np.int64), path)
     if unmapped:
         raise ValueError("flax paths without a torch key:\n" + "\n".join(unmapped[:20]))
     for key, parts in packed.items():

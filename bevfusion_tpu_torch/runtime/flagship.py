@@ -1,15 +1,19 @@
 """Model builders and synthetic inputs for the port's main path.
 
-Counterpart of ``bevfusion_tpu/runtime/flagship.py``. The port's first
-slice is TransFusion-L at full width
+Counterpart of ``bevfusion_tpu/runtime/flagship.py``. The main path is
+the flagship, the fused camera+LiDAR TransFusion detector
+(configs/nuscenes/det/transfusion/secfpn/camera+lidar/swint_v0p075/
+convfuser.yaml, reference val mAP 68.52 / NDS 71.38), run as eval forward
+at batch 1 with the host pooling LUT (``build_flagship``). Its LiDAR
+branch and BEV tail alone are TransFusion-L
 (configs/nuscenes/det/transfusion/secfpn/lidar/voxelnet_0p075.yaml,
-reference val mAP 64.68 / NDS 69.28): the flagship's LiDAR branch and
-BEV tail, run as eval forward on one synthetic beam-model scan.
+reference val mAP 64.68 / NDS 69.28; ``build_lidar_slice``). The
+synthetic inputs are byte-equal to the JAX package's.
 """
 from __future__ import annotations
 
 import os
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -18,10 +22,48 @@ import torch.nn as nn
 from ..config import Config, load_config
 from ..models import build_model
 from ..models.sparse_encoder import SparseConv3d
+from ..models.vtransforms import build_pool_lut, lss_constants
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 LIDAR_SLICE_CONFIG = os.path.join(
     REPO_ROOT, "configs/nuscenes/det/transfusion/secfpn/lidar/voxelnet_0p075.yaml")
+FLAGSHIP_CONFIG = os.path.join(
+    REPO_ROOT, "configs/nuscenes/det/transfusion/secfpn/camera+lidar/swint_v0p075/convfuser.yaml")
+
+
+def synthetic_calibration(B: int, N: int, image_size) -> Dict[str, np.ndarray]:
+    """A nuScenes-like rig of N cameras in a horizontal ring, looking
+    outward, focal 0.6 * iW (float32 numpy, byte-equal to the JAX
+    package's, whose seed argument draws nothing): the camera matrices
+    under the batch's key names."""
+    iH, iW = image_size
+    intr = np.tile(np.eye(4, dtype=np.float32), (B, N, 1, 1))
+    intr[:, :, 0, 0] = intr[:, :, 1, 1] = 0.6 * iW
+    intr[:, :, 0, 2] = iW / 2
+    intr[:, :, 1, 2] = iH / 2
+
+    cam2lidar = np.tile(np.eye(4, dtype=np.float32), (B, N, 1, 1))
+    for n in range(N):
+        yaw = 2 * np.pi * n / N
+        # x_cam = right, y_cam = down, z_cam = forward
+        fwd = np.array([np.cos(yaw), np.sin(yaw), 0.0])
+        right = np.array([-np.sin(yaw), np.cos(yaw), 0.0])
+        down = np.array([0.0, 0.0, -1.0])
+        cam2lidar[:, n, :3, :3] = np.stack([right, -down, fwd], axis=1)
+        cam2lidar[:, n, :3, 3] = fwd * 1.5 + np.array([0, 0, 1.6])
+
+    lidar2cam = np.linalg.inv(cam2lidar)
+    eye_b = np.tile(np.eye(4, dtype=np.float32), (B, 1, 1))
+    return {
+        "camera_intrinsics": intr,
+        "camera2lidar": cam2lidar,
+        "lidar2camera": lidar2cam.astype(np.float32),
+        "lidar2image": np.einsum("bnij,bnjk->bnik", intr, lidar2cam).astype(np.float32),
+        "camera2ego": cam2lidar.copy(),
+        "lidar2ego": eye_b,
+        "img_aug_matrix": np.tile(np.eye(4, dtype=np.float32), (B, N, 1, 1)),
+        "lidar_aug_matrix": eye_b,
+    }
 
 
 def synthetic_lidar_scan(num_points: int, pcr, seed: int = 0, n_beams: int = 32,
@@ -120,6 +162,45 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     return model
 
 
+def batch_to(batch: Dict[str, Any], device) -> Dict[str, Any]:
+    """``batch`` with every tensor (also those of ``pool_lut``) on ``device``."""
+    return {k: batch_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in batch.items()}
+
+
+def synthetic_batch(cfg, B: int = 1, num_points: int = 200000,
+                    seed: int = 0) -> Dict[str, torch.Tensor]:
+    """An eval batch of CPU tensors, byte-equal to the JAX package's
+    ``synthetic_batch`` (scan lidar): B beam-model scans, six images
+    ``img [B, 6, 3, iH, iW]`` (drawn NHWC as the JAX package draws them,
+    then transposed to NCHW) and ``synthetic_calibration``."""
+    rng = np.random.RandomState(seed)
+    iH, iW = cfg.image_size
+    N = 6
+    pm = [synthetic_lidar_scan(num_points, cfg.point_cloud_range, seed=seed + b)
+          for b in range(B)]
+    img = rng.rand(B, N, iH, iW, 3).astype(np.float32)
+    batch = {"img": np.ascontiguousarray(img.transpose(0, 1, 4, 2, 3)),
+             "points": np.stack([p for p, _ in pm]),
+             "points_mask": np.stack([m for _, m in pm])}
+    batch.update(synthetic_calibration(B, N, (iH, iW)))
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def add_pool_lut(cfg, batch: Dict[str, Any]) -> Dict[str, Any]:
+    """``batch`` with ``pool_lut``, the pooling intervals for its
+    calibration (``models/vtransforms.py:build_pool_lut``), built on the
+    batch's device. A deployed rig computes it once; without an LSS
+    vtransform, a no-op."""
+    vt = (cfg.model.get("encoders", {}).get("camera") or {}).get("vtransform") or {}
+    if "xbound" not in vt:
+        return batch
+    dx, bx, nx, frustum = lss_constants(vt["image_size"], vt["feature_size"], vt["xbound"],
+                                        vt["ybound"], vt["zbound"], vt["dbound"])
+    frustum = torch.from_numpy(frustum).to(batch["camera2lidar"].device)
+    return dict(batch, pool_lut=build_pool_lut(frustum, dx, bx, nx, batch))
+
+
 def build_lidar_slice(device="cpu", num_points: int = 120000,
                       seed: int = 0) -> Tuple[Config, nn.Module, Dict[str, torch.Tensor]]:
     """TransFusion-L (voxelnet_0p075) at full width with seeded random
@@ -131,3 +212,15 @@ def build_lidar_slice(device="cpu", num_points: int = 120000,
     batch = {"points": torch.from_numpy(points)[None].to(device),
              "points_mask": torch.from_numpy(mask)[None].to(device)}
     return cfg, model, batch
+
+
+def build_flagship(device="cpu", num_points: int = 120000,
+                   seed: int = 0) -> Tuple[Config, nn.Module, Dict[str, Any]]:
+    """The fused flagship (swint_v0p075/convfuser.yaml) at full width with
+    seeded random weights on ``device``, and an eval batch of one sample
+    (six 256x704 images, one scan of ``num_points``, the synthetic rig)
+    with its pooling LUT, built on the CPU (``bench.py``'s main path)."""
+    cfg = load_config(FLAGSHIP_CONFIG)
+    model = init_weights(build_model(cfg.model), seed).to(device)
+    batch = add_pool_lut(cfg, synthetic_batch(cfg, B=1, num_points=num_points, seed=seed))
+    return cfg, model, batch_to(batch, device)

@@ -11,6 +11,7 @@ import torch
 import tests.torch_ref.skeleton as skeleton
 from bevfusion_tpu.config import load_config as jax_load_config
 from bevfusion_tpu.models import build_model as jax_build_model
+from bevfusion_tpu.models.swin import _relative_position_index
 from bevfusion_tpu.runtime.adapter import load_reference_weights
 from bevfusion_tpu.runtime.flagship import FLAGSHIP_CONFIG, synthetic_batch
 from bevfusion_tpu_torch.config import load_config
@@ -63,8 +64,9 @@ def test_bridge_round_trip_is_strict():
 def test_bridge_is_exhaustive_on_baseline_trees(cfg_path, skel_name):
     """Reference checkpoint replica -> flax (adapter, strict) -> torch
     (bridge) reproduces every learned tensor and running statistic, key
-    for key; only Swin's constant relative_position_index buffers have no
-    flax counterpart."""
+    for key. Swin's relative_position_index buffers have no flax
+    counterpart: the bridge emits them from the window size (the replica
+    holds zeros there), so they are held to the JAX package's constant."""
     cfg = jax_load_config(os.path.join(ROOT, cfg_path))
     model = jax_build_model(cfg.model, dtype=jnp.float32)
     variables = _zero_variables(model, synthetic_batch(cfg, B=1, num_points=1000))
@@ -72,17 +74,26 @@ def test_bridge_is_exhaustive_on_baseline_trees(cfg_path, skel_name):
     sd = getattr(skeleton, skel_name)().state_dict()
     flax_vars, _ = load_reference_weights(variables, sd, strict=True)
     back = jax_to_torch_state_dict(flax_vars)
-    assert set(back) == {k for k in sd if not k.endswith("relative_position_index")}
+    assert set(back) == set(sd)
     for key, value in back.items():
-        np.testing.assert_array_equal(value.numpy(), sd[key].numpy(), err_msg=key)
+        want = sd[key].numpy()
+        if key.endswith("relative_position_index"):
+            ws = round(want.shape[0] ** 0.5)
+            assert value.dtype == torch.int64
+            want = _relative_position_index(ws)
+        np.testing.assert_array_equal(value.numpy(), want, err_msg=key)
 
 
-def test_full_width_model_loads_bridge_and_reference_checkpoint():
-    """voxelnet_0p075 at full width: the bridged JAX variables and the
-    reference checkpoint's key tree both load strictly into the port."""
-    cfg = load_config(LIDAR_SLICE_CONFIG)
+@pytest.mark.parametrize("cfg_path,skel_name", [(LIDAR_SLICE_CONFIG, "LidarOnlyDetSkeleton"),
+                                                  (FLAGSHIP_CONFIG, "BEVFusionSkeleton")],
+                         ids=["voxelnet_0p075", "flagship"])
+def test_full_width_model_loads_bridge_and_reference_checkpoint(cfg_path, skel_name):
+    """voxelnet_0p075 and the fused flagship (swint_v0p075/convfuser) at
+    full width: the bridged JAX variables and the reference checkpoint's
+    key tree both load strictly into the port (key tree only, no forward)."""
+    cfg = load_config(cfg_path)
     jm = jax_build_model(cfg.model)
-    batch = {"points": jnp.zeros((1, 64, 5)), "points_mask": jnp.zeros((1, 64), bool)}
+    batch = synthetic_batch(jax_load_config(cfg_path), B=1, num_points=64)
     model = build_model(cfg.model)
     model.load_state_dict(jax_to_torch_state_dict(_zero_variables(jm, batch)), strict=True)
-    model.load_state_dict(skeleton.LidarOnlyDetSkeleton().state_dict(), strict=True)
+    model.load_state_dict(getattr(skeleton, skel_name)().state_dict(), strict=True)

@@ -16,11 +16,17 @@ MAIN_PATH = [
     "bevfusion_tpu_torch.native",
     "bevfusion_tpu_torch.ops.voxelize",
     "bevfusion_tpu_torch.ops.sparse_conv",
+    "bevfusion_tpu_torch.ops.grid",
+    "bevfusion_tpu_torch.ops.bev_pool",
     "bevfusion_tpu_torch.core.coders",
     "bevfusion_tpu_torch.models",
     "bevfusion_tpu_torch.models.layers",
     "bevfusion_tpu_torch.models.sparse_encoder",
     "bevfusion_tpu_torch.models.second",
+    "bevfusion_tpu_torch.models.swin",
+    "bevfusion_tpu_torch.models.necks",
+    "bevfusion_tpu_torch.models.vtransforms",
+    "bevfusion_tpu_torch.models.fusers",
     "bevfusion_tpu_torch.models.heads.transformer",
     "bevfusion_tpu_torch.models.heads.transfusion",
     "bevfusion_tpu_torch.models.bevfusion",
@@ -41,7 +47,7 @@ def _imported_after(modules):
 
 def test_main_path_imports_neither_jax_nor_the_jax_package():
     mods = _imported_after(MAIN_PATH)
-    assert "bevfusion_tpu_torch.ops.sparse_conv" in mods
+    assert {"bevfusion_tpu_torch.ops.sparse_conv", "bevfusion_tpu_torch.ops.bev_pool"} <= mods
     assert not {m for m in mods if m == "jax" or m.startswith(("jax.", "jaxlib", "flax"))}
     assert not {m for m in mods if m == "bevfusion_tpu" or m.startswith("bevfusion_tpu.")}
 
