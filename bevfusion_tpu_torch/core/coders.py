@@ -27,6 +27,21 @@ class TransFusionBBoxCoder:
         self.score_threshold = score_threshold
         self.code_size = code_size
 
+    def encode(self, boxes: torch.Tensor) -> torch.Tensor:
+        """boxes [N, 7 or 9] (x, y, z bottom, w, l, h, yaw, [vx, vy]) ->
+        regression targets [N, code_size]: feature-grid centers, gravity
+        center z, log dims, (sin, cos) yaw, velocity
+        (transfusion_bbox_coder.py:24-37)."""
+        x = (boxes[:, 0] - self.pc_range[0]) / (self.out_size_factor * self.voxel_size[0])
+        y = (boxes[:, 1] - self.pc_range[1]) / (self.out_size_factor * self.voxel_size[1])
+        z = boxes[:, 2] + boxes[:, 5] * 0.5
+        dims = torch.log(torch.clamp(boxes[:, 3:6], min=1e-8))
+        cols = [x, y, z, dims[:, 0], dims[:, 1], dims[:, 2], torch.sin(boxes[:, 6]),
+                torch.cos(boxes[:, 6])]
+        if self.code_size == 10:
+            cols += [boxes[:, 7], boxes[:, 8]]
+        return torch.stack(cols, -1)
+
     def decode(self, heatmap, rot, dim, center, height, vel: Optional[torch.Tensor]):
         """heatmap [B, num_cls, P]; rot [B, 2, P]; dim [B, 3, P]; center
         [B, 2, P] (feature-grid units); height [B, 1, P]; vel [B, 2, P] or

@@ -8,11 +8,14 @@ from . import swin  # noqa: F401
 from . import vtransforms  # noqa: F401
 from .heads import transfusion  # noqa: F401
 
+from ..devices import resolve_device
 from ..registry import FUSIONMODELS
 
 
-def build_model(model_cfg, device="cpu"):
+def build_model(model_cfg, device="cuda"):
     """Build the top-level model from the ``model`` tree of a config
     (``bevfusion_tpu_torch.config.load_config(path).model``), on
-    ``device``, in eval mode."""
-    return FUSIONMODELS.build(dict(model_cfg)).to(device).eval()
+    ``device`` (the card unless the caller passes ``"cpu"``), in eval
+    mode."""
+    dev = resolve_device(device)
+    return FUSIONMODELS.build(dict(model_cfg)).to(dev).eval()

@@ -1,4 +1,4 @@
-"""BEVFusion top-level model, eval path.
+"""BEVFusion top-level model.
 
 Counterpart of ``bevfusion_tpu/models/bevfusion.py`` (reference
 mmdet3d/models/fusion_models/bevfusion.py:25-388): camera branch
@@ -8,7 +8,9 @@ decoder (backbone + neck) -> TransFusion head -> ``get_bboxes``. Either
 branch may be absent; with one branch there is no fuser. Submodules carry
 the reference checkpoint's names (``encoders.camera.{backbone,neck,
 vtransform}``, ``encoders.lidar.backbone``, ``fuser``, ``decoder.backbone``,
-``decoder.neck``, ``heads.object``).
+``decoder.neck``, ``heads.object``). In training mode ``forward``
+returns the loss dict: ``loss/object/<name>`` scaled by ``loss_scale``
+and ``stats/object/matched_ious``.
 """
 from __future__ import annotations
 
@@ -57,6 +59,7 @@ class BEVFusion(nn.Module):
         self.decoder = nn.ModuleDict({"backbone": BACKBONES.build(decoder["backbone"]),
                                       "neck": NECKS.build(decoder["neck"])})
         self.heads = nn.ModuleDict({"object": HEADS.build(heads["object"])})
+        self.loss_scale = dict(loss_scale or {})
 
     def extract_camera_features(self, batch: Dict[str, Any]) -> torch.Tensor:
         """img [B, N, 3, H, W], the camera matrices under the JAX package's
@@ -89,7 +92,14 @@ class BEVFusion(nn.Module):
         return self.heads["object"](x[0])
 
     def forward(self, batch: Dict[str, Any]) -> Dict[str, Any]:
-        """Eval forward: {"boxes": {"bboxes", "scores", "labels", "mask"}}."""
-        if self.training:
-            raise NotImplementedError("the port runs eval only (ROADMAP: training)")
-        return {"boxes": self.heads["object"].get_bboxes(self.predict(batch))}
+        """Eval: {"boxes": {"bboxes", "scores", "labels", "mask"}}. Training
+        (``batch`` with ``gt_boxes``, ``gt_labels``, ``gt_valid``): the loss
+        dict of the JAX package's ``BEVFusion.__call__`` (bevfusion.py:185-205)."""
+        head = self.heads["object"]
+        if not self.training:
+            return {"boxes": head.get_bboxes(self.predict(batch))}
+        scale = self.loss_scale.get("object", 1.0)
+        losses = head.loss(self.predict(batch), batch["gt_boxes"], batch["gt_labels"],
+                           batch["gt_valid"])
+        return {f"stats/object/{k}" if k == "matched_ious" else f"loss/object/{k}":
+                v if k == "matched_ious" else v * scale for k, v in losses.items()}

@@ -16,6 +16,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..layers import BatchNorm1d, Dropout
+
 # flax LayerNorm's default epsilon, which the JAX package's decoder uses
 LAYER_NORM_EPS = 1e-6
 
@@ -27,7 +29,7 @@ class PositionEmbeddingLearned(nn.Module):
         super().__init__()
         self.position_embedding_head = nn.Sequential(
             nn.Conv1d(in_channels, num_pos_feats, 1),
-            nn.BatchNorm1d(num_pos_feats, momentum=bn_momentum), nn.ReLU(),
+            BatchNorm1d(num_pos_feats, momentum=bn_momentum), nn.ReLU(),
             nn.Conv1d(num_pos_feats, num_pos_feats, 1))
 
     def forward(self, xyz):
@@ -36,11 +38,13 @@ class PositionEmbeddingLearned(nn.Module):
 
 class MultiheadAttention(nn.Module):
     """torch MultiheadAttention math on batch-first [B, L, C], written out
-    (q scaled by head_dim**-0.5, softmax over keys); no dropout at eval."""
+    (q scaled by head_dim**-0.5, softmax over keys), with dropout on the
+    attention weights in training."""
 
-    def __init__(self, d_model: int, num_heads: int):
+    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.attn_drop = Dropout(dropout)
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
         self.out_proj = nn.Linear(d_model, d_model)
@@ -54,21 +58,25 @@ class MultiheadAttention(nn.Module):
         qh = F.linear(q, wq, bq).view(B, Lq, H, -1).transpose(1, 2)
         kh = F.linear(k, wk, bk).view(B, k.shape[1], H, -1).transpose(1, 2)
         vh = F.linear(v, wv, bv).view(B, v.shape[1], H, -1).transpose(1, 2)
-        attn = torch.softmax((qh * qh.shape[-1] ** -0.5) @ kh.transpose(-1, -2), dim=-1)
+        attn = self.attn_drop(
+            torch.softmax((qh * qh.shape[-1] ** -0.5) @ kh.transpose(-1, -2), dim=-1))
         out = (attn @ vh).transpose(1, 2).reshape(B, Lq, C)
         return self.out_proj(out)
 
 
 class TransformerDecoderLayer(nn.Module):
     """Post-norm decoder layer: self-attention, cross-attention to the BEV
-    tokens and an FFN, with learned position embeddings added to q and k."""
+    tokens and an FFN, with learned position embeddings added to q and k;
+    in training, dropout at the JAX package's places (attention weights,
+    each residual branch, the FFN's hidden layer)."""
 
     def __init__(self, d_model: int, num_heads: int, dim_feedforward: int = 2048,
-                 activation: str = "relu", bn_momentum: float = 0.1):
+                 activation: str = "relu", bn_momentum: float = 0.1, dropout: float = 0.0):
         super().__init__()
         self.act = {"relu": F.relu, "gelu": F.gelu}[activation]
-        self.self_attn = MultiheadAttention(d_model, num_heads)
-        self.multihead_attn = MultiheadAttention(d_model, num_heads)
+        self.self_attn = MultiheadAttention(d_model, num_heads, dropout)
+        self.multihead_attn = MultiheadAttention(d_model, num_heads, dropout)
+        self.drop = nn.ModuleList(Dropout(dropout) for _ in range(4))
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
         self.norm1, self.norm2, self.norm3 = (
@@ -81,9 +89,11 @@ class TransformerDecoderLayer(nn.Module):
         qe = self.self_posembed(query_pos)
         ke = self.cross_posembed(key_pos)
         q = query + qe
-        query = self.norm1(query + self.self_attn(q, q, q))
-        query = self.norm2(query + self.multihead_attn(query + qe, key + ke, key + ke))
-        return self.norm3(query + self.linear2(self.act(self.linear1(query))))
+        query = self.norm1(query + self.drop[0](self.self_attn(q, q, q)))
+        query = self.norm2(query + self.drop[1](self.multihead_attn(query + qe, key + ke,
+                                                                    key + ke)))
+        y = self.linear2(self.drop[2](self.act(self.linear1(query))))
+        return self.norm3(query + self.drop[3](y))
 
 
 class FFNHead(nn.Module):
@@ -97,7 +107,7 @@ class FFNHead(nn.Module):
             layers, c = [], in_channels
             for _ in range(num_conv - 1):
                 layers += [nn.Conv1d(c, head_conv, 1),
-                           nn.BatchNorm1d(head_conv, momentum=bn_momentum), nn.ReLU()]
+                           BatchNorm1d(head_conv, momentum=bn_momentum), nn.ReLU()]
                 c = head_conv
             layers.append(nn.Conv1d(c, classes, 1))
             if name == "heatmap":

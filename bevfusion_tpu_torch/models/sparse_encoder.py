@@ -8,12 +8,17 @@ a stride-2 sparse conv between stages, and a (1, 1, 3)/(1, 1, 2)
 ``conv_out``, reshaped to a BEV map whose channel ``c*Z + z`` matches
 the reference's permute+view.
 
-Stages before ``dense_from_stage`` are sparse: every conv is one launch
-of the gather-GEMM kernel over a rulebook shared by the stage, with the
-eval BatchNorm folded into its epilogue (scale, shift, then the
-residual, then ReLU). The strided conv into stage ``dense_from_stage``
-and everything after it run as dense masked 3D convs (``F.conv3d``) on
-a z-major ``[B, C, Z, X, Y]`` grid, which is exact:
+Stages before ``dense_from_stage`` are sparse: at eval every conv is one
+launch of the gather-GEMM kernel per sample over a rulebook shared by
+the stage, with the eval BatchNorm folded into its epilogue (scale,
+shift, then the residual, then ReLU). In training every conv is a
+``SparseConvFunction`` (the same kernel forward and for backward-data,
+the weight-gradient kernel for the weight), and BatchNorm takes its
+moments over the active sites of the whole batch (the JAX package's
+``engine="gather"`` path and ``MaskedBatchNorm``). The strided conv into
+stage ``dense_from_stage`` and everything after it run as dense masked
+3D convs (``F.conv3d``) on a z-major ``[B, C, Z, X, Y]`` grid, which is
+exact:
 
     subm     = conv3d(x) * active
     strided  = conv3d(x, stride 2) * maxpool(active)
@@ -21,7 +26,7 @@ a z-major ``[B, C, Z, X, Y]`` grid, which is exact:
 Module and parameter names follow the reference checkpoint
 (``conv_input``, ``encoder_layers.encoder_layerN.M.conv1`` ...; spconv
 weights ``[kx, ky, kz, Cin, Cout]``), so a released state dict loads
-as is. Eval only: training comes with the kernel's backward.
+as is.
 """
 from __future__ import annotations
 
@@ -37,17 +42,41 @@ from ..registry import BACKBONES
 
 
 class MaskedBatchNorm(nn.BatchNorm1d):
-    """BatchNorm over active sites (``bevfusion_tpu`` MaskedBatchNorm) at
-    eval: its running statistics fold into a per-channel affine."""
+    """BatchNorm over active sites (``bevfusion_tpu`` MaskedBatchNorm). At
+    eval its running statistics fold into a per-channel affine. In training
+    the moments are taken over the active sites of the whole batch (biased
+    variance, two passes), the running statistics move by ``momentum``
+    (torch convention) towards them, and inactive sites come out zero."""
 
     def fold(self):
         """(scale, shift) with ``bn(x) == x * scale + shift``."""
         scale = torch.rsqrt(self.running_var + self.eps) * self.weight
         return scale, self.bias - self.running_mean * scale
 
+    def _train(self, x: torch.Tensor, m: torch.Tensor, dims) -> torch.Tensor:
+        """x with its active entries ``m`` (float 0/1, broadcastable)
+        normalised by their moments over ``dims``; inactive entries 0."""
+        cnt = torch.clamp(m.sum(), min=1.0)
+        mean = (x * m).sum(dims, keepdim=True) / cnt
+        var = ((x - mean) ** 2 * m).sum(dims, keepdim=True) / cnt
+        with torch.no_grad():
+            self.running_mean.lerp_(mean.flatten(), self.momentum)
+            self.running_var.lerp_(var.flatten(), self.momentum)
+            self.num_batches_tracked += 1
+        shape = mean.shape
+        y = (x - mean) * torch.rsqrt(var + self.eps) * self.weight.view(shape) \
+            + self.bias.view(shape)
+        return y * m
+
+    def sparse(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """Training: x [N, C] site rows (the batch's samples stacked), mask [N]."""
+        return self._train(x, mask[:, None].to(x.dtype), (0,))
+
     def dense(self, x: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
         """x [B, C, Z, X, Y]; active [B, 1, Z, X, Y] float 0/1; inactive
         sites come out zero."""
+        if self.training:
+            return self._train(x, active, (0, 2, 3, 4))
         scale, shift = self.fold()
         return (x * scale.view(1, -1, 1, 1, 1) + shift.view(1, -1, 1, 1, 1)) * active
 
@@ -63,11 +92,25 @@ class SparseConv3d(nn.Module):
         self.weight = nn.Parameter(
             torch.randn(*self.kernel_size, in_channels, out_channels) * fan_in ** -0.5)
 
-    def forward(self, feats, nbr, bn: MaskedBatchNorm, residual=None):
-        """Sparse conv + folded BN (+ residual) + ReLU: one kernel launch."""
-        scale, shift = bn.fold()
+    def forward(self, xs, nbrs, bn: MaskedBatchNorm, masks, residuals=None, nbrs_t=None):
+        """Sparse conv + BN (+ residual) + ReLU over the batch's samples
+        (lists of site rows ``xs``, tables ``nbrs``, output ``masks``,
+        ``residuals``). Eval: one kernel launch per sample with BN folded
+        into its epilogue. Training: one ``SparseConvFunction`` per sample
+        (``nbrs_t``: the transposed tables of a strided conv), BN moments
+        over the active sites of the whole batch, then residual and ReLU."""
         w = self.weight.reshape(-1, *self.weight.shape[-2:])
-        return sp.sparse_conv(feats, nbr, w, scale, shift, residual, relu=True)
+        residuals = residuals or [None] * len(xs)
+        if not self.training:
+            scale, shift = bn.fold()
+            return [sp.sparse_conv(x, nbr, w, scale, shift, r, relu=True)
+                    for x, nbr, r in zip(xs, nbrs, residuals)]
+        nbrs_t = nbrs_t or [None] * len(xs)
+        ys = [sp.SparseConvFunction.apply(x, w, nbr, nt) for x, nbr, nt in zip(xs, nbrs, nbrs_t)]
+        y = bn.sparse(torch.cat(ys), torch.cat(masks))
+        if residuals[0] is not None:
+            y = y + torch.cat(residuals)
+        return list(torch.relu(y).split([t.shape[0] for t in ys]))
 
     def dense(self, x: torch.Tensor, stride=1, padding=0) -> torch.Tensor:
         """The same conv on a dense z-major grid x [B, Cin, Z, X, Y]."""
@@ -145,25 +188,27 @@ class SparseEncoder(nn.Module):
     def forward(self, voxel_feats, coords, mask):
         """voxel_feats [B, M, C]; coords [B, M, 3] int (x, y, z), sorted
         x-major per sample; mask [B, M]. Returns the BEV map
-        [B, output_channels * Z_out, X_out, Y_out] (NCHW)."""
-        if self.training:
-            raise NotImplementedError("SparseEncoder runs eval only (ROADMAP: training)")
-        return torch.cat([self._forward_one(f, c, m)
-                          for f, c, m in zip(voxel_feats, coords, mask)])
+        [B, output_channels * Z_out, X_out, Y_out] (NCHW).
 
-    def _forward_one(self, feats, coords, mask):
+        The samples go through the sparse stages in lockstep, layer by
+        layer, each on its own rulebooks (training BN takes its moments
+        over all of them); the dense stages run batched."""
         grid = sp.SparseGrid(*self.sparse_shape)
-        ids = sp.lin_ids(coords, grid, mask)
-        x = torch.where(mask[:, None], feats, 0.0).contiguous()
-        nbr = sp.build_subm_rulebook(ids, grid)
-        x = self.conv_input[0](x, nbr, self.conv_input[1])
-        cap = x.shape[0]
+        B = voxel_feats.shape[0]
+        ids = [sp.lin_ids(coords[b], grid, mask[b]) for b in range(B)]
+        masks = list(mask)
+        xs = [torch.where(mask[b][:, None], voxel_feats[b], 0.0).contiguous() for b in range(B)]
+        nbrs = [sp.build_subm_rulebook(i, grid) for i in ids]
+        xs = self.conv_input[0](xs, nbrs, self.conv_input[1], masks)
+        cap = xs[0].shape[0]
         n_down = 0
-        dense = active = None  # z-major [1, C, Z, X, Y] grid once dense
+        dense = active = None  # z-major [B, C, Z, X, Y] grid once dense
 
         def densify():
-            d = sp.to_dense_zmajor(x, ids, mask, grid).permute(3, 0, 1, 2)[None]
-            return d.contiguous(), sp.occupancy_zmajor(ids, mask, grid)[None, None].float()
+            d = torch.stack([sp.to_dense_zmajor(x, i, m, grid).permute(3, 0, 1, 2)
+                             for x, i, m in zip(xs, ids, masks)])
+            occ = torch.stack([sp.occupancy_zmajor(i, m, grid) for i, m in zip(ids, masks)])
+            return d.contiguous(), occ[:, None].float()
 
         for i, layer in enumerate(self.encoder_layers.children()):
             if dense is None and self.dense_from_stage == i:
@@ -171,8 +216,8 @@ class SparseEncoder(nn.Module):
             for j, block in enumerate(layer):
                 if isinstance(block, SparseBasicBlock):
                     if dense is None:
-                        y = block.conv1(x, nbr, block.bn1)
-                        x = block.conv2(y, nbr, block.bn2, residual=x)
+                        ys = block.conv1(xs, nbrs, block.bn1, masks)
+                        xs = block.conv2(ys, nbrs, block.bn2, masks, residuals=xs)
                     else:
                         y = F.relu(block.bn1.dense(block.conv1.dense(dense, 1, 1), active))
                         y = block.bn2.dense(block.conv2.dense(y, 1, 1), active)
@@ -191,24 +236,38 @@ class SparseEncoder(nn.Module):
                         cap_out = self.site_caps[n_down]
                     else:
                         cap_out = max(1, int(cap * self.site_cap_multiplier))
-                    out_grid = sp.conv_out_shape(grid, 3, 2, padding)
-                    out_ids, out_mask = sp.downsample_sites(ids, grid, 3, 2, padding, cap_out)
-                    cnbr = sp.build_conv_rulebook(ids, out_ids, grid, out_grid, 3, 2, padding)
-                    x = conv(x, cnbr, bn)
-                    ids, mask, grid, cap = out_ids, out_mask, out_grid, cap_out
-                    nbr = sp.build_subm_rulebook(ids, grid)
+                    ids, masks, grid, nbrs, nbrs_t = self._downsample(ids, grid, padding,
+                                                                      cap_out, xs)
+                    xs = conv(xs, nbrs, bn, masks, nbrs_t=nbrs_t)
+                    cap = cap_out
+                    nbrs = [sp.build_subm_rulebook(i, grid) for i in ids]
                 n_down += 1
 
         conv, bn = self.conv_out
         k_out, s_out = (1, 1, 3), (1, 1, 2)
         if dense is not None:
             active = _dilate(active, k_out, s_out, 0)
-            out = F.relu(bn.dense(conv.dense(dense, s_out, 0), active))  # [1, C, Z, X, Y]
+            out = F.relu(bn.dense(conv.dense(dense, s_out, 0), active))  # [B, C, Z, X, Y]
         else:
-            out_grid = sp.conv_out_shape(grid, k_out, s_out, 0)
-            out_ids, out_mask = sp.downsample_sites(ids, grid, k_out, s_out, 0, cap)
-            cnbr = sp.build_conv_rulebook(ids, out_ids, grid, out_grid, k_out, s_out, 0)
-            x = conv(x, cnbr, bn)
-            out = sp.to_dense(x, out_ids, out_mask, out_grid).permute(3, 2, 0, 1)[None]
-        _, C, Z, X, Y = out.shape
-        return out.reshape(1, C * Z, X, Y)
+            ids, masks, grid, nbrs, nbrs_t = self._downsample(ids, grid, 0, cap, xs,
+                                                              k_out, s_out)
+            xs = conv(xs, nbrs, bn, masks, nbrs_t=nbrs_t)
+            out = torch.stack([sp.to_dense(x, i, m, grid).permute(3, 2, 0, 1)
+                               for x, i, m in zip(xs, ids, masks)])
+        B, C, Z, X, Y = out.shape
+        return out.reshape(B, C * Z, X, Y)
+
+    def _downsample(self, ids, grid, padding, cap_out, xs, kernel_size=3, stride=2):
+        """Output sites of a strided conv per sample: (ids, masks, grid,
+        gather tables, transposed tables when the conv trains and its input
+        needs a gradient, else None)."""
+        out_grid = sp.conv_out_shape(grid, kernel_size, stride, padding)
+        outs = [sp.downsample_sites(i, grid, kernel_size, stride, padding, cap_out) for i in ids]
+        out_ids = [o for o, _ in outs]
+        nbrs = [sp.build_conv_rulebook(i, o, grid, out_grid, kernel_size, stride, padding)
+                for i, o in zip(ids, out_ids)]
+        nbrs_t = None
+        if torch.is_grad_enabled() and xs[0].requires_grad:
+            nbrs_t = [sp.build_conv_transpose_rulebook(i, o, grid, out_grid, kernel_size, stride,
+                                                       padding) for i, o in zip(ids, out_ids)]
+        return out_ids, [m for _, m in outs], out_grid, nbrs, nbrs_t

@@ -1,4 +1,4 @@
-"""Swin Transformer backbone, eval only (tokens [B, L, C]; NCHW in and out).
+"""Swin Transformer backbone (tokens [B, L, C]; NCHW in and out).
 
 Counterpart of ``bevfusion_tpu/models/swin.py`` (Swin-T as the reference
 configures it: configs/nuscenes/det/.../swint/default.yaml), with mmdet's
@@ -6,8 +6,10 @@ module names so a released checkpoint loads strictly:
 ``patch_embed.{projection,norm}``, ``stages.N.blocks.M.{norm1,
 attn.w_msa.{qkv,proj,relative_position_bias_table,relative_position_index},
 norm2,ffn.layers.0.0,ffn.layers.1}``, ``stages.N.downsample.{norm,reduction}``
-and ``norm{i}`` for each emitted scale. DropPath and dropout are identity
-at eval and are left out.
+and ``norm{i}`` for each emitted scale. In training, DropPath (rate
+linear in the block index up to ``drop_path_rate``) and dropout act where
+the JAX package's do, drawing from an explicit generator
+(``models/layers.py:set_dropout_generator``).
 
 What follows the JAX package rather than mmdet:
 - every LayerNorm uses flax's epsilon 1e-6 (torch and mmdet use 1e-5);
@@ -31,6 +33,7 @@ import torch.nn.functional as F
 
 from ..registry import BACKBONES
 from .heads.transformer import LAYER_NORM_EPS
+from .layers import DropPath, Dropout
 
 __all__ = ["SwinTransformer", "relative_position_index"]
 
@@ -87,9 +90,11 @@ class WindowMSA(nn.Module):
     relative-position bias; fp32 matmul + softmax."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int, qkv_bias: bool = True,
-                 qk_scale: Optional[float] = None):
+                 qk_scale: Optional[float] = None, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.attn_drop, self.proj_drop = Dropout(attn_drop), Dropout(proj_drop)
         self.scale = qk_scale or (dim // num_heads) ** -0.5
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * window_size - 1) ** 2, num_heads))
@@ -110,18 +115,20 @@ class WindowMSA(nn.Module):
         if mask is not None:
             nW = mask.shape[0]
             attn = (attn.view(Bn // nW, nW, nh, N, N) + mask[None, :, None]).view(Bn, nh, N, N)
-        out = attn.softmax(-1) @ v
-        return self.proj(out.transpose(1, 2).reshape(Bn, N, C))
+        out = self.attn_drop(attn.softmax(-1)) @ v
+        return self.proj_drop(self.proj(out.transpose(1, 2).reshape(Bn, N, C)))
 
 
 class ShiftWindowMSA(nn.Module):
     """Pad to whole windows, cyclic shift, window attention, and back."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int, shift: int,
-                 qkv_bias: bool = True, qk_scale: Optional[float] = None):
+                 qkv_bias: bool = True, qk_scale: Optional[float] = None,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0):
         super().__init__()
         self.window_size, self.shift = window_size, shift
-        self.w_msa = WindowMSA(dim, num_heads, window_size, qkv_bias, qk_scale)
+        self.w_msa = WindowMSA(dim, num_heads, window_size, qkv_bias, qk_scale, attn_drop,
+                               proj_drop)
 
     def forward(self, x: torch.Tensor, H: int, W: int) -> torch.Tensor:
         B, L, C = x.shape
@@ -140,10 +147,11 @@ class ShiftWindowMSA(nn.Module):
 
 
 class FFN(nn.Module):
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, drop: float = 0.0):
         super().__init__()
-        self.layers = nn.Sequential(nn.Sequential(nn.Linear(dim, hidden), nn.GELU()),
-                                    nn.Linear(hidden, dim))
+        self.layers = nn.Sequential(nn.Sequential(nn.Linear(dim, hidden), nn.GELU(),
+                                                  Dropout(drop)),
+                                    nn.Linear(hidden, dim), Dropout(drop))
 
     def forward(self, x):
         return self.layers(x)
@@ -151,16 +159,19 @@ class FFN(nn.Module):
 
 class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: int, shift: int,
-                 mlp_ratio: float, qkv_bias: bool, qk_scale: Optional[float]):
+                 mlp_ratio: float, qkv_bias: bool, qk_scale: Optional[float],
+                 drop: float = 0.0, attn_drop: float = 0.0, drop_path: float = 0.0):
         super().__init__()
         self.norm1 = _layer_norm(dim)
-        self.attn = ShiftWindowMSA(dim, num_heads, window_size, shift, qkv_bias, qk_scale)
+        self.attn = ShiftWindowMSA(dim, num_heads, window_size, shift, qkv_bias, qk_scale,
+                                   attn_drop, drop)
         self.norm2 = _layer_norm(dim)
-        self.ffn = FFN(dim, int(dim * mlp_ratio))
+        self.ffn = FFN(dim, int(dim * mlp_ratio), drop)
+        self.drop_path1, self.drop_path2 = DropPath(drop_path), DropPath(drop_path)
 
     def forward(self, x: torch.Tensor, H: int, W: int) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x), H, W)
-        return x + self.ffn(self.norm2(x))
+        x = x + self.drop_path1(self.attn(self.norm1(x), H, W))
+        return x + self.drop_path2(self.ffn(self.norm2(x)))
 
 
 class PatchMerging(nn.Module):
@@ -210,11 +221,14 @@ class SwinTransformer(nn.Module):
         super().__init__()
         self.out_indices = tuple(out_indices)
         self.patch_embed = PatchEmbed(embed_dims, patch_size, patch_norm)
+        self.drop_after_pos = Dropout(drop_rate)
+        dpr = np.linspace(0, drop_path_rate, sum(depths))
         stages, dims = [], [embed_dims * 2 ** i for i in range(len(depths))]
         for si, depth in enumerate(depths):
             blocks = [SwinBlock(dims[si], num_heads[si], window_size,
                                 0 if bi % 2 == 0 else window_size // 2, mlp_ratio, qkv_bias,
-                                qk_scale) for bi in range(depth)]
+                                qk_scale, drop_rate, attn_drop_rate,
+                                float(dpr[sum(depths[:si]) + bi])) for bi in range(depth)]
             stages.append(SwinStage(blocks, PatchMerging(dims[si])
                                     if si < len(depths) - 1 else None))
         self.stages = nn.Sequential(*stages)
@@ -227,6 +241,7 @@ class SwinTransformer(nn.Module):
         x = x.flatten(2).transpose(1, 2)
         if self.patch_embed.norm is not None:
             x = self.patch_embed.norm(x)
+        x = self.drop_after_pos(x)
         outs = []
         for si, stage in enumerate(self.stages):
             for block in stage.blocks:

@@ -21,7 +21,7 @@ from typing import Dict, Optional, Sequence
 import torch
 import torch.nn as nn
 
-from ..ops.bev_pool import PoolIntervals, bev_pool, build_intervals, cell_ids_from_geometry
+from ..ops.bev_pool import BEVPoolFunction, PoolIntervals, build_intervals, cell_ids_from_geometry
 from ..ops.grid import create_frustum, gen_dx_bx
 from ..registry import VTRANSFORMS
 from .layers import conv_bn_relu
@@ -152,7 +152,8 @@ class DepthLSSTransform(nn.Module):
         """depth [B, N, D, fH, fW], ctx [B, N, fH, fW, C] -> [B, Z*C, X, Y].
         With ``mats["pool_lut"]`` (``runtime/flagship.py:add_pool_lut``) the
         precomputed intervals are used; otherwise ``build_pool_lut`` runs
-        here, on the device."""
+        here, on the device. Differentiable in depth and ctx
+        (``BEVPoolFunction``), on either route."""
         X, Y, Z = self.nx
         lut: Optional[Dict[str, torch.Tensor]] = mats.get("pool_lut")
         if lut is None:
@@ -160,8 +161,8 @@ class DepthLSSTransform(nn.Module):
         elif tuple(lut["cell_ids"].shape) != (depth.shape[0], depth[0].numel()):
             raise ValueError(f"pool_lut: cell_ids {tuple(lut['cell_ids'].shape)} was built "
                              f"for another batch or frustum than depth {tuple(depth.shape)}")
-        return bev_pool(depth, ctx, PoolIntervals(*(lut[k] for k in PoolIntervals._fields)),
-                        Z, X, Y)
+        return BEVPoolFunction.apply(
+            depth, ctx, PoolIntervals(*(lut[k] for k in PoolIntervals._fields)), Z, X, Y)
 
     def forward(self, img_feats: torch.Tensor, points: torch.Tensor, points_mask: torch.Tensor,
                 mats: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -13,6 +13,11 @@ calibration, per frame (the in-graph route) or once (the LUT route).
 
 The batch is folded into the flat indices (sample ``b``'s cells are
 ``b * Z*X*Y + cell``), so one launch pools the whole batch.
+
+``BEVPoolFunction`` trains through the pool: the kernel (or the plain
+version on the CPU) forward, and ``bev_pool_backward``, torch ops over
+chunks of points, backward (the counterpart of the JAX package's XLA
+``pool_backward``, shared by its LUT and in-graph routes).
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ import torch
 from .. import native
 
 __all__ = ["PoolIntervals", "cell_ids_from_geometry", "build_intervals", "bev_pool",
-           "bev_pool_plain"]
+           "bev_pool_plain", "bev_pool_backward", "BEVPoolFunction"]
 
 
 class PoolIntervals(NamedTuple):
@@ -157,3 +162,54 @@ def bev_pool(depth: torch.Tensor, ctx: torch.Tensor, intervals: PoolIntervals,
 
 
 bev_pool.launches = 0
+
+
+POOL_BWD_CHUNK = 1 << 18  # sorted points per step of the pool's backward
+
+
+def bev_pool_backward(depth: torch.Tensor, ctx: torch.Tensor, iv: PoolIntervals, grad: torch.Tensor,
+                      Z: int, X: int, Y: int, chunk: int = POOL_BWD_CHUNK):
+    """Gradients of ``bev_pool`` (counterpart of ``pool_backward``,
+    ``bevfusion_tpu/ops/bev_pool_pallas.py``) in the interval form, as
+    torch ops: for sorted point p in cell c(p),
+
+        d_depth[ranks_depth[p]] = <ctx[ranks_feat[p]], g[c(p)]>
+        d_ctx[r] = sum over p with ranks_feat[p] = r of depth[ranks_depth[p]] * g[c(p)]
+
+    (points outside the grid get zero). ``grad`` [B, Z*C, X, Y]. The points
+    go in chunks of ``chunk``, so the gathered ``[P, C]`` rows (P = 1.57 M,
+    500 MB at the flagship) are never held whole, as ``pool_backward``
+    scans over depth bins for the same reason. Returns (d_depth, d_ctx) in
+    the shapes of depth and ctx."""
+    B, C = depth.shape[0], ctx.shape[-1]
+    g = grad.reshape(B, Z, C, X, Y).permute(0, 1, 3, 4, 2).reshape(-1, C)  # [B*Z*X*Y, C]
+    cell = torch.repeat_interleave(iv.interval_cells.long(), iv.interval_lengths.long())
+    depth_f, ctx_f = depth.reshape(-1), ctx.reshape(-1, C)
+    d_depth = torch.zeros_like(depth_f)
+    d_ctx = torch.zeros_like(ctx_f)
+    for lo in range(0, cell.numel(), chunk):
+        rd = iv.ranks_depth[lo:lo + chunk].long()
+        rf = iv.ranks_feat[lo:lo + chunk].long()
+        rows = g.index_select(0, cell[lo:lo + chunk])
+        d_depth[rd] = (ctx_f.index_select(0, rf) * rows).sum(1)
+        d_ctx.index_add_(0, rf, rows * depth_f[rd, None])
+    return d_depth.view_as(depth), d_ctx.view_as(ctx)
+
+
+class BEVPoolFunction(torch.autograd.Function):
+    """Differentiable ``bev_pool``: the kernel (plain version on the CPU)
+    forward, ``bev_pool_backward`` backward. ``apply(depth, ctx,
+    intervals, Z, X, Y)``."""
+
+    @staticmethod
+    def forward(ctx_, depth, ctx, intervals: PoolIntervals, Z: int, X: int, Y: int):
+        ctx_.save_for_backward(depth, ctx, *intervals)
+        ctx_.grid = (Z, X, Y)
+        return bev_pool(depth, ctx, intervals, Z, X, Y)
+
+    @staticmethod
+    def backward(ctx_, grad):
+        depth, ctx, *iv = ctx_.saved_tensors
+        d_depth, d_ctx = bev_pool_backward(depth, ctx, PoolIntervals(*iv), grad.contiguous(),
+                                           *ctx_.grid)
+        return d_depth, d_ctx, None, None, None, None

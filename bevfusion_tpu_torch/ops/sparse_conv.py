@@ -1,5 +1,7 @@
-"""Sparse 3D convolution: rulebooks over sorted site ids, and the
-gather-GEMM kernel (``csrc/sparse_conv.cu``) with its plain version.
+"""Sparse 3D convolution: rulebooks over sorted site ids, the gather-GEMM
+kernel (``csrc/sparse_conv.cu``), the weight-gradient kernel
+(``csrc/sparse_conv_dw.cu``), each with its plain version, and the
+autograd Function that trains through both.
 
 Counterpart of ``bevfusion_tpu/ops/sparse_conv.py`` (the rulebook
 subset the encoder runs) and of the windowed Pallas kernels of
@@ -29,7 +31,8 @@ __all__ = [
     "SparseGrid", "kernel_offsets", "lin_ids", "unlin_ids", "conv_out_shape",
     "build_subm_rulebook", "downsample_sites", "build_conv_rulebook",
     "to_dense", "to_dense_zmajor", "occupancy_zmajor",
-    "sparse_conv", "sparse_conv_plain",
+    "build_conv_transpose_rulebook", "sparse_conv", "sparse_conv_plain", "sparse_conv_dw",
+    "sparse_conv_dw_plain", "SparseConvFunction",
 ]
 
 
@@ -158,6 +161,25 @@ def build_conv_rulebook(in_ids: torch.Tensor, out_ids: torch.Tensor, grid: Spars
                    (out_ids < out_grid.size)[None])
 
 
+def build_conv_transpose_rulebook(in_ids: torch.Tensor, out_ids: torch.Tensor,
+                                  grid: SparseGrid, out_grid: SparseGrid, kernel_size, stride,
+                                  padding) -> torch.Tensor:
+    """Transposed table [K, cap_in] of a strided sparse conv
+    (``build_conv_transpose_rulebook`` with ``offset_major=True``): for
+    input site i and offset k the output site o with o*s - p + off_k == i,
+    or -1. If ``nbr[k, o] == i`` then ``nbr_t[k, i] == o``, so the conv of
+    ``dout`` over ``nbr_t`` with ``W_k^T`` is the gradient of the input."""
+    k, s, p = _triple(kernel_size), _triple(stride), _triple(padding)
+    off = _offsets(k, in_ids.device)
+    coords = unlin_ids(in_ids, grid)
+    n = [c[None] + p[a] - off[:, a:a + 1] for a, c in enumerate(coords)]  # o * s per axis
+    ok = (in_ids < grid.size)[None]
+    for a in range(3):
+        ok = ok & (torch.remainder(n[a], s[a]) == 0)
+    ox, oy, oz = (torch.div(n[a], s[a], rounding_mode="floor") for a in range(3))
+    return _lookup(out_ids, out_grid, ox, oy, oz, ok)
+
+
 def _scatter_rows(rows: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor, size: int):
     """dense[idx[i]] = rows[i] for masked i, over ``size`` zero rows."""
     dense = rows.new_zeros((size + 1,) + rows.shape[1:])
@@ -232,33 +254,27 @@ def build_kernels() -> None:
     _kernel_fn()
 
 
-def _check_cuda_args(feats, nbr, weight, scale, shift, residual):
-    named = {"feats": feats, "nbr": nbr, "weight": weight, "scale": scale,
-             "shift": shift, "residual": residual}
-    for name, t in named.items():
+def _check_cuda_args(what: str, feats, nbr, K: int, Cin: int, Cout: int, **others) -> None:
+    """Raise unless ``feats [cap_in, Cin]`` and every tensor of ``others``
+    (name -> (tensor or None, wanted shape)) are contiguous fp32 and ``nbr
+    [K, cap_out]`` is contiguous int32, all on feats' device, with 1..128
+    channels in and out."""
+    named = {"feats": (feats, (feats.shape[0], Cin) if feats.dim() == 2 else (-1, Cin)),
+             "nbr": (nbr, (K, nbr.shape[-1]) if nbr.dim() == 2 else (K, -1)), **others}
+    for name, (t, shape) in named.items():
         if t is None:
             continue
         if t.device != feats.device:
-            raise ValueError(f"sparse_conv: {name} is on {t.device}, feats on {feats.device}")
+            raise ValueError(f"{what}: {name} is on {t.device}, feats on {feats.device}")
         want = torch.int32 if name == "nbr" else torch.float32
         if t.dtype != want:
-            raise TypeError(f"sparse_conv: {name} must be {want}, got {t.dtype}")
+            raise TypeError(f"{what}: {name} must be {want}, got {t.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"sparse_conv: {name} must be contiguous")
-    if weight.dim() != 3 or feats.dim() != 2 or nbr.dim() != 2:
-        raise ValueError("sparse_conv: want feats [cap_in, Cin], nbr [K, cap_out], "
-                         "weight [K, Cin, Cout]")
-    K, Cin, Cout = weight.shape
-    if feats.shape[1] != Cin or nbr.shape[0] != K:
-        raise ValueError(f"sparse_conv: feats {tuple(feats.shape)} / nbr {tuple(nbr.shape)} "
-                         f"do not match weight {tuple(weight.shape)}")
+            raise ValueError(f"{what}: {name} must be contiguous")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{what}: {name} is {tuple(t.shape)}, want {tuple(shape)}")
     if not (1 <= Cin <= 128 and 1 <= Cout <= 128):
-        raise ValueError(f"sparse_conv: the kernel takes 1..128 channels, got {Cin}->{Cout}")
-    for name in ("scale", "shift"):
-        if named[name] is not None and tuple(named[name].shape) != (Cout,):
-            raise ValueError(f"sparse_conv: {name} must be [{Cout}]")
-    if residual is not None and tuple(residual.shape) != (nbr.shape[1], Cout):
-        raise ValueError(f"sparse_conv: residual must be [{nbr.shape[1]}, {Cout}]")
+        raise ValueError(f"{what}: the kernel takes 1..128 channels, got {Cin}->{Cout}")
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -278,9 +294,13 @@ def sparse_conv(feats: torch.Tensor, nbr: torch.Tensor, weight: torch.Tensor,
         return sparse_conv_plain(feats, nbr, weight, scale, shift, residual, relu)
     if feats.device.type != "cuda":
         raise ValueError(f"sparse_conv: unsupported device {feats.device}")
-    _check_cuda_args(feats, nbr, weight, scale, shift, residual)
+    if weight.dim() != 3:
+        raise ValueError(f"sparse_conv: weight must be [K, Cin, Cout], got {tuple(weight.shape)}")
     K, Cin, Cout = weight.shape
-    cap_out = nbr.shape[1]
+    cap_out = nbr.shape[-1]
+    _check_cuda_args("sparse_conv", feats, nbr, K, Cin, Cout, weight=(weight, (K, Cin, Cout)),
+                     scale=(scale, (Cout,)), shift=(shift, (Cout,)),
+                     residual=(residual, (cap_out, Cout)))
     out = torch.empty((cap_out, Cout), dtype=torch.float32, device=feats.device)
     if cap_out == 0:
         return out
@@ -296,3 +316,113 @@ def sparse_conv(feats: torch.Tensor, nbr: torch.Tensor, weight: torch.Tensor,
 
 
 sparse_conv.launches = 0
+
+
+# ----------------------------------------------------------------------
+# the weight gradient: CUDA kernel and plain version
+# ----------------------------------------------------------------------
+
+DW_CHUNK = 1024  # output sites per block of the weight-gradient kernel
+
+
+def sparse_conv_dw_plain(feats: torch.Tensor, nbr: torch.Tensor,
+                         dout: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the weight-gradient kernel: the gradient of
+    ``sparse_conv_plain`` (``subm_gather_gemm``) with respect to its weight.
+    One gather ``[cap_out, K*Cin]`` of every output site's neighbor rows,
+    misses zeroed, then ``g^T @ dout`` folded to ``[K, Cin, Cout]``."""
+    K, cap_out = nbr.shape
+    Cin = feats.shape[1]
+    nbr_sm = nbr.t().reshape(-1)
+    g = feats.index_select(0, nbr_sm.clamp(min=0))
+    g = torch.where((nbr_sm >= 0)[:, None], g, 0.0).reshape(cap_out, K * Cin)
+    return (g.t() @ dout).reshape(K, Cin, dout.shape[1])
+
+
+@functools.lru_cache(maxsize=None)
+def _dw_kernel_fn():
+    fn = native.load_library("sparse_conv_dw").bevf_sparse_conv_dw_f32
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp] * 5 + [i32] * 6 + [vp]
+    fn.restype = i32
+    return fn
+
+
+def build_dw_kernels() -> None:
+    """Compile and load the weight-gradient library (done anyway at first launch)."""
+    _dw_kernel_fn()
+
+
+def sparse_conv_dw(feats: torch.Tensor, nbr: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """``dW [K, Cin, Cout]``, ``dW[k] = sum_o feats[nbr[k, o]]^T dout[o]``
+    over the output sites o that hit (nbr -1 = miss): the weight gradient
+    of ``sparse_conv``.
+
+    CUDA tensors launch the hand-written kernel (fp32; contiguous inputs;
+    Cin, Cout <= 128) on the current stream, with a fixed-order reduction
+    over its site chunks, so the result is the same from run to run; CPU
+    tensors take ``sparse_conv_dw_plain``. ``sparse_conv_dw.launches``
+    counts kernel launches.
+    """
+    if feats.device.type == "cpu":
+        return sparse_conv_dw_plain(feats, nbr, dout)
+    if feats.device.type != "cuda":
+        raise ValueError(f"sparse_conv_dw: unsupported device {feats.device}")
+    K, cap_out, Cin, Cout = nbr.shape[0], nbr.shape[-1], feats.shape[-1], dout.shape[-1]
+    _check_cuda_args("sparse_conv_dw", feats, nbr, K, Cin, Cout, dout=(dout, (cap_out, Cout)))
+    dw = torch.empty((K, Cin, Cout), dtype=torch.float32, device=feats.device)
+    if cap_out == 0:
+        return dw.zero_()
+    chunks = -(-cap_out // DW_CHUNK)
+    partial = torch.empty((chunks, K, Cin, Cout), dtype=torch.float32, device=feats.device)
+    fn = _dw_kernel_fn()
+    with torch.cuda.device(feats.device):
+        rc = fn(_ptr(feats), _ptr(nbr), _ptr(dout), _ptr(partial), _ptr(dw), feats.shape[0],
+                cap_out, K, Cin, Cout, DW_CHUNK, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"sparse_conv_dw: kernel launch failed with cudaError {rc}")
+    sparse_conv_dw.launches += 1
+    return dw
+
+
+sparse_conv_dw.launches = 0
+
+
+class SparseConvFunction(torch.autograd.Function):
+    """Differentiable sparse conv: ``sparse_conv(feats, nbr, weight)`` with
+    no epilogue (training BatchNorm needs the batch moments, so it runs
+    apart). Counterpart of ``windowed_conv_ad`` (the JAX package's custom
+    VJP, the reference's spconv indiceConvBackward):
+
+    - backward-data of a submanifold conv (``nbr_t`` None): the forward
+      kernel on ``dout`` over the same ``nbr`` with the offset-mirrored,
+      transposed weight ``W[::-1].transpose(1, 2)`` (pair (o, k) = i is
+      pair (i, K-1-k) = o);
+    - backward-data of a strided conv: the forward kernel on ``dout`` over
+      the transposed rulebook ``nbr_t [K, cap_in]``
+      (``build_conv_transpose_rulebook``) with ``W.transpose(1, 2)``;
+    - backward-weight: ``sparse_conv_dw``.
+
+    No backward-data runs when ``feats`` needs no gradient (the voxel
+    features into the input conv). On CUDA tensors every part launches a
+    kernel; on CPU tensors the plain versions.
+    """
+
+    @staticmethod
+    def forward(ctx, feats, weight, nbr, nbr_t=None):
+        ctx.save_for_backward(feats, weight, nbr, nbr_t)
+        return sparse_conv(feats, nbr, weight)
+
+    @staticmethod
+    def backward(ctx, dout):
+        feats, weight, nbr, nbr_t = ctx.saved_tensors
+        dout = dout.contiguous()
+        d_feats = d_weight = None
+        if ctx.needs_input_grad[0]:
+            if nbr_t is None:
+                d_feats = sparse_conv(dout, nbr, weight.flip(0).transpose(1, 2).contiguous())
+            else:
+                d_feats = sparse_conv(dout, nbr_t, weight.transpose(1, 2).contiguous())
+        if ctx.needs_input_grad[1]:
+            d_weight = sparse_conv_dw(feats, nbr, dout)
+        return d_feats, d_weight, None, None

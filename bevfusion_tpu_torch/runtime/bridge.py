@@ -1,7 +1,8 @@
 """The JAX package's variables as the port's state dict.
 
-Inverts the layout rules of ``bevfusion_tpu/runtime/adapter.py`` (which
-maps a reference torch checkpoint onto flax variables): every flax path
+Inverts the layout rules of the JAX package's checkpoint adapter (which
+maps a reference torch checkpoint onto flax variables), through the
+port's copy of its rule table (``runtime/adapter.py``): every flax path
 is named with ``adapter.flax_to_torch_key`` and its array is brought back
 to the torch layout:
 
@@ -26,8 +27,8 @@ from typing import Dict, Iterator, Mapping, Tuple
 import numpy as np
 import torch
 
-from bevfusion_tpu.runtime import adapter
-from bevfusion_tpu_torch.models.swin import relative_position_index
+from ..models.swin import relative_position_index
+from . import adapter
 
 __all__ = ["jax_to_torch_state_dict"]
 

@@ -8,7 +8,10 @@ at batch 1 with the host pooling LUT (``build_flagship``). Its LiDAR
 branch and BEV tail alone are TransFusion-L
 (configs/nuscenes/det/transfusion/secfpn/lidar/voxelnet_0p075.yaml,
 reference val mAP 64.68 / NDS 69.28; ``build_lidar_slice``). The
-synthetic inputs are byte-equal to the JAX package's.
+flagship's training step (``build_flagship(training=True)`` with
+``runtime/train.py``) trains on the same synthetic batch plus random
+ground-truth boxes. The synthetic inputs are byte-equal to the JAX
+package's.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import torch
 import torch.nn as nn
 
 from ..config import Config, load_config
+from ..devices import resolve_device
 from ..models import build_model
 from ..models.sparse_encoder import SparseConv3d
 from ..models.vtransforms import build_pool_lut, lss_constants
@@ -168,12 +172,15 @@ def batch_to(batch: Dict[str, Any], device) -> Dict[str, Any]:
             for k, v in batch.items()}
 
 
-def synthetic_batch(cfg, B: int = 1, num_points: int = 200000,
-                    seed: int = 0) -> Dict[str, torch.Tensor]:
-    """An eval batch of CPU tensors, byte-equal to the JAX package's
+def synthetic_batch(cfg, B: int = 1, num_points: int = 200000, num_gt: int = 64,
+                    seed: int = 0, training: bool = False) -> Dict[str, torch.Tensor]:
+    """A batch of CPU tensors, byte-equal to the JAX package's
     ``synthetic_batch`` (scan lidar): B beam-model scans, six images
     ``img [B, 6, 3, iH, iW]`` (drawn NHWC as the JAX package draws them,
-    then transposed to NCHW) and ``synthetic_calibration``."""
+    then transposed to NCHW) and ``synthetic_calibration``; with
+    ``training``, ``num_gt`` random boxes per sample (``gt_boxes [B, G, 9]``,
+    ``gt_labels``, ``gt_valid``), drawn from the same ``RandomState`` in the
+    same order."""
     rng = np.random.RandomState(seed)
     iH, iW = cfg.image_size
     N = 6
@@ -184,6 +191,14 @@ def synthetic_batch(cfg, B: int = 1, num_points: int = 200000,
              "points": np.stack([p for p, _ in pm]),
              "points_mask": np.stack([m for _, m in pm])}
     batch.update(synthetic_calibration(B, N, (iH, iW)))
+    if training:
+        G = num_gt
+        batch["gt_boxes"] = np.concatenate([
+            rng.uniform(-50, 50, (B, G, 2)), rng.uniform(-3, 1, (B, G, 1)),
+            rng.uniform(0.5, 4, (B, G, 3)), rng.uniform(-np.pi, np.pi, (B, G, 1)),
+            rng.uniform(-2, 2, (B, G, 2))], -1).astype(np.float32)
+        batch["gt_labels"] = rng.randint(0, 10, (B, G)).astype(np.int32)
+        batch["gt_valid"] = np.ones((B, G), bool)
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
@@ -201,26 +216,32 @@ def add_pool_lut(cfg, batch: Dict[str, Any]) -> Dict[str, Any]:
     return dict(batch, pool_lut=build_pool_lut(frustum, dx, bx, nx, batch))
 
 
-def build_lidar_slice(device="cpu", num_points: int = 120000,
+def build_lidar_slice(device="cuda", num_points: int = 120000,
                       seed: int = 0) -> Tuple[Config, nn.Module, Dict[str, torch.Tensor]]:
     """TransFusion-L (voxelnet_0p075) at full width with seeded random
-    weights on ``device``, and a batch of one 120k-point scan (the point
-    count ``bench.py`` drives)."""
+    weights on ``device`` (the card unless the caller passes ``"cpu"``), in
+    eval mode, and a batch of one 120k-point scan (the point count
+    ``bench.py`` drives)."""
+    dev = resolve_device(device)
     cfg = load_config(LIDAR_SLICE_CONFIG)
-    model = init_weights(build_model(cfg.model), seed).to(device)
+    model = init_weights(build_model(cfg.model, "cpu"), seed).to(dev)
     points, mask = synthetic_lidar_scan(num_points, cfg.point_cloud_range, seed=seed)
-    batch = {"points": torch.from_numpy(points)[None].to(device),
-             "points_mask": torch.from_numpy(mask)[None].to(device)}
+    batch = {"points": torch.from_numpy(points)[None].to(dev),
+             "points_mask": torch.from_numpy(mask)[None].to(dev)}
     return cfg, model, batch
 
 
-def build_flagship(device="cpu", num_points: int = 120000,
-                   seed: int = 0) -> Tuple[Config, nn.Module, Dict[str, Any]]:
+def build_flagship(device="cuda", num_points: int = 120000, seed: int = 0,
+                   training: bool = False) -> Tuple[Config, nn.Module, Dict[str, Any]]:
     """The fused flagship (swint_v0p075/convfuser.yaml) at full width with
-    seeded random weights on ``device``, and an eval batch of one sample
-    (six 256x704 images, one scan of ``num_points``, the synthetic rig)
-    with its pooling LUT, built on the CPU (``bench.py``'s main path)."""
+    seeded random weights on ``device`` (the card unless the caller passes
+    ``"cpu"``), and a batch of one sample (six 256x704 images, one scan of
+    ``num_points``, the synthetic rig) with its pooling LUT, built on the
+    CPU (``bench.py``'s main path). With ``training`` the model is in
+    training mode and the batch carries 64 random ground-truth boxes."""
+    dev = resolve_device(device)
     cfg = load_config(FLAGSHIP_CONFIG)
-    model = init_weights(build_model(cfg.model), seed).to(device)
-    batch = add_pool_lut(cfg, synthetic_batch(cfg, B=1, num_points=num_points, seed=seed))
-    return cfg, model, batch_to(batch, device)
+    model = init_weights(build_model(cfg.model, "cpu"), seed).to(dev).train(training)
+    batch = add_pool_lut(cfg, synthetic_batch(cfg, B=1, num_points=num_points, seed=seed,
+                                              training=training))
+    return cfg, model, batch_to(batch, dev)

@@ -51,10 +51,10 @@ def test_bridge_round_trip_is_strict():
         for (_, a), (_, b) in zip(jax.tree_util.tree_leaves_with_path(variables[col]),
                                   jax.tree_util.tree_leaves_with_path(back[col])):
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    build_model(cfg).load_state_dict(sd, strict=True)
+    build_model(cfg, "cpu").load_state_dict(sd, strict=True)
     extra = dict(sd, **{"heads.object.unused.weight": torch.zeros(1)})
     with pytest.raises(RuntimeError):
-        build_model(cfg).load_state_dict(extra, strict=True)
+        build_model(cfg, "cpu").load_state_dict(extra, strict=True)
     with pytest.raises(ValueError):
         jax_to_torch_state_dict({"params": {"no_such_module": {"kernel": np.zeros((1, 1))}}})
 
@@ -94,6 +94,6 @@ def test_full_width_model_loads_bridge_and_reference_checkpoint(cfg_path, skel_n
     cfg = load_config(cfg_path)
     jm = jax_build_model(cfg.model)
     batch = synthetic_batch(jax_load_config(cfg_path), B=1, num_points=64)
-    model = build_model(cfg.model)
+    model = build_model(cfg.model, "cpu")
     model.load_state_dict(jax_to_torch_state_dict(_zero_variables(jm, batch)), strict=True)
     model.load_state_dict(getattr(skeleton, skel_name)().state_dict(), strict=True)

@@ -7,6 +7,8 @@ imports no JAX, so it runs where only PyTorch is installed (``--noconftest``
 skips tests/conftest.py, which imports jax). fp32 with TF32 off; kernel and
 plain version differ only in summation order: max|d| <= 1e-5 * max(|ref|, 1).
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -39,9 +41,9 @@ def _sites(seed, grid, n, cap):
     return torch.from_numpy(ids)
 
 
-def _close(got, want):
+def _close(got, want, tol=1e-5):
     err = (got - want).abs().max().item()
-    assert err <= 1e-5 * max(want.abs().max().item(), 1.0), err
+    assert err <= tol * max(want.abs().max().item(), 1.0), err
 
 
 @pytest.mark.cuda
@@ -116,6 +118,122 @@ def test_sparse_encoder_on_card_matches_cpu(cuda):
     # conv_input + 4 subm per stage x 4 stages + 3 strided + conv_out
     assert sp.sparse_conv.launches - launches == 1 + 16 + 3 + 1
     _close(got.cpu(), want)
+
+
+def _conv_operands(cin, cout, strided, seed=0):
+    """A random site set, its gather table (and transposed table if
+    strided), features, weight and an output gradient, on the CPU."""
+    grid = sp.SparseGrid(40, 40, 12)
+    ids = _sites(seed + cin + cout, grid, 6000, 6500)
+    nbr_t = None
+    if strided:
+        og = sp.conv_out_shape(grid, 3, 2, 1)
+        out_ids, _ = sp.downsample_sites(ids, grid, 3, 2, 1, 3000)
+        nbr = sp.build_conv_rulebook(ids, out_ids, grid, og, 3, 2, 1)
+        nbr_t = sp.build_conv_transpose_rulebook(ids, out_ids, grid, og, 3, 2, 1)
+    else:
+        nbr = sp.build_subm_rulebook(ids, grid)
+    g = torch.Generator().manual_seed(seed + cin * cout)
+    feats = torch.randn(ids.shape[0], cin, generator=g) * (ids < grid.size)[:, None]
+    w = torch.randn(27, cin, cout, generator=g) / (27 * cin) ** 0.5
+    dout = torch.randn(nbr.shape[1], cout, generator=g)
+    return feats, nbr, nbr_t, w, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,strided", [
+    (5, 16, False), (16, 16, False), (16, 32, True), (32, 32, False), (64, 64, False),
+    (64, 128, True), (128, 128, False), (3, 70, False),
+])
+def test_weight_gradient_kernel_matches_plain(cuda, cin, cout, strided):
+    feats, nbr, _, _, dout = (t if t is None else t.to(cuda)
+                              for t in _conv_operands(cin, cout, strided))
+    launches = sp.sparse_conv_dw.launches
+    got = sp.sparse_conv_dw(feats, nbr, dout)
+    torch.cuda.synchronize()
+    assert sp.sparse_conv_dw.launches == launches + 1
+    assert got.shape == (27, cin, cout)
+    _close(got, sp.sparse_conv_dw_plain(feats, nbr, dout))
+    assert torch.equal(sp.sparse_conv_dw(feats, nbr, dout), got)  # the same from run to run
+
+
+@pytest.mark.cuda
+def test_weight_gradient_kernel_rejects_what_it_does_not_take(cuda):
+    feats = torch.randn(10, 16, device=cuda)
+    nbr = torch.zeros(27, 10, dtype=torch.int32, device=cuda)
+    dout = torch.randn(10, 16, device=cuda)
+    with pytest.raises(TypeError):
+        sp.sparse_conv_dw(feats.double(), nbr, dout)
+    with pytest.raises(TypeError):
+        sp.sparse_conv_dw(feats, nbr.long(), dout)
+    with pytest.raises(ValueError):
+        sp.sparse_conv_dw(feats, nbr, dout.t().contiguous().t())  # not contiguous
+    with pytest.raises(ValueError):
+        sp.sparse_conv_dw(feats, nbr, torch.randn(9, 16, device=cuda))
+    with pytest.raises(ValueError):
+        sp.sparse_conv_dw(torch.randn(10, 200, device=cuda), nbr, dout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,strided", [(16, 16, False), (16, 32, True), (64, 64, False)])
+def test_sparse_conv_function_on_card_matches_plain_autograd(cuda, cin, cout, strided):
+    """Forward, backward-data (mirrored or transposed weights) and the
+    weight gradient through the kernels, against autograd of
+    ``sparse_conv_plain`` on the same CUDA tensors; every launch counted."""
+    feats, nbr, nbr_t, w, dout = (t if t is None else t.to(cuda)
+                                  for t in _conv_operands(cin, cout, strided, seed=1))
+    x, wt = feats.clone().requires_grad_(), w.clone().requires_grad_()
+    before = sp.sparse_conv.launches, sp.sparse_conv_dw.launches
+    y = sp.SparseConvFunction.apply(x, wt, nbr, nbr_t)
+    assert y.grad_fn is not None
+    (y * dout).sum().backward()
+    torch.cuda.synchronize()
+    assert (sp.sparse_conv.launches - before[0], sp.sparse_conv_dw.launches - before[1]) == (2, 1)
+    x0, w0 = feats.clone().requires_grad_(), w.clone().requires_grad_()
+    y0 = sp.sparse_conv_plain(x0, nbr, w0)
+    (y0 * dout).sum().backward()
+    _close(y.detach(), y0.detach())
+    _close(x.grad, x0.grad)
+    _close(wt.grad, w0.grad)
+
+
+@pytest.mark.cuda
+def test_sparse_encoder_training_on_card_matches_cpu(cuda):
+    """The tiny all-sparse encoder in training mode (BN over the active
+    sites of both samples): output, every parameter's gradient and the
+    running statistics on the card against the same module on the CPU, and
+    the kernel launches of one forward + backward."""
+    enc = SparseEncoder(
+        in_channels=5, sparse_shape=(48, 48, 41), base_channels=8, output_channels=16,
+        encoder_channels=((8, 8, 16), (16, 16, 32), (32, 32, 32), (32, 32)),
+        encoder_paddings=((0, 0, 1), (0, 0, 1), (0, 0, (1, 1, 0)), (0, 0)),
+        block_type="basicblock", dense_from_stage=-1)
+    init_weights(enc, seed=2).train()
+    grid = sp.SparseGrid(48, 48, 41)
+    ids = torch.stack([_sites(s, grid, 8000, 8500) for s in (0, 1)])
+    mask = ids < grid.size
+    coords = torch.stack(sp.unlin_ids(ids, grid), -1).int()
+    feats = torch.randn(2, ids.shape[1], 5, generator=torch.Generator().manual_seed(1))
+    gout = torch.randn(2, 16 * 2, 6, 6, generator=torch.Generator().manual_seed(2))
+    card = copy.deepcopy(enc).to(cuda)
+    want = enc(feats, coords, mask)
+    (want * gout).sum().backward()
+    before = sp.sparse_conv.launches, sp.sparse_conv_dw.launches
+    out = card(feats.to(cuda), coords.to(cuda), mask.to(cuda))
+    (out * gout.to(cuda)).sum().backward()
+    torch.cuda.synchronize()
+    # per sample: 21 convs forward, backward-data for all but conv_input, a
+    # weight gradient each
+    assert (sp.sparse_conv.launches - before[0], sp.sparse_conv_dw.launches - before[1]) == \
+        (2 * (21 + 20), 2 * 21)
+    # 21 convs and 21 batch normalisations deep: 1e-4 (chip_smoke's bound)
+    _close(out.detach().cpu(), want.detach(), 1e-4)
+    for (name, p), q in zip(enc.named_parameters(), card.parameters()):
+        assert q.grad is not None, name
+        _close(q.grad.cpu(), p.grad, 1e-4)
+    for (name, b), c in zip(enc.named_buffers(), card.buffers()):
+        if b.dtype.is_floating_point:
+            _close(c.cpu(), b, 1e-4)
 
 
 def _pool_inputs(Z, seed=0, B=2, N=2, D=30, fH=8, fW=16, C=80, X=40, Y=40):

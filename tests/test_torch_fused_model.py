@@ -64,7 +64,7 @@ def _jax_run():
 @pytest.mark.parametrize("route", ["lut", "in_graph"])
 def test_fused_model_matches_jax(route):
     cfg, batch, variables, want, want_boxes = _jax_run()
-    model = build_model(cfg)
+    model = build_model(cfg, "cpu")
     model.load_state_dict(jax_to_torch_state_dict(variables), strict=True)
     tbatch = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
     tbatch["img"] = tbatch["img"].permute(0, 1, 4, 2, 3).contiguous()  # NHWC -> [B, N, 3, H, W]

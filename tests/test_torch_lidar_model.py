@@ -35,7 +35,7 @@ def test_lidar_slice_matches_jax():
     want, want_boxes = jax.tree_util.tree_map(np.asarray, jax.jit(
         lambda v, b: jm.apply(v, b, method=_preds_and_boxes))(variables, batch))
 
-    model = build_model(cfg)
+    model = build_model(cfg, "cpu")
     model.load_state_dict(jax_to_torch_state_dict(variables), strict=True)
     tbatch = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
     with torch.no_grad():
