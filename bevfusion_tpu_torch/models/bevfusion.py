@@ -21,6 +21,7 @@ import torch.nn as nn
 
 from ..ops.voxelize import Voxelization
 from ..registry import BACKBONES, FUSERS, FUSIONMODELS, HEADS, NECKS, VTRANSFORMS
+from ..utils.profiler import untimed
 
 
 @FUSIONMODELS.register
@@ -61,7 +62,7 @@ class BEVFusion(nn.Module):
         self.heads = nn.ModuleDict({"object": HEADS.build(heads["object"])})
         self.loss_scale = dict(loss_scale or {})
 
-    def extract_camera_features(self, batch: Dict[str, Any]) -> torch.Tensor:
+    def extract_camera_features(self, batch: Dict[str, Any], timed=untimed) -> torch.Tensor:
         """img [B, N, 3, H, W], the camera matrices under the JAX package's
         key names (``camera2lidar``, ``camera_intrinsics``, ``lidar2image``,
         ``img_aug_matrix``, ``lidar_aug_matrix``), ``pool_lut`` when present,
@@ -69,37 +70,47 @@ class BEVFusion(nn.Module):
         cam = self.encoders["camera"]
         img = batch["img"]
         B, N = img.shape[:2]
-        feats = cam["neck"](cam["backbone"](img.reshape(B * N, *img.shape[2:])))
+        feats = timed("camera/backbone",
+                      lambda: cam["backbone"](img.reshape(B * N, *img.shape[2:])))
+        feats = timed("camera/neck", lambda: cam["neck"](feats))
         if isinstance(feats, (list, tuple)):
             feats = feats[0]
         feats = feats.view(B, N, *feats.shape[1:])
-        return cam["vtransform"](feats, batch["points"], batch["points_mask"], batch)
+        return timed("camera/vtransform", lambda: cam["vtransform"](
+            feats, batch["points"], batch["points_mask"], batch))
 
-    def extract_lidar_features(self, points, points_mask):
+    def extract_lidar_features(self, points, points_mask, timed=untimed):
         """points [B, P, C], points_mask [B, P] -> BEV map [B, C', X, Y]."""
-        vox = self.lidar_voxelize(points, points_mask, training=self.training)
-        return self.encoders["lidar"]["backbone"](vox.feats, vox.coords, vox.mask)
+        vox = timed("lidar/voxelize",
+                    lambda: self.lidar_voxelize(points, points_mask, training=self.training))
+        return timed("lidar/sparse_encoder", lambda: self.encoders["lidar"]["backbone"](
+            vox.feats, vox.coords, vox.mask))
 
-    def predict(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """The object head's raw predictions for ``batch``."""
+    def predict(self, batch: Dict[str, Any], timed=untimed) -> Dict[str, torch.Tensor]:
+        """The object head's raw predictions for ``batch``. ``timed(name,
+        fn)`` runs each stage (the profiling tools pass a timer)."""
         features = []
         if "camera" in self.encoders:
-            features.append(self.extract_camera_features(batch))
+            features.append(self.extract_camera_features(batch, timed))
         if "lidar" in self.encoders:
-            features.append(self.extract_lidar_features(batch["points"], batch["points_mask"]))
-        x = self.fuser(features) if hasattr(self, "fuser") else features[0]
-        x = self.decoder["neck"](self.decoder["backbone"](x))
-        return self.heads["object"](x[0])
+            features.append(self.extract_lidar_features(batch["points"], batch["points_mask"],
+                                                        timed))
+        x = timed("fuser", lambda: self.fuser(features)) if hasattr(self, "fuser") else features[0]
+        x = timed("decoder/backbone", lambda: self.decoder["backbone"](x))
+        x = timed("decoder/neck", lambda: self.decoder["neck"](x))
+        return timed("head/forward", lambda: self.heads["object"](x[0]))
 
-    def forward(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+    def forward(self, batch: Dict[str, Any], timed=untimed) -> Dict[str, Any]:
         """Eval: {"boxes": {"bboxes", "scores", "labels", "mask"}}. Training
         (``batch`` with ``gt_boxes``, ``gt_labels``, ``gt_valid``): the loss
-        dict of the JAX package's ``BEVFusion.__call__`` (bevfusion.py:185-205)."""
+        dict of the JAX package's ``BEVFusion.__call__`` (bevfusion.py:185-205).
+        ``timed(name, fn)`` runs each stage (``predict``) and the decode."""
         head = self.heads["object"]
         if not self.training:
-            return {"boxes": head.get_bboxes(self.predict(batch))}
+            preds = self.predict(batch, timed)
+            return {"boxes": timed("head/decode", lambda: head.get_bboxes(preds))}
         scale = self.loss_scale.get("object", 1.0)
-        losses = head.loss(self.predict(batch), batch["gt_boxes"], batch["gt_labels"],
+        losses = head.loss(self.predict(batch, timed), batch["gt_boxes"], batch["gt_labels"],
                            batch["gt_valid"])
         return {f"stats/object/{k}" if k == "matched_ious" else f"loss/object/{k}":
                 v if k == "matched_ious" else v * scale for k, v in losses.items()}

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from ..ops import sparse_conv as sp
 from ..ops.sparse_conv import _triple
 from ..registry import BACKBONES
+from ..utils.profiler import untimed
 
 
 class MaskedBatchNorm(nn.BatchNorm1d):
@@ -185,89 +186,150 @@ class SparseEncoder(nn.Module):
             self.encoder_layers.add_module(f"encoder_layer{i + 1}", layer)
         self.conv_out = _conv_bn(cin, output_channels, (1, 1, 3), eps, momentum)
 
-    def forward(self, voxel_feats, coords, mask):
+    def sparse_sites(self, coords: torch.Tensor, mask: torch.Tensor, timed=untimed):
+        """The sites of each stage that runs sparse, for one sample (coords
+        [M, 3] int, x-major; mask [M]): [{"ids", "mask", "grid",
+        "channels", "down"}], "channels" the stage's width and "down"
+        (padding, cap_out) of the strided conv that leaves the stage
+        sparse, else None. Stage 0 is always there (the input conv runs
+        sparse). The caps are ``site_caps`` in order, then
+        ``site_cap_multiplier`` times the last cap. ``timed(name, fn)``
+        runs each downsampling."""
+        grid = sp.SparseGrid(*self.sparse_shape)
+        ids = sp.lin_ids(coords, grid, mask)
+        cap, stages = ids.shape[0], []
+        for i, layer in enumerate(self.encoder_layers.children()):
+            first = layer[0]
+            width = (first.conv1 if isinstance(first, SparseBasicBlock) else first[0]).weight
+            stage = {"ids": ids, "mask": mask, "grid": grid, "channels": width.shape[-2],
+                     "down": None}
+            stages.append(stage)
+            j = next((j for j, b in enumerate(layer) if not isinstance(b, SparseBasicBlock)), None)
+            if j is None or 0 <= self.dense_from_stage <= i + 1:
+                break
+            if self.site_caps is not None and i < len(self.site_caps):
+                cap = self.site_caps[i]
+            else:
+                cap = max(1, int(cap * self.site_cap_multiplier))
+            padding = self.encoder_paddings[i][j]
+            stage["down"] = (padding, cap)
+            ids, mask = timed(f"s{i} meta: downsample_sites -> {cap}",
+                              lambda: sp.downsample_sites(ids, grid, 3, 2, padding, cap))
+            grid = sp.conv_out_shape(grid, 3, 2, padding)
+        return stages
+
+    def forward(self, voxel_feats, coords, mask, timed=untimed):
         """voxel_feats [B, M, C]; coords [B, M, 3] int (x, y, z), sorted
         x-major per sample; mask [B, M]. Returns the BEV map
         [B, output_channels * Z_out, X_out, Y_out] (NCHW).
 
-        The samples go through the sparse stages in lockstep, layer by
-        layer, each on its own rulebooks (training BN takes its moments
-        over all of them); the dense stages run batched."""
-        grid = sp.SparseGrid(*self.sparse_shape)
+        The sites of every sparse stage come first (``sparse_sites``: they
+        depend on the coordinates only). Then the samples go through the
+        sparse stages in lockstep, layer by layer, each on its own
+        rulebooks (training BN takes its moments over all of them); the
+        dense stages run batched. ``timed(name, fn)`` runs each piece: the
+        rulebooks, each conv, the densify (the profiling tools pass a
+        timer)."""
         B = voxel_feats.shape[0]
-        ids = [sp.lin_ids(coords[b], grid, mask[b]) for b in range(B)]
-        masks = list(mask)
+        sites = [self.sparse_sites(coords[b], mask[b], timed) for b in range(B)]
+        stage = [s[0] for s in sites]  # each sample's sites at the current sparse stage
         xs = [torch.where(mask[b][:, None], voxel_feats[b], 0.0).contiguous() for b in range(B)]
-        nbrs = [sp.build_subm_rulebook(i, grid) for i in ids]
-        xs = self.conv_input[0](xs, nbrs, self.conv_input[1], masks)
-        cap = xs[0].shape[0]
-        n_down = 0
+        nbrs = timed("s0 meta: build_subm_rulebook", lambda: _subm_rulebooks(stage))
+        conv, bn = self.conv_input
+        xs = timed(f"s0 conv_input {tuple(conv.weight.shape[-2:])}",
+                   lambda: conv(xs, nbrs, bn, [s["mask"] for s in stage]))
         dense = active = None  # z-major [B, C, Z, X, Y] grid once dense
 
         def densify():
-            d = torch.stack([sp.to_dense_zmajor(x, i, m, grid).permute(3, 0, 1, 2)
-                             for x, i, m in zip(xs, ids, masks)])
-            occ = torch.stack([sp.occupancy_zmajor(i, m, grid) for i, m in zip(ids, masks)])
+            d = torch.stack([sp.to_dense_zmajor(x, s["ids"], s["mask"], s["grid"])
+                             .permute(3, 0, 1, 2) for x, s in zip(xs, stage)])
+            occ = torch.stack([sp.occupancy_zmajor(s["ids"], s["mask"], s["grid"])
+                               for s in stage])
             return d.contiguous(), occ[:, None].float()
 
         for i, layer in enumerate(self.encoder_layers.children()):
             if dense is None and self.dense_from_stage == i:
-                dense, active = densify()
+                dense, active = timed(f"s{i} densify", densify)
             for j, block in enumerate(layer):
                 if isinstance(block, SparseBasicBlock):
+                    C = block.conv1.weight.shape[-1]
                     if dense is None:
-                        ys = block.conv1(xs, nbrs, block.bn1, masks)
-                        xs = block.conv2(ys, nbrs, block.bn2, masks, residuals=xs)
+                        masks = [s["mask"] for s in stage]
+                        ys = timed(f"s{i}.{j} subm conv1 {C}->{C}",
+                                   lambda: block.conv1(xs, nbrs, block.bn1, masks))
+                        xs = timed(f"s{i}.{j} subm conv2 {C}->{C} (+residual)",
+                                   lambda: block.conv2(ys, nbrs, block.bn2, masks, residuals=xs))
                     else:
-                        y = F.relu(block.bn1.dense(block.conv1.dense(dense, 1, 1), active))
-                        y = block.bn2.dense(block.conv2.dense(y, 1, 1), active)
-                        dense = F.relu(y + dense) * active
+                        dense = timed(f"s{i}.{j} dense block {C}->{C} (2 conv3d)",
+                                      lambda: _dense_block(block, dense, active))
                     continue
                 conv, bn = block
+                cin, cout = conv.weight.shape[-2:]
                 padding = self.encoder_paddings[i][j]
                 if dense is None and 0 <= self.dense_from_stage <= i + 1:
-                    dense, active = densify()
+                    dense, active = timed(f"s{i} densify", densify)
                 if dense is not None:
                     active = _dilate(active, 3, 2, padding)
-                    dense = F.relu(bn.dense(conv.dense(dense, 2, padding), active))
-                    grid = sp.conv_out_shape(grid, 3, 2, padding)
+                    dense = timed(f"s{i} strided dense conv3d {cin}->{cout}",
+                                  lambda: F.relu(bn.dense(conv.dense(dense, 2, padding), active)))
                 else:
-                    if self.site_caps is not None and n_down < len(self.site_caps):
-                        cap_out = self.site_caps[n_down]
-                    else:
-                        cap_out = max(1, int(cap * self.site_cap_multiplier))
-                    ids, masks, grid, nbrs, nbrs_t = self._downsample(ids, grid, padding,
-                                                                      cap_out, xs)
-                    xs = conv(xs, nbrs, bn, masks, nbrs_t=nbrs_t)
-                    cap = cap_out
-                    nbrs = [sp.build_subm_rulebook(i, grid) for i in ids]
-                n_down += 1
+                    nxt = [s[i + 1] for s in sites]
+                    cnbrs, cnbrs_t = timed(f"s{i} meta: build_conv_rulebook",
+                                           lambda: _conv_rulebooks(stage, nxt, padding, xs))
+                    xs = timed(f"s{i} strided conv {cin}->{cout}", lambda: conv(
+                        xs, cnbrs, bn, [s["mask"] for s in nxt], nbrs_t=cnbrs_t))
+                    stage = nxt
+                    nbrs = timed(f"s{i + 1} meta: build_subm_rulebook",
+                                 lambda: _subm_rulebooks(stage))
 
         conv, bn = self.conv_out
         k_out, s_out = (1, 1, 3), (1, 1, 2)
+        name = f"conv_out {tuple(conv.weight.shape[-2:])}"
         if dense is not None:
             active = _dilate(active, k_out, s_out, 0)
-            out = F.relu(bn.dense(conv.dense(dense, s_out, 0), active))  # [B, C, Z, X, Y]
+            out = timed(f"{name} dense conv3d",  # [B, C, Z, X, Y]
+                        lambda: F.relu(bn.dense(conv.dense(dense, s_out, 0), active)))
         else:
-            ids, masks, grid, nbrs, nbrs_t = self._downsample(ids, grid, 0, cap, xs,
-                                                              k_out, s_out)
-            xs = conv(xs, nbrs, bn, masks, nbrs_t=nbrs_t)
-            out = torch.stack([sp.to_dense(x, i, m, grid).permute(3, 2, 0, 1)
-                               for x, i, m in zip(xs, ids, masks)])
+            out = timed(f"{name} sparse (sites, rulebooks, conv, scatter)",
+                        lambda: self._sparse_conv_out(stage, xs, k_out, s_out))
         B, C, Z, X, Y = out.shape
         return out.reshape(B, C * Z, X, Y)
 
-    def _downsample(self, ids, grid, padding, cap_out, xs, kernel_size=3, stride=2):
-        """Output sites of a strided conv per sample: (ids, masks, grid,
-        gather tables, transposed tables when the conv trains and its input
-        needs a gradient, else None)."""
-        out_grid = sp.conv_out_shape(grid, kernel_size, stride, padding)
-        outs = [sp.downsample_sites(i, grid, kernel_size, stride, padding, cap_out) for i in ids]
-        out_ids = [o for o, _ in outs]
-        nbrs = [sp.build_conv_rulebook(i, o, grid, out_grid, kernel_size, stride, padding)
-                for i, o in zip(ids, out_ids)]
-        nbrs_t = None
-        if torch.is_grad_enabled() and xs[0].requires_grad:
-            nbrs_t = [sp.build_conv_transpose_rulebook(i, o, grid, out_grid, kernel_size, stride,
-                                                       padding) for i, o in zip(ids, out_ids)]
-        return out_ids, [m for _, m in outs], out_grid, nbrs, nbrs_t
+    def _sparse_conv_out(self, stage, xs, kernel_size, stride):
+        """``conv_out`` when the last stage is sparse: each sample's output
+        sites (its cap kept), the conv, the scatter to [B, C, Z, X, Y]."""
+        conv, bn = self.conv_out
+        grid = sp.conv_out_shape(stage[0]["grid"], kernel_size, stride, 0)
+        outs = [sp.downsample_sites(s["ids"], s["grid"], kernel_size, stride, 0,
+                                    s["ids"].shape[0]) for s in stage]
+        dst = [{"ids": o, "mask": m, "grid": grid} for o, m in outs]
+        nbrs, nbrs_t = _conv_rulebooks(stage, dst, 0, xs, kernel_size, stride)
+        xs = conv(xs, nbrs, bn, [d["mask"] for d in dst], nbrs_t=nbrs_t)
+        return torch.stack([sp.to_dense(x, d["ids"], d["mask"], grid).permute(3, 2, 0, 1)
+                            for x, d in zip(xs, dst)])
+
+
+def _subm_rulebooks(stage):
+    """Each sample's submanifold gather table at its sites ``stage``."""
+    return [sp.build_subm_rulebook(s["ids"], s["grid"]) for s in stage]
+
+
+def _conv_rulebooks(src, dst, padding, xs, kernel_size=3, stride=2):
+    """A strided conv's gather tables from each sample's sites ``src`` to
+    ``dst``, and the transposed tables when the conv trains and its input
+    ``xs`` needs a gradient (else None)."""
+    nbrs = [sp.build_conv_rulebook(a["ids"], b["ids"], a["grid"], b["grid"], kernel_size, stride,
+                                   padding) for a, b in zip(src, dst)]
+    nbrs_t = None
+    if torch.is_grad_enabled() and xs[0].requires_grad:
+        nbrs_t = [sp.build_conv_transpose_rulebook(a["ids"], b["ids"], a["grid"], b["grid"],
+                                                   kernel_size, stride, padding)
+                  for a, b in zip(src, dst)]
+    return nbrs, nbrs_t
+
+
+def _dense_block(block: SparseBasicBlock, dense: torch.Tensor, active: torch.Tensor):
+    """A residual block on the dense z-major grid."""
+    y = F.relu(block.bn1.dense(block.conv1.dense(dense, 1, 1), active))
+    y = block.bn2.dense(block.conv2.dense(y, 1, 1), active)
+    return F.relu(y + dense) * active

@@ -24,6 +24,7 @@ import torch.nn as nn
 from ..ops.bev_pool import BEVPoolFunction, PoolIntervals, build_intervals, cell_ids_from_geometry
 from ..ops.grid import create_frustum, gen_dx_bx
 from ..registry import VTRANSFORMS
+from ..utils.profiler import untimed
 from .layers import conv_bn_relu
 
 __all__ = ["get_geometry", "rasterize_depth", "lss_constants", "build_pool_lut",
@@ -165,13 +166,24 @@ class DepthLSSTransform(nn.Module):
             depth, ctx, PoolIntervals(*(lut[k] for k in PoolIntervals._fields)), Z, X, Y)
 
     def forward(self, img_feats: torch.Tensor, points: torch.Tensor, points_mask: torch.Tensor,
-                mats: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """img_feats [B, N, Cin, fH, fW] -> BEV [B, C, X', Y']."""
+                mats: Dict[str, torch.Tensor], timed=untimed) -> torch.Tensor:
+        """img_feats [B, N, Cin, fH, fW] -> BEV [B, C, X', Y'].
+        ``timed(name, fn)`` runs each piece (the profiling tools pass a
+        timer)."""
         B, N, Cin, fH, fW = img_feats.shape
-        d = rasterize_depth(points, points_mask, mats["lidar2image"], mats["img_aug_matrix"],
-                            mats["lidar_aug_matrix"], self.image_size)
-        d = self.dtransform(d.view(B * N, 1, *self.image_size))
-        x = self.depthnet(torch.cat([d, img_feats.reshape(B * N, Cin, fH, fW)], 1))
-        depth = x[:, :self.D].softmax(1).view(B, N, self.D, fH, fW)
-        ctx = x[:, self.D:].permute(0, 2, 3, 1).contiguous().view(B, N, fH, fW, self.C)
-        return self.downsample(self.pool(depth, ctx, mats))
+        d = timed("rasterize_depth", lambda: rasterize_depth(
+            points, points_mask, mats["lidar2image"], mats["img_aug_matrix"],
+            mats["lidar_aug_matrix"], self.image_size))
+        d = timed("dtransform", lambda: self.dtransform(d.view(B * N, 1, *self.image_size)))
+        x = timed("depthnet", lambda: self.depthnet(
+            torch.cat([d, img_feats.reshape(B * N, Cin, fH, fW)], 1)))
+
+        def split():
+            depth = x[:, :self.D].softmax(1).view(B, N, self.D, fH, fW)
+            ctx = x[:, self.D:].permute(0, 2, 3, 1).contiguous().view(B, N, fH, fW, self.C)
+            return depth, ctx
+
+        depth, ctx = timed("depth softmax + ctx channels-last", split)
+        bev = timed("bev_pool" if mats.get("pool_lut") is not None else
+                    "build_pool_lut + bev_pool", lambda: self.pool(depth, ctx, mats))
+        return timed("downsample", lambda: self.downsample(bev))

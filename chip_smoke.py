@@ -4,8 +4,8 @@
 Run from the repository root: ``python3 chip_smoke.py``. Phases:
 
 1. device: the card's name and power limit; TF32 off for fp32 parity;
-2. build: compile the three kernels from bevfusion_tpu_torch/csrc (one
-   nvcc per source, started together);
+2. build: compile the five kernel sources of bevfusion_tpu_torch/csrc (one
+   nvcc per source, started together); the ptxas register and spill lines;
 3. sparse-conv kernel vs plain: the kernel and its plain PyTorch version
    on the same CUDA tensors at the LiDAR branch's shapes (a voxelized
    120k-point scan at voxelnet_0p075: the input conv, a stage-0 residual
@@ -17,25 +17,36 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
 5. backward-data through the sparse-conv kernel (``SparseConvFunction``:
    mirrored weights for submanifold convs, the transposed rulebook for the
    strided one) vs autograd of the plain version, the same tolerance;
-6. the LiDAR slice: TransFusion-L (voxelnet_0p075) at full width with
+6. the memory probes' kernels vs plain (``tools/bench_tile_micro.py``): K5,
+   the copy ``x + 1``, at [65536, 1024] bf16, and K6, the tile gather, at
+   the tool's five settings, each equal to its plain version bit for bit;
+7. the sparse-conv cost breakdown's kernel vs plain
+   (``tools/bench_kernel_variants.py``, K7): its four modes at tiles 64 and
+   128 at the stage-0 (C = 16) and stage-1 (C = 32) submanifold convs of
+   the scan, max|d| <= 1e-4 * max(|plain|, 1); ``noskip`` equal to
+   ``current``, and ``current`` at tile 64 equal to the production
+   sparse-conv kernel without epilogue, bit for bit; the plain versions'
+   times;
+8. the LiDAR slice: TransFusion-L (voxelnet_0p075) at full width with
    seeded random weights, eval forward at batch 1 on the scan; 15 kernel
    launches per forward, every box field finite, heatmap logits within
    2e-3 relative of the same model on the CPU (plain path); ms/frame and
    peak device memory;
-7. BEV-pool kernel vs plain at the flagship's shape: depth [1, 6, 118, 32,
+9. BEV-pool kernel vs plain at the flagship's shape: depth [1, 6, 118, 32,
    88] (softmax of seeded noise), ctx [1, 6, 80, 32, 88] (held
    channels-last), the intervals of the flagship batch's own pooling LUT;
    max|d| <= 1e-4 * max(|plain|, 1), both median times and the bound; the
    pool's backward (torch ops) vs autograd of the plain pool, the same
    tolerance, and its time; the time of building the LUT on the host and on
    the card;
-8. the fused flagship (swint_v0p075/convfuser.yaml) at full width with
+10. the fused flagship (swint_v0p075/convfuser.yaml) at full width with
    seeded random weights and the host pooling LUT, eval forward at batch
    1: 15 sparse-conv and 1 BEV-pool launches per forward, every box field
    finite, heatmap logits within 2e-3 relative of the same model on the
    CPU (plain path, same LUT); ms/frame, peak device memory and the time
-   of each stage; the frame and its stages again with TF32 on;
-9. the flagship's training step at full width, B = 1, host LUT, TF32 off,
+   of each stage (``tools/profile_stages.py``); the frame and its stages
+   again with TF32 on;
+11. the flagship's training step at full width, B = 1, host LUT, TF32 off,
    PyTorch's deterministic algorithms on (the card's own run-to-run noise
    would swamp the comparison):
    one forward + backward through the kernels and one through their plain
@@ -49,12 +60,23 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
    the step launches the sparse-conv kernel 15 + 14 times (forward,
    backward-data: the input conv's voxel features need no gradient), the
    weight-gradient kernel 15 times and the BEV-pool kernel once;
-10. five timed train steps with TF32 on (``runtime/train.py``: AdamW,
-   clip 35, the config's cosine lr with linear warmup and cyclic momentum):
-   losses finite, parameters changed; median ms/step split into forward,
-   backward and optimizer (host clock around synchronises), peak device
-   memory, and the auction matcher's time within the forward;
-11. a JSON line with the kernel table, a line with the card's name and
+12. five timed train steps with TF32 on (``tools/bench_train_step.py`` on
+   ``runtime/train.py``: AdamW, clip 35, the config's cosine lr with linear
+   warmup and cyclic momentum): losses finite, parameters changed; median
+   ms/step split into forward, backward and optimizer (host clock around
+   synchronises), peak device memory, and the auction matcher's time
+   within the forward;
+13. the measurement tools (``bevfusion_tpu_torch/tools/``, this path's
+   entry points), TF32 on, every launch count set to 0 just before and read
+   just after: the memory probes (torch's ``x + 1``, K5, K6 at its five
+   settings, six bf16 matmuls), the cost breakdown (K7) at the two
+   shapes, then on the flagship held by phase 12 (in eval mode) the
+   per-stage profile with FLOPs, the encoder, meta-chain and vtransform
+   profiles and the latency benchmark's timing, and two train steps
+   through the train-step benchmark; every row finite and every kernel
+   launched; then ``python -m bevfusion_tpu_torch.tools.benchmark --iters
+   5`` in a subprocess: exit 0 and its latency line;
+14. a JSON line with the kernel table, a line with the card's name and
    power limit as nvidia-smi prints them, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -74,6 +96,8 @@ import time
 
 import torch
 
+from bevfusion_tpu_torch.utils.profiler import bound, frame_ms, nbytes, time_fn
+
 FP32_RTOL_KERNEL = 1e-4  # kernel vs plain on the card: summation order only
 HEATMAP_RTOL = 2e-3  # full model on the card vs on the CPU, ~40 fp32 layers
 TRAIN_LOSS_RTOL = 1e-4  # train step through the kernels vs their plain versions
@@ -85,10 +109,9 @@ ZERO_GRAD = 1e-6  # of the global norm: a gradient that is zero but for rounding
 SPARSE_LAUNCHES = 15  # 13 submanifold + 2 strided sparse convs at B=1
 POOL_LAUNCHES = 1  # one BEV pool per frame at B=1
 TRAIN_LAUNCHES = {"sparse_conv": 15 + 14, "sparse_conv_dw": 15, "bev_pool": 1}
-TRAIN_HORIZON = 1000  # steps of the lr and momentum schedules
 DEVICE = "cuda"
-FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (NVIDIA data sheet)
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+K7_SHAPES = 2  # the cost breakdown runs at the stage-0 and stage-1 submanifold convs
+TOOL_ITERS = 5  # timed calls per op in the tools phase
 
 
 def check(ok: bool, what: str) -> None:
@@ -96,50 +119,13 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
-def cuda_ms(fn, warmup: int = 5, iters: int = 20) -> float:
-    """Median device time of ``fn`` over ``iters`` runs, after warmup."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def frame_ms(fn, warmup: int = 5, iters: int = 20):
-    """Host-clock ms of each of ``iters`` synchronised calls after warmup,
-    and the peak device memory over them."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    frames = []
-    for _ in range(iters):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        frames.append((time.perf_counter() - t0) * 1e3)
-    return frames, torch.cuda.max_memory_allocated()
+def kernel_ms(fn) -> float:
+    """Median of 20 CUDA-event timings of ``fn`` after 5 warmup calls."""
+    return time_fn(fn, iters=20, warmup=5, device=DEVICE)["median_ms"]
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return (got - want).abs().max().item() / max(want.abs().max().item(), 1.0)
-
-
-def bound(flops: float, nbytes: float):
-    """The least time (ms) the card could take: the larger of the
-    operations over the fp32 peak and the bytes over the memory rate."""
-    t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 @contextlib.contextmanager
@@ -175,52 +161,21 @@ def recorded_targets(head, store):
         del head._targets
 
 
-@contextlib.contextmanager
-def timed_auction(records):
-    """Each call of the head's auction matcher timed on the host clock
-    around synchronises, appended to ``records`` as (ms, rows assigned,
-    valid rows)."""
-    from bevfusion_tpu_torch.models.heads import transfusion
-
-    auction = transfusion.auction_assignment
-
-    def timed(cost, row_valid, col_valid):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = auction(cost, row_valid, col_valid)
-        assigned = int((out >= 0).sum())
-        records.append(((time.perf_counter() - t0) * 1e3, assigned, int(row_valid.sum())))
-        return out
-
-    transfusion.auction_assignment = timed
-    try:
-        yield
-    finally:
-        transfusion.auction_assignment = auction
-
-
-def kernel_cases(cfg, batch, sp, vox):
-    """The sparse convs of the main path at their real shapes: voxelize the
-    scan, build the stage-0, -1 and -2 rulebooks (and the strided conv's
-    transposed one), random fp32 operands. Returns (label, (feats, nbr,
-    weight), epilogue kwargs, valid output rows, transposed table or None)."""
-    enc = cfg.model.encoders.lidar.backbone
-    out = vox(batch["points"], batch["points_mask"])
-    feats, coords, mask = out.feats[0], out.coords[0], out.mask[0]
-    grid = sp.SparseGrid(*enc.sparse_shape)
-    ids = sp.lin_ids(coords, grid, mask)
+def kernel_cases(enc, feats, coords, mask, sp):
+    """The sparse convs of the main path at their real shapes: the sites of
+    the encoder ``enc``'s stages 0-2 on the voxelized scan (voxel feats
+    [M, 5], coords [M, 3], mask [M]), their rulebooks (and the strided conv's transposed one),
+    random fp32 operands. Returns (label, (feats, nbr, weight), epilogue
+    kwargs, valid output rows, transposed table or None)."""
+    s0, s1, s2 = enc.sparse_sites(coords, mask)
+    (ids, grid), (ids1, grid1), (ids2, grid2) = ((s["ids"], s["grid"]) for s in (s0, s1, s2))
     nbr0 = sp.build_subm_rulebook(ids, grid)
-    cap1, cap2 = enc.site_caps[0], enc.site_caps[1]
-    grid1 = sp.conv_out_shape(grid, 3, 2, 1)
-    ids1, mask1 = sp.downsample_sites(ids, grid, 3, 2, 1, cap1)
     cnbr = sp.build_conv_rulebook(ids, ids1, grid, grid1, 3, 2, 1)
     cnbr_t = sp.build_conv_transpose_rulebook(ids, ids1, grid, grid1, 3, 2, 1)
     nbr1 = sp.build_subm_rulebook(ids1, grid1)
-    grid2 = sp.conv_out_shape(grid1, 3, 2, 1)
-    ids2, mask2 = sp.downsample_sites(ids1, grid1, 3, 2, 1, cap2)
     nbr2 = sp.build_subm_rulebook(ids2, grid2)
     g = torch.Generator(device=DEVICE).manual_seed(0)
-    dev = feats.device
+    dev = coords.device
 
     def rand(*shape, std=1.0):
         return torch.randn(*shape, generator=g, device=dev) * std
@@ -231,18 +186,18 @@ def kernel_cases(cfg, batch, sp, vox):
             kw["residual"] = rand(residual_rows, c)
         return kw
 
-    cap0 = feats.shape[0]
+    cap0, cap1, cap2 = ids.shape[0], ids1.shape[0], ids2.shape[0]
     return [
         ("conv_input 5->16", (feats, nbr0, rand(27, 5, 16, std=(2 / 135) ** 0.5)), epi(16),
          mask, None),
         ("stage0 subm 16->16", (rand(cap0, 16), nbr0, rand(27, 16, 16, std=(2 / 432) ** 0.5)),
          epi(16, cap0), mask, None),
         ("stage0 strided 16->32", (rand(cap0, 16), cnbr, rand(27, 16, 32, std=(2 / 432) ** 0.5)),
-         epi(32), mask1, cnbr_t),
+         epi(32), s1["mask"], cnbr_t),
         ("stage1 subm 32->32", (rand(cap1, 32), nbr1, rand(27, 32, 32, std=(2 / 864) ** 0.5)),
-         epi(32, cap1), mask1, None),
+         epi(32, cap1), s1["mask"], None),
         ("stage2 subm 64->64", (rand(cap2, 64), nbr2, rand(27, 64, 64, std=(2 / 1728) ** 0.5)),
-         epi(64, cap2), mask2, None),
+         epi(64, cap2), s2["mask"], None),
     ]
 
 
@@ -281,38 +236,6 @@ def run_model(label, model, batch, cpu_model, cpu_batch, counters, want_launches
     return launches, heat_err, frames, peak
 
 
-def stage_ms(model, batch, iters: int = 10):
-    """Median host-clock ms of each stage of the fused forward, each one
-    closed by a synchronise: camera backbone + neck, vtransform (with the
-    pool), LiDAR branch (voxelize + encoder), fuser, the rest (decoder,
-    head, get_bboxes)."""
-    cam = model.encoders["camera"]
-    img = batch["img"]
-    B, N = img.shape[:2]
-    times = {}
-
-    def timed(name, fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        times.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
-        return out
-
-    with torch.no_grad():
-        for _ in range(iters + 2):
-            feats = timed("camera backbone+neck", lambda: cam["neck"](cam["backbone"](
-                img.reshape(B * N, *img.shape[2:])))[0])
-            bev_cam = timed("camera vtransform (incl. pool)", lambda: cam["vtransform"](
-                feats.view(B, N, *feats.shape[1:]), batch["points"], batch["points_mask"], batch))
-            bev_lidar = timed("lidar voxelize+encoder", lambda: model.extract_lidar_features(
-                batch["points"], batch["points_mask"]))
-            x = timed("fuser", lambda: model.fuser([bev_cam, bev_lidar]))
-            timed("decoder+head+get_bboxes", lambda: model.heads["object"].get_bboxes(
-                model.heads["object"](model.decoder["neck"](model.decoder["backbone"](x))[0])))
-    return {k: statistics.median(v[2:]) for k, v in times.items()}
-
-
 def sparse_kernel_phases(sp, cases):
     """Phases 3-5 at each shape: forward, weight gradient and backward-data
     against their plain versions; times and bounds. Returns three lists of
@@ -329,8 +252,8 @@ def sparse_kernel_phases(sp, cases):
         check(err <= FP32_RTOL_KERNEL * scale, f"{label}: max|d| {err} vs plain, scale {scale}")
         b_ms, b_by = bound(2 * hits * Cin * Cout, nbytes(feats, nbr, w, got, *(
             v for v in kw.values() if torch.is_tensor(v))))
-        ms = cuda_ms(lambda: sp.sparse_conv(feats, nbr, w, **kw))
-        plain_ms = cuda_ms(lambda: sp.sparse_conv_plain(feats, nbr, w, **kw))
+        ms = kernel_ms(lambda: sp.sparse_conv(feats, nbr, w, **kw))
+        plain_ms = kernel_ms(lambda: sp.sparse_conv_plain(feats, nbr, w, **kw))
         fwd.append({"shape": label, "sites_out": nbr.shape[1], "valid_out": int(valid.sum()),
                     "hits": hits, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": b_ms, "bound_by": b_by})
@@ -350,8 +273,8 @@ def sparse_kernel_phases(sp, cases):
         check(err <= FP32_RTOL_KERNEL * scale, f"{label} dW: max|d| {err} vs plain, scale {scale}")
         check(torch.equal(sp.sparse_conv_dw(feats, nbr, dout), got), f"{label} dW: not repeatable")
         b_ms, b_by = bound(2 * hits * Cin * Cout, nbytes(feats, nbr, dout, got))
-        ms = cuda_ms(lambda: sp.sparse_conv_dw(feats, nbr, dout))
-        plain_ms = cuda_ms(lambda: sp.sparse_conv_dw_plain(feats, nbr, dout))
+        ms = kernel_ms(lambda: sp.sparse_conv_dw(feats, nbr, dout))
+        plain_ms = kernel_ms(lambda: sp.sparse_conv_dw_plain(feats, nbr, dout))
         dw.append({"shape": label, "hits": hits, "max_abs_err": err, "ms": ms,
                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by})
         print(f"kernel sparse_conv_dw {label}: {hits} hit pairs, max|d| {err:.3e}, kernel "
@@ -369,14 +292,168 @@ def sparse_kernel_phases(sp, cases):
         check(err <= FP32_RTOL_KERNEL * scale, f"{label} d_feats: max|d| {err}, scale {scale}")
         table, wt = ((nbr, w.flip(0).transpose(1, 2).contiguous()) if nbr_t is None
                      else (nbr_t, w.transpose(1, 2).contiguous()))
-        ms = cuda_ms(lambda: sp.sparse_conv(dout, table, wt))
+        ms = kernel_ms(lambda: sp.sparse_conv(dout, table, wt))
         bwd.append({"shape": label, "max_abs_err": err, "ms": ms})
         print(f"kernel sparse_conv backward-data {label}: max|d| {err:.3e} vs autograd of "
               f"plain, kernel {ms:.4f} ms")
     return fwd, dw, bwd
 
 
-def summary(name, source, replaces, launches, shapes, extra_err=()):
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a.view(torch.int16),
+                                                                      b.view(torch.int16))
+
+
+def tile_probe_checks(tm):
+    """Phase 6: K5 at [65536, 1024] bf16 and K6 at the tool's five
+    settings, each equal to its plain version bit for bit. Returns the
+    max|d| of each (0 when equal)."""
+    x = torch.randn(65536, 1024, generator=torch.Generator(device=DEVICE).manual_seed(0),
+                    device=DEVICE).to(torch.bfloat16)
+    got, want = tm.copy_add_one(x), tm.copy_add_one_plain(x)
+    torch.cuda.synchronize()
+    check(bits_equal(got, want), "K5 copy_add_one: not equal to x + 1 bit for bit")
+    errs = {"copy": (got.float() - want.float()).abs().max().item()}
+    print(f"kernel tile_copy (K5) [65536, 1024] bf16: equal to x + 1 bit for bit")
+    for T, R, G, steps in tm.GATHERS:
+        pool, slots = tm.gather_inputs(T, R, G, steps, DEVICE)
+        got, want = tm.gather_tiles(pool, slots, R, G), tm.gather_tiles_plain(pool, slots, R, G)
+        torch.cuda.synchronize()
+        check(bits_equal(got, want), f"K6 gather_tiles R={R} G={G}: not equal to plain")
+        errs[(R, G)] = (got.float() - want.float()).abs().max().item()
+        print(f"kernel tile_gather (K6) R={R} G={G} steps={steps} T={T}: equal to plain bit "
+              f"for bit")
+    return errs
+
+
+def variant_checks(kv, sp, cases):
+    """Phase 7: K7's four modes at both tiles against their plain versions
+    (max|d| <= 1e-4 * max(|plain|, 1)); ``noskip`` equal to ``current``,
+    and ``current`` at tile 64 equal to ``sparse_conv`` with no epilogue,
+    bit for bit. Returns {(shape, mode): (max|d| over the tiles, plain ms)}."""
+    out = {}
+    for label, feats, nbr, w in cases:
+        production = sp.sparse_conv(feats, nbr, w)
+        for mode in kv.MODES:
+            want = kv.sparse_conv_variant_plain(feats, nbr, w, mode)
+            scale = max(want.abs().max().item(), 1.0)
+            errs = []
+            for tile in kv.TILES:
+                got = kv.sparse_conv_variant(feats, nbr, w, mode, tile)
+                torch.cuda.synchronize()
+                errs.append((got - want).abs().max().item())
+                check(errs[-1] <= FP32_RTOL_KERNEL * scale,
+                      f"K7 {label} {mode} tile {tile}: max|d| {errs[-1]} vs plain, scale {scale}")
+                if mode == "current" and tile == 64:
+                    check(torch.equal(got, production),
+                          f"K7 {label}: current at tile 64 differs from sparse_conv")
+                if mode == "noskip":
+                    check(torch.equal(got, kv.sparse_conv_variant(feats, nbr, w, "current", tile)),
+                          f"K7 {label}: noskip differs from current at tile {tile}")
+            plain_ms = kernel_ms(lambda: kv.sparse_conv_variant_plain(feats, nbr, w, mode))
+            out[(label, mode)] = (max(errs), plain_ms)
+            print(f"kernel sparse_conv_variants (K7) {label} {mode}: max|d| {max(errs):.3e} at "
+                  f"tiles {kv.TILES}, plain {plain_ms:.4f} ms")
+        print(f"kernel sparse_conv_variants (K7) {label}: current at tile 64 equal to sparse_conv "
+              f"without epilogue, noskip equal to current, bit for bit")
+    return out
+
+
+def finite_rows(rows, what: str, keys=("ms",)) -> None:
+    for r in rows:
+        for k in keys:
+            v = r.get(k)
+            check(v is None or math.isfinite(v), f"{what}: {r} has a non-finite {k}")
+
+
+def tools_phase(cfg, model, batch, cases, counters):
+    """Phase 13: the measurement tools, this path's entry points, with every
+    launch count set to 0 just before and read just after. Returns (their
+    results, the launches)."""
+    from bevfusion_tpu_torch.tools import (bench_kernel_variants as kv, bench_tile_micro as tm,
+                                           bench_train_step, benchmark, profile_encoder,
+                                           profile_meta, profile_stages, profile_vtransform)
+
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    res = {"ew": tm.bench_ew(DEVICE), "copy": tm.bench_copy(device=DEVICE),
+           "gathers": [tm.bench_gather(*g, device=DEVICE) for g in tm.GATHERS],
+           "matmuls": [tm.bench_matmul(*m, device=DEVICE) for m in tm.MATMULS],
+           "breakdown": kv.breakdown(cases, DEVICE)}
+    model.eval()
+    res["stages"], _ = profile_stages.profile_stages(model, batch, DEVICE, TOOL_ITERS,
+                                                     flops=True)
+    with torch.no_grad():
+        vox = model.lidar_voxelize(batch["points"], batch["points_mask"])
+        enc = model.encoders["lidar"]["backbone"]
+        res["encoder"], _ = profile_encoder.profile_encoder(
+            enc, vox.feats[0], vox.coords[0], vox.mask[0], DEVICE, TOOL_ITERS)
+        res["meta"] = profile_meta.profile_meta(enc, vox.coords[0], vox.mask[0], DEVICE,
+                                                TOOL_ITERS)
+        cam, img = model.encoders["camera"], batch["img"]
+        feats = cam["neck"](cam["backbone"](img.reshape(-1, *img.shape[2:])))[0]
+        res["vtransform"], _ = profile_vtransform.profile_vtransform(
+            cam["vtransform"], feats.view(*img.shape[:2], *feats.shape[1:]), batch, DEVICE,
+            TOOL_ITERS)
+        res["latency"] = benchmark.latency(model, batch, DEVICE, TOOL_ITERS, warmup=2)
+    res["train"] = bench_train_step.train_steps(cfg, model, batch, DEVICE, steps=2, warmup=1)
+    torch.cuda.synchronize()
+    launches = {name: c.launches for name, c in counters.items()}
+    res["seconds"] = time.perf_counter() - t0
+    print(f"tools: launches in the tools' run {launches}; {res['seconds']:.1f} s")
+    for name, n in launches.items():
+        check(n > 0, f"tools: the kernel {name} was not launched")
+
+    print(f"tools: torch x + 1 on 128 MiB bf16 {res['ew']['ms']:.4f} ms, "
+          f"{res['ew']['gb_per_s']:.1f} GB/s")
+    c = res["copy"]
+    print(f"tools: K5 {c['shape']} {c['ms']:.4f} ms ({c['gb_per_s']:.1f} GB/s), bound "
+          f"{c['bound_ms']:.4f} ms = {c['bound_ms'] / c['ms']:.3f} of it; torch x + 1 "
+          f"{c['library_ms']:.4f} ms, plain {c['plain_ms']:.4f} ms")
+    for r in res["gathers"]:
+        print(f"tools: K6 {r['shape']}: {r['ms']:.4f} ms, {r['gb_per_s']:.1f} GB/s, "
+              f"{r['ns_per_tile']:.2f} ns/tile of {r['tile_bytes']} B, pool {r['pool_bytes']} B "
+              f"({r['distinct_tiles']} distinct tiles), bound {r['bound_ms']:.4f} ms, "
+              f"{tm.gather_share(r)}; plain {r['plain_ms']:.4f} ms")
+    for r in res["matmuls"]:
+        print(f"tools: matmul bf16 {r['shape']}: {r['ms']:.4f} ms, {r['tflops']:.1f} TFLOP/s "
+              f"({r['peak_share']:.3f} of 989)")
+    kv.print_breakdown(res["breakdown"])
+    profile_stages.print_table(res["stages"], flops=True)
+    print(f"tools: the stages' peak: {profile_stages.peak_flops()[1]}")
+    profile_meta.print_rows(res["encoder"])
+    profile_meta.print_rows(res["meta"])
+    profile_meta.print_rows(res["vtransform"])
+    for what in ("encoder", "meta", "vtransform"):
+        finite_rows(res[what], what)
+    finite_rows(res["stages"], "stages", ("ms", "gflop", "tflops"))
+    finite_rows([res["ew"], res["copy"]] + res["gathers"] + res["matmuls"], "probes")
+    finite_rows([m for r in res["breakdown"] for m in r["modes"].values()], "breakdown")
+    lat = res["latency"]
+    check(math.isfinite(lat["mean_ms"]), f"benchmark latency {lat}")
+    print(f"tools: benchmark latency (TF32 on) {lat['mean_ms']:.2f} ms mean, "
+          f"{lat['median_ms']:.2f} median over {len(lat['frames_ms'])} frames")
+    line = bench_train_step.result_line(res["train"])
+    check(math.isfinite(line["value"]) and not res["train"]["unchanged"],
+          f"bench_train_step: {line}, unchanged {res['train']['unchanged'][:5]}")
+    print(f"tools: bench_train_step {json.dumps(line)}")
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "bevfusion_tpu_torch.tools.benchmark",
+                           "--iters", "5"], capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    out = proc.stdout.strip().splitlines()
+    print(f"tools: python -m bevfusion_tpu_torch.tools.benchmark --iters 5: exit "
+          f"{proc.returncode} in {time.perf_counter() - t0:.1f} s: {out[-1] if out else ''}")
+    check(proc.returncode == 0 and out and out[-1].startswith("latency:"),
+          f"benchmark CLI: exit {proc.returncode}, {proc.stderr[-2000:]}")
+    res["benchmark_cli"] = out[-1]
+    return res, launches
+
+
+def summary(name, source, replaces, launches, shapes, extra_err=(), library_ms=None):
     """One kernel's entry of the JSON line: times and bounds summed over
     its shapes, the largest error, the limit of the largest bound."""
     top = max(shapes, key=lambda s: s["bound_ms"])
@@ -385,11 +462,11 @@ def summary(name, source, replaces, launches, shapes, extra_err=()):
             "max_abs_err": max([s["max_abs_err"] for s in shapes] + list(extra_err)),
             "ms": sum(s["ms"] for s in shapes), "plain_ms": sum(s["plain_ms"] for s in shapes),
             "bound_ms": sum(s["bound_ms"] for s in shapes), "bound_by": top["bound_by"],
-            "library_ms": None, "shapes": shapes}
+            "library_ms": library_ms, "shapes": shapes}
 
 
 def train_step_parity(model, batch, sp, bp, counters):
-    """Phase 9: one forward + backward through the kernels (launches
+    """Phase 11: one forward + backward through the kernels (launches
     counted) and one through the plain versions, same weights and batch,
     a freshly seeded dropout generator each. Both passes must select the
     same proposals; the plain pass takes the kernel pass's Hungarian
@@ -474,63 +551,6 @@ def train_step_parity(model, batch, sp, bp, counters):
             "same_own_targets": same_targets, "kernel_s": kernel_s, "plain_s": plain_s}
 
 
-def timed_train_steps(cfg, model, batch, steps: int = 5, warmup: int = 2):
-    """Phase 10: ``steps`` train steps after ``warmup`` through the port's
-    trainer; per-phase host-clock ms around synchronises, peak memory."""
-    from bevfusion_tpu_torch.runtime import train
-
-    opt_cfg = cfg.optimizer
-    opt = train.build_optimizer(
-        opt_cfg, train.build_lr_schedule(cfg.lr_config, opt_cfg.lr, TRAIN_HORIZON), model,
-        cfg.optimizer_config.grad_clip,
-        train.build_momentum_schedule(cfg.momentum_config, 0.9, TRAIN_HORIZON))
-    step = train.make_train_step(model, opt, DEVICE, seed=0)
-    before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    records = []
-
-    def one():
-        phases, t = {}, [0.0]
-
-        def mark(name):
-            torch.cuda.synchronize()
-            now = time.perf_counter()
-            phases[name] = (now - t[0]) * 1e3
-            t[0] = now
-
-        torch.cuda.synchronize()
-        t[0] = time.perf_counter()
-        logs = step(batch, mark)
-        phases["step"] = sum(phases.values())
-        return {k: v.item() for k, v in logs.items()}, phases
-
-    for _ in range(warmup):
-        one()
-    torch.cuda.reset_peak_memory_stats()
-    auctions = []
-    with timed_auction(auctions):
-        for _ in range(steps):
-            records.append(one())
-    peak = torch.cuda.max_memory_allocated()
-    losses = [logs["loss/total"] for logs, _ in records]
-    check(all(math.isfinite(v) for logs, _ in records for v in logs.values()),
-          f"timed steps: non-finite logs {records[-1][0]}")
-    unchanged = [n for n, p in model.named_parameters() if torch.equal(p.detach(), before[n])]
-    check(not unchanged, f"timed steps: parameters unchanged {unchanged[:5]}")
-    med = {k: statistics.median(ph[k] for _, ph in records)
-           for k in ("forward", "backward", "optimizer", "step")}
-    print(f"train steps (TF32 on): total loss {[round(v, 4) for v in losses]}; median ms/step "
-          f"{med['step']:.2f} (forward {med['forward']:.2f}, backward {med['backward']:.2f}, "
-          f"optimizer {med['optimizer']:.2f}); peak device memory {peak / 2**20:.1f} MiB; "
-          f"{opt.count} optimizer steps")
-    auction_ms = statistics.median(ms for ms, _, _ in auctions)
-    print(f"train steps: the auction matcher (in the forward) {auction_ms:.2f} ms median over "
-          f"{len(auctions)} calls, {[f'{a} of {v}' for _, a, v in auctions]} ground truths "
-          f"assigned")
-    return {"ms_median": med, "steps": [ph for _, ph in records], "losses": losses,
-            "peak_mem_bytes": peak, "auction_ms": [ms for ms, _, _ in auctions],
-            "auction_assigned": [[a, v] for _, a, v in auctions]}
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -544,6 +564,10 @@ def main() -> int:
     from bevfusion_tpu_torch.ops import sparse_conv as sp
     from bevfusion_tpu_torch.runtime.flagship import (add_pool_lut, batch_to, build_flagship,
                                                       build_lidar_slice)
+    from bevfusion_tpu_torch.tools import bench_kernel_variants as kv
+    from bevfusion_tpu_torch.tools import bench_tile_micro as tm
+    from bevfusion_tpu_torch.tools import profile_stages
+    from bevfusion_tpu_torch.tools.bench_train_step import train_steps
 
     # 1. device
     name = torch.cuda.get_device_name(0)
@@ -558,31 +582,43 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    builds = (sp.build_kernels, sp.build_dw_kernels, bp.build_kernels)
+    builds = {"sparse_conv": sp.build_kernels, "sparse_conv_dw": sp.build_dw_kernels,
+              "bev_pool": bp.build_kernels, "tile_micro": tm.build_kernels,
+              "sparse_conv_variants": kv.build_kernels}
     with ThreadPoolExecutor(len(builds)) as ex:  # one nvcc per source, started together
-        list(ex.map(lambda build: build(), builds))
+        list(ex.map(lambda build: build(), builds.values()))
     build_s = time.perf_counter() - t0
-    print(f"build: sparse_conv, sparse_conv_dw and bev_pool in {build_s:.2f} s")
-    for lib in ("sparse_conv", "sparse_conv_dw", "bev_pool"):
+    print(f"build: {', '.join(builds)} in {build_s:.2f} s")
+    for lib in builds:
         for line in native.build_log(lib).read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {lib}: {line.strip()}")
 
     # 3-5. sparse-conv kernels vs plain at the LiDAR branch's shapes
-    cpu_cfg, cpu_model, cpu_batch = build_lidar_slice("cpu", num_points=120000, seed=0)
+    _, cpu_model, cpu_batch = build_lidar_slice("cpu", num_points=120000, seed=0)
     batch = batch_to(cpu_batch, "cuda")
-    cases = kernel_cases(cpu_cfg, batch, sp, cpu_model.lidar_voxelize)
+    vox = cpu_model.lidar_voxelize(batch["points"], batch["points_mask"])
+    enc = cpu_model.encoders["lidar"]["backbone"]
+    cases = kernel_cases(enc, vox.feats[0], vox.coords[0], vox.mask[0], sp)
     shapes, dw_shapes, bwd_shapes = sparse_kernel_phases(sp, cases)
     del cases
 
-    # 6. the LiDAR slice, eval forward at B=1
+    # 6. the memory probes' kernels vs plain
+    tile_errs = tile_probe_checks(tm)
+
+    # 7. the cost breakdown's kernel vs plain, at the scan's stage-0 and stage-1 subm convs
+    k7_cases = kv.stage_cases(enc, vox.coords[0], vox.mask[0])
+    check(len(k7_cases) == K7_SHAPES, f"K7: {len(k7_cases)} stage shapes")
+    k7_checks = variant_checks(kv, sp, k7_cases)
+
+    # 8. the LiDAR slice, eval forward at B=1
     counters = {"sparse_conv": sp.sparse_conv, "bev_pool": bp.bev_pool}
     lidar_launches, lidar_heat_err, lidar_frames, lidar_peak = run_model(
         "lidar slice", copy.deepcopy(cpu_model).cuda(), batch, cpu_model, cpu_batch, counters,
         {"sparse_conv": SPARSE_LAUNCHES, "bev_pool": 0})
     del cpu_model, cpu_batch, batch
 
-    # 7. BEV-pool kernel vs plain at the flagship's shape, on the main path's intervals
+    # 9. BEV-pool kernel vs plain at the flagship's shape, on the main path's intervals
     cfg, cpu_model, cpu_batch = build_flagship("cpu", num_points=120000, seed=0)
     batch = batch_to(cpu_batch, "cuda")
     t0 = time.perf_counter()
@@ -605,8 +641,8 @@ def main() -> int:
     check(got.shape == (1, Z * vt.C, X, Y), f"bev_pool shape {tuple(got.shape)}")
     check(pool_err <= FP32_RTOL_KERNEL * pool_scale,
           f"bev_pool: max|d| {pool_err} vs plain, scale {pool_scale}")
-    pool_ms = cuda_ms(lambda: bp.bev_pool(depth, ctx, iv, Z, X, Y))
-    pool_plain_ms = cuda_ms(lambda: bp.bev_pool_plain(depth, ctx, iv, Z, X, Y))
+    pool_ms = kernel_ms(lambda: bp.bev_pool(depth, ctx, iv, Z, X, Y))
+    pool_plain_ms = kernel_ms(lambda: bp.bev_pool_plain(depth, ctx, iv, Z, X, Y))
     # each input byte once (the P pooled depth values, the whole ctx table,
     # the interval arrays), the zero-filled output grid once; a multiply-add
     # per pooled point and channel
@@ -628,34 +664,36 @@ def main() -> int:
     pool_bwd_err = max((a - b).abs().max().item() / max(b.abs().max().item(), 1.0)
                        for a, b in ((dr.grad, dr0.grad), (cr.grad, cr0.grad)))
     check(pool_bwd_err <= FP32_RTOL_KERNEL, f"bev_pool backward: rel err {pool_bwd_err}")
-    pool_bwd_ms = cuda_ms(lambda: bp.bev_pool_backward(depth, ctx, iv, gout, Z, X, Y))
-    pool_bwd_plain_ms = cuda_ms(lambda: torch.autograd.grad(plain_out, (dr0, cr0), gout,
+    pool_bwd_ms = kernel_ms(lambda: bp.bev_pool_backward(depth, ctx, iv, gout, Z, X, Y))
+    pool_bwd_plain_ms = kernel_ms(lambda: torch.autograd.grad(plain_out, (dr0, cr0), gout,
                                                             retain_graph=True))
     del plain_out, dr, cr, dr0, cr0
     print(f"bev_pool backward (torch ops, {bp.POOL_BWD_CHUNK} points a chunk): rel err "
           f"{pool_bwd_err:.3e} vs autograd of plain, {pool_bwd_ms:.4f} ms (autograd of plain "
           f"{pool_bwd_plain_ms:.4f} ms)")
     frustum = vt.frustum.cuda()
-    lut_card_ms = cuda_ms(lambda: build_pool_lut(frustum, vt.dx, vt.bx, vt.nx, batch))
+    lut_card_ms = kernel_ms(lambda: build_pool_lut(frustum, vt.dx, vt.bx, vt.nx, batch))
     ids = build_pool_lut(frustum, vt.dx, vt.bx, vt.nx, batch)["cell_ids"].cpu()
     print(f"pool LUT build: host {lut_s:.3f} s, card {lut_card_ms:.3f} ms (the in-graph "
           f"route's cost per frame); the card's geometry puts "
           f"{(ids != cpu_batch['pool_lut']['cell_ids']).float().mean().item():.3e} of frustum "
           f"points in another cell than the host's (axis-aligned rig)")
 
-    # 8. the fused flagship, eval forward at B=1
+    # 10. the fused flagship, eval forward at B=1
     model = copy.deepcopy(cpu_model).cuda()
     launches, heat_err, frames, peak = run_model(
         "flagship", model, batch, cpu_model, cpu_batch, counters,
         {"sparse_conv": SPARSE_LAUNCHES, "bev_pool": POOL_LAUNCHES})
-    stages = stage_ms(model, batch)
+    stages = {r["stage"]: r["ms"]
+              for r in profile_stages.profile_stages(model, batch, DEVICE, iters=10)[0]}
     for stage, ms in stages.items():
         print(f"flagship stage {stage}: {ms:.2f} ms")
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = True
     with torch.no_grad():
         frames_tf32, peak_tf32 = frame_ms(lambda: model(batch))
-    stages_tf32 = stage_ms(model, batch)
+    stages_tf32 = {r["stage"]: r["ms"]
+                   for r in profile_stages.profile_stages(model, batch, DEVICE, iters=10)[0]}
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"flagship, TF32 on: {statistics.median(frames_tf32):.2f} ms/frame median, "
@@ -664,7 +702,7 @@ def main() -> int:
     del model, cpu_model, cpu_batch, batch, depth, ctx, got, want, gout
     torch.cuda.empty_cache()
 
-    # 9. the flagship's training step, B=1, host LUT, TF32 off: kernels vs plain
+    # 11. the flagship's training step, B=1, host LUT, TF32 off: kernels vs plain
     cfg, model, batch = build_flagship("cuda", num_points=120000, seed=0, training=True)
     with torch.no_grad():  # moderate heatmap logits: an unsaturated sigmoid ranks apart
         model.heads["object"].heatmap_head[-1].weight.mul_(0.2)
@@ -672,15 +710,29 @@ def main() -> int:
                       "bev_pool": bp.bev_pool}
     parity = train_step_parity(model, batch, sp, bp, train_counters)
 
-    # 10. five timed train steps, TF32 on
+    # 12. five timed train steps, TF32 on
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = True
-    steps = timed_train_steps(cfg, model, batch)
-    step_ms = steps["ms_median"]["step"]
+    steps = train_steps(cfg, model, batch, DEVICE, steps=5, warmup=2)
+    check(not steps.pop("unchanged"), "timed steps: parameters unchanged")
+    med, step_ms = steps["ms_median"], steps["ms_median"]["step"]
+    print(f"train steps (TF32 on): total loss {[round(v, 4) for v in steps['losses']]}; median "
+          f"ms/step {step_ms:.2f} (forward {med['forward']:.2f}, backward {med['backward']:.2f}, "
+          f"optimizer {med['optimizer']:.2f}); peak device memory "
+          f"{steps['peak_mem_bytes'] / 2**20:.1f} MiB; {steps['optimizer_steps']} optimizer steps")
+    print(f"train steps: the auction matcher (in the forward) "
+          f"{statistics.median(steps['auction_ms']):.2f} ms median over "
+          f"{len(steps['auction_ms'])} calls, "
+          f"{[f'{a} of {v}' for a, v in steps['auction_assigned']]} ground truths assigned")
     print(f"pool LUT build on the host: {lut_s * 1e3:.1f} ms = {lut_s * 1e3 / step_ms:.3f} "
           f"train steps; on the card {lut_card_ms:.3f} ms = {lut_card_ms / step_ms:.4f} steps")
 
-    # 11. results
+    # 13. the measurement tools: this path's entry points
+    tool_counters = dict(train_counters, tile_copy=tm.copy_add_one, tile_gather=tm.gather_tiles,
+                         sparse_conv_variants=kv.sparse_conv_variant)
+    tools, tool_launches = tools_phase(cfg, model, batch, k7_cases, tool_counters)
+
+    # 14. results
     pool_entry = {"shape": "flagship [1,6,118,32,88] x [1,6,32,88,80]", "points": P,
                   "intervals": R, "max_abs_err": pool_err, "ms": pool_ms,
                   "plain_ms": pool_plain_ms, "bound_ms": pool_bound, "bound_by": pool_by}
@@ -700,7 +752,23 @@ def main() -> int:
              launches_eval=launches["bev_pool"], backward_ms=pool_bwd_ms,
              backward_plain_ms=pool_bwd_plain_ms, backward_rel_err=pool_bwd_err,
              lut_host_s=lut_s, lut_card_ms=lut_card_ms),
+        dict(summary("tile_copy", "bevfusion_tpu_torch/csrc/tile_micro.cu",
+                     "tools/bench_tile_micro.py:50", tool_launches["tile_copy"],
+                     [dict(tools["copy"], max_abs_err=tile_errs["copy"])],
+                     library_ms=tools["copy"]["library_ms"])),
+        summary("tile_gather", "bevfusion_tpu_torch/csrc/tile_micro.cu",
+                "tools/bench_tile_micro.py:77", tool_launches["tile_gather"],
+                [dict(r, max_abs_err=tile_errs[(r["R"], r["G"])]) for r in tools["gathers"]]),
+        summary("sparse_conv_variants", "bevfusion_tpu_torch/csrc/sparse_conv_variants.cu",
+                "tools/bench_kernel_variants.py:33", tool_launches["sparse_conv_variants"],
+                [{"shape": f"{r['shape']} tile {r['tile']} {mode}", "ms": m["ms"],
+                  "plain_ms": k7_checks[(r["shape"], mode)][1],
+                  "max_abs_err": k7_checks[(r["shape"], mode)][0], "bound_ms": m["bound_ms"],
+                  "bound_by": m["bound_by"]}
+                 for r in tools["breakdown"] for mode, m in r["modes"].items()]),
     ]
+    for k in kernels[:3]:
+        k["launches_tools"] = tool_launches[k["name"]]
     print(json.dumps({
         "kernels": kernels, "build_s": build_s,
         "flagship": {"frame_ms_median": statistics.median(frames), "peak_mem_bytes": peak,
@@ -708,6 +776,7 @@ def main() -> int:
                      "frame_ms_median_tf32": statistics.median(frames_tf32),
                      "peak_mem_bytes_tf32": peak_tf32, "stage_ms_tf32": stages_tf32},
         "train": {"parity_tf32_off": parity, "steps_tf32_on": steps},
+        "tools": {k: v for k, v in tools.items() if k not in ("copy", "gathers")},
         "lidar_slice": {"launches": lidar_launches,
                         "frame_ms_median": statistics.median(lidar_frames),
                         "peak_mem_bytes": lidar_peak, "heatmap_rel_err": lidar_heat_err}}))

@@ -323,3 +323,72 @@ def test_depth_lss_on_card_matches_cpu(cuda, route):
         torch.cuda.synchronize()
     assert bp.bev_pool.launches - launches == 1
     _close(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [8, 64, 1000])
+def test_copy_kernel_equals_plain(cuda, M):
+    from bevfusion_tpu_torch.tools import bench_tile_micro as tm
+
+    x = (torch.randn(M, 1024, generator=torch.Generator().manual_seed(M)) * 5).to(torch.bfloat16)
+    x = x.to(cuda)
+    launches = tm.copy_add_one.launches
+    got = tm.copy_add_one(x)
+    torch.cuda.synchronize()
+    assert tm.copy_add_one.launches == launches + 1
+    assert torch.equal(got.view(torch.int16), tm.copy_add_one_plain(x).view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,R,G,steps", [(16, 8, 2, 3), (16, 8, 3, 5), (40, 1, 8, 64),
+                                         (12, 40, 4, 7), (6, 70, 8, 2)])
+def test_gather_kernel_equals_plain(cuda, T, R, G, steps):
+    """Tiles of 1 to 70 rows (units of 32 rows: one, and several with a
+    ragged last one), G from 2 to 8."""
+    from bevfusion_tpu_torch.tools import bench_tile_micro as tm
+
+    pool, slots = tm.gather_inputs(T, R, G, steps, cuda, seed=R + G)
+    launches = tm.gather_tiles.launches
+    got = tm.gather_tiles(pool, slots, R, G)
+    torch.cuda.synchronize()
+    assert tm.gather_tiles.launches == launches + 1
+    assert torch.equal(got.view(torch.int16),
+                       tm.gather_tiles_plain(pool, slots, R, G).view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_gather_kernel_rejects_what_it_does_not_take(cuda):
+    from bevfusion_tpu_torch.tools import bench_tile_micro as tm
+
+    pool, slots = tm.gather_inputs(8, 4, 4, 2, cuda)
+    launches = tm.gather_tiles.launches
+    with pytest.raises(ValueError):
+        tm.gather_tiles(pool, slots, 4, 1)  # G < 2
+    with pytest.raises(TypeError):
+        tm.gather_tiles(pool.float(), slots, 4, 4)
+    with pytest.raises(TypeError):
+        tm.gather_tiles(pool, slots.long(), 4, 4)
+    with pytest.raises(ValueError):
+        tm.gather_tiles(pool, slots[:-1], 4, 4)
+    assert tm.gather_tiles.launches == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,strided", [(16, 16, False), (32, 32, False), (16, 32, True),
+                                              (5, 16, False), (64, 128, False)])
+@pytest.mark.parametrize("tile", [64, 128])
+def test_variant_kernel_modes_match_plain(cuda, cin, cout, strided, tile):
+    from bevfusion_tpu_torch.tools import bench_kernel_variants as kv
+
+    feats, nbr, _, w, _ = (t if t is None else t.to(cuda)
+                           for t in _conv_operands(cin, cout, strided, seed=2))
+    for mode in kv.MODES:
+        launches = kv.sparse_conv_variant.launches
+        got = kv.sparse_conv_variant(feats, nbr, w, mode, tile)
+        torch.cuda.synchronize()
+        assert kv.sparse_conv_variant.launches == launches + 1
+        _close(got, kv.sparse_conv_variant_plain(feats, nbr, w, mode))
+    current = kv.sparse_conv_variant(feats, nbr, w, "current", tile)
+    assert torch.equal(kv.sparse_conv_variant(feats, nbr, w, "noskip", tile), current)
+    if tile == 64:  # the production loop, in the production order
+        assert torch.equal(current, sp.sparse_conv(feats, nbr, w))

@@ -83,9 +83,12 @@ def test_bridge_imports_no_jax():
 def test_every_port_module_imports_no_jax():
     mods, walked = _imported_after([WALK])
     for name in ("runtime.bridge", "runtime.adapter", "runtime.train", "core.matching",
-                 "models.losses", "ops.gaussian", "ops.iou3d", "devices"):
+                 "models.losses", "ops.gaussian", "ops.iou3d", "devices", "utils.profiler",
+                 "tools.bench_tile_micro", "tools.bench_kernel_variants", "tools.profile_meta",
+                 "tools.profile_encoder", "tools.profile_vtransform", "tools.profile_stages",
+                 "tools.bench_train_step", "tools.benchmark"):
         assert f"bevfusion_tpu_torch.{name}" in walked, name
-    assert len(walked) >= 30
+    assert len(walked) >= 40
     _assert_no_jax(mods)
 
 
@@ -111,7 +114,8 @@ def _chip_smoke_imports():
 
 def test_chip_smoke_imports_no_jax():
     wanted = _chip_smoke_imports()
-    assert {"bevfusion_tpu_torch.runtime.train", "bevfusion_tpu_torch.ops.sparse_conv"} <= wanted
+    assert {"bevfusion_tpu_torch.tools.bench_train_step", "bevfusion_tpu_torch.ops.sparse_conv",
+            "bevfusion_tpu_torch.utils.profiler"} <= wanted
     mods, _ = _imported_after(sorted(wanted) + ["chip_smoke"])
     assert "chip_smoke" in mods
     _assert_no_jax(mods)
