@@ -1,8 +1,9 @@
-// The sparse-conv gather-GEMM loop of csrc/sparse_conv.cu, without its
+// The first, scalar form of the sparse-conv gather-GEMM loop of
+// csrc/sparse_conv.cu (before its tensor-core redesign), without its
 // epilogue, in four modes that split its time into parts, fp32:
 //
-//   current    out[i] = sum_k x[nbr[k, i]] @ W[k]  (the production loop: an
-//              offset that every site of the tile misses is skipped)
+//   current    out[i] = sum_k x[nbr[k, i]] @ W[k]  (the scalar loop: an offset
+//              that every site of the tile misses is skipped)
 //   noskip     the same numbers with no skip: every offset is staged and
 //              multiplied
 //   nogather   out[i] = sum_k [nbr[k, i] >= 0] x[i] @ W[k]: the tile's own
@@ -13,22 +14,24 @@
 //
 // Replaces the TPU kernel tools/bench_kernel_variants.py:_kernel (modes
 // current, roll, noalign, nohot), which split the windowed Pallas conv's
-// time into its lane alignment, its one-hot matmul and its DMAs. The port's
-// production kernel has none of those, so the modes here split it into
-// what it does have: the gather (current - nogather), the product
-// (current - noproduct) and what the skip saves (noskip - current).
-// fp32, because the kernel it breaks down is fp32 (the TPU tool was bf16
-// because its production kernel was); a bf16 form waits for the bf16
-// sparse-conv path.
+// time into its lane alignment, its one-hot matmul and its DMAs. The scalar
+// kernel has none of those, so the modes here split it into what it does
+// have: the gather (current - nogather), the product (current - noproduct)
+// and what the skip saves (noskip - current). fp32, because the kernel it
+// breaks down is fp32 (the TPU tool was bf16 because its production kernel
+// was); a bf16 form waits for the bf16 sparse-conv path.
 //
-// What bounds it on an H100: as the production kernel, per output row K *
-// Cin * 4 bytes of gathered rows and 2 * K * Cin * Cout flops, 8 to 32
-// flops per byte, at or below the fp32 ridge; the feature tables fit the
-// 50 MB L2. The design is the production one, so the modes measure it:
-// one block of 256 threads per TILE output sites (64, the production
-// tile, or 128), each thread keeping TILE / (256 / COL_PAD) sums in
-// registers. In `current`, TILE 64 adds in the production order, so it
-// equals csrc/sparse_conv.cu with no epilogue bit for bit.
+// What bounds it on an H100: per output row K * Cin * 4 bytes of gathered
+// rows and 2 * K * Cin * Cout flops on the fp32 FMA units, 8 to 32 flops
+// per byte, at or below the fp32 ridge; the feature tables fit the 50 MB
+// L2. The design is the scalar one, so the modes measure it: one block of 256
+// threads per TILE output sites (64, the scalar kernel's tile, or 128), each thread
+// keeping TILE / (256 / COL_PAD) sums in registers, a block-wide vote and
+// a synchronous staging of rows and W[k] per offset. `current` at TILE 64
+// is the scalar kernel without epilogue, bit for bit; chip_smoke.py times it
+// beside today's csrc/sparse_conv.cu (a cp.async ring feeding 3xTF32
+// tensor-core tiles), which agrees with it to fp32 rounding, not bit for
+// bit.
 
 #include <cuda_runtime.h>
 

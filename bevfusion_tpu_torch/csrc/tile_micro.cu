@@ -18,11 +18,15 @@
 // A gather whose pool fits the 50 MB L2 can beat that bound, since its
 // rows come from L2 after the first touch.
 //
-// Design. The copy: each thread loads four 16-byte vectors (neighbouring
-// threads on neighbouring addresses) before it stores any, so a block of
-// 256 threads has 16 KB in flight and 8192 blocks cover the 132 SMs many
-// times over; the add goes through the bf16 intrinsics (round to nearest
-// even, as PyTorch's bf16 add), so the result equals `x + 1` bit for bit.
+// Design. The copy: each thread loads one 16-byte vector (neighbouring
+// threads on neighbouring addresses) and stores it plus one, and 32768
+// one-shot blocks of 256 threads cover the 132 SMs many times over; the
+// add goes through the bf16 intrinsics (round to nearest even, as
+// PyTorch's bf16 add), so the result equals `x + 1` bit for bit. Timed
+// between back-to-back launches on an H100 it runs at the rate of torch's
+// own `x + 1`; 2, 4 or 8 vectors a thread were up to 0.8% slower, and
+// 128 or 512 threads, a grid-stride loop over 2-8 blocks an SM and
+// streaming cache hints no faster (PERF.md, K5).
 // The gather: a tile is copied in units of up to 32 rows (8 KB) with
 // 16-byte `cp.async` copies into a ring of 4 shared-memory stages, so 3
 // units are in flight while the block waits for the oldest; units go
@@ -41,7 +45,7 @@
 namespace {
 
 constexpr int kCopyThreads = 256;
-constexpr int kCopyVecs = 4;     // 16-byte vectors a thread loads before it stores
+constexpr int kCopyVecs = 1;     // 16-byte vectors a thread loads before it stores
 constexpr int kRowVecs = 16;     // a pool row: 128 bf16 = 256 B = 16 vectors
 constexpr int kChunkRows = 32;   // rows per copy unit of the gather (8 KB)
 constexpr int kStages = 4;       // shared-memory ring of the gather; kStages - 1 in flight

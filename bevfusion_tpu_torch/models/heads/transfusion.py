@@ -92,8 +92,7 @@ class TransFusionHead(nn.Module):
                 local_max[:, c] = heatmap[:, c]
         heatmap = heatmap * (heatmap == local_max)
 
-        top = torch.sort(heatmap.reshape(B, -1), dim=1, descending=True,
-                         stable=True).indices[:, :P]
+        top = self._proposals(heatmap.reshape(B, -1), P)
         top_cls = top // (H * W)
         top_idx = top % (H * W)
         query_feat = flat.gather(1, top_idx[..., None].expand(-1, -1, flat.shape[-1]))
@@ -122,6 +121,12 @@ class TransFusionHead(nn.Module):
         out["dense_heatmap"] = dense_heatmap
         out["query_labels"] = top_cls
         return out
+
+    def _proposals(self, scores: torch.Tensor, P: int) -> torch.Tensor:
+        """The ``P`` best of ``scores`` [B, ncls*H*W] (the peak-filtered
+        heatmap, class-major) per sample, best first, ties to the lower
+        index: the flat indices of the queries."""
+        return torch.sort(scores, dim=1, descending=True, stable=True).indices[:, :P]
 
     def loss(self, preds: Dict[str, torch.Tensor], gt_boxes: torch.Tensor,
              gt_labels: torch.Tensor, gt_valid: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -7,8 +7,9 @@ library under ``<repo>/build/kernels/`` and loaded with ``ctypes``
 minutes). The library's file name carries a hash of the source and
 flags, so an edited source is rebuilt and a stale library is never
 loaded. The compiler's output (``-Xptxas -v``: registers, shared
-memory, spills per kernel) is kept beside the library as ``<name>.log``.
-Nothing here runs at import.
+memory, spills per kernel) is kept beside the library as ``<name>.log``;
+``sass`` disassembles a built library (``cuobjdump -sass``). Nothing here
+runs at import.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import os
 import subprocess
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "load_library", "build_log"]
+__all__ = ["BUILD_DIR", "load_library", "build_log", "library_path", "sass"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "kernels"
@@ -27,12 +28,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
-def _nvcc() -> str:
+def _tool(name: str) -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 
     if CUDA_HOME is None:
         raise RuntimeError("no CUDA toolkit found: set CUDA_HOME or put nvcc on PATH")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
+    return os.path.join(CUDA_HOME, "bin", name)
 
 
 def _digest(src: Path) -> str:
@@ -43,17 +44,30 @@ def build_log(name: str) -> Path:
     return BUILD_DIR / f"{name}.log"
 
 
+def library_path(name: str) -> Path:
+    """The library ``csrc/<name>.cu`` builds into (built or not)."""
+    src = CSRC / f"{name}.cu"
+    return BUILD_DIR / f"lib{name}-{_digest(src)}.so"
+
+
+def sass(name: str) -> str:
+    """The SASS of ``csrc/<name>.cu``'s library, built first if missing."""
+    load_library(name)
+    return subprocess.run([_tool("cuobjdump"), "-sass", str(library_path(name))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+
+
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if its library is missing, then load it."""
     src = CSRC / f"{name}.cu"
-    lib_path = BUILD_DIR / f"lib{name}-{_digest(src)}.so"
+    lib_path = library_path(name)
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         # build under a per-process name and rename: concurrent builders
         # never load a half-written library
         tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        proc = subprocess.run([_tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp), str(src)],
                               capture_output=True, text=True, timeout=600)
         build_log(name).write_text(proc.stdout + proc.stderr)
         if proc.returncode != 0:

@@ -1,5 +1,6 @@
 """Sparse 3D convolution: rulebooks over sorted site ids, the gather-GEMM
-kernel (``csrc/sparse_conv.cu``), the weight-gradient kernel
+kernel (``csrc/sparse_conv.cu``: a ``cp.async`` ring feeding 3xTF32
+tensor-core tiles), the weight-gradient kernel
 (``csrc/sparse_conv_dw.cu``), each with its plain version, and the
 autograd Function that trains through both.
 

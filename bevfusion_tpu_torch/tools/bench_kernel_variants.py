@@ -3,16 +3,18 @@
 Counterpart of ``tools/bench_kernel_variants.py``, with the hand-written
 kernel of ``csrc/sparse_conv_variants.cu`` (K7) in place of its Pallas
 kernel. The JAX tool split the windowed Pallas conv into its lane
-alignment, one-hot matmul and DMAs; this one splits the port's
-production kernel (``csrc/sparse_conv.cu``, no epilogue) into
+alignment, one-hot matmul and DMAs; this one splits the first, scalar-FMA
+form of the sparse-conv kernel (``csrc/sparse_conv.cu`` before its
+tensor-core redesign, which K7 keeps; no epilogue) into
 
 - the gather:          ``current - nogather``
 - the product:         ``current - noproduct``
 - what the skip saves: ``noskip - current``
 
 at the stage-0 (C = 16) and stage-1 (C = 32) submanifold convs of the
-voxelized 120k-point ring scan, at tiles of 64 (the production tile) and
-128 output sites, fp32.
+voxelized 120k-point ring scan, at tiles of 64 (the scalar kernel's tile) and 128
+output sites, fp32. ``current`` at tile 64 is the yardstick that
+``chip_smoke.py`` times beside today's tensor-core kernel.
 
 Run: ``python -m bevfusion_tpu_torch.tools.bench_kernel_variants`` (on the card).
 """
@@ -75,7 +77,7 @@ def build_kernels() -> None:
 
 def sparse_conv_variant(feats: torch.Tensor, nbr: torch.Tensor, weight: torch.Tensor,
                         mode: str = "current", tile: int = 64) -> torch.Tensor:
-    """The production sparse conv's loop in ``mode`` (``MODES``) with
+    """The scalar sparse-conv loop in ``mode`` (``MODES``) with
     ``tile`` output sites a block (64 or 128); see
     ``sparse_conv_variant_plain`` for what each mode computes. CUDA tensors
     launch the hand-written kernel (fp32, contiguous, 1..128 channels) on

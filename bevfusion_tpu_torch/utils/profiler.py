@@ -8,7 +8,7 @@ way:
 - ``trace(logdir)``: ``torch.profiler`` around the block (the card's
   kernels too, where there is one), a Chrome trace written into ``logdir``;
 - ``time_fn``: ms per call (mean and median) and calls per second; CUDA
-  events around each call on the card, the host clock on the CPU;
+  events between back-to-back calls on the card, the host clock on the CPU;
 - ``flops_of``: the FLOPs a call runs, ``FlopCounterMode`` for the ATen
   ops plus the useful FLOPs of the port's own kernels (a ``ctypes``
   launch, which that counter cannot see); peak device memory on the card;
@@ -65,17 +65,21 @@ def synchronize(device) -> None:
 
 
 def _event_times(fn: Callable, warmup: int, iters: int) -> List[float]:
+    """ms of each of ``iters`` back-to-back calls after ``warmup``: CUDA
+    events recorded between consecutive calls, one synchronise at the end.
+    The host queues the calls ahead of the card, so a kernel's interval is
+    its time on the card, not its wrapper's host time; where the host is
+    the slower, the interval is the host's time per call."""
     for _ in range(warmup):
         fn()
-    times = []
-    for _ in range(iters):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(iters + 1)]
+    torch.cuda.synchronize()
+    events[0].record()
+    for end in events[1:]:
         fn()
         end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return times
+    torch.cuda.synchronize()
+    return [start.elapsed_time(end) for start, end in zip(events, events[1:])]
 
 
 def frame_ms(fn: Callable, warmup: int = 5, iters: int = 20,
@@ -102,8 +106,9 @@ def time_fn(fn: Callable, *args, iters: int = 20, warmup: int = 3,
             device="cuda") -> Dict[str, float]:
     """ms per call of ``fn(*args)`` after ``warmup`` calls: ``mean_ms``,
     ``median_ms`` and ``fps`` (calls per second at the mean). On the card
-    (the default) each call sits between two CUDA events; on the CPU
-    (``device="cpu"``) the host clock times it."""
+    (the default) CUDA events sit between back-to-back calls, so a call is
+    its time on the card (``_event_times``); on the CPU (``device="cpu"``)
+    the host clock times each call."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         times = _event_times(lambda: fn(*args), warmup, iters)

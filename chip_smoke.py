@@ -6,17 +6,23 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
 1. device: the card's name and power limit; TF32 off for fp32 parity;
 2. build: compile the five kernel sources of bevfusion_tpu_torch/csrc (one
    nvcc per source, started together); the ptxas register and spill lines;
+   the count of tensor-core instructions (``HMMA``) in the sparse-conv
+   library's SASS (``cuobjdump -sass``), which must be above 0;
 3. sparse-conv kernel vs plain: the kernel and its plain PyTorch version
    on the same CUDA tensors at the LiDAR branch's shapes (a voxelized
    120k-point scan at voxelnet_0p075: the input conv, a stage-0 residual
    conv, the stage-0 strided conv, a stage-1 and a stage-2 residual conv),
    max|d| <= 1e-4 * max(|plain|, 1) on valid rows; each one's median time,
-   hit-pair count and bound;
+   hit-pair count and bound (3 TF32 products per multiply-add on the
+   tensor cores, the 3xTF32 split; the fp32-FMA bound beside it); its time
+   without epilogue beside the scalar loop, the kernel's first form (K7
+   ``current`` at tile 64), timed in the same run, and the ratio;
 4. weight-gradient kernel vs plain at the same five shapes, the same
    tolerance, times and bounds;
 5. backward-data through the sparse-conv kernel (``SparseConvFunction``:
    mirrored weights for submanifold convs, the transposed rulebook for the
-   strided one) vs autograd of the plain version, the same tolerance;
+   strided one) vs autograd of the plain version, the same tolerance; its
+   time beside the scalar loop on the same operands, and the ratio;
 6. the memory probes' kernels vs plain (``tools/bench_tile_micro.py``): K5,
    the copy ``x + 1``, at [65536, 1024] bf16, and K6, the tile gather, at
    the tool's five settings, each equal to its plain version bit for bit;
@@ -24,9 +30,10 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
    (``tools/bench_kernel_variants.py``, K7): its four modes at tiles 64 and
    128 at the stage-0 (C = 16) and stage-1 (C = 32) submanifold convs of
    the scan, max|d| <= 1e-4 * max(|plain|, 1); ``noskip`` equal to
-   ``current``, and ``current`` at tile 64 equal to the production
-   sparse-conv kernel without epilogue, bit for bit; the plain versions'
-   times;
+   ``current`` bit for bit, and ``current`` at tile 64 (the scalar loop, which
+   K7 keeps) within the same 1e-4 of the sparse-conv kernel without
+   epilogue (now a tensor-core kernel, so no longer bit for bit); the
+   plain versions' times;
 8. the LiDAR slice: TransFusion-L (voxelnet_0p075) at full width with
    seeded random weights, eval forward at batch 1 on the scan; 15 kernel
    launches per forward, every box field finite, heatmap logits within
@@ -48,18 +55,24 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
    again with TF32 on;
 11. the flagship's training step at full width, B = 1, host LUT, TF32 off,
    PyTorch's deterministic algorithms on (the card's own run-to-run noise
-   would swamp the comparison):
-   one forward + backward through the kernels and one through their plain
-   versions on the card (same weights, the heatmap head's last conv scaled
-   by 0.2 so its logits stay unsaturated, same batch, a freshly seeded
-   dropout generator each); both select the same proposals, the plain pass
-   takes the kernel pass's Hungarian targets (whether its own match is
-   printed: at random init the auction's assignment flips under the card's
-   run-to-run noise); loss within 1e-4 relative and every parameter's
-   gradient within 5e-3 relative in norm; every parameter has a gradient;
-   the step launches the sparse-conv kernel 15 + 14 times (forward,
-   backward-data: the input conv's voxel features need no gradient), the
-   weight-gradient kernel 15 times and the BEV-pool kernel once;
+   would swamp the comparison), the heatmap head's last conv scaled by 0.2
+   so its logits stay unsaturated; passes of one forward + backward (same
+   weights and batch, a freshly seeded dropout generator each), every
+   later one taking the first one's top-k proposals and Hungarian targets
+   (whether its own match is printed: at random init both flip under
+   rounding differences): A through the kernels; B through the plain
+   versions, the sparse convs' in float64 rounded once to fp32
+   (``sparse_conv_exact``): loss and the proposals' scores within 1e-4
+   relative of A; C, A's forward through the kernels and the backward
+   through the plain versions: every parameter's gradient within 5e-3
+   relative in norm of A's, every parameter has a gradient; B', B with the
+   sparse convs in fp32: each of A's gradients within 5e-3 relative in
+   norm of B's plus 4 times B' vs B (A and B's gradients differ wherever
+   rounding moves an input across a ReLU's or a top-k's tie, and B' shows
+   how far each gradient moves so); pass A launches the sparse-conv
+   kernel 15 + 14 times (forward, backward-data: the input conv's voxel
+   features need no gradient), the weight-gradient kernel 15 times and
+   the BEV-pool kernel once, pass C the forward's 15 + 1;
 12. five timed train steps with TF32 on (``tools/bench_train_step.py`` on
    ``runtime/train.py``: AdamW, clip 35, the config's cosine lr with linear
    warmup and cyclic momentum): losses finite, parameters changed; median
@@ -96,7 +109,7 @@ import time
 
 import torch
 
-from bevfusion_tpu_torch.utils.profiler import bound, frame_ms, nbytes, time_fn
+from bevfusion_tpu_torch.utils.profiler import TF32_FLOPS, bound, frame_ms, nbytes, time_fn
 
 FP32_RTOL_KERNEL = 1e-4  # kernel vs plain on the card: summation order only
 HEATMAP_RTOL = 2e-3  # full model on the card vs on the CPU, ~40 fp32 layers
@@ -106,6 +119,12 @@ TRAIN_LOSS_RTOL = 1e-4  # train step through the kernels vs their plain versions
 # sums over 32,400 BEV cells that nearly cancel, at up to 1.7e-3 on an H100
 TRAIN_GRAD_RTOL = 5e-3
 ZERO_GRAD = 1e-6  # of the global norm: a gradient that is zero but for rounding
+# the forward kernels' effect on a gradient (A vs B) may exceed the gate above
+# by this many times how far the same gradient of B moves when B's sparse
+# convs turn from float64 to fp32 (B'): where a rounding-level change of the
+# forward flips a ReLU or a tie, the gradient jumps by about as much whichever
+# conv rounds (the kernel is closer to float64 than cuBLAS fp32, phase 3)
+TRAIN_GRAD_SENSITIVITY = 4
 SPARSE_LAUNCHES = 15  # 13 submanifold + 2 strided sparse convs at B=1
 POOL_LAUNCHES = 1  # one BEV pool per frame at B=1
 TRAIN_LAUNCHES = {"sparse_conv": 15 + 14, "sparse_conv_dw": 15, "bev_pool": 1}
@@ -128,13 +147,25 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return (got - want).abs().max().item() / max(want.abs().max().item(), 1.0)
 
 
+def sparse_conv_exact(sp):
+    """``sparse_conv_plain`` with its gather-GEMM in float64, rounded once to
+    fp32 (epilogue after): the train step's plain sparse conv (passes B and
+    C). cuBLAS in fp32 is 2e-7 to 2e-6 of scale off float64 at the encoder's
+    shapes, 1.2-7x the 3xTF32 kernel (phase 3)."""
+    def conv(feats, nbr, weight, scale=None, shift=None, residual=None, relu=False):
+        y = sp.sparse_conv_plain(feats.double(), nbr, weight.double()).float()
+        return sp._epilogue(y, scale, shift, residual, relu)
+    return conv
+
+
 @contextlib.contextmanager
-def plain_kernels(sp, bp):
+def plain_kernels(sp, bp, conv=None):
     """Every kernel wrapper replaced by its plain version (on CUDA tensors
-    too) for the duration; the wrappers' launch counts are untouched."""
+    too) for the duration, the sparse conv by ``conv`` where given; the
+    wrappers' launch counts are untouched."""
     saved = sp.sparse_conv, sp.sparse_conv_dw, bp.bev_pool
     sp.sparse_conv, sp.sparse_conv_dw, bp.bev_pool = (
-        sp.sparse_conv_plain, sp.sparse_conv_dw_plain, bp.bev_pool_plain)
+        conv or sp.sparse_conv_plain, sp.sparse_conv_dw_plain, bp.bev_pool_plain)
     try:
         yield
     finally:
@@ -159,6 +190,31 @@ def recorded_targets(head, store):
         yield compute
     finally:
         del head._targets
+
+
+@contextlib.contextmanager
+def recorded_proposals(head, store):
+    """The head's top-k proposals recorded by the first pass and replayed
+    to later ones, as ``recorded_targets`` does for the Hungarian targets:
+    at random init the peak-filtered heatmap is a near-flat plateau, and a
+    top-200 of 324,000 scores swaps near-tied neighbours under rounding
+    differences far below the gates (ROADMAP Queue 3, decode ties). Yields
+    the list of each later pass's own selection."""
+    select, own = head._proposals, []
+
+    def proposals(scores, P):
+        top = select(scores, P)
+        if "top" not in store:
+            store["top"] = top
+        else:
+            own.append(top)
+        return store["top"]
+
+    head._proposals = proposals
+    try:
+        yield own
+    finally:
+        del head._proposals
 
 
 def kernel_cases(enc, feats, coords, mask, sp):
@@ -236,10 +292,36 @@ def run_model(label, model, batch, cpu_model, cpu_batch, counters, want_launches
     return launches, heat_err, frames, peak
 
 
-def sparse_kernel_phases(sp, cases):
+def beside_scalar_loop(kv, sp, feats, nbr, w):
+    """The sparse-conv kernel without epilogue and the scalar loop (K7
+    ``current`` at tile 64) on the same operands, timed in turns (scalar,
+    kernel, kernel, scalar): (kernel ms, scalar ms), each the mean of its
+    two medians."""
+    runs = {"kernel": lambda: sp.sparse_conv(feats, nbr, w),
+            "scalar": lambda: kv.sparse_conv_variant(feats, nbr, w, "current", 64)}
+    ms = {k: 0.0 for k in runs}
+    for k in ("scalar", "kernel", "kernel", "scalar"):
+        ms[k] += kernel_ms(runs[k]) / 2
+    return ms["kernel"], ms["scalar"]
+
+
+def vs_float64(kv, sp, feats, nbr, w, valid):
+    """max|d| / max(|ref|, 1) on the valid rows against the conv in float64
+    on the card, without epilogue: the kernel (3xTF32), the scalar loop (fp32
+    FMA) and the plain version (cuBLAS fp32)."""
+    ref = sp.sparse_conv_plain(feats.double(), nbr, w.double())[valid]
+    scale = max(ref.abs().max().item(), 1.0)
+    got = {"kernel": sp.sparse_conv(feats, nbr, w),
+           "scalar loop": kv.sparse_conv_variant(feats, nbr, w, "current", 64),
+           "cuBLAS fp32": sp.sparse_conv_plain(feats, nbr, w)}
+    return {k: (v.double()[valid] - ref).abs().max().item() / scale for k, v in got.items()}
+
+
+def sparse_kernel_phases(sp, kv, cases):
     """Phases 3-5 at each shape: forward, weight gradient and backward-data
-    against their plain versions; times and bounds. Returns three lists of
-    per-shape records."""
+    against their plain versions; times and bounds, the forward and
+    backward-data beside the scalar loop. Returns three lists of per-shape
+    records."""
     fwd, dw, bwd = [], [], []
     for label, (feats, nbr, w), kw, valid, nbr_t in cases:
         K, Cin, Cout = w.shape
@@ -250,16 +332,26 @@ def sparse_kernel_phases(sp, cases):
         err = (got - want)[valid].abs().max().item()
         scale = max(want[valid].abs().max().item(), 1.0)
         check(err <= FP32_RTOL_KERNEL * scale, f"{label}: max|d| {err} vs plain, scale {scale}")
-        b_ms, b_by = bound(2 * hits * Cin * Cout, nbytes(feats, nbr, w, got, *(
-            v for v in kw.values() if torch.is_tensor(v))))
+        # 3xTF32: three TF32 products on the tensor cores per useful multiply-add
+        moved = nbytes(feats, nbr, w, got, *(v for v in kw.values() if torch.is_tensor(v)))
+        b_ms, b_by = bound(3 * 2 * hits * Cin * Cout, moved, TF32_FLOPS)
+        fma_ms, fma_by = bound(2 * hits * Cin * Cout, moved)  # the scalar kernel's: fp32 FMA
         ms = kernel_ms(lambda: sp.sparse_conv(feats, nbr, w, **kw))
         plain_ms = kernel_ms(lambda: sp.sparse_conv_plain(feats, nbr, w, **kw))
+        bare_ms, scalar_ms = beside_scalar_loop(kv, sp, feats, nbr, w)
+        f64 = vs_float64(kv, sp, feats, nbr, w, valid)
         fwd.append({"shape": label, "sites_out": nbr.shape[1], "valid_out": int(valid.sum()),
                     "hits": hits, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": b_ms, "bound_by": b_by})
+                    "bound_ms": b_ms, "bound_by": b_by, "bound_fp32_fma_ms": fma_ms,
+                    "ms_no_epilogue": bare_ms, "scalar_loop_ms": scalar_ms,
+                    "scalar_over_new": scalar_ms / bare_ms, "rel_err_vs_float64": f64})
         print(f"kernel sparse_conv {label}: {int(valid.sum())} of {nbr.shape[1]} output sites, "
               f"{hits} hit pairs, max|d| {err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.3f} of bound")
+              f"ms, bound {b_ms:.4f} ms ({b_by}; fp32 FMA {fma_ms:.4f} ms, {fma_by}), "
+              f"{b_ms / ms:.3f} of bound; without epilogue {bare_ms:.4f} ms vs the scalar "
+              f"loop {scalar_ms:.4f} ms in this run: "
+              f"{scalar_ms / bare_ms:.2f}x; max|d| / max(|f64|, 1) vs float64 (no epilogue): "
+              + ", ".join(f"{k} {v:.2e}" for k, v in f64.items()))
 
         # 4. the weight gradient of the same conv, for a random output gradient
         dout = torch.randn(nbr.shape[1], Cout, device=DEVICE,
@@ -292,10 +384,12 @@ def sparse_kernel_phases(sp, cases):
         check(err <= FP32_RTOL_KERNEL * scale, f"{label} d_feats: max|d| {err}, scale {scale}")
         table, wt = ((nbr, w.flip(0).transpose(1, 2).contiguous()) if nbr_t is None
                      else (nbr_t, w.transpose(1, 2).contiguous()))
-        ms = kernel_ms(lambda: sp.sparse_conv(dout, table, wt))
-        bwd.append({"shape": label, "max_abs_err": err, "ms": ms})
+        ms, scalar_ms = beside_scalar_loop(kv, sp, dout, table, wt)
+        bwd.append({"shape": label, "max_abs_err": err, "ms": ms, "scalar_loop_ms": scalar_ms,
+                    "scalar_over_new": scalar_ms / ms})
         print(f"kernel sparse_conv backward-data {label}: max|d| {err:.3e} vs autograd of "
-              f"plain, kernel {ms:.4f} ms")
+              f"plain, kernel {ms:.4f} ms vs the scalar loop {scalar_ms:.4f} ms in this run: "
+              f"{scalar_ms / ms:.2f}x")
     return fwd, dw, bwd
 
 
@@ -328,12 +422,13 @@ def tile_probe_checks(tm):
 
 def variant_checks(kv, sp, cases):
     """Phase 7: K7's four modes at both tiles against their plain versions
-    (max|d| <= 1e-4 * max(|plain|, 1)); ``noskip`` equal to ``current``,
-    and ``current`` at tile 64 equal to ``sparse_conv`` with no epilogue,
-    bit for bit. Returns {(shape, mode): (max|d| over the tiles, plain ms)}."""
+    (max|d| <= 1e-4 * max(|plain|, 1)); ``noskip`` equal to ``current`` bit
+    for bit, and ``current`` at tile 64 (the scalar loop) within the same 1e-4
+    of ``sparse_conv`` with no epilogue (the tensor-core kernel). Returns
+    {(shape, mode): (max|d| over the tiles, plain ms)}."""
     out = {}
     for label, feats, nbr, w in cases:
-        production = sp.sparse_conv(feats, nbr, w)
+        new = sp.sparse_conv(feats, nbr, w)
         for mode in kv.MODES:
             want = kv.sparse_conv_variant_plain(feats, nbr, w, mode)
             scale = max(want.abs().max().item(), 1.0)
@@ -345,8 +440,9 @@ def variant_checks(kv, sp, cases):
                 check(errs[-1] <= FP32_RTOL_KERNEL * scale,
                       f"K7 {label} {mode} tile {tile}: max|d| {errs[-1]} vs plain, scale {scale}")
                 if mode == "current" and tile == 64:
-                    check(torch.equal(got, production),
-                          f"K7 {label}: current at tile 64 differs from sparse_conv")
+                    d = (got - new).abs().max().item()
+                    check(d <= FP32_RTOL_KERNEL * scale,
+                          f"K7 {label}: current at tile 64 vs sparse_conv max|d| {d}")
                 if mode == "noskip":
                     check(torch.equal(got, kv.sparse_conv_variant(feats, nbr, w, "current", tile)),
                           f"K7 {label}: noskip differs from current at tile {tile}")
@@ -354,8 +450,9 @@ def variant_checks(kv, sp, cases):
             out[(label, mode)] = (max(errs), plain_ms)
             print(f"kernel sparse_conv_variants (K7) {label} {mode}: max|d| {max(errs):.3e} at "
                   f"tiles {kv.TILES}, plain {plain_ms:.4f} ms")
-        print(f"kernel sparse_conv_variants (K7) {label}: current at tile 64 equal to sparse_conv "
-              f"without epilogue, noskip equal to current, bit for bit")
+        print(f"kernel sparse_conv_variants (K7) {label}: current at tile 64 (the scalar loop) "
+              f"within {FP32_RTOL_KERNEL:g} of sparse_conv without epilogue, noskip equal to "
+              f"current bit for bit")
     return out
 
 
@@ -465,90 +562,159 @@ def summary(name, source, replaces, launches, shapes, extra_err=(), library_ms=N
             "library_ms": library_ms, "shapes": shapes}
 
 
+def grad_gaps(grads, ref, global_norm):
+    """Per parameter of ``ref``: (|grads - ref| in norm, |ref| in norm), and
+    the worst relative gap among those above ``ZERO_GRAD`` of the global
+    norm, with its name."""
+    gaps = {n: (float((grads[n] - g).double().norm()), float(g.double().norm()))
+            for n, g in ref.items()}
+    worst = max(((d / r, n) for n, (d, r) in gaps.items() if r > ZERO_GRAD * global_norm),
+                default=(0.0, None))
+    return gaps, worst
+
+
 def train_step_parity(model, batch, sp, bp, counters):
-    """Phase 11: one forward + backward through the kernels (launches
-    counted) and one through the plain versions, same weights and batch,
-    a freshly seeded dropout generator each. Both passes must select the
-    same proposals; the plain pass takes the kernel pass's Hungarian
-    targets (``recorded_targets``), and whether its own would differ is
-    reported."""
+    """Phase 11: passes of one forward + backward, same weights and batch,
+    a freshly seeded dropout generator each; every later pass takes the
+    first one's proposals and Hungarian targets (``recorded_proposals``,
+    ``recorded_targets``), and whether its own would differ is reported.
+
+    - A: through the kernels (launches counted);
+    - B: through the plain versions, the sparse convs in float64 rounded
+      once (``sparse_conv_exact``): the loss and the proposals' heatmap
+      scores within 1e-4 relative of A (the forward kernels);
+    - C: A's forward through the kernels, the backward through the plain
+      versions: every parameter's gradient within 5e-3 relative in norm of
+      A's (the backward kernels: backward-data, the weight gradient). A
+      shares C's ReLU masks, batch statistics and top-k; against B they
+      differ wherever a rounding difference moves an input across a tie,
+      and a gradient jumps there (PERF.md §6);
+    - B': B with the sparse convs in fp32 (cuBLAS): how far each of B's
+      gradients moves under a rounding-level change of the forward. Every
+      gradient of A within 5e-3 relative in norm of B's plus
+      ``TRAIN_GRAD_SENSITIVITY`` times that move (the forward kernels'
+      effect on the gradients)."""
     from bevfusion_tpu_torch.models.layers import set_dropout_generator
 
     params = dict(model.named_parameters())
     head = model.heads["object"]
-    store = {}
+    store, tops = {}, {}
+    exact = sparse_conv_exact(sp)
     # cuDNN's and index_add_'s atomics otherwise make two kernel passes differ
     # by more than the kernels and their plain versions do
     torch.backends.cudnn.deterministic = True
     torch.use_deterministic_algorithms(True, warn_only=True)
 
-    def fwd_bwd():
+    def fwd_bwd(plain_backward=False):
         preds = {}
         hook = head.register_forward_hook(
             lambda mod, args, out: preds.update({k: v.detach() for k, v in out.items()}))
         set_dropout_generator(model, torch.Generator(device=DEVICE).manual_seed(0))
         model.zero_grad(set_to_none=True)
-        with recorded_targets(head, store) as compute:
+        with recorded_targets(head, store) as compute, recorded_proposals(head, tops) as own_top:
             losses = model(batch)
         hook.remove()
         total = sum(v for k, v in losses.items() if k.startswith("loss/"))
-        total.backward()
+        with plain_kernels(sp, bp, exact) if plain_backward else contextlib.nullcontext():
+            total.backward()
         torch.cuda.synchronize()
         with torch.no_grad():
             own = compute(0, preds, batch["gt_boxes"][0], batch["gt_labels"][0],
                           batch["gt_valid"][0], 1)
+        preds["own_top"] = own_top[0] if own_top else tops["top"]
         return ({k: v.item() for k, v in losses.items()}, total.item(),
                 {n: p.grad.clone() for n, p in params.items() if p.grad is not None}, preds, own)
 
-    torch.cuda.synchronize()
-    for c in counters.values():
-        c.launches = 0
-    t0 = time.perf_counter()
-    losses, total, grads, preds, own = fwd_bwd()
-    kernel_s = time.perf_counter() - t0
-    launches = {name: c.launches for name, c in counters.items()}
-    print(f"train step: launches in one forward + backward {launches}; {kernel_s:.2f} s")
-    check(launches == TRAIN_LAUNCHES, f"train step: launches {launches}, want {TRAIN_LAUNCHES}")
+    def counted(fn, want, what):
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        seconds = time.perf_counter() - t0
+        launches = {name: c.launches for name, c in counters.items()}
+        print(f"train step, {what}: launches {launches}; {seconds:.2f} s")
+        check(launches == want, f"train step, {what}: launches {launches}, want {want}")
+        return out, launches, seconds
+
+    (losses, total, grads, preds, own), launches, kernel_s = counted(
+        fwd_bwd, TRAIN_LAUNCHES, "A, forward + backward through the kernels")
     missing = sorted(set(params) - set(grads))
     check(not missing, f"train step: parameters without a gradient {missing[:5]}")
     check(math.isfinite(total), f"train step: loss {total}")
+    none = {name: 0 for name in counters}
+    with plain_kernels(sp, bp, exact):
+        (losses_p, total_p, grads_p, preds_p, own_p), _, plain_s = counted(
+            fwd_bwd, none, "B, through the plain versions")
     with plain_kernels(sp, bp):
-        t0 = time.perf_counter()
-        losses_p, total_p, grads_p, preds_p, own_p = fwd_bwd()
-        plain_s = time.perf_counter() - t0
-    check({name: c.launches for name, c in counters.items()} == launches,
-          "the plain path launched a kernel")
+        (_, _, grads_p32, _, _), _, _ = counted(fwd_bwd, none, "B', B with fp32 sparse convs")
+    forward_only = {"sparse_conv": SPARSE_LAUNCHES, "sparse_conv_dw": 0, "bev_pool": POOL_LAUNCHES}
+    (_, _, grads_c, preds_c, _), _, _ = counted(
+        lambda: fwd_bwd(plain_backward=True), forward_only,
+        "C, the kernels' forward and the plain versions' backward")
+
     heat_err = rel_err(preds["dense_heatmap"], preds_p["dense_heatmap"])
     score_err = rel_err(preds["query_heatmap_score"], preds_p["query_heatmap_score"])
     same_queries = torch.equal(preds["query_labels"], preds_p["query_labels"])
+    own_queries = torch.equal(preds["own_top"], preds_p["own_top"])
     same_targets = all(torch.equal(a, b) for a, b in zip(own, own_p))
-    print(f"train step: dense heatmap rel err {heat_err:.3e}; the same proposals "
-          f"{same_queries} (their scores rel err {score_err:.3e}); the plain pass's own "
-          f"Hungarian targets equal the kernel pass's: {same_targets}")
+    same_forward = torch.equal(preds["dense_heatmap"], preds_c["dense_heatmap"])
+    print(f"train step: A vs B: dense heatmap rel err {heat_err:.3e}; the same proposals "
+          f"{same_queries} (their scores rel err {score_err:.3e}); B's own proposals equal "
+          f"A's: {own_queries}; its own Hungarian targets: {same_targets}; A and C's forwards "
+          f"equal: {same_forward}")
     check(same_queries and score_err <= TRAIN_LOSS_RTOL, "train step: proposals differ")
     loss_err = max(abs(losses[k] - v) / max(abs(v), 1e-6) for k, v in losses_p.items())
     loss_err = max(loss_err, abs(total - total_p) / abs(total_p))
-    print(f"train step: losses {losses}; vs plain path max rel err {loss_err:.3e} "
-          f"(plain path {plain_s:.2f} s)")
+    print(f"train step: losses {losses}; A vs B max rel err {loss_err:.3e} "
+          f"(B {plain_s:.2f} s)")
     check(loss_err <= TRAIN_LOSS_RTOL, f"train step: loss rel err {loss_err}")
-    global_norm = math.sqrt(sum(float(g.double().square().sum()) for g in grads_p.values()))
-    worst, zero = 0.0, []
-    for n, g in grads_p.items():
-        diff, ref = float((grads[n] - g).double().norm()), float(g.double().norm())
-        if ref <= ZERO_GRAD * global_norm:
-            zero.append(n)
+
+    global_norm = math.sqrt(sum(float(g.double().square().sum()) for g in grads_c.values()))
+    gaps, worst = grad_gaps(grads, grads_c, global_norm)
+    zero = [n for n, (_, r) in gaps.items() if r <= ZERO_GRAD * global_norm]
+    for n, (diff, ref) in gaps.items():
+        if n in zero:
             check(diff <= ZERO_GRAD * global_norm, f"train step: {n} grad |d| {diff}")
         else:
-            worst = max(worst, diff / ref)
-            check(diff <= TRAIN_GRAD_RTOL * ref, f"train step: {n} grad rel err {diff / ref}")
-    print(f"train step: {len(grads)} parameter gradients, max rel err {worst:.3e} in norm vs "
-          f"plain path; {len(zero)} zero but for rounding (< {ZERO_GRAD:g} of the global norm "
-          f"{global_norm:.4e})")
+            check(diff <= TRAIN_GRAD_RTOL * ref,
+                  f"train step: {n} grad rel err {diff / ref} (norm {ref / global_norm:.3e} of "
+                  f"the global norm)")
+    print(f"train step: {len(grads)} parameter gradients, A vs C max rel err {worst[0]:.3e} in "
+          f"norm ({worst[1]}); {len(zero)} zero but for rounding (< {ZERO_GRAD:g} of the "
+          f"global norm {global_norm:.4e})")
+    gaps_ab, worst_ab = grad_gaps(grads, grads_p, global_norm)
+    gaps_bb, worst_bb = grad_gaps(grads_p32, grads_p, global_norm)
+    used, beyond = {}, []  # A vs B over what the gate allows; those past 5e-3 alone
+    for n, (diff, ref) in gaps_ab.items():
+        alone = ZERO_GRAD * global_norm if n in zero else TRAIN_GRAD_RTOL * ref
+        used[n] = diff / (alone + TRAIN_GRAD_SENSITIVITY * gaps_bb[n][0])
+        if diff > alone:
+            beyond.append(n)
+    order = sorted(used, key=used.get, reverse=True)
+
+    def rel(gap):
+        return gap[0] / max(gap[1], ZERO_GRAD * global_norm)
+
+    print(f"train step: A vs B max rel err {worst_ab[0]:.3e} ({worst_ab[1]}), B' vs B "
+          f"{worst_bb[0]:.3e} ({worst_bb[1]}); {len(beyond)} gradients of A past "
+          f"{TRAIN_GRAD_RTOL:g} of B's; the gate ({TRAIN_GRAD_RTOL:g} + {TRAIN_GRAD_SENSITIVITY} x "
+          f"B' vs B) most used by: "
+          + "; ".join(f"{n} {used[n]:.3f} (A vs B {rel(gaps_ab[n]):.3e}, B' vs B "
+                      f"{rel(gaps_bb[n]):.3e})" for n in order[:5]))
+    for n in order:
+        check(used[n] <= 1.0, f"train step: {n} grad A vs B rel err {rel(gaps_ab[n])}, B' vs B "
+              f"{rel(gaps_bb[n])}: {used[n]:.3f} of the gate")
     torch.use_deterministic_algorithms(False)
     torch.backends.cudnn.deterministic = False
     return {"launches": launches, "losses": losses, "loss_rel_err": loss_err,
-            "grad_rel_err": worst, "zero_grads": len(zero), "heatmap_rel_err": heat_err,
-            "same_own_targets": same_targets, "kernel_s": kernel_s, "plain_s": plain_s}
+            "grad_rel_err": worst[0], "grad_rel_err_vs_plain": worst_ab[0],
+            "plain_grad_rel_err_fp32_vs_float64": worst_bb[0],
+            "grad_vs_plain_share_of_gate": used[order[0]], "grads_past_rtol_vs_plain": len(beyond),
+            "zero_grads": len(zero),
+            "heatmap_rel_err": heat_err, "same_forward_a_c": same_forward,
+            "same_own_proposals": own_queries, "same_own_targets": same_targets,
+            "kernel_s": kernel_s, "plain_s": plain_s}
 
 
 def main() -> int:
@@ -593,6 +759,9 @@ def main() -> int:
         for line in native.build_log(lib).read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {lib}: {line.strip()}")
+    hmma = sum("HMMA" in line for line in native.sass("sparse_conv").splitlines())
+    print(f"build: {hmma} tensor-core (HMMA) instructions in the sparse-conv library's SASS")
+    check(hmma > 0, "the sparse-conv kernel has no tensor-core (HMMA) instruction")
 
     # 3-5. sparse-conv kernels vs plain at the LiDAR branch's shapes
     _, cpu_model, cpu_batch = build_lidar_slice("cpu", num_points=120000, seed=0)
@@ -600,7 +769,7 @@ def main() -> int:
     vox = cpu_model.lidar_voxelize(batch["points"], batch["points_mask"])
     enc = cpu_model.encoders["lidar"]["backbone"]
     cases = kernel_cases(enc, vox.feats[0], vox.coords[0], vox.mask[0], sp)
-    shapes, dw_shapes, bwd_shapes = sparse_kernel_phases(sp, cases)
+    shapes, dw_shapes, bwd_shapes = sparse_kernel_phases(sp, kv, cases)
     del cases
 
     # 6. the memory probes' kernels vs plain
@@ -742,7 +911,10 @@ def main() -> int:
                      parity["launches"]["sparse_conv"], shapes,
                      [s["max_abs_err"] for s in bwd_shapes]),
              also_replaces=["bevfusion_tpu/ops/sparse_conv_windowed.py:180"],
-             launches_eval=launches["sparse_conv"], backward_data=bwd_shapes),
+             launches_eval=launches["sparse_conv"], backward_data=bwd_shapes,
+             ms_no_epilogue=sum(s["ms_no_epilogue"] for s in shapes),
+             scalar_loop_ms=sum(s["scalar_loop_ms"] for s in shapes),
+             bound_fp32_fma_ms=sum(s["bound_fp32_fma_ms"] for s in shapes)),
         summary("sparse_conv_dw", "bevfusion_tpu_torch/csrc/sparse_conv_dw.cu",
                 "bevfusion_tpu/ops/sparse_conv_windowed.py:501",
                 parity["launches"]["sparse_conv_dw"], dw_shapes),
@@ -752,10 +924,10 @@ def main() -> int:
              launches_eval=launches["bev_pool"], backward_ms=pool_bwd_ms,
              backward_plain_ms=pool_bwd_plain_ms, backward_rel_err=pool_bwd_err,
              lut_host_s=lut_s, lut_card_ms=lut_card_ms),
-        dict(summary("tile_copy", "bevfusion_tpu_torch/csrc/tile_micro.cu",
-                     "tools/bench_tile_micro.py:50", tool_launches["tile_copy"],
-                     [dict(tools["copy"], max_abs_err=tile_errs["copy"])],
-                     library_ms=tools["copy"]["library_ms"])),
+        summary("tile_copy", "bevfusion_tpu_torch/csrc/tile_micro.cu",
+                "tools/bench_tile_micro.py:50", tool_launches["tile_copy"],
+                [dict(tools["copy"], max_abs_err=tile_errs["copy"])],
+                library_ms=tools["copy"]["library_ms"]),
         summary("tile_gather", "bevfusion_tpu_torch/csrc/tile_micro.cu",
                 "tools/bench_tile_micro.py:77", tool_launches["tile_gather"],
                 [dict(r, max_abs_err=tile_errs[(r["R"], r["G"])]) for r in tools["gathers"]]),
