@@ -38,6 +38,11 @@ class BEVFusion(nn.Module):
         if set(heads) != {"object"}:
             raise NotImplementedError("the port runs the object head only "
                                       "(ROADMAP: remaining heads)")
+        if not encoders:
+            raise ValueError("BEVFusion: the config has no sensor branch (every entry of "
+                             "model.encoders is null)")
+        if fuser is None and len(encoders) > 1:
+            raise ValueError("BEVFusion: several sensor branches need a fuser")
         self.encoders = nn.ModuleDict()
         if "camera" in encoders:
             cam = encoders["camera"]
@@ -55,8 +60,6 @@ class BEVFusion(nn.Module):
             self.encoders["lidar"] = nn.ModuleDict({"backbone": BACKBONES.build(lidar["backbone"])})
         if fuser is not None:
             self.fuser = FUSERS.build(fuser)
-        elif len(self.encoders) != 1:
-            raise ValueError("BEVFusion: several sensor branches need a fuser")
         self.decoder = nn.ModuleDict({"backbone": BACKBONES.build(decoder["backbone"]),
                                       "neck": NECKS.build(decoder["neck"])})
         self.heads = nn.ModuleDict({"object": HEADS.build(heads["object"])})

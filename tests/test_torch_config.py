@@ -29,3 +29,20 @@ def test_overrides_and_attribute_access():
     # ${voxel_size[:2]} re-resolves against the override
     assert cfg.model.heads.object.bbox_coder.voxel_size == [0.1, 0.1]
     assert cfg.model.heads.object.num_proposals == 50
+
+
+@pytest.mark.parametrize("rel,drop_fuser,message", [
+    ("configs/nuscenes/det/transfusion/secfpn/lidar/default.yaml", False, "no sensor branch"),
+    ("configs/nuscenes/det/transfusion/secfpn/camera+lidar/swint_v0p075/convfuser.yaml", True,
+     "several sensor branches need a fuser"),
+], ids=["no-branch", "two-branches-no-fuser"])
+def test_build_model_names_what_the_config_lacks(rel, drop_fuser, message):
+    from bevfusion_tpu_torch.models import build_model
+
+    model_cfg = dict(load_config(os.path.join(ROOT, rel)).model)
+    if drop_fuser:
+        model_cfg["fuser"] = None
+    with pytest.raises(ValueError, match=message) as err:
+        build_model(model_cfg, "cpu")
+    if not drop_fuser:
+        assert "fuser" not in str(err.value)
