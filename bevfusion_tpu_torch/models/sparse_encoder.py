@@ -148,6 +148,10 @@ def _dilate(active: torch.Tensor, kernel_size, stride, padding) -> torch.Tensor:
 
 @BACKBONES.register
 class SparseEncoder(nn.Module):
+    # the strided conv between stages (its padding is per stage,
+    # ``encoder_paddings``)
+    DOWN_KERNEL, DOWN_STRIDE = 3, 2
+
     def __init__(self, in_channels: int, sparse_shape: Sequence[int],
                  order: Sequence[str] = ("conv", "norm", "act"),
                  norm_cfg: Optional[dict] = None, base_channels: int = 16,
@@ -214,8 +218,9 @@ class SparseEncoder(nn.Module):
             padding = self.encoder_paddings[i][j]
             stage["down"] = (padding, cap)
             ids, mask = timed(f"s{i} meta: downsample_sites -> {cap}",
-                              lambda: sp.downsample_sites(ids, grid, 3, 2, padding, cap))
-            grid = sp.conv_out_shape(grid, 3, 2, padding)
+                              lambda: sp.downsample_sites(ids, grid, self.DOWN_KERNEL,
+                                                          self.DOWN_STRIDE, padding, cap))
+            grid = sp.conv_out_shape(grid, self.DOWN_KERNEL, self.DOWN_STRIDE, padding)
         return stages
 
     def forward(self, voxel_feats, coords, mask, timed=untimed):
@@ -269,13 +274,15 @@ class SparseEncoder(nn.Module):
                 if dense is None and 0 <= self.dense_from_stage <= i + 1:
                     dense, active = timed(f"s{i} densify", densify)
                 if dense is not None:
-                    active = _dilate(active, 3, 2, padding)
-                    dense = timed(f"s{i} strided dense conv3d {cin}->{cout}",
-                                  lambda: F.relu(bn.dense(conv.dense(dense, 2, padding), active)))
+                    active = _dilate(active, self.DOWN_KERNEL, self.DOWN_STRIDE, padding)
+                    dense = timed(f"s{i} strided dense conv3d {cin}->{cout}", lambda: F.relu(
+                        bn.dense(conv.dense(dense, self.DOWN_STRIDE, padding), active)))
                 else:
                     nxt = [s[i + 1] for s in sites]
                     cnbrs, cnbrs_t = timed(f"s{i} meta: build_conv_rulebook",
-                                           lambda: _conv_rulebooks(stage, nxt, padding, xs))
+                                           lambda: _conv_rulebooks(stage, nxt, padding, xs,
+                                                                   self.DOWN_KERNEL,
+                                                                   self.DOWN_STRIDE))
                     xs = timed(f"s{i} strided conv {cin}->{cout}", lambda: conv(
                         xs, cnbrs, bn, [s["mask"] for s in nxt], nbrs_t=cnbrs_t))
                     stage = nxt
@@ -314,7 +321,7 @@ def _subm_rulebooks(stage):
     return [sp.build_subm_rulebook(s["ids"], s["grid"]) for s in stage]
 
 
-def _conv_rulebooks(src, dst, padding, xs, kernel_size=3, stride=2):
+def _conv_rulebooks(src, dst, padding, xs, kernel_size, stride):
     """A strided conv's gather tables from each sample's sites ``src`` to
     ``dst``, and the transposed tables when the conv trains and its input
     ``xs`` needs a gradient (else None)."""

@@ -4,9 +4,9 @@ Every kernel source ``csrc/<name>.cu`` exports a plain C interface. At
 first use it is compiled with ``nvcc`` for ``sm_90a`` into a shared
 library under ``<repo>/build/kernels/`` and loaded with ``ctypes``
 (seconds to build, where a source that includes PyTorch's headers takes
-minutes). The library's file name carries a hash of the source and
-flags, so an edited source is rebuilt and a stale library is never
-loaded. The compiler's output (``-Xptxas -v``: registers, shared
+minutes). The library's file name carries a hash of the source, the
+shared headers ``csrc/*.cuh`` and the flags, so an edited source or
+header is rebuilt and a stale library is never loaded. The compiler's output (``-Xptxas -v``: registers, shared
 memory, spills per kernel) is kept beside the library as ``<name>.log``;
 ``sass`` disassembles a built library (``cuobjdump -sass``). Nothing here
 runs at import.
@@ -37,7 +37,9 @@ def _tool(name: str) -> str:
 
 
 def _digest(src: Path) -> str:
-    return hashlib.sha1(" ".join(NVCC_FLAGS).encode() + src.read_bytes()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    return hashlib.sha1(" ".join(NVCC_FLAGS).encode() + src.read_bytes()
+                        + headers).hexdigest()[:16]
 
 
 def build_log(name: str) -> Path:

@@ -323,7 +323,10 @@ sparse_conv.launches = 0
 # the weight gradient: CUDA kernel and plain version
 # ----------------------------------------------------------------------
 
-DW_CHUNK = 1024  # output sites per block of the weight-gradient kernel
+# output sites per block of the weight-gradient kernel: at the encoder's
+# caps (60,000-160,000 sites) 30-79 chunks x 27 offsets, more blocks than
+# the 132 SMs hold at once, and a 16 KB hit list in shared memory
+DW_CHUNK = 2048
 
 
 def sparse_conv_dw_plain(feats: torch.Tensor, nbr: torch.Tensor,
@@ -360,8 +363,10 @@ def sparse_conv_dw(feats: torch.Tensor, nbr: torch.Tensor, dout: torch.Tensor) -
     of ``sparse_conv``.
 
     CUDA tensors launch the hand-written kernel (fp32; contiguous inputs;
-    Cin, Cout <= 128) on the current stream, with a fixed-order reduction
-    over its site chunks, so the result is the same from run to run; CPU
+    Cin, Cout <= 128; the hit pairs compacted per offset and chunk and
+    multiplied on the tensor cores in the 3xTF32 split) on the current
+    stream, with a fixed-order reduction over its warps and site chunks,
+    so the result is the same from run to run; CPU
     tensors take ``sparse_conv_dw_plain``. ``sparse_conv_dw.launches``
     counts kernel launches.
     """

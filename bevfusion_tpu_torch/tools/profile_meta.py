@@ -44,13 +44,14 @@ def profile_meta(enc, coords: torch.Tensor, mask: torch.Tensor, device="cuda", i
         if st["down"] is None:
             continue
         padding, cap_out = st["down"]
-        og = sp.conv_out_shape(grid, 3, 2, padding)
+        geo = (enc.DOWN_KERNEL, enc.DOWN_STRIDE, padding)
+        og = sp.conv_out_shape(grid, *geo)
         out_ids, _ = timed(f"{tag} downsample_sites -> {cap_out}",
-                           lambda: sp.downsample_sites(ids, grid, 3, 2, padding, cap_out))
+                           lambda: sp.downsample_sites(ids, grid, *geo, cap_out))
         timed(f"{tag} build_conv_rulebook",
-              lambda: sp.build_conv_rulebook(ids, out_ids, grid, og, 3, 2, padding))
+              lambda: sp.build_conv_rulebook(ids, out_ids, grid, og, *geo))
         timed(f"{tag} build_conv_transpose_rulebook (training)",
-              lambda: sp.build_conv_transpose_rulebook(ids, out_ids, grid, og, 3, 2, padding))
+              lambda: sp.build_conv_transpose_rulebook(ids, out_ids, grid, og, *geo))
         rows.append({"op": f"{tag} build_windowed_rulebook (strided)", "ms": None})
     return rows
 

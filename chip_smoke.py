@@ -6,22 +6,29 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
 1. device: the card's name and power limit; TF32 off for fp32 parity;
 2. build: compile the five kernel sources of bevfusion_tpu_torch/csrc (one
    nvcc per source, started together); the ptxas register and spill lines;
-   the count of tensor-core instructions (``HMMA``) in the sparse-conv
-   library's SASS (``cuobjdump -sass``), which must be above 0;
+   the count of tensor-core instructions (``HMMA``) in the SASS
+   (``cuobjdump -sass``) of the sparse-conv and weight-gradient libraries,
+   each of which must be above 0;
 3. sparse-conv kernel vs plain: the kernel and its plain PyTorch version
-   on the same CUDA tensors at the LiDAR branch's shapes (a voxelized
+   on the same CUDA tensors at the LiDAR branch's six shapes (a voxelized
    120k-point scan at voxelnet_0p075: the input conv, a stage-0 residual
-   conv, the stage-0 strided conv, a stage-1 and a stage-2 residual conv),
-   max|d| <= 1e-4 * max(|plain|, 1) on valid rows; each one's median time,
+   conv, the stage-0 strided conv, a stage-1 residual conv, the stage-1
+   strided conv and a stage-2 residual conv; the strided convs' geometry
+   the encoder's own), max|d| <= 1e-4 * max(|plain|, 1) on valid rows;
+   each one's median time,
    hit-pair count and bound (3 TF32 products per multiply-add on the
    tensor cores, the 3xTF32 split; the fp32-FMA bound beside it); its time
    without epilogue beside the scalar loop, the kernel's first form (K7
    ``current`` at tile 64), timed in the same run, and the ratio;
-4. weight-gradient kernel vs plain at the same five shapes, the same
-   tolerance, times and bounds;
+4. weight-gradient kernel vs plain at the same six shapes, the same
+   tolerance, bit-equal across two calls; times and bounds as phase 3 (3
+   TF32 products per multiply-add, the fp32-FMA bound beside it); the
+   kernel's and the plain version's max|d| against the product in float64;
+   the kernel's time over the forward's without epilogue in the same run;
+   the sum over a train step's 15 launches (time x launches a shape);
 5. backward-data through the sparse-conv kernel (``SparseConvFunction``:
-   mirrored weights for submanifold convs, the transposed rulebook for the
-   strided one) vs autograd of the plain version, the same tolerance; its
+   mirrored weights for submanifold convs, the transposed rulebooks for the
+   strided ones) vs autograd of the plain version, the same tolerance; its
    time beside the scalar loop on the same operands, and the ratio;
 6. the memory probes' kernels vs plain (``tools/bench_tile_micro.py``): K5,
    the copy ``x + 1``, at [65536, 1024] bf16, and K6, the tile gather, at
@@ -41,7 +48,10 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
    peak device memory;
 9. BEV-pool kernel vs plain at the flagship's shape: depth [1, 6, 118, 32,
    88] (softmax of seeded noise), ctx [1, 6, 80, 32, 88] (held
-   channels-last), the intervals of the flagship batch's own pooling LUT;
+   channels-last), the intervals of the flagship batch's own pooling LUT
+   (their length's mean, p99 and max, and how many distinct (cell, ctx
+   row) pairs they hold against P; the wrapper's zero fill alone, and the
+   kernel on the intervals longest first and on those of <= 64 points);
    max|d| <= 1e-4 * max(|plain|, 1), both median times and the bound; the
    pool's backward (torch ops) vs autograd of the plain pool, the same
    tolerance, and its time; the time of building the LUT on the host and on
@@ -220,16 +230,24 @@ def recorded_proposals(head, store):
 def kernel_cases(enc, feats, coords, mask, sp):
     """The sparse convs of the main path at their real shapes: the sites of
     the encoder ``enc``'s stages 0-2 on the voxelized scan (voxel feats
-    [M, 5], coords [M, 3], mask [M]), their rulebooks (and the strided conv's transposed one),
-    random fp32 operands. Returns (label, (feats, nbr, weight), epilogue
-    kwargs, valid output rows, transposed table or None)."""
+    [M, 5], coords [M, 3], mask [M]), their rulebooks (the strided convs'
+    kernel, stride and padding the encoder's own, and their transposed
+    tables), random fp32 operands. Returns (label, (feats, nbr, weight),
+    epilogue kwargs, valid output rows, transposed table or None, launches
+    of the shape in a train step's weight gradient)."""
+    from bevfusion_tpu_torch.models.sparse_encoder import SparseBasicBlock
+
     s0, s1, s2 = enc.sparse_sites(coords, mask)
-    (ids, grid), (ids1, grid1), (ids2, grid2) = ((s["ids"], s["grid"]) for s in (s0, s1, s2))
-    nbr0 = sp.build_subm_rulebook(ids, grid)
-    cnbr = sp.build_conv_rulebook(ids, ids1, grid, grid1, 3, 2, 1)
-    cnbr_t = sp.build_conv_transpose_rulebook(ids, ids1, grid, grid1, 3, 2, 1)
-    nbr1 = sp.build_subm_rulebook(ids1, grid1)
-    nbr2 = sp.build_subm_rulebook(ids2, grid2)
+    subm = [2 * sum(isinstance(b, SparseBasicBlock) for b in layer)
+            for layer in enc.encoder_layers.children()]
+    nbr0, nbr1, nbr2 = (sp.build_subm_rulebook(s["ids"], s["grid"]) for s in (s0, s1, s2))
+
+    def strided(a, b):
+        geo = (enc.DOWN_KERNEL, enc.DOWN_STRIDE, a["down"][0])
+        return (sp.build_conv_rulebook(a["ids"], b["ids"], a["grid"], b["grid"], *geo),
+                sp.build_conv_transpose_rulebook(a["ids"], b["ids"], a["grid"], b["grid"], *geo))
+
+    (cnbr0, cnbr0_t), (cnbr1, cnbr1_t) = strided(s0, s1), strided(s1, s2)
     g = torch.Generator(device=DEVICE).manual_seed(0)
     dev = coords.device
 
@@ -242,18 +260,20 @@ def kernel_cases(enc, feats, coords, mask, sp):
             kw["residual"] = rand(residual_rows, c)
         return kw
 
-    cap0, cap1, cap2 = ids.shape[0], ids1.shape[0], ids2.shape[0]
+    cap0, cap1, cap2 = (s["ids"].shape[0] for s in (s0, s1, s2))
     return [
         ("conv_input 5->16", (feats, nbr0, rand(27, 5, 16, std=(2 / 135) ** 0.5)), epi(16),
-         mask, None),
+         mask, None, 1),
         ("stage0 subm 16->16", (rand(cap0, 16), nbr0, rand(27, 16, 16, std=(2 / 432) ** 0.5)),
-         epi(16, cap0), mask, None),
-        ("stage0 strided 16->32", (rand(cap0, 16), cnbr, rand(27, 16, 32, std=(2 / 432) ** 0.5)),
-         epi(32), s1["mask"], cnbr_t),
+         epi(16, cap0), mask, None, subm[0]),
+        ("stage0 strided 16->32", (rand(cap0, 16), cnbr0, rand(27, 16, 32, std=(2 / 432) ** 0.5)),
+         epi(32), s1["mask"], cnbr0_t, 1),
         ("stage1 subm 32->32", (rand(cap1, 32), nbr1, rand(27, 32, 32, std=(2 / 864) ** 0.5)),
-         epi(32, cap1), s1["mask"], None),
+         epi(32, cap1), s1["mask"], None, subm[1]),
+        ("stage1 strided 32->64", (rand(cap1, 32), cnbr1, rand(27, 32, 64, std=(2 / 864) ** 0.5)),
+         epi(64), s2["mask"], cnbr1_t, 1),
         ("stage2 subm 64->64", (rand(cap2, 64), nbr2, rand(27, 64, 64, std=(2 / 1728) ** 0.5)),
-         epi(64, cap2), s2["mask"], None),
+         epi(64, cap2), s2["mask"], None, subm[2]),
     ]
 
 
@@ -323,7 +343,7 @@ def sparse_kernel_phases(sp, kv, cases):
     backward-data beside the scalar loop. Returns three lists of per-shape
     records."""
     fwd, dw, bwd = [], [], []
-    for label, (feats, nbr, w), kw, valid, nbr_t in cases:
+    for label, (feats, nbr, w), kw, valid, nbr_t, step_launches in cases:
         K, Cin, Cout = w.shape
         hits = int((nbr >= 0).sum())
         got = sp.sparse_conv(feats, nbr, w, **kw)
@@ -364,14 +384,26 @@ def sparse_kernel_phases(sp, kv, cases):
         scale = max(want.abs().max().item(), 1.0)
         check(err <= FP32_RTOL_KERNEL * scale, f"{label} dW: max|d| {err} vs plain, scale {scale}")
         check(torch.equal(sp.sparse_conv_dw(feats, nbr, dout), got), f"{label} dW: not repeatable")
-        b_ms, b_by = bound(2 * hits * Cin * Cout, nbytes(feats, nbr, dout, got))
+        # 3xTF32, as phase 3: three TF32 products per useful multiply-add
+        moved = nbytes(feats, nbr, dout, got)
+        b_ms, b_by = bound(3 * 2 * hits * Cin * Cout, moved, TF32_FLOPS)
+        fma_ms, fma_by = bound(2 * hits * Cin * Cout, moved)
         ms = kernel_ms(lambda: sp.sparse_conv_dw(feats, nbr, dout))
         plain_ms = kernel_ms(lambda: sp.sparse_conv_dw_plain(feats, nbr, dout))
+        ref = sp.sparse_conv_dw_plain(feats.double(), nbr, dout.double())
+        ref_scale = max(ref.abs().max().item(), 1.0)
+        f64 = {"kernel": (got.double() - ref).abs().max().item() / ref_scale,
+               "plain (cuBLAS fp32)": (want.double() - ref).abs().max().item() / ref_scale}
+        over_fwd = ms / fwd[-1]["ms_no_epilogue"]
         dw.append({"shape": label, "hits": hits, "max_abs_err": err, "ms": ms,
-                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by})
+                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "bound_fp32_fma_ms": fma_ms, "rel_err_vs_float64": f64,
+                   "over_forward_no_epilogue": over_fwd, "step_launches": step_launches})
         print(f"kernel sparse_conv_dw {label}: {hits} hit pairs, max|d| {err:.3e}, kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-              f"{b_ms / ms:.3f} of bound")
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; fp32 FMA "
+              f"{fma_ms:.4f} ms, {fma_by}), {b_ms / ms:.3f} of bound; {over_fwd:.2f}x the "
+              f"forward without epilogue in this run; {step_launches} a step; max|d| / "
+              f"max(|f64|, 1) vs float64: " + ", ".join(f"{k} {v:.2e}" for k, v in f64.items()))
 
         # 5. backward-data through the forward kernel vs autograd of the plain conv
         x = feats.clone().requires_grad_()
@@ -759,9 +791,10 @@ def main() -> int:
         for line in native.build_log(lib).read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {lib}: {line.strip()}")
-    hmma = sum("HMMA" in line for line in native.sass("sparse_conv").splitlines())
-    print(f"build: {hmma} tensor-core (HMMA) instructions in the sparse-conv library's SASS")
-    check(hmma > 0, "the sparse-conv kernel has no tensor-core (HMMA) instruction")
+    for lib in ("sparse_conv", "sparse_conv_dw"):
+        hmma = sum("HMMA" in line for line in native.sass(lib).splitlines())
+        print(f"build: {hmma} tensor-core (HMMA) instructions in the {lib} library's SASS")
+        check(hmma > 0, f"the {lib} kernel has no tensor-core (HMMA) instruction")
 
     # 3-5. sparse-conv kernels vs plain at the LiDAR branch's shapes
     _, cpu_model, cpu_batch = build_lidar_slice("cpu", num_points=120000, seed=0)
@@ -771,6 +804,13 @@ def main() -> int:
     cases = kernel_cases(enc, vox.feats[0], vox.coords[0], vox.mask[0], sp)
     shapes, dw_shapes, bwd_shapes = sparse_kernel_phases(sp, kv, cases)
     del cases
+    step_dw = {k: sum(s[k] * s["step_launches"] for s in dw_shapes)
+               for k in ("ms", "plain_ms", "bound_ms")}
+    check(sum(s["step_launches"] for s in dw_shapes) == TRAIN_LAUNCHES["sparse_conv_dw"],
+          f"phase 4: launches a step {[s['step_launches'] for s in dw_shapes]}")
+    print(f"kernel sparse_conv_dw: a train step's {TRAIN_LAUNCHES['sparse_conv_dw']} launches at "
+          f"these shapes {step_dw['ms']:.4f} ms (plain {step_dw['plain_ms']:.4f} ms, bound "
+          f"{step_dw['bound_ms']:.4f} ms)")
 
     # 6. the memory probes' kernels vs plain
     tile_errs = tile_probe_checks(tm)
@@ -812,16 +852,38 @@ def main() -> int:
           f"bev_pool: max|d| {pool_err} vs plain, scale {pool_scale}")
     pool_ms = kernel_ms(lambda: bp.bev_pool(depth, ctx, iv, Z, X, Y))
     pool_plain_ms = kernel_ms(lambda: bp.bev_pool_plain(depth, ctx, iv, Z, X, Y))
+    # where the pool's time goes: the wrapper's zero fill of the grid; the
+    # kernel on the intervals of at most 64 points alone, and on all of
+    # them longest first (the LUT's cell order puts long intervals anywhere)
+    zero_ms = kernel_ms(lambda: torch.zeros((Z * X * Y, vt.C), device=DEVICE))
+    by_length = torch.argsort(iv.interval_lengths, descending=True, stable=True)
+    short = iv.interval_lengths <= 64
+    pool_split = {}
+    for key, sel in (("longest_first_ms", by_length), ("short_only_ms", short)):
+        part = bp.PoolIntervals(iv.ranks_depth, iv.ranks_feat,
+                                *(t[sel].contiguous() for t in iv[2:]))
+        pool_split[key] = kernel_ms(lambda: bp.bev_pool(depth, ctx, part, Z, X, Y))
     # each input byte once (the P pooled depth values, the whole ctx table,
     # the interval arrays), the zero-filled output grid once; a multiply-add
     # per pooled point and channel
     pool_bound, pool_by = bound(2 * P * vt.C, 4 * P + nbytes(ctx, got, *iv))
     lengths = iv.interval_lengths.float()
+    pool_lengths = {"mean": lengths.mean().item(), "p99": lengths.quantile(0.99).item(),
+                    "max": int(lengths.max().item())}
+    # distinct ctx rows a cell reads: what a pool that reads each (cell,
+    # ctx row) once would gather, against the P rows gathered now
+    cell_of_point = torch.repeat_interleave(iv.interval_cells.long(), iv.interval_lengths.long())
+    pairs = torch.unique(cell_of_point * (ctx.numel() // vt.C) + iv.ranks_feat.long()).numel()
     print(f"kernel bev_pool: P {P} of {depth.numel()} frustum points in the grid, R {R} "
-          f"intervals of {Z * X * Y} cells (length mean {lengths.mean().item():.2f}, max "
-          f"{int(lengths.max().item())}); max|d| {pool_err:.3e}, kernel {pool_ms:.4f} ms, "
-          f"plain {pool_plain_ms:.4f} ms, bound {pool_bound:.4f} ms ({pool_by}), "
-          f"{pool_bound / pool_ms:.3f} of bound")
+          f"intervals of {Z * X * Y} cells (length mean {pool_lengths['mean']:.2f}, p99 "
+          f"{pool_lengths['p99']:.0f}, max {pool_lengths['max']}); {pairs} distinct (cell, "
+          f"ctx row) pairs = {pairs / P:.4f} of P; max|d| {pool_err:.3e}, kernel "
+          f"{pool_ms:.4f} ms, plain {pool_plain_ms:.4f} ms, bound {pool_bound:.4f} ms "
+          f"({pool_by}), {pool_bound / pool_ms:.3f} of bound; the wrapper's zero fill alone "
+          f"{zero_ms:.4f} ms; the same call with the intervals longest first "
+          f"{pool_split['longest_first_ms']:.4f} ms, on the {int(short.sum())} intervals of "
+          f"<= 64 points ({int(iv.interval_lengths[short].sum())} points) alone "
+          f"{pool_split['short_only_ms']:.4f} ms")
     # the pool's backward (torch ops, chunked) vs autograd of the plain pool
     gout = torch.randn(got.shape, generator=g, device=DEVICE)
     dr, cr = depth.clone().requires_grad_(), ctx.clone().requires_grad_()
@@ -903,7 +965,9 @@ def main() -> int:
 
     # 14. results
     pool_entry = {"shape": "flagship [1,6,118,32,88] x [1,6,32,88,80]", "points": P,
-                  "intervals": R, "max_abs_err": pool_err, "ms": pool_ms,
+                  "intervals": R, "interval_lengths": pool_lengths,
+                  "distinct_cell_ctx_pairs": pairs, "zero_fill_ms": zero_ms, **pool_split,
+                  "max_abs_err": pool_err, "ms": pool_ms,
                   "plain_ms": pool_plain_ms, "bound_ms": pool_bound, "bound_by": pool_by}
     kernels = [
         dict(summary("sparse_conv", "bevfusion_tpu_torch/csrc/sparse_conv.cu",
@@ -915,9 +979,11 @@ def main() -> int:
              ms_no_epilogue=sum(s["ms_no_epilogue"] for s in shapes),
              scalar_loop_ms=sum(s["scalar_loop_ms"] for s in shapes),
              bound_fp32_fma_ms=sum(s["bound_fp32_fma_ms"] for s in shapes)),
-        summary("sparse_conv_dw", "bevfusion_tpu_torch/csrc/sparse_conv_dw.cu",
-                "bevfusion_tpu/ops/sparse_conv_windowed.py:501",
-                parity["launches"]["sparse_conv_dw"], dw_shapes),
+        dict(summary("sparse_conv_dw", "bevfusion_tpu_torch/csrc/sparse_conv_dw.cu",
+                     "bevfusion_tpu/ops/sparse_conv_windowed.py:501",
+                     parity["launches"]["sparse_conv_dw"], dw_shapes),
+             step_ms=step_dw["ms"], step_plain_ms=step_dw["plain_ms"],
+             step_bound_ms=step_dw["bound_ms"]),
         dict(summary("bev_pool", "bevfusion_tpu_torch/csrc/bev_pool.cu",
                      "bevfusion_tpu/ops/bev_pool_pallas.py:49", parity["launches"]["bev_pool"],
                      [pool_entry]),

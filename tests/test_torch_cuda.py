@@ -260,6 +260,63 @@ def test_weight_gradient_kernel_rejects_what_it_does_not_take(cuda):
 
 
 @pytest.mark.cuda
+def test_weight_gradient_kernel_input_width_every_cout(cuda):
+    """Cin = 5 (4-byte copies, N padded to 8) against every Cout up to 128,
+    each with its own padding of the mma's M; equal bits across two calls."""
+    feats, nbr, _, _, _ = (t if t is None else t.to(cuda) for t in _conv_operands(5, 16, False))
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for cout in range(1, 129):
+        dout = torch.randn(nbr.shape[1], cout, generator=g, device=cuda)
+        got = sp.sparse_conv_dw(feats, nbr, dout)
+        torch.cuda.synchronize()
+        assert got.shape == (27, 5, cout)
+        _close(got, sp.sparse_conv_dw_plain(feats, nbr, dout))
+        assert torch.equal(sp.sparse_conv_dw(feats, nbr, dout), got), cout
+
+
+def _dw_table(cap_in, cap_out, seed):
+    """A [27, cap_out] table over ``cap_in`` rows in which: chunk 0 (the
+    kernel's first DW_CHUNK sites) misses at every offset; offset 3 misses
+    everywhere; offset 5 hits 13 sites of chunk 1 (not a multiple of the
+    mma's 8 sites) and nothing else; offset 7 points past ``cap_in`` (a
+    miss) on every other site and hits on the rest. Returns (table, the
+    same table with every miss as -1)."""
+    rng = np.random.RandomState(seed)
+    nbr = rng.randint(-1, cap_in, (27, cap_out)).astype(np.int32)
+    nbr[nbr % 3 == 0] = -1  # about 40% of the slots miss
+    chunk = sp.DW_CHUNK
+    nbr[7, ::2] = cap_in + rng.randint(0, 5, nbr[7, ::2].shape)
+    nbr[7, 1::2] = rng.randint(0, cap_in, nbr[7, 1::2].shape)
+    nbr[:, :chunk] = -1
+    nbr[3] = -1
+    nbr[5] = -1
+    nbr[5, chunk + rng.choice(chunk, 13, replace=False)] = rng.randint(0, cap_in, 13)
+    clean = np.where(nbr >= cap_in, -1, nbr)
+    return torch.from_numpy(nbr), torch.from_numpy(clean)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(5, 16), (16, 16), (32, 64), (64, 32), (128, 128)])
+def test_weight_gradient_kernel_misses(cuda, cin, cout):
+    """An all-miss chunk, an offset that misses everywhere, entries >=
+    cap_in (misses), and a chunk of 13 hits: as the plain version on the
+    table with every miss written as -1; the missed offset exactly zero;
+    equal bits across two calls."""
+    cap_in, cap_out = 3000, 3 * sp.DW_CHUNK + 100
+    nbr, clean = (t.to(cuda) for t in _dw_table(cap_in, cap_out, seed=cin + cout))
+    g = torch.Generator(device=cuda).manual_seed(cin * cout)
+    feats = torch.randn(cap_in, cin, generator=g, device=cuda)
+    dout = torch.randn(cap_out, cout, generator=g, device=cuda)
+    got = sp.sparse_conv_dw(feats, nbr, dout)
+    torch.cuda.synchronize()
+    want = sp.sparse_conv_dw_plain(feats, clean, dout)
+    _close(got, want)
+    assert not got[3].any()
+    assert got[5].abs().max() > 0  # the 13 hits were summed, not dropped
+    assert torch.equal(sp.sparse_conv_dw(feats, nbr, dout), got)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("cin,cout,strided", [(16, 16, False), (16, 32, True), (64, 64, False)])
 def test_sparse_conv_function_on_card_matches_plain_autograd(cuda, cin, cout, strided):
     """Forward, backward-data (mirrored or transposed weights) and the
@@ -399,6 +456,26 @@ def test_bev_pool_kernel_matches_plain(cuda, Z):
     assert bp.bev_pool.launches == launches + 1
     assert got.shape == (2, Z * 80, zxy[1], zxy[2])
     _close(got, bp.bev_pool_plain(depth, ctx, iv, *zxy))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [80, 6, 37, 130])
+def test_bev_pool_kernel_channels_and_empty_cells(cuda, C):
+    """C = 80 (16-byte rows) and widths not divisible by 4 (one channel a
+    lane; 37 and 130 run in several channel blocks); intervals of 1 point
+    and of more than 32; every cell that no interval covers stays zero."""
+    depth, ctx, iv, zxy = _pool_inputs(1, seed=C, C=C)
+    lengths = iv.interval_lengths
+    assert (lengths == 1).any() and (lengths > 32).any()
+    depth, ctx = depth.to(cuda), ctx.to(cuda)
+    iv = bp.PoolIntervals(*(t.to(cuda) for t in iv))
+    got = bp.bev_pool(depth, ctx, iv, *zxy)
+    torch.cuda.synchronize()
+    _close(got, bp.bev_pool_plain(depth, ctx, iv, *zxy))
+    cells = got.permute(0, 2, 3, 1).reshape(-1, C)  # Z = 1: [B*X*Y, C]
+    empty = torch.ones(cells.shape[0], dtype=torch.bool, device=cuda)
+    empty[iv.interval_cells.long()] = False
+    assert empty.any() and not cells[empty].any()
 
 
 @pytest.mark.cuda
