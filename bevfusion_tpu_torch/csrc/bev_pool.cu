@@ -30,7 +30,7 @@
 // every thread reloaded the two ranks and the depth value of each point as
 // dependent 4-byte loads before its ctx load (0.110 of the bound, 0.1804 ms
 // on an NVIDIA H100 80GB HBM3 at 700 W). Its time, and that of a first
-// warp-per-interval form (0.1784 ms), is set by the few long intervals,
+// warp-per-interval form (0.1801 ms), is set by the few long intervals,
 // not by the gather rate: at the flagship the intervals hold 36 points on
 // average, p99 160, at most 576, and chip_smoke.py phase 9 times the same
 // kernel on the intervals of at most 64 points alone (85% of the points)
@@ -55,6 +55,11 @@
 // - an index outside its array is skipped in the loop and asserted on once
 //   after it: an assert inside the loop made the first form 25% slower on
 //   an H100 at the flagship's shape.
+//
+// Measured (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py phase 9, the
+// wrapper's call with its 41.5 MB zero fill of 0.0226 ms): 0.1196 ms,
+// 0.166 of the bound; with the intervals longest first 0.1017 ms, so part
+// of the rest is still the long intervals' tail.
 
 #include <cassert>
 #include <cstdint>

@@ -77,12 +77,13 @@
 //
 // Measured (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py phase 4), at the
 // six shapes input 5 -> 16, stage-0 16 -> 16, strided 16 -> 32, stage-1
-// 32 -> 32, strided 32 -> 64, stage-2 64 -> 64: 0.0554 / 0.0559 / 0.0516 /
-// 0.1761 / 0.1123 / 0.3368 ms, 0.166 / 0.202 / 0.196 / 0.062 / 0.093 /
+// 32 -> 32, strided 32 -> 64, stage-2 64 -> 64: 0.0556 / 0.0580 / 0.0522 /
+// 0.1777 / 0.1121 / 0.3377 ms, 0.165 / 0.194 / 0.194 / 0.061 / 0.093 /
 // 0.121 of the bound (bytes up to the strided 32 -> 64 conv, the TF32
-// products at 64 -> 64), 0.52-0.95x the forward kernel's time at the same
-// shape, and 2.2e-7 to 2.8e-7 of scale from the float64 product (cuBLAS
-// fp32: 3.9e-7 to 1.3e-6).
+// products at 64 -> 64), 0.52-0.96x the forward kernel's time at the same
+// shape in the same run, and 1.9e-7 to 2.8e-7 of scale from the float64
+// product (cuBLAS fp32: 3.9e-7 to 1.2e-6). What holds the C = 32 shapes
+// lowest is not measured here (no profiler runs on that machine).
 
 #include <cstdint>
 
