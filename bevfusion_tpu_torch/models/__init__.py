@@ -2,10 +2,12 @@
 from . import bevfusion  # noqa: F401
 from . import fusers  # noqa: F401
 from . import necks  # noqa: F401
+from . import resnet  # noqa: F401
 from . import second  # noqa: F401
 from . import sparse_encoder  # noqa: F401
 from . import swin  # noqa: F401
 from . import vtransforms  # noqa: F401
+from .heads import segm  # noqa: F401
 from .heads import transfusion  # noqa: F401
 
 from ..devices import resolve_device

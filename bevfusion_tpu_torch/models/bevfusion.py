@@ -4,17 +4,20 @@ Counterpart of ``bevfusion_tpu/models/bevfusion.py`` (reference
 mmdet3d/models/fusion_models/bevfusion.py:25-388): camera branch
 (backbone -> neck -> vtransform) and LiDAR branch (voxelize -> sparse
 encoder), fused in (camera, lidar) order by the fuser, then the BEV
-decoder (backbone + neck) -> TransFusion head -> ``get_bboxes``. Either
-branch may be absent; with one branch there is no fuser. Submodules carry
-the reference checkpoint's names (``encoders.camera.{backbone,neck,
+decoder (backbone + neck) -> the task heads: ``object`` (TransFusion,
+decoded by ``get_bboxes``) and ``map`` (BEV map segmentation), either or
+both. Either branch may be absent; with one branch there is no fuser. A
+decoder neck that returns one map (``LSSFPN``) is taken as a list of one,
+so every head reads the first map of the list. Submodules carry the
+reference checkpoint's names (``encoders.camera.{backbone,neck,
 vtransform}``, ``encoders.lidar.backbone``, ``fuser``, ``decoder.backbone``,
-``decoder.neck``, ``heads.object``). In training mode ``forward``
-returns the loss dict: ``loss/object/<name>`` scaled by ``loss_scale``
+``decoder.neck``, ``heads.{object,map}``). In training mode ``forward``
+returns the loss dict: ``loss/<head>/<name>`` scaled by ``loss_scale[head]``
 and ``stats/object/matched_ious``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn as nn
@@ -22,6 +25,8 @@ import torch.nn as nn
 from ..ops.voxelize import Voxelization
 from ..registry import BACKBONES, FUSERS, FUSIONMODELS, HEADS, NECKS, VTRANSFORMS
 from ..utils.profiler import untimed
+
+HEAD_NAMES = ("object", "map")
 
 
 @FUSIONMODELS.register
@@ -33,11 +38,11 @@ class BEVFusion(nn.Module):
         encoders = {k: v for k, v in (encoders or {}).items() if v is not None}
         if "radar" in encoders:
             raise NotImplementedError("the radar branch is not ported yet (ROADMAP Queue 1 "
-                                      "item 8: radar_encoder)")
+                                      "item 6h: RadarEncoder)")
         heads = {k: v for k, v in (heads or {}).items() if v is not None}
-        if set(heads) != {"object"}:
-            raise NotImplementedError("the port runs the object head only "
-                                      "(ROADMAP: remaining heads)")
+        if not heads or set(heads) - set(HEAD_NAMES):
+            raise NotImplementedError(f"BEVFusion: heads {sorted(heads)}; the port runs "
+                                      f"{' and '.join(HEAD_NAMES)} heads")
         if not encoders:
             raise ValueError("BEVFusion: the config has no sensor branch (every entry of "
                              "model.encoders is null)")
@@ -62,7 +67,7 @@ class BEVFusion(nn.Module):
             self.fuser = FUSERS.build(fuser)
         self.decoder = nn.ModuleDict({"backbone": BACKBONES.build(decoder["backbone"]),
                                       "neck": NECKS.build(decoder["neck"])})
-        self.heads = nn.ModuleDict({"object": HEADS.build(heads["object"])})
+        self.heads = nn.ModuleDict({k: HEADS.build(v) for k, v in heads.items()})
         self.loss_scale = dict(loss_scale or {})
 
     def extract_camera_features(self, batch: Dict[str, Any], timed=untimed) -> torch.Tensor:
@@ -89,9 +94,10 @@ class BEVFusion(nn.Module):
         return timed("lidar/sparse_encoder", lambda: self.encoders["lidar"]["backbone"](
             vox.feats, vox.coords, vox.mask))
 
-    def predict(self, batch: Dict[str, Any], timed=untimed) -> Dict[str, torch.Tensor]:
-        """The object head's raw predictions for ``batch``. ``timed(name,
-        fn)`` runs each stage (the profiling tools pass a timer)."""
+    def bev_features(self, batch: Dict[str, Any], timed=untimed) -> List[torch.Tensor]:
+        """The decoder's BEV maps for ``batch``, as a list (a neck that returns
+        one map gives a list of one). ``timed(name, fn)`` runs each stage
+        (the profiling tools pass a timer)."""
         features = []
         if "camera" in self.encoders:
             features.append(self.extract_camera_features(batch, timed))
@@ -101,19 +107,40 @@ class BEVFusion(nn.Module):
         x = timed("fuser", lambda: self.fuser(features)) if hasattr(self, "fuser") else features[0]
         x = timed("decoder/backbone", lambda: self.decoder["backbone"](x))
         x = timed("decoder/neck", lambda: self.decoder["neck"](x))
+        return list(x) if isinstance(x, (list, tuple)) else [x]
+
+    def predict(self, batch: Dict[str, Any], timed=untimed) -> Dict[str, torch.Tensor]:
+        """The object head's raw predictions for ``batch``."""
+        x = self.bev_features(batch, timed)
         return timed("head/forward", lambda: self.heads["object"](x[0]))
 
     def forward(self, batch: Dict[str, Any], timed=untimed) -> Dict[str, Any]:
-        """Eval: {"boxes": {"bboxes", "scores", "labels", "mask"}}. Training
-        (``batch`` with ``gt_boxes``, ``gt_labels``, ``gt_valid``): the loss
-        dict of the JAX package's ``BEVFusion.__call__`` (bevfusion.py:185-205).
-        ``timed(name, fn)`` runs each stage (``predict``) and the decode."""
-        head = self.heads["object"]
+        """Eval: ``boxes`` {"bboxes", "scores", "labels", "mask"} from the
+        object head, ``masks_bev`` [B, classes, X, Y] from the map head.
+        Training (``batch`` with ``gt_boxes``, ``gt_labels``, ``gt_valid`` for
+        the object head, ``gt_masks_bev`` [B, classes, X, Y] for the map
+        head): the loss dict of the JAX package's ``BEVFusion.__call__``
+        (bevfusion.py:185-205). ``timed(name, fn)`` runs each stage, the
+        heads (``head/forward``, ``head/map``) and the decode."""
+        x = self.bev_features(batch, timed)
+        out = {}
         if not self.training:
-            preds = self.predict(batch, timed)
-            return {"boxes": timed("head/decode", lambda: head.get_bboxes(preds))}
-        scale = self.loss_scale.get("object", 1.0)
-        losses = head.loss(self.predict(batch, timed), batch["gt_boxes"], batch["gt_labels"],
-                           batch["gt_valid"])
-        return {f"stats/object/{k}" if k == "matched_ious" else f"loss/object/{k}":
-                v if k == "matched_ious" else v * scale for k, v in losses.items()}
+            if "object" in self.heads:
+                head = self.heads["object"]
+                preds = timed("head/forward", lambda: head(x[0]))
+                out["boxes"] = timed("head/decode", lambda: head.get_bboxes(preds))
+            if "map" in self.heads:
+                out["masks_bev"] = timed("head/map", lambda: self.heads["map"](x[0]))
+            return out
+        if "object" in self.heads:
+            head = self.heads["object"]
+            losses = head.loss(timed("head/forward", lambda: head(x[0])), batch["gt_boxes"],
+                               batch["gt_labels"], batch["gt_valid"])
+            scale = self.loss_scale.get("object", 1.0)
+            out.update({f"stats/object/{k}" if k == "matched_ious" else f"loss/object/{k}":
+                        v if k == "matched_ious" else v * scale for k, v in losses.items()})
+        if "map" in self.heads:
+            losses = timed("head/map", lambda: self.heads["map"](x[0], batch["gt_masks_bev"]))
+            scale = self.loss_scale.get("map", 1.0)
+            out.update({f"loss/map/{k}": v * scale for k, v in losses.items()})
+        return out

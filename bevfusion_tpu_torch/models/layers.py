@@ -4,7 +4,7 @@ Counterpart of ``bevfusion_tpu/models/layers.py`` for what the port's
 models use. PyTorch has the JAX package's ``Conv`` (torch-style integer
 padding), ``max_pool2d_same`` and ``resize_bilinear`` natively as
 ``nn.Conv2d``, ``F.max_pool2d`` and ``F.interpolate``; ``Norm``,
-``ConvBNAct`` and ``conv_bn_relu`` remain.
+``ConvBNAct``, ``conv_bn_relu`` and ``BasicBlock`` remain.
 
 Every BatchNorm of the port is ``BatchNorm1d`` / ``BatchNorm2d`` below:
 torch's normalisation, with running statistics that move like flax's
@@ -21,7 +21,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 __all__ = ["BatchNorm1d", "BatchNorm2d", "Dropout", "DropPath", "set_dropout_generator", "Norm",
-           "ConvBNAct", "conv_bn_relu", "resize_bilinear"]
+           "ConvBNAct", "conv_bn_relu", "BasicBlock", "resize_bilinear"]
 
 
 class _FlaxStatsBatchNorm:
@@ -134,6 +134,29 @@ def conv_bn_relu(in_channels: int, out_channels: int, kernel_size: int, stride: 
     ConvFuser's ``fuser.1.running_mean``); ``bias`` as the reference has it."""
     return [nn.Conv2d(in_channels, out_channels, kernel_size, stride, padding, bias=bias),
             BatchNorm2d(out_channels), nn.ReLU()]
+
+
+class BasicBlock(nn.Module):
+    """mmcv's ResNet ``BasicBlock``: 3x3 conv (stride) -> BN -> ReLU -> 3x3
+    conv -> BN, plus the shortcut, then ReLU. The shortcut is ``downsample``
+    (1x1 conv with the stride, no bias -> BN) where the stride or the
+    width changes, else the input. Names ``conv1``, ``bn1``, ``conv2``,
+    ``bn2``, ``downsample.{0,1}`` as in the reference checkpoint."""
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, stride, 1, bias=False)
+        self.bn1 = BatchNorm2d(out_channels)
+        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, 1, 1, bias=False)
+        self.bn2 = BatchNorm2d(out_channels)
+        self.downsample = (nn.Sequential(nn.Conv2d(in_channels, out_channels, 1, stride, bias=False),
+                                         BatchNorm2d(out_channels))
+                           if stride != 1 or in_channels != out_channels else None)
+
+    def forward(self, x):
+        identity = x if self.downsample is None else self.downsample(x)
+        out = self.bn1(self.conv1(x)).relu()
+        return (self.bn2(self.conv2(out)) + identity).relu()
 
 
 def resize_bilinear(x: torch.Tensor, size, align_corners: bool = False) -> torch.Tensor:

@@ -1,18 +1,21 @@
 """LSS view transform of the camera branch: image features -> BEV (NCHW).
 
 Counterpart of ``bevfusion_tpu/models/vtransforms.py``: ``get_geometry``,
-``rasterize_depth`` and ``DepthLSSTransform`` (reference
-mmdet3d/models/vtransforms/base.py and depth_lss.py:15-101, with the JAX
-package's 1-channel sparse depth). Module names follow the reference
-checkpoint: ``dtransform.{0..8}``, ``depthnet.{0..6}``, ``downsample.{0..8}``.
+``rasterize_depth``, and the two LSS transforms on one base (the JAX
+``_BaseLSS``): ``LSSTransform`` (reference mmdet3d/models/vtransforms/
+lss.py:14-78: a 1x1 depthnet on the image features alone) and
+``DepthLSSTransform`` (depth_lss.py:15-101, with the JAX package's
+1-channel sparse depth). Module names follow the reference checkpoint:
+``dtransform.{0..8}``, ``depthnet`` (LSS: one conv; DepthLSS:
+``depthnet.{0..6}``), ``downsample.{0..8}``.
 
 Geometry is true fp32 on every device: the 3x3 transforms are broadcast
 multiply-adds (no matmul, so no TF32 setting reaches them; on the TPU a
 bf16 contraction moved points by up to 0.2 m), and the 3x3 inverses are
 taken in float64 like the JAX package's host LUT. ``build_pool_lut``
 makes the pool's intervals from the calibration; the same function serves
-the host LUT of a deployed rig and the in-graph route. ``LSSTransform`` and
-the BEVDepth family are not ported yet (ROADMAP Queue 1 item 8).
+the host LUT of a deployed rig and the in-graph route. The BEVDepth family
+is not ported yet (ROADMAP Queue 1 item 6f).
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ from ..utils.profiler import untimed
 from .layers import conv_bn_relu
 
 __all__ = ["get_geometry", "rasterize_depth", "lss_constants", "build_pool_lut",
-           "DepthLSSTransform"]
+           "LSSTransform", "DepthLSSTransform"]
 
 
 def _matvec(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -114,12 +117,12 @@ def build_pool_lut(frustum: torch.Tensor, dx, bx, nx,
     return lut
 
 
-@VTRANSFORMS.register
-class DepthLSSTransform(nn.Module):
-    """Sparse LiDAR depth through a strided CNN (1 -> 64 channels at 1/8
-    resolution), concatenated with the image features; a 3-conv depthnet
-    predicts a softmax over D depth bins and C context channels; the pool
-    sums depth x context per BEV cell; an optional strided downsample."""
+class _BaseLSS(nn.Module):
+    """What the LSS transforms share: the grid and frustum constants, the
+    pool and the optional strided ``downsample``. A subclass builds its
+    nets in ``build_nets`` (registered before ``downsample``, in the
+    reference's order), among them ``depthnet``, whose output holds D depth
+    logits then C context channels per pixel."""
 
     def __init__(self, in_channels: int = 256, out_channels: int = 80,
                  image_size: Sequence[int] = (256, 704), feature_size: Sequence[int] = (32, 88),
@@ -132,21 +135,18 @@ class DepthLSSTransform(nn.Module):
         self.nx = tuple(int(n) for n in nx)
         self.register_buffer("frustum", torch.from_numpy(frustum.copy()), persistent=False)
         self.D, self.C = frustum.shape[0], out_channels
-        self.dtransform = nn.Sequential(*conv_bn_relu(1, 8, 1, bias=True),
-                                        *conv_bn_relu(8, 32, 5, 4, 2, bias=True),
-                                        *conv_bn_relu(32, 64, 5, 2, 2, bias=True))
-        self.depthnet = nn.Sequential(
-            *conv_bn_relu(in_channels + 64, in_channels, 3, 1, 1, bias=True),
-            *conv_bn_relu(in_channels, in_channels, 3, 1, 1, bias=True),
-            nn.Conv2d(in_channels, self.D + out_channels, 1))
         if downsample > 2:
-            raise NotImplementedError(f"DepthLSSTransform: downsample {downsample} (the JAX "
+            raise NotImplementedError(f"{type(self).__name__}: downsample {downsample} (the JAX "
                                       "package takes 1 or 2)")
+        self.build_nets(in_channels)
         c = out_channels
         self.downsample = (nn.Sequential(*conv_bn_relu(c, c, 3, 1, 1),
                                          *conv_bn_relu(c, c, 3, downsample, 1),
                                          *conv_bn_relu(c, c, 3, 1, 1))
                            if downsample == 2 else nn.Identity())
+
+    def build_nets(self, in_channels: int) -> None:
+        raise NotImplementedError
 
     def pool(self, depth: torch.Tensor, ctx: torch.Tensor,
              mats: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -165,6 +165,59 @@ class DepthLSSTransform(nn.Module):
         return BEVPoolFunction.apply(
             depth, ctx, PoolIntervals(*(lut[k] for k in PoolIntervals._fields)), Z, X, Y)
 
+    def to_bev(self, x: torch.Tensor, B: int, mats: Dict[str, torch.Tensor],
+               timed=untimed) -> torch.Tensor:
+        """The depthnet's output ``x`` [B*N, D+C, fH, fW] -> BEV [B, C, X', Y']:
+        the softmax over depth bins (fp32), the context channels-last, the
+        pool and the downsample, each through ``timed``."""
+        BN, _, fH, fW = x.shape
+        N = BN // B
+
+        def split():
+            depth = x[:, :self.D].float().softmax(1).view(B, N, self.D, fH, fW)
+            ctx = x[:, self.D:].permute(0, 2, 3, 1).contiguous().view(B, N, fH, fW, self.C)
+            return depth, ctx
+
+        depth, ctx = timed("depth softmax + ctx channels-last", split)
+        bev = timed("bev_pool" if mats.get("pool_lut") is not None else
+                    "build_pool_lut + bev_pool", lambda: self.pool(depth, ctx, mats))
+        return timed("downsample", lambda: self.downsample(bev))
+
+
+@VTRANSFORMS.register
+class LSSTransform(_BaseLSS):
+    """Camera-only LSS: a 1x1 depthnet on the image features predicts a
+    softmax over D depth bins and C context channels; the pool sums depth
+    x context per BEV cell; an optional strided downsample."""
+
+    def build_nets(self, in_channels: int) -> None:
+        self.depthnet = nn.Conv2d(in_channels, self.D + self.C, 1)
+
+    def forward(self, img_feats: torch.Tensor, points: torch.Tensor, points_mask: torch.Tensor,
+                mats: Dict[str, torch.Tensor], timed=untimed) -> torch.Tensor:
+        """img_feats [B, N, Cin, fH, fW] -> BEV [B, C, X', Y'] (the points are
+        not used). ``timed(name, fn)`` runs each piece."""
+        B, N, Cin, fH, fW = img_feats.shape
+        x = timed("depthnet", lambda: self.depthnet(img_feats.reshape(B * N, Cin, fH, fW)))
+        return self.to_bev(x, B, mats, timed)
+
+
+@VTRANSFORMS.register
+class DepthLSSTransform(_BaseLSS):
+    """Sparse LiDAR depth through a strided CNN (1 -> 64 channels at 1/8
+    resolution), concatenated with the image features; a 3-conv depthnet
+    predicts a softmax over D depth bins and C context channels; the pool
+    sums depth x context per BEV cell; an optional strided downsample."""
+
+    def build_nets(self, in_channels: int) -> None:
+        self.dtransform = nn.Sequential(*conv_bn_relu(1, 8, 1, bias=True),
+                                        *conv_bn_relu(8, 32, 5, 4, 2, bias=True),
+                                        *conv_bn_relu(32, 64, 5, 2, 2, bias=True))
+        self.depthnet = nn.Sequential(
+            *conv_bn_relu(in_channels + 64, in_channels, 3, 1, 1, bias=True),
+            *conv_bn_relu(in_channels, in_channels, 3, 1, 1, bias=True),
+            nn.Conv2d(in_channels, self.D + self.C, 1))
+
     def forward(self, img_feats: torch.Tensor, points: torch.Tensor, points_mask: torch.Tensor,
                 mats: Dict[str, torch.Tensor], timed=untimed) -> torch.Tensor:
         """img_feats [B, N, Cin, fH, fW] -> BEV [B, C, X', Y'].
@@ -177,13 +230,4 @@ class DepthLSSTransform(nn.Module):
         d = timed("dtransform", lambda: self.dtransform(d.view(B * N, 1, *self.image_size)))
         x = timed("depthnet", lambda: self.depthnet(
             torch.cat([d, img_feats.reshape(B * N, Cin, fH, fW)], 1)))
-
-        def split():
-            depth = x[:, :self.D].softmax(1).view(B, N, self.D, fH, fW)
-            ctx = x[:, self.D:].permute(0, 2, 3, 1).contiguous().view(B, N, fH, fW, self.C)
-            return depth, ctx
-
-        depth, ctx = timed("depth softmax + ctx channels-last", split)
-        bev = timed("bev_pool" if mats.get("pool_lut") is not None else
-                    "build_pool_lut + bev_pool", lambda: self.pool(depth, ctx, mats))
-        return timed("downsample", lambda: self.downsample(bev))
+        return self.to_bev(x, B, mats, timed)

@@ -10,13 +10,15 @@ branch and BEV tail alone are TransFusion-L
 reference val mAP 64.68 / NDS 69.28; ``build_lidar_slice``). The
 flagship's training step (``build_flagship(training=True)`` with
 ``runtime/train.py``) trains on the same synthetic batch plus random
-ground-truth boxes. The synthetic inputs are byte-equal to the JAX
-package's.
+ground-truth boxes. ``build_flagship(config_path=...)`` builds any other
+config the port runs the same way, among them the three BEV
+map-segmentation configs (``SEG_CONFIGS``). The synthetic inputs are
+byte-equal to the JAX package's.
 """
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +35,10 @@ LIDAR_SLICE_CONFIG = os.path.join(
     REPO_ROOT, "configs/nuscenes/det/transfusion/secfpn/lidar/voxelnet_0p075.yaml")
 FLAGSHIP_CONFIG = os.path.join(
     REPO_ROOT, "configs/nuscenes/det/transfusion/secfpn/camera+lidar/swint_v0p075/convfuser.yaml")
+# the BEV map-segmentation configs: fused, LiDAR-only and camera-only (reference val
+# mIoU 62.95, 48.56 and 57.09, from each file's header)
+SEG_CONFIGS = {name: os.path.join(REPO_ROOT, "configs/nuscenes/seg", f"{name}.yaml")
+               for name in ("fusion-bev256d2-lss", "lidar-centerpoint-bev128", "camera-bev256d2")}
 
 
 def synthetic_calibration(B: int, N: int, image_size) -> Dict[str, np.ndarray]:
@@ -232,15 +238,18 @@ def build_lidar_slice(device="cuda", num_points: int = 120000,
 
 
 def build_flagship(device="cuda", num_points: int = 120000, seed: int = 0,
-                   training: bool = False) -> Tuple[Config, nn.Module, Dict[str, Any]]:
-    """The fused flagship (swint_v0p075/convfuser.yaml) at full width with
-    seeded random weights on ``device`` (the card unless the caller passes
-    ``"cpu"``), and a batch of one sample (six 256x704 images, one scan of
-    ``num_points``, the synthetic rig) with its pooling LUT, built on the
+                   training: bool = False, config_path: Optional[str] = None
+                   ) -> Tuple[Config, nn.Module, Dict[str, Any]]:
+    """The fused flagship (swint_v0p075/convfuser.yaml), or the config at
+    ``config_path``, at full width with seeded random weights on ``device``
+    (the card unless the caller passes ``"cpu"``), and a batch of one sample
+    (six 256x704 images, one scan of ``num_points``, the synthetic rig) with
+    the pooling LUT where the config has an LSS camera branch, built on the
     CPU (``bench.py``'s main path). With ``training`` the model is in
-    training mode and the batch carries 64 random ground-truth boxes."""
+    training mode and the batch carries 64 random ground-truth boxes for
+    the object head (a map head's training targets are not made here)."""
     dev = resolve_device(device)
-    cfg = load_config(FLAGSHIP_CONFIG)
+    cfg = load_config(config_path or FLAGSHIP_CONFIG)
     model = init_weights(build_model(cfg.model, "cpu"), seed).to(dev).train(training)
     batch = add_pool_lut(cfg, synthetic_batch(cfg, B=1, num_points=num_points, seed=seed,
                                               training=training))

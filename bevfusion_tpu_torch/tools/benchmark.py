@@ -2,20 +2,23 @@
 
 Counterpart of ``tools/benchmark.py`` (reference tools/benchmark.py:
 batch-1 wall clock, warmup 5, device-synchronised timing): host clock
-around each frame, each ending in a synchronise. The port builds two
-configs: the fused flagship
+around each frame, each ending in a synchronise. Any config whose modules
+the port has (``_unported_types`` empty) builds through
+``runtime/flagship.py:build_flagship``, at full width with seeded random
+weights on a synthetic batch with the host pooling LUT: six configs, the
+fused flagship
 (configs/nuscenes/det/transfusion/secfpn/camera+lidar/swint_v0p075/convfuser.yaml,
-the default) and TransFusion-L
-(configs/nuscenes/det/transfusion/secfpn/lidar/voxelnet_0p075.yaml), at full
-width with seeded random weights on a synthetic batch. Any other config,
-or a batch size other than 1, raises.
+the default), TransFusion-L at 0.1 m and 0.075 m
+(configs/nuscenes/det/transfusion/secfpn/lidar/voxelnet{,_0p075}.yaml) and the
+three BEV map-segmentation configs (configs/nuscenes/seg/{fusion-bev256d2-lss,
+lidar-centerpoint-bev128,camera-bev256d2}.yaml). Any other config, or a
+batch size other than 1, raises.
 
 Run: ``python -m bevfusion_tpu_torch.tools.benchmark [config] [--iters 20]`` (on the card).
 """
 from __future__ import annotations
 
 import argparse
-import os
 import statistics
 import sys
 
@@ -48,25 +51,18 @@ def _unported_types(model_cfg):
 def build(config=None, device="cuda", num_points: int = 120000, batch_size: int = 1):
     """(cfg, model, batch) of a config the port builds (the flagship when
     ``config`` is None); raises NotImplementedError for a batch size other
-    than 1 or another config, naming the modules it lacks."""
+    than 1 or a config with modules the port lacks, naming them."""
     from ..config import load_config
-    from ..runtime.flagship import (FLAGSHIP_CONFIG, LIDAR_SLICE_CONFIG, build_flagship,
-                                    build_lidar_slice)
+    from ..runtime.flagship import build_flagship
 
     if batch_size != 1:
         raise NotImplementedError(f"batch size {batch_size}: the port's build functions are B = 1 "
                                   "(ROADMAP Queue 1, tools)")
-    path = os.path.abspath(config or FLAGSHIP_CONFIG)
-    if path == FLAGSHIP_CONFIG:
-        return build_flagship(device, num_points=num_points)
-    if path == LIDAR_SLICE_CONFIG:
-        return build_lidar_slice(device, num_points=num_points)
-    missing = _unported_types(load_config(path).model)
-    raise NotImplementedError(
-        f"{config}: the port builds only {os.path.relpath(FLAGSHIP_CONFIG)} and "
-        f"{os.path.relpath(LIDAR_SLICE_CONFIG)}; "
-        + (f"not ported: {', '.join(missing)}" if missing else
-           "its modules are ported but no build function makes its inputs"))
+    if config is not None:
+        missing = _unported_types(load_config(config).model)
+        if missing:
+            raise NotImplementedError(f"{config}: not ported: {', '.join(missing)}")
+    return build_flagship(device, num_points=num_points, config_path=config)
 
 
 def latency(model, batch, device="cuda", iters: int = 20, warmup: int = 5):

@@ -1,9 +1,12 @@
-"""Per-stage latency profile of the fused flagship (eval, batch 1).
+"""Per-stage latency profile of a config (eval, batch 1; the fused flagship
+by default).
 
 Counterpart of ``tools/profile_stages.py``: the forward split into the
 JAX tool's stages (camera backbone, neck and vtransform; LiDAR voxelize
-and sparse encoder; fuser; SECOND; SECONDFPN; head forward; decode), each
-timed alone at its real inputs (median of CUDA-event times on the card).
+and sparse encoder; fuser; decoder backbone and neck; the object head's
+forward and decode, the map head), each of the config's stages timed
+alone at its real inputs (median of CUDA-event times on the card). Any
+config ``benchmark.py`` builds.
 Stages run eagerly either way, so their sum is close to the frame time;
 use it to rank stages, ``benchmark.py`` for the frame.
 
@@ -14,7 +17,7 @@ else fp32 (67 TFLOP/s). ``--tf32 on|off`` sets both of PyTorch's TF32
 switches; by default they stay as PyTorch sets them (cuDNN convolutions
 in TF32, matmuls in fp32). JSON goes only to a path given as ``--out``.
 
-Run: ``python -m bevfusion_tpu_torch.tools.profile_stages [--flops]`` (on the card).
+Run: ``python -m bevfusion_tpu_torch.tools.profile_stages [config] [--flops]`` (on the card).
 """
 from __future__ import annotations
 
@@ -37,11 +40,12 @@ def peak_flops():
 
 def profile_stages(model, batch, device="cuda", iters: int = 20, warmup: int = 3,
                    flops: bool = False):
-    """(rows {"stage", "ms"[, "gflop", "tflops", "peak_share"]}, the boxes)."""
+    """(rows {"stage", "ms"[, "gflop", "tflops", "peak_share"]}, the model's
+    output: ``boxes`` and / or ``masks_bev``)."""
     dev = resolve_device(device)
     rows = []
     with torch.no_grad():
-        boxes = model(batch, timed=op_timer(rows, dev, iters, warmup, flops))["boxes"]
+        out = model(batch, timed=op_timer(rows, dev, iters, warmup, flops))
     peak, _ = peak_flops()
     for r in rows:
         r["stage"] = r.pop("op")
@@ -49,7 +53,7 @@ def profile_stages(model, batch, device="cuda", iters: int = 20, warmup: int = 3
             r["gflop"] = r.pop("flops") / 1e9
             r["tflops"] = r["gflop"] / r["ms"]
             r["peak_share"] = r["tflops"] * 1e12 / peak
-    return rows, boxes
+    return rows, out
 
 
 def print_table(rows, flops: bool) -> None:
@@ -70,9 +74,10 @@ def print_table(rows, flops: bool) -> None:
 
 
 def main(argv=None) -> int:
-    from ..runtime.flagship import build_flagship
+    from .benchmark import build
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("config", nargs="?", default=None)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--points", type=int, default=120000)
@@ -87,7 +92,7 @@ def main(argv=None) -> int:
     card = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"device: {card}; cuDNN TF32 {torch.backends.cudnn.allow_tf32}, matmul TF32 "
           f"{torch.backends.cuda.matmul.allow_tf32}; peak: {peak_flops()[1]}")
-    _, model, batch = build_flagship(dev, num_points=args.points)
+    _, model, batch = build(args.config, dev, args.points)
     rows, _ = profile_stages(model, batch, dev, args.iters, flops=args.flops)
     print_table(rows, args.flops)
     if args.out:

@@ -63,7 +63,21 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
    CPU (plain path, same LUT); ms/frame, peak device memory and the time
    of each stage (``tools/profile_stages.py``); the frame and its stages
    again with TF32 on;
-11. the flagship's training step at full width, B = 1, host LUT, TF32 off,
+11. the three BEV map-segmentation configs (configs/nuscenes/seg/: fused
+   fusion-bev256d2-lss, LiDAR-only lidar-centerpoint-bev128, camera-only
+   camera-bev256d2) at full width with seeded random weights, the host
+   pooling LUT where there is a camera and the 120k-point scan where there
+   is a LiDAR, eval forward at batch 1, TF32 off: 15 sparse-conv and 1
+   BEV-pool launches per forward (fused), 15 and 0 (LiDAR), 0 and 1
+   (camera); ``masks_bev`` [1, 6, 200, 200] finite and within [0, 1]; the
+   map classifier's logits (a forward hook on ``heads.map.classifier``)
+   within 2e-3 relative of the same model on the CPU (plain path, same
+   LUT); ms/frame and peak device memory with TF32 off and on, and the
+   stage times (``tools/profile_stages.py``) of each; then the BEV-pool
+   kernel vs plain at the seg grid (256 x 256 cells of 0.4 m, the fused
+   config's own LUT) as in phase 9: max|d|, times, the zero fill, the bound
+   and the interval lengths;
+12. the flagship's training step at full width, B = 1, host LUT, TF32 off,
    PyTorch's deterministic algorithms on (the card's own run-to-run noise
    would swamp the comparison), the heatmap head's last conv scaled by 0.2
    so its logits stay unsaturated; passes of one forward + backward (same
@@ -83,23 +97,26 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
    kernel 15 + 14 times (forward, backward-data: the input conv's voxel
    features need no gradient), the weight-gradient kernel 15 times and
    the BEV-pool kernel once, pass C the forward's 15 + 1;
-12. five timed train steps with TF32 on (``tools/bench_train_step.py`` on
+13. five timed train steps with TF32 on (``tools/bench_train_step.py`` on
    ``runtime/train.py``: AdamW, clip 35, the config's cosine lr with linear
    warmup and cyclic momentum): losses finite, parameters changed; median
    ms/step split into forward, backward and optimizer (host clock around
    synchronises), peak device memory, and the auction matcher's time
    within the forward;
-13. the measurement tools (``bevfusion_tpu_torch/tools/``, this path's
+14. the measurement tools (``bevfusion_tpu_torch/tools/``, this path's
    entry points), TF32 on, every launch count set to 0 just before and read
    just after: the memory probes (torch's ``x + 1``, K5, K6 at its five
    settings, six bf16 matmuls), the cost breakdown (K7) at the two
-   shapes, then on the flagship held by phase 12 (in eval mode) the
+   shapes, then on the flagship held by phase 13 (in eval mode) the
    per-stage profile with FLOPs, the encoder, meta-chain and vtransform
    profiles and the latency benchmark's timing, and two train steps
    through the train-step benchmark; every row finite and every kernel
    launched; then ``python -m bevfusion_tpu_torch.tools.benchmark --iters
-   5`` in a subprocess: exit 0 and its latency line;
-14. a JSON line with the kernel table, a line with the card's name and
+   5``, and the same on configs/nuscenes/seg/fusion-bev256d2-lss.yaml, each in
+   a subprocess: exit 0 and its latency line;
+15. a JSON line with the kernel table (the BEV pool's second shape the seg
+   grid; every kernel's launches on the seg paths), the seg results and the
+   script's total time, a line with the card's name and
    power limit as nvidia-smi prints them, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -137,10 +154,16 @@ ZERO_GRAD = 1e-6  # of the global norm: a gradient that is zero but for rounding
 TRAIN_GRAD_SENSITIVITY = 4
 SPARSE_LAUNCHES = 15  # 13 submanifold + 2 strided sparse convs at B=1
 POOL_LAUNCHES = 1  # one BEV pool per frame at B=1
+# launches per eval frame of each map-segmentation config (phase 11)
+SEG_LAUNCHES = {"fusion-bev256d2-lss": {"sparse_conv": SPARSE_LAUNCHES, "bev_pool": POOL_LAUNCHES},
+                "lidar-centerpoint-bev128": {"sparse_conv": SPARSE_LAUNCHES, "bev_pool": 0},
+                "camera-bev256d2": {"sparse_conv": 0, "bev_pool": POOL_LAUNCHES}}
+SEG_MASKS = (1, 6, 200, 200)  # six map classes on the 100 m x 100 m, 0.5 m output grid
 TRAIN_LAUNCHES = {"sparse_conv": 15 + 14, "sparse_conv_dw": 15, "bev_pool": 1}
 DEVICE = "cuda"
 K7_SHAPES = 2  # the cost breakdown runs at the stage-0 and stage-1 submanifold convs
 TOOL_ITERS = 5  # timed calls per op in the tools phase
+SEG_BENCHMARK = "configs/nuscenes/seg/fusion-bev256d2-lss.yaml"  # the tools phase's second CLI run
 
 
 def check(ok: bool, what: str) -> None:
@@ -496,7 +519,7 @@ def finite_rows(rows, what: str, keys=("ms",)) -> None:
 
 
 def tools_phase(cfg, model, batch, cases, counters):
-    """Phase 13: the measurement tools, this path's entry points, with every
+    """Phase 14: the measurement tools, this path's entry points, with every
     launch count set to 0 just before and read just after. Returns (their
     results, the launches)."""
     from bevfusion_tpu_torch.tools import (bench_kernel_variants as kv, bench_tile_micro as tm,
@@ -569,17 +592,154 @@ def tools_phase(cfg, model, batch, cases, counters):
           f"bench_train_step: {line}, unchanged {res['train']['unchanged'][:5]}")
     print(f"tools: bench_train_step {json.dumps(line)}")
 
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "bevfusion_tpu_torch.tools.benchmark",
-                           "--iters", "5"], capture_output=True, text=True, timeout=600,
-                          cwd=os.path.dirname(os.path.abspath(__file__)))
-    out = proc.stdout.strip().splitlines()
-    print(f"tools: python -m bevfusion_tpu_torch.tools.benchmark --iters 5: exit "
-          f"{proc.returncode} in {time.perf_counter() - t0:.1f} s: {out[-1] if out else ''}")
-    check(proc.returncode == 0 and out and out[-1].startswith("latency:"),
-          f"benchmark CLI: exit {proc.returncode}, {proc.stderr[-2000:]}")
-    res["benchmark_cli"] = out[-1]
+    for config in (None, SEG_BENCHMARK):
+        args = ["--iters", "5"] if config is None else [config, "--iters", "5"]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "bevfusion_tpu_torch.tools.benchmark", *args],
+                              capture_output=True, text=True, timeout=600,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        out = proc.stdout.strip().splitlines()
+        print(f"tools: python -m bevfusion_tpu_torch.tools.benchmark {' '.join(args)}: exit "
+              f"{proc.returncode} in {time.perf_counter() - t0:.1f} s: {out[-1] if out else ''}")
+        check(proc.returncode == 0 and out and out[-1].startswith("latency:"),
+              f"benchmark CLI {args}: exit {proc.returncode}, {proc.stderr[-2000:]}")
+        res["benchmark_cli" if config is None else "benchmark_cli_seg"] = out[-1]
     return res, launches
+
+
+def pool_case(label, bp, vt, lut):
+    """The BEV-pool kernel against its plain version on the intervals of
+    ``lut`` (the pooling LUT of the vtransform ``vt``'s grid for the six-camera
+    rig): depth (softmax of seeded noise) and ctx (held channels-last) at
+    ``vt``'s frustum; max|d| <= 1e-4 * max(|plain|, 1), both median times and
+    the bound; where the time goes: the wrapper's zero fill of the grid
+    alone, the kernel on the intervals of at most 64 points alone and on all
+    of them longest first (the LUT's cell order puts long intervals
+    anywhere); the interval lengths, and how many distinct (cell, ctx row)
+    pairs they hold against P. Returns (the kernel table's shape entry,
+    (depth, ctx, output, intervals))."""
+    iv = bp.PoolIntervals(*(lut[k] for k in bp.PoolIntervals._fields))
+    X, Y, Z = vt.nx
+    D, fH, fW = vt.frustum.shape[:3]
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    depth = torch.randn(1, 6, D, fH, fW, generator=g, device=DEVICE).softmax(2)
+    ctx = torch.randn(1, 6, vt.C, fH, fW, generator=g, device=DEVICE).permute(0, 1, 3, 4, 2)
+    ctx = ctx.contiguous()
+    P, R = iv.ranks_depth.numel(), iv.interval_cells.numel()
+    got = bp.bev_pool(depth, ctx, iv, Z, X, Y)
+    want = bp.bev_pool_plain(depth, ctx, iv, Z, X, Y)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    scale = max(want.abs().max().item(), 1.0)
+    check(got.shape == (1, Z * vt.C, X, Y), f"bev_pool {label}: shape {tuple(got.shape)}")
+    check(err <= FP32_RTOL_KERNEL * scale, f"bev_pool {label}: max|d| {err} vs plain, scale {scale}")
+    ms = kernel_ms(lambda: bp.bev_pool(depth, ctx, iv, Z, X, Y))
+    plain_ms = kernel_ms(lambda: bp.bev_pool_plain(depth, ctx, iv, Z, X, Y))
+    zero_ms = kernel_ms(lambda: torch.zeros((Z * X * Y, vt.C), device=DEVICE))
+    by_length = torch.argsort(iv.interval_lengths, descending=True, stable=True)
+    short = iv.interval_lengths <= 64
+    split = {}
+    for key, sel in (("longest_first_ms", by_length), ("short_only_ms", short)):
+        part = bp.PoolIntervals(iv.ranks_depth, iv.ranks_feat,
+                                *(t[sel].contiguous() for t in iv[2:]))
+        split[key] = kernel_ms(lambda: bp.bev_pool(depth, ctx, part, Z, X, Y))
+    # each input byte once (the P pooled depth values, the whole ctx table,
+    # the interval arrays), the zero-filled output grid once; a multiply-add
+    # per pooled point and channel
+    b_ms, b_by = bound(2 * P * vt.C, 4 * P + nbytes(ctx, got, *iv))
+    lengths = iv.interval_lengths.float()
+    stats = {"mean": lengths.mean().item(), "p99": lengths.quantile(0.99).item(),
+             "max": int(lengths.max().item())}
+    # distinct ctx rows a cell reads: what a pool that reads each (cell,
+    # ctx row) once would gather, against the P rows gathered now
+    cell_of_point = torch.repeat_interleave(iv.interval_cells.long(), iv.interval_lengths.long())
+    pairs = torch.unique(cell_of_point * (ctx.numel() // vt.C) + iv.ranks_feat.long()).numel()
+    print(f"kernel bev_pool {label} ({X}x{Y} cells): P {P} of {depth.numel()} frustum points in "
+          f"the grid, R {R} intervals (length mean {stats['mean']:.2f}, p99 {stats['p99']:.0f}, "
+          f"max {stats['max']}); {pairs} distinct (cell, ctx row) pairs = {pairs / P:.4f} of P; "
+          f"max|d| {err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}), {b_ms / ms:.3f} of bound; the wrapper's zero fill alone {zero_ms:.4f} ms; "
+          f"the same call with the intervals longest first {split['longest_first_ms']:.4f} ms, on "
+          f"the {int(short.sum())} intervals of <= 64 points "
+          f"({int(iv.interval_lengths[short].sum())} points) alone {split['short_only_ms']:.4f} ms")
+    entry = {"shape": f"{label} [1,6,{D},{fH},{fW}] x [1,6,{fH},{fW},{vt.C}] -> {X}x{Y}",
+             "points": P, "intervals": R, "interval_lengths": stats,
+             "distinct_cell_ctx_pairs": pairs, "zero_fill_ms": zero_ms, **split,
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+             "bound_by": b_by}
+    return entry, (depth, ctx, got, iv)
+
+
+def seg_phase(counters, bp):
+    """Phase 11: each map-segmentation config's eval forward on the card,
+    with every launch count set to 0 just before and read just after; its
+    masks, its classifier's logits against the CPU model's, its frame time,
+    peak memory and stages with TF32 off and on; then the pool kernel at the
+    seg grid. Returns ({config: results}, the pool's shape entry)."""
+    from bevfusion_tpu_torch.runtime.flagship import SEG_CONFIGS, batch_to, build_flagship
+    from bevfusion_tpu_torch.tools import profile_stages
+
+    def forward(model, batch):
+        logits = []
+        hook = model.heads["map"].classifier.register_forward_hook(
+            lambda mod, args, out: logits.append(out))
+        with torch.no_grad():
+            masks = model(batch)["masks_bev"]
+        hook.remove()
+        return masks, logits[0]
+
+    def timed(model, batch):  # ms/frame, peak memory and stages at the current TF32 setting
+        with torch.no_grad():
+            frames, peak = frame_ms(lambda: model(batch))
+        stages = {r["stage"]: r["ms"]
+                  for r in profile_stages.profile_stages(model, batch, DEVICE, iters=5)[0]}
+        return statistics.median(frames), peak, stages
+
+    res, pool_entry = {}, None
+    for name, want in SEG_LAUNCHES.items():
+        t0 = time.perf_counter()
+        _, cpu_model, cpu_batch = build_flagship("cpu", num_points=120000, seed=0,
+                                                 config_path=SEG_CONFIGS[name])
+        model, batch = copy.deepcopy(cpu_model).cuda(), batch_to(cpu_batch, "cuda")
+        want = dict({k: 0 for k in counters}, **want)
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        masks, logits = forward(model, batch)
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        check(launches == want, f"seg {name}: launches {launches}, want {want}")
+        check(tuple(masks.shape) == SEG_MASKS, f"seg {name}: masks_bev {tuple(masks.shape)}")
+        check(bool(torch.isfinite(masks).all()) and masks.min() >= 0 and masks.max() <= 1,
+              f"seg {name}: masks_bev not finite in [0, 1]")
+        t_cpu = time.perf_counter()
+        _, cpu_logits = forward(cpu_model, cpu_batch)
+        cpu_s = time.perf_counter() - t_cpu
+        err = rel_err(logits.cpu(), cpu_logits)
+        check(err <= HEATMAP_RTOL, f"seg {name}: logits rel err {err} > {HEATMAP_RTOL}")
+        r = {"launches": launches, "logits_rel_err": err, "masks_mean": masks.mean().item(),
+             "logits_std": logits.std().item(), "cpu_forward_s": cpu_s}
+        r["frame_ms_median"], r["peak_mem_bytes"], r["stage_ms"] = timed(model, batch)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        r["frame_ms_median_tf32"], r["peak_mem_bytes_tf32"], r["stage_ms_tf32"] = timed(model, batch)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        if pool_entry is None and "pool_lut" in batch:
+            pool_entry, _ = pool_case("seg", bp, model.encoders["camera"]["vtransform"],
+                                      batch["pool_lut"])
+        r["seconds"] = time.perf_counter() - t0
+        res[name] = r
+        print(f"seg {name}: launches {launches}; masks_bev {tuple(masks.shape)} mean "
+              f"{r['masks_mean']:.4f}; logits (std {r['logits_std']:.3f}) vs the CPU plain path: "
+              f"rel err {err:.3e} (CPU forward {cpu_s:.1f} s); {r['frame_ms_median']:.2f} "
+              f"ms/frame median, peak {r['peak_mem_bytes'] / 2**20:.1f} MiB; TF32 on "
+              f"{r['frame_ms_median_tf32']:.2f} ms, peak {r['peak_mem_bytes_tf32'] / 2**20:.1f} "
+              f"MiB; {r['seconds']:.1f} s")
+        for key in ("stage_ms", "stage_ms_tf32"):
+            print(f"seg {name} stages, {key}: "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in r[key].items()))
+        del model, batch, cpu_model, cpu_batch, masks, logits, cpu_logits
+        torch.cuda.empty_cache()
+    return res, pool_entry
 
 
 def summary(name, source, replaces, launches, shapes, extra_err=(), library_ms=None):
@@ -606,7 +766,7 @@ def grad_gaps(grads, ref, global_norm):
 
 
 def train_step_parity(model, batch, sp, bp, counters):
-    """Phase 11: passes of one forward + backward, same weights and batch,
+    """Phase 12: passes of one forward + backward, same weights and batch,
     a freshly seeded dropout generator each; every later pass takes the
     first one's proposals and Hungarian targets (``recorded_proposals``,
     ``recorded_targets``), and whether its own would differ is reported.
@@ -753,6 +913,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     # cuBLAS takes deterministic workspaces only if told before its first call
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -833,57 +994,10 @@ def main() -> int:
     t0 = time.perf_counter()
     add_pool_lut(cfg, cpu_batch)
     lut_s = time.perf_counter() - t0
-    iv = bp.PoolIntervals(*(batch["pool_lut"][k] for k in bp.PoolIntervals._fields))
     vt = cpu_model.encoders["camera"]["vtransform"]
+    pool_entry, (depth, ctx, got, iv) = pool_case("flagship", bp, vt, batch["pool_lut"])
     X, Y, Z = vt.nx
-    D, fH, fW = vt.frustum.shape[:3]
-    g = torch.Generator(device=DEVICE).manual_seed(0)
-    depth = torch.randn(1, 6, D, fH, fW, generator=g, device=DEVICE).softmax(2)
-    ctx = torch.randn(1, 6, vt.C, fH, fW, generator=g, device=DEVICE).permute(0, 1, 3, 4, 2)
-    ctx = ctx.contiguous()
-    P, R = iv.ranks_depth.numel(), iv.interval_cells.numel()
-    got = bp.bev_pool(depth, ctx, iv, Z, X, Y)
-    want = bp.bev_pool_plain(depth, ctx, iv, Z, X, Y)
-    torch.cuda.synchronize()
-    pool_err = (got - want).abs().max().item()
-    pool_scale = max(want.abs().max().item(), 1.0)
-    check(got.shape == (1, Z * vt.C, X, Y), f"bev_pool shape {tuple(got.shape)}")
-    check(pool_err <= FP32_RTOL_KERNEL * pool_scale,
-          f"bev_pool: max|d| {pool_err} vs plain, scale {pool_scale}")
-    pool_ms = kernel_ms(lambda: bp.bev_pool(depth, ctx, iv, Z, X, Y))
-    pool_plain_ms = kernel_ms(lambda: bp.bev_pool_plain(depth, ctx, iv, Z, X, Y))
-    # where the pool's time goes: the wrapper's zero fill of the grid; the
-    # kernel on the intervals of at most 64 points alone, and on all of
-    # them longest first (the LUT's cell order puts long intervals anywhere)
-    zero_ms = kernel_ms(lambda: torch.zeros((Z * X * Y, vt.C), device=DEVICE))
-    by_length = torch.argsort(iv.interval_lengths, descending=True, stable=True)
-    short = iv.interval_lengths <= 64
-    pool_split = {}
-    for key, sel in (("longest_first_ms", by_length), ("short_only_ms", short)):
-        part = bp.PoolIntervals(iv.ranks_depth, iv.ranks_feat,
-                                *(t[sel].contiguous() for t in iv[2:]))
-        pool_split[key] = kernel_ms(lambda: bp.bev_pool(depth, ctx, part, Z, X, Y))
-    # each input byte once (the P pooled depth values, the whole ctx table,
-    # the interval arrays), the zero-filled output grid once; a multiply-add
-    # per pooled point and channel
-    pool_bound, pool_by = bound(2 * P * vt.C, 4 * P + nbytes(ctx, got, *iv))
-    lengths = iv.interval_lengths.float()
-    pool_lengths = {"mean": lengths.mean().item(), "p99": lengths.quantile(0.99).item(),
-                    "max": int(lengths.max().item())}
-    # distinct ctx rows a cell reads: what a pool that reads each (cell,
-    # ctx row) once would gather, against the P rows gathered now
-    cell_of_point = torch.repeat_interleave(iv.interval_cells.long(), iv.interval_lengths.long())
-    pairs = torch.unique(cell_of_point * (ctx.numel() // vt.C) + iv.ranks_feat.long()).numel()
-    print(f"kernel bev_pool: P {P} of {depth.numel()} frustum points in the grid, R {R} "
-          f"intervals of {Z * X * Y} cells (length mean {pool_lengths['mean']:.2f}, p99 "
-          f"{pool_lengths['p99']:.0f}, max {pool_lengths['max']}); {pairs} distinct (cell, "
-          f"ctx row) pairs = {pairs / P:.4f} of P; max|d| {pool_err:.3e}, kernel "
-          f"{pool_ms:.4f} ms, plain {pool_plain_ms:.4f} ms, bound {pool_bound:.4f} ms "
-          f"({pool_by}), {pool_bound / pool_ms:.3f} of bound; the wrapper's zero fill alone "
-          f"{zero_ms:.4f} ms; the same call with the intervals longest first "
-          f"{pool_split['longest_first_ms']:.4f} ms, on the {int(short.sum())} intervals of "
-          f"<= 64 points ({int(iv.interval_lengths[short].sum())} points) alone "
-          f"{pool_split['short_only_ms']:.4f} ms")
+    g = torch.Generator(device=DEVICE).manual_seed(1)
     # the pool's backward (torch ops, chunked) vs autograd of the plain pool
     gout = torch.randn(got.shape, generator=g, device=DEVICE)
     dr, cr = depth.clone().requires_grad_(), ctx.clone().requires_grad_()
@@ -930,10 +1044,19 @@ def main() -> int:
     print(f"flagship, TF32 on: {statistics.median(frames_tf32):.2f} ms/frame median, "
           f"peak device memory {peak_tf32 / 2**20:.1f} MiB; stages "
           + ", ".join(f"{k} {v:.2f} ms" for k, v in stages_tf32.items()))
-    del model, cpu_model, cpu_batch, batch, depth, ctx, got, want, gout
+    del model, cpu_model, cpu_batch, batch, depth, ctx, got, gout
     torch.cuda.empty_cache()
 
-    # 11. the flagship's training step, B=1, host LUT, TF32 off: kernels vs plain
+    # 11. the three map-segmentation configs, eval forward at B=1, and the pool at the seg grid
+    all_counters = {"sparse_conv": sp.sparse_conv, "sparse_conv_dw": sp.sparse_conv_dw,
+                    "bev_pool": bp.bev_pool, "tile_copy": tm.copy_add_one,
+                    "tile_gather": tm.gather_tiles, "sparse_conv_variants": kv.sparse_conv_variant}
+    t0 = time.perf_counter()
+    seg, seg_pool = seg_phase(all_counters, bp)
+    seg_s = time.perf_counter() - t0
+    print(f"seg: the three configs and the pool at the seg grid in {seg_s:.1f} s")
+
+    # 12. the flagship's training step, B=1, host LUT, TF32 off: kernels vs plain
     cfg, model, batch = build_flagship("cuda", num_points=120000, seed=0, training=True)
     with torch.no_grad():  # moderate heatmap logits: an unsaturated sigmoid ranks apart
         model.heads["object"].heatmap_head[-1].weight.mul_(0.2)
@@ -941,7 +1064,7 @@ def main() -> int:
                       "bev_pool": bp.bev_pool}
     parity = train_step_parity(model, batch, sp, bp, train_counters)
 
-    # 12. five timed train steps, TF32 on
+    # 13. five timed train steps, TF32 on
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = True
     steps = train_steps(cfg, model, batch, DEVICE, steps=5, warmup=2)
@@ -958,17 +1081,10 @@ def main() -> int:
     print(f"pool LUT build on the host: {lut_s * 1e3:.1f} ms = {lut_s * 1e3 / step_ms:.3f} "
           f"train steps; on the card {lut_card_ms:.3f} ms = {lut_card_ms / step_ms:.4f} steps")
 
-    # 13. the measurement tools: this path's entry points
-    tool_counters = dict(train_counters, tile_copy=tm.copy_add_one, tile_gather=tm.gather_tiles,
-                         sparse_conv_variants=kv.sparse_conv_variant)
-    tools, tool_launches = tools_phase(cfg, model, batch, k7_cases, tool_counters)
+    # 14. the measurement tools: this path's entry points
+    tools, tool_launches = tools_phase(cfg, model, batch, k7_cases, all_counters)
 
-    # 14. results
-    pool_entry = {"shape": "flagship [1,6,118,32,88] x [1,6,32,88,80]", "points": P,
-                  "intervals": R, "interval_lengths": pool_lengths,
-                  "distinct_cell_ctx_pairs": pairs, "zero_fill_ms": zero_ms, **pool_split,
-                  "max_abs_err": pool_err, "ms": pool_ms,
-                  "plain_ms": pool_plain_ms, "bound_ms": pool_bound, "bound_by": pool_by}
+    # 15. results
     kernels = [
         dict(summary("sparse_conv", "bevfusion_tpu_torch/csrc/sparse_conv.cu",
                      "bevfusion_tpu/ops/sparse_conv_windowed.py:285",
@@ -986,7 +1102,7 @@ def main() -> int:
              step_bound_ms=step_dw["bound_ms"]),
         dict(summary("bev_pool", "bevfusion_tpu_torch/csrc/bev_pool.cu",
                      "bevfusion_tpu/ops/bev_pool_pallas.py:49", parity["launches"]["bev_pool"],
-                     [pool_entry]),
+                     [pool_entry, seg_pool]),
              launches_eval=launches["bev_pool"], backward_ms=pool_bwd_ms,
              backward_plain_ms=pool_bwd_plain_ms, backward_rel_err=pool_bwd_err,
              lut_host_s=lut_s, lut_card_ms=lut_card_ms),
@@ -1007,12 +1123,15 @@ def main() -> int:
     ]
     for k in kernels[:3]:
         k["launches_tools"] = tool_launches[k["name"]]
+    for k in kernels:
+        k["launches_seg"] = {name: r["launches"][k["name"]] for name, r in seg.items()}
     print(json.dumps({
-        "kernels": kernels, "build_s": build_s,
+        "kernels": kernels, "build_s": build_s, "total_s": time.perf_counter() - t_start,
         "flagship": {"frame_ms_median": statistics.median(frames), "peak_mem_bytes": peak,
                      "heatmap_rel_err": heat_err, "stage_ms": stages,
                      "frame_ms_median_tf32": statistics.median(frames_tf32),
                      "peak_mem_bytes_tf32": peak_tf32, "stage_ms_tf32": stages_tf32},
+        "seg": dict(seg, seconds=seg_s),
         "train": {"parity_tf32_off": parity, "steps_tf32_on": steps},
         "tools": {k: v for k, v in tools.items() if k not in ("copy", "gathers")},
         "lidar_slice": {"launches": lidar_launches,

@@ -17,7 +17,8 @@ import torch
 
 from bevfusion_tpu_torch.config import Config
 from bevfusion_tpu_torch.models.sparse_encoder import SparseEncoder
-from bevfusion_tpu_torch.models.vtransforms import DepthLSSTransform
+from bevfusion_tpu_torch.models.heads.segm import BEVSegmentationHead
+from bevfusion_tpu_torch.models.vtransforms import DepthLSSTransform, LSSTransform
 from bevfusion_tpu_torch.ops import bev_pool as bp
 from bevfusion_tpu_torch.ops import sparse_conv as sp
 from bevfusion_tpu_torch.runtime.flagship import (add_pool_lut, batch_to, init_weights,
@@ -531,6 +532,53 @@ def test_depth_lss_on_card_matches_cpu(cuda, route):
         torch.cuda.synchronize()
     assert bp.bev_pool.launches - launches == 1
     _close(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["lut", "in_graph"])
+def test_lss_on_card_matches_cpu(cuda, route):
+    """A small LSSTransform (the map configs' camera vtransform) on the card,
+    its pool through the kernel (one launch per forward), against the same
+    module on the CPU."""
+    vt = dict(type="LSSTransform", in_channels=24, out_channels=16, image_size=[32, 64],
+              feature_size=[4, 8], xbound=[-16.0, 16.0, 0.5], ybound=[-16.0, 16.0, 0.5],
+              zbound=[-10.0, 10.0, 20.0], dbound=[1.0, 20.0, 1.0], downsample=2)
+    model = init_weights(LSSTransform(**{k: v for k, v in vt.items() if k != "type"}), seed=3)
+    batch = {k: torch.from_numpy(v) for k, v in synthetic_calibration(2, 3, (32, 64)).items()}
+    if route == "lut":
+        cfg = Config.from_dict({"model": {"encoders": {"camera": {"vtransform": vt}}}})
+        batch = add_pool_lut(cfg, batch)
+    feats = torch.randn(2, 3, 24, 4, 8, generator=torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        want = model.eval()(feats, None, None, batch)
+        launches = bp.bev_pool.launches
+        got = model.to(cuda)(feats.to(cuda), None, None, batch_to(batch, cuda))
+        torch.cuda.synchronize()
+    assert bp.bev_pool.launches - launches == 1
+    _close(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_seg_head_on_card_matches_cpu(cuda):
+    """The map head on the card (grid_sample re-gridding, the classifier's
+    cuDNN convs, the losses) against the same module on the CPU: eval
+    probabilities and, in training, each class's focal loss."""
+    grid = {"input_scope": [[-12.0, 12.0, 1.5], [-10.0, 10.0, 1.0]],
+            "output_scope": [[-15.0, 11.0, 0.8], [-6.0, 11.0, 0.5]]}
+    head = init_weights(BEVSegmentationHead(16, grid, ["drivable_area", "divider"]), seed=4)
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn(2, 16, 16, 20, generator=g)
+    with torch.no_grad():
+        want = head.eval()(x)
+        got = copy.deepcopy(head).to(cuda)(x.to(cuda))
+    assert got.shape == want.shape == (2, 2, 32, 34)
+    _close(got.cpu(), want)
+    target = (torch.rand(want.shape, generator=g) < 0.3).float()
+    want = head.train()(x, target)
+    got = copy.deepcopy(head).to(cuda)(x.to(cuda), target.to(cuda))
+    assert set(got) == set(want) == {"drivable_area/focal", "divider/focal"}
+    for k in want:
+        _close(got[k].cpu(), want[k])
 
 
 @pytest.mark.cuda

@@ -28,10 +28,12 @@ MAIN_PATH = [
     "bevfusion_tpu_torch.models.second",
     "bevfusion_tpu_torch.models.swin",
     "bevfusion_tpu_torch.models.necks",
+    "bevfusion_tpu_torch.models.resnet",
     "bevfusion_tpu_torch.models.vtransforms",
     "bevfusion_tpu_torch.models.fusers",
     "bevfusion_tpu_torch.models.heads.transformer",
     "bevfusion_tpu_torch.models.heads.transfusion",
+    "bevfusion_tpu_torch.models.heads.segm",
     "bevfusion_tpu_torch.models.bevfusion",
     "bevfusion_tpu_torch.runtime.flagship",
     "bevfusion_tpu_torch.runtime.train",

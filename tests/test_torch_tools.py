@@ -50,8 +50,9 @@ def _finite(rows, key="ms"):
 
 def test_profile_stages_chain_gives_the_models_boxes():
     model, batch = _tiny()
-    rows, boxes = profile_stages.profile_stages(model, batch, "cpu", iters=1, warmup=0,
-                                                flops=True)
+    rows, out = profile_stages.profile_stages(model, batch, "cpu", iters=1, warmup=0,
+                                              flops=True)
+    boxes = out["boxes"]
     with torch.no_grad():
         want = model(batch)["boxes"]
     assert set(boxes) == set(want)
@@ -162,7 +163,7 @@ def test_benchmark_latency_on_the_cpu():
 
 
 @pytest.mark.parametrize("config,batch_size,match", [
-    ("configs/nuscenes/seg/fusion-bev256d2-lss.yaml", 1, "not ported"),
+    ("configs/nuscenes/det/transfusion/secfpn/lidar/pointpillars.yaml", 1, "not ported"),
     ("configs/nuscenes/det/centerhead/lssfpn/camera/256x704/swint/default.yaml", 1, "not ported"),
     (None, 2, "batch size 2"),
 ])
