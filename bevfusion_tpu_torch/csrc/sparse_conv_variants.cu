@@ -1,6 +1,9 @@
-// The first, scalar form of the sparse-conv gather-GEMM loop of
-// csrc/sparse_conv.cu (before its tensor-core redesign), without its
-// epilogue, in four modes that split its time into parts, fp32:
+// K7: where the sparse-conv kernel's time goes, in two families of modes,
+// fp32, no epilogue.
+//
+// The scalar family: the first form of csrc/sparse_conv.cu's loop (before
+// its tensor-core redesign), kept as the yardstick that chip_smoke.py times
+// today's kernel against, at tiles of 64 and 128 output sites:
 //
 //   current    out[i] = sum_k x[nbr[k, i]] @ W[k]  (the scalar loop: an offset
 //              that every site of the tile misses is skipped)
@@ -12,33 +15,53 @@
 //   noproduct  out[i] = sum_k x[nbr[k, i]]  ([cap_out, Cin], no weights):
 //              the gather without the product; the cost floor of the product
 //
+// The tensor-core family: today's K1/K2 loop itself (sparse_conv_tile.cuh,
+// shared with csrc/sparse_conv.cu, which instantiates its production mode):
+// the same prologue, cp.async ring, 64-site blocks of 4 warps and 3xTF32
+// mma.sync tiles, with one part changed a mode (tc, tc_noskip, tc_nogather,
+// tc_noproduct, tc_1xtf32; the header lists them). tc is K1/K2 without its
+// epilogue, bit for bit. The differences from tc give the gather (tc -
+// tc_nogather), the product (tc - tc_noproduct), what the per-warp skip
+// saves (tc_noskip - tc) and what the 3xTF32 split costs over one TF32
+// product (tc - tc_1xtf32), which is also the most a bf16 form with one mma
+// a step could save.
+//
 // Replaces the TPU kernel tools/bench_kernel_variants.py:_kernel (modes
 // current, roll, noalign, nohot), which split the windowed Pallas conv's
-// time into its lane alignment, its one-hot matmul and its DMAs. The scalar
-// kernel has none of those, so the modes here split it into what it does
-// have: the gather (current - nogather), the product (current - noproduct)
-// and what the skip saves (noskip - current). fp32, because the kernel it
-// breaks down is fp32 (the TPU tool was bf16 because its production kernel
-// was); a bf16 form waits for the bf16 sparse-conv path.
+// time into its lane alignment, its one-hot matmul and its DMAs. Neither
+// Hopper loop has those parts, so the modes split each into what it has.
+// fp32, because the kernel it breaks down is fp32 (the TPU tool was bf16
+// because its production kernel was).
 //
-// What bounds it on an H100: per output row K * Cin * 4 bytes of gathered
-// rows and 2 * K * Cin * Cout flops on the fp32 FMA units, 8 to 32 flops
-// per byte, at or below the fp32 ridge; the feature tables fit the 50 MB
-// L2. The design is the scalar one, so the modes measure it: one block of 256
-// threads per TILE output sites (64, the scalar kernel's tile, or 128), each thread
-// keeping TILE / (256 / COL_PAD) sums in registers, a block-wide vote and
-// a synchronous staging of rows and W[k] per offset. `current` at TILE 64
-// is the scalar kernel without epilogue, bit for bit; chip_smoke.py times it
-// beside today's csrc/sparse_conv.cu (a cp.async ring feeding 3xTF32
-// tensor-core tiles), which agrees with it to fp32 rounding, not bit for
-// bit.
+// What bounds it on an H100. Per hit pair the product does 2 * Cin * Cout
+// flops: on the fp32 FMA units (67 TFLOP/s) for the scalar family, three
+// TF32 products on the tensor cores (495 TFLOP/s) for tc, tc_noskip and
+// tc_nogather, one for tc_1xtf32; noproduct and tc_noproduct only move
+// bytes (each input once, the output once, at 3.35 TB/s; the feature
+// tables fit the 50 MB L2). The scalar loop: one block of 256 threads per
+// TILE output sites, each thread keeping TILE / (256 / COL_PAD) sums in
+// registers, a block-wide vote and a synchronous staging of rows and W[k]
+// per offset, so nothing is in flight while it multiplies.
+//
+// Measured (chip_smoke.py phase 14, an NVIDIA H100 80GB HBM3 at 700 W; ms
+// at the stage-0 16->16 / stage-1 32->32 / stage-2 64->64 submanifold convs
+// of a 120k-point scan): tc 0.0715 / 0.1819 / 0.3755 (K1/K2 without
+// epilogue, 0.16 / 0.06 / 0.11 of its bound); tc_nogather the same (the
+// gather costs nothing: the tables sit in L2); tc_noproduct 0.0444 /
+// 0.0808 / 0.1056, the loop's floor without a product; tc_1xtf32 0.0599 /
+// 0.1444 / 0.2523, so the 3xTF32 split costs 16 / 21 / 33%; tc_noskip
+// 0.1563 / 0.2516 / 0.5427. 0.315 / 0.559 / 0.620 of the rows multiplied
+// hold a hit. The scalar loop's current at tile 64: 0.127 / 0.398 / 0.943.
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "sparse_conv_tile.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxChannels = 128;
+constexpr int kThreads = 256;  // the scalar loop's block
 
 enum Mode { kCurrent = 0, kNoSkip = 1, kNoGather = 2, kNoProduct = 3 };
 
@@ -50,8 +73,8 @@ variant_kernel(const float* __restrict__ feats, const int* __restrict__ nbr,
   constexpr bool kProduct = MODE != kNoProduct;
   constexpr int kLanes = kThreads / COL_PAD;  // row lanes per column
   constexpr int kRows = TILE / kLanes;        // rows per thread
-  extern __shared__ float smem[];
-  float* xs = smem;                                                         // [TILE][cin]
+  extern __shared__ float scalar_smem[];
+  float* xs = scalar_smem;                                                  // [TILE][cin]
   float* ws = xs + TILE * cin;                                              // [cin][COL_PAD]
   int* src_rows = reinterpret_cast<int*>(ws + (kProduct ? cin * COL_PAD : 0));  // [TILE]
 
@@ -195,5 +218,45 @@ extern "C" int bevf_sparse_conv_variant_f32(const float* feats, const int* nbr,
                                                       num_offsets, cin, cout, tile, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+namespace {
+
+// the tensor-core family runs K1/K2's loop at the submanifold convs, Cin ==
+// Cout, padded as csrc/sparse_conv.cu pads them
+template <int MODE>
+cudaError_t launch_tc(const Params& p, cudaStream_t s) {
+  if (p.cin <= 16) return launch<MODE, 16, 16>(p, s);
+  if (p.cin <= 32) return launch<MODE, 32, 32>(p, s);
+  return launch<MODE, 64, 64>(p, s);
+}
+
+}  // namespace
+
+// The tensor-core family. feats [cap_in, c], nbr [num_offsets, cap_out]
+// int32 (-1 = miss), weight [num_offsets, c, c] (not read by tc_noproduct),
+// out [cap_out, c]; all contiguous fp32 device memory, 1 <= c <= 64. mode 0
+// tc, 1 tc_noskip, 2 tc_nogather, 3 tc_noproduct, 4 tc_1xtf32. Launches on
+// `stream`, does not synchronise, and returns the launch's cudaError_t (0
+// on success).
+extern "C" int bevf_sparse_conv_tc_variant_f32(const float* feats, const int* nbr,
+                                               const float* weight, float* out, int cap_in,
+                                               int cap_out, int num_offsets, int c, int mode,
+                                               void* stream) {
+  if (c < 1 || c > 64 || num_offsets < 1 || cap_in < 0 || cap_out < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p{feats, nbr, weight, nullptr, nullptr, nullptr, out, cap_in, cap_out, num_offsets, c,
+           c, 0, 0};
+  p.vec_rows = c % 4 == 0 && aligned(feats, 16);
+  p.vec_weight = c % 4 == 0 && aligned(weight, 16);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case 0: return static_cast<int>(launch_tc<kTileBare>(p, s));
+    case 1: return static_cast<int>(launch_tc<kTileNoSkip>(p, s));
+    case 2: return static_cast<int>(launch_tc<kTileNoGather>(p, s));
+    case 3: return static_cast<int>(launch_tc<kTileNoProduct>(p, s));
+    case 4: return static_cast<int>(launch_tc<kTileOneTf32>(p, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -8,10 +8,13 @@ kernels of ``csrc/tile_micro.cu`` in place of its two Pallas kernels:
 2. ``bench_copy``   - K5 ``copy_add_one``: the same function as a
                       hand-written copy (the copy rate every ``bytes``
                       bound divides by);
-3. ``bench_gather`` - K6 ``gather_tiles``: ``steps`` blocks, each reading
+3. ``bench_gather`` - K6 ``gather_tiles``: ``steps`` steps, each reading
                       G random tiles of R rows of 256 B from a pool (the
                       random-tile gather rate, from L2 or from HBM by the
-                      pool's size);
+                      pool's size), on both engines: TMA bulk copies from
+                      persistent blocks (what ``gather_tiles`` launches)
+                      and 16-byte ``cp.async`` copies from one block a step
+                      (its first form, the same-run yardstick);
 4. ``bench_matmul`` - bf16 ``torch.matmul`` at the sparse convs' im2col
                       shapes (outside any kernel, as the JAX tool's
                       ``jnp.dot``).
@@ -30,7 +33,7 @@ import torch
 
 from .. import native
 from ..devices import resolve_device
-from ..utils.profiler import BF16_FLOPS, bound, nbytes, time_fn
+from ..utils.profiler import BF16_FLOPS, HBM_BYTES_PER_S, bound, card_line, nbytes, time_fn
 
 ROW = 128  # bf16 values of a pool row (256 B)
 L2_BYTES = 50e6  # the H100's L2 cache
@@ -41,6 +44,9 @@ GATHERS = [(8192, 32, 8, 4096), (8192, 128, 8, 2048), (8192, 512, 4, 1024),
            (8192, 8, 8, 4096), (160000, 1, 8, 16384)]
 MATMULS = [(4096, 432, 16), (4096, 432, 128), (16384, 432, 128), (16384, 864, 32),
            (16384, 1728, 64), (8192, 128, 128)]
+# K6's engines: "tma" (gather_tiles' default) and its first form, "cp_async"
+ENGINES = ("tma", "cp_async")
+TMA_MAX_G = 2048  # the TMA engine's slots a block stages in shared memory at once
 
 
 @functools.lru_cache(maxsize=None)
@@ -51,6 +57,8 @@ def _lib():
     lib.bevf_copy_add_one_bf16.restype = i32
     lib.bevf_gather_tiles_bf16.argtypes = [vp, vp, vp, i64, i32, i32, i32, vp]
     lib.bevf_gather_tiles_bf16.restype = i32
+    lib.bevf_gather_tiles_tma_bf16.argtypes = [vp, vp, vp, i64, i32, i32, i32, vp]
+    lib.bevf_gather_tiles_tma_bf16.restype = i32
     return lib
 
 
@@ -134,14 +142,30 @@ def gather_tiles_plain(pool: torch.Tensor, slots: torch.Tensor, R: int, G: int) 
     return tiles[-2] + tiles[-1]
 
 
-def gather_tiles(pool: torch.Tensor, slots: torch.Tensor, R: int, G: int) -> torch.Tensor:
+def gather_tiles(pool: torch.Tensor, slots: torch.Tensor, R: int, G: int,
+                 engine: str = "tma") -> torch.Tensor:
     """``[R, 128] = pool[slots[-2] : +R] + pool[slots[-1] : +R]`` (bf16),
     where pool [T*R, 128] bf16 and slots [steps * G] int32 hold row starts
-    (G >= 2; every start + R within the pool). CUDA tensors launch the
-    hand-written gather on the current stream: one block per step reads
-    all G of its tiles; a start outside the pool trips a device-side
-    assert. CPU tensors take ``gather_tiles_plain``.
-    ``gather_tiles.launches`` counts kernel launches."""
+    (G >= 2; every start + R within the pool). CUDA tensors launch a
+    hand-written gather on the current stream, on ``engine`` (``ENGINES``):
+
+    - ``"tma"``: 2 persistent blocks an SM, each over an equal run of the
+      steps' tiles, one thread issuing TMA bulk copies of whole tiles (or
+      chunks) into a ring of stages of at most 32 KB, each on its own
+      mbarrier (G <= 2048). The default, because the probe is there to
+      measure the TMA, although it is the slower engine at every setting
+      the tool times (PERF.md, K6);
+    - ``"cp_async"``: one block a step, 16-byte ``cp.async`` copies from
+      every thread (the first form).
+
+    Either reads all G tiles of every step; a start outside the pool
+    trips a device-side assert. CPU tensors take ``gather_tiles_plain``.
+    ``gather_tiles.launches`` counts kernel launches,
+    ``gather_tiles.launches_by_engine`` each engine's."""
+    if engine not in ENGINES:
+        raise ValueError(f"gather_tiles: engine {engine!r}, want one of {ENGINES}")
+    if engine == "tma" and G > TMA_MAX_G:
+        raise ValueError(f"gather_tiles: the TMA engine takes G <= {TMA_MAX_G}, got {G}")
     if pool.device.type == "cpu":
         return gather_tiles_plain(pool, slots, R, G)
     if pool.device.type != "cuda":
@@ -152,15 +176,20 @@ def gather_tiles(pool: torch.Tensor, slots: torch.Tensor, R: int, G: int) -> tor
         raise ValueError("gather_tiles: slots must be contiguous")
     out = torch.empty((R, ROW), dtype=torch.bfloat16, device=pool.device)
     with torch.cuda.device(pool.device):
-        rc = _lib().bevf_gather_tiles_bf16(pool.data_ptr(), slots.data_ptr(), out.data_ptr(),
-                                           pool.shape[0], R, G, steps,
-                                           torch.cuda.current_stream().cuda_stream)
+        args = (pool.data_ptr(), slots.data_ptr(), out.data_ptr(), pool.shape[0], R, G, steps)
+        stream = torch.cuda.current_stream().cuda_stream
+        if engine == "tma":
+            rc = _lib().bevf_gather_tiles_tma_bf16(*args, stream)
+        else:
+            rc = _lib().bevf_gather_tiles_bf16(*args, stream)
     _raise_on("gather_tiles", rc)
     gather_tiles.launches += 1
+    gather_tiles.launches_by_engine[engine] += 1
     return out
 
 
 gather_tiles.launches = 0
+gather_tiles.launches_by_engine = dict.fromkeys(ENGINES, 0)
 
 
 def gather_inputs(T: int, R: int, G: int, steps: int, device, seed: int = 0):
@@ -183,7 +212,8 @@ def bench_ew(device="cuda", iters: int = 20, warmup: int = 5):
     (read + write)."""
     dev = resolve_device(device)
     x = torch.ones((64, 1024, 1024), dtype=torch.bfloat16, device=dev)
-    ms = time_fn(lambda: x + 1, iters=iters, warmup=warmup, device=dev)["median_ms"]
+    ms = time_fn(lambda: x + 1, iters=iters, warmup=warmup, device=dev,
+                 queue_ahead=True)["median_ms"]
     return {"ms": ms, "gb_per_s": 2 * nbytes(x) / ms / 1e6}
 
 
@@ -197,7 +227,8 @@ def bench_copy(M: int = 65536, device="cuda", iters: int = 20, warmup: int = 5, 
     x = torch.randn(M, 1024, generator=g, device=dev).to(torch.bfloat16)
 
     def t(fn):
-        return time_fn(fn, iters=iters, warmup=warmup, device=dev)["median_ms"]
+        return time_fn(fn, iters=iters, warmup=warmup, device=dev,
+                       queue_ahead=True)["median_ms"]
 
     ms, plain_ms, library_ms = t(lambda: copy_add_one(x)), t(lambda: copy_add_one_plain(x)), \
         t(lambda: x + 1)
@@ -209,38 +240,60 @@ def bench_copy(M: int = 65536, device="cuda", iters: int = 20, warmup: int = 5, 
 
 def bench_gather(T: int, R: int, G: int, steps: int, device="cuda", iters: int = 20,
                  warmup: int = 5, seed: int = 0):
-    """K6 at one setting: median ms of the kernel and of its plain version;
-    the bound: each distinct tile the slots name read once (a tile drawn
-    again is read again by the kernel, but need not come from memory
-    again), the output written once, the slots read once, over the HBM
-    rate; GB/s of all tile reads, ns per tile, the pool's bytes and whether
-    it fits the L2. Where it does, the timed calls find the pool in the L2,
-    so the HBM bound is no floor: ``hbm_share`` is None there."""
+    """K6 at one setting, both engines from the same run, timed in turns
+    (cp_async, tma, tma, cp_async; each engine's ms the mean of its two
+    medians), and the plain version. The bound: each distinct tile the
+    slots name read once (a tile drawn again is read again by the kernel,
+    but need not come from memory again), the output written once, the
+    slots read once, over the HBM rate. Per engine (``engines``): ms, GB/s
+    of all tile reads, ns per tile, ``hbm_share`` (the bound over ms; None
+    where the pool fits the L2, since the timed calls then find it there
+    and the HBM bound is no floor) and ``reads_over_hbm``, the rate of all
+    tile reads over 3.35 TB/s (a rate, not a bound: it shows where every
+    read already streams at the HBM rate). The top-level ``ms``,
+    ``gb_per_s``, ``ns_per_tile`` and ``hbm_share`` are the TMA engine's,
+    the one ``gather_tiles`` launches."""
     dev = resolve_device(device)
     pool, slots = gather_inputs(T, R, G, steps, dev, seed)
 
     def t(fn):
-        return time_fn(fn, iters=iters, warmup=warmup, device=dev)["median_ms"]
+        return time_fn(fn, iters=iters, warmup=warmup, device=dev,
+                       queue_ahead=True)["median_ms"]
 
-    ms, plain_ms = t(lambda: gather_tiles(pool, slots, R, G)), \
-        t(lambda: gather_tiles_plain(pool, slots, R, G))
+    ms = dict.fromkeys(ENGINES, 0.0)
+    for engine in ("cp_async", "tma", "tma", "cp_async"):
+        ms[engine] += t(lambda: gather_tiles(pool, slots, R, G, engine)) / 2
+    plain_ms = t(lambda: gather_tiles_plain(pool, slots, R, G))
     tile_bytes = R * ROW * 2
     distinct = int(torch.unique(slots).numel())
     b_ms, b_by = bound(R * ROW, distinct * tile_bytes + tile_bytes + nbytes(slots))
     l2_resident = nbytes(pool) <= L2_BYTES
+    reads = steps * G * tile_bytes
+    engines = {e: {"ms": m, "gb_per_s": reads / m / 1e6, "ns_per_tile": m * 1e6 / (steps * G),
+                   "hbm_share": None if l2_resident else b_ms / m,
+                   "reads_over_hbm": reads / m * 1e3 / HBM_BYTES_PER_S}
+               for e, m in ms.items()}
     return {"shape": f"R={R} G={G} steps={steps} T={T}", "R": R, "G": G, "steps": steps,
             "tile_bytes": tile_bytes, "distinct_tiles": distinct, "pool_bytes": nbytes(pool),
-            "l2_resident": l2_resident, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-            "hbm_share": None if l2_resident else b_ms / ms,
-            "gb_per_s": steps * G * tile_bytes / ms / 1e6, "ns_per_tile": ms * 1e6 / (steps * G)}
+            "l2_resident": l2_resident, **engines["tma"], "engines": engines,
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
 
 
 def gather_share(r) -> str:
-    """A K6 row's share of its HBM bound, or why there is none."""
+    """A K6 row's (or one engine's) share of its HBM bound, or why there is none."""
     if r["hbm_share"] is None:
         return "L2-resident, no HBM share"
     return f"{r['hbm_share']:.3f} of the HBM bound"
+
+
+def print_gather(r, prefix: str = "K6 gather") -> None:
+    """Both engines of a ``bench_gather`` row, one line each."""
+    for engine, e in r["engines"].items():
+        print(f"{prefix} {engine:8s} {r['shape']}: {e['ms']:8.4f} ms -> {e['gb_per_s']:7.1f} "
+              f"GB/s, {e['ns_per_tile']:7.2f} ns/tile ({r['tile_bytes']} B tiles), all reads at "
+              f"{e['reads_over_hbm']:.3f} of the HBM rate (a rate, not a bound); pool "
+              f"{r['pool_bytes'] / 1e6:.1f} MB, {r['distinct_tiles']} distinct tiles, bound "
+              f"{r['bound_ms']:.4f} ms, {gather_share(e)}; plain {r['plain_ms']:.4f} ms")
 
 
 def bench_matmul(M: int, K: int, N: int, device="cuda", iters: int = 50, warmup: int = 5):
@@ -249,7 +302,8 @@ def bench_matmul(M: int, K: int, N: int, device="cuda", iters: int = 50, warmup:
     dev = resolve_device(device)
     a = torch.ones((M, K), dtype=torch.bfloat16, device=dev)
     b = torch.ones((K, N), dtype=torch.bfloat16, device=dev)
-    ms = time_fn(lambda: torch.matmul(a, b), iters=iters, warmup=warmup, device=dev)["median_ms"]
+    ms = time_fn(lambda: torch.matmul(a, b), iters=iters, warmup=warmup, device=dev,
+                 queue_ahead=True)["median_ms"]
     tflops = 2 * M * K * N / ms / 1e9
     return {"shape": f"M{M} K{K} N{N}", "ms": ms, "tflops": tflops,
             "peak_share": tflops * 1e12 / BF16_FLOPS}
@@ -262,7 +316,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     if dev.type == "cuda":
-        print(f"device: {torch.cuda.get_device_name(dev)}")
+        print(f"device: {card_line()}")
     ew = bench_ew(dev, args.iters)
     print(f"torch x + 1   128 MiB r+w: {ew['ms']:8.4f} ms -> {ew['gb_per_s']:7.1f} GB/s")
     c = bench_copy(device=dev, iters=args.iters)
@@ -270,11 +324,7 @@ def main(argv=None) -> int:
           f"{c['bound_ms']:.4f} ms ({c['bound_ms'] / c['ms']:.3f} of it); torch x + 1 "
           f"{c['library_ms']:.4f} ms")
     for T, R, G, steps in GATHERS:
-        r = bench_gather(T, R, G, steps, dev, args.iters)
-        print(f"K6 gather     {r['shape']}: {r['ms']:8.4f} ms -> {r['gb_per_s']:7.1f} GB/s, "
-              f"{r['ns_per_tile']:7.1f} ns/tile ({r['tile_bytes']} B tiles), pool "
-              f"{r['pool_bytes'] / 1e6:.1f} MB, {r['distinct_tiles']} distinct tiles, "
-              f"{gather_share(r)}; plain {r['plain_ms']:.4f} ms")
+        print_gather(bench_gather(T, R, G, steps, dev, args.iters))
     for M, K, N in MATMULS:
         r = bench_matmul(M, K, N, dev)
         print(f"matmul bf16   {r['shape']}: {r['ms']:8.4f} ms -> {r['tflops']:7.1f} TFLOP/s "

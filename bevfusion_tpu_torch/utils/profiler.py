@@ -8,7 +8,9 @@ way:
 - ``trace(logdir)``: ``torch.profiler`` around the block (the card's
   kernels too, where there is one), a Chrome trace written into ``logdir``;
 - ``time_fn``: ms per call (mean and median) and calls per second; CUDA
-  events between back-to-back calls on the card, the host clock on the CPU;
+  events between back-to-back calls on the card (with ``queue_ahead``, the
+  card waiting until the host has queued them, so a short kernel's time is
+  its own and not its wrapper's), the host clock on the CPU;
 - ``flops_of``: the FLOPs a call runs, ``FlopCounterMode`` for the ATen
   ops plus the useful FLOPs of the port's own kernels (a ``ctypes``
   launch, which that counter cannot see); peak device memory on the card;
@@ -18,13 +20,16 @@ way:
   forwards call around each piece; ``untimed`` (their default) just runs
   it, ``op_timer`` times it (one row a piece);
 - ``bound`` / ``nbytes``: the least time the card could take for a piece
-  of work, from its operations and the bytes it must move.
+  of work, from its operations and the bytes it must move;
+- ``card_line``: the card's name and power limit, as ``nvidia-smi`` prints
+  them, to print beside a measurement.
 """
 from __future__ import annotations
 
 import contextlib
 import os
 import statistics
+import subprocess
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -33,7 +38,8 @@ import torch
 from ..devices import resolve_device
 
 __all__ = ["trace", "time_fn", "flops_of", "frame_ms", "op_timer", "untimed", "bound",
-           "nbytes", "synchronize", "FP32_FLOPS", "TF32_FLOPS", "BF16_FLOPS", "HBM_BYTES_PER_S"]
+           "nbytes", "synchronize", "card_line", "FP32_FLOPS", "TF32_FLOPS", "BF16_FLOPS",
+           "HBM_BYTES_PER_S"]
 
 # NVIDIA H100 SXM, dense rates without sparsity, at the full 700 W power
 # limit (NVIDIA's data sheet): fp32 outside the tensor cores, the tensor
@@ -42,6 +48,9 @@ FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
+# cycles ``torch.cuda._sleep`` spins for a second at the H100's highest SM
+# clock (1.98 GHz), so a sleep lasts at least as long as asked
+SLEEP_CYCLES_PER_S = 2e9
 
 
 @contextlib.contextmanager
@@ -64,16 +73,26 @@ def synchronize(device) -> None:
         torch.cuda.synchronize()
 
 
-def _event_times(fn: Callable, warmup: int, iters: int) -> List[float]:
+def _event_times(fn: Callable, warmup: int, iters: int,
+                 queue_ahead: bool = False) -> List[float]:
     """ms of each of ``iters`` back-to-back calls after ``warmup``: CUDA
     events recorded between consecutive calls, one synchronise at the end.
     The host queues the calls ahead of the card, so a kernel's interval is
-    its time on the card, not its wrapper's host time; where the host is
-    the slower, the interval is the host's time per call."""
+    its time on the card, not its wrapper's host time, unless the host is
+    the slower: then the interval is the host's time per call. With
+    ``queue_ahead`` the card first sleeps (``torch.cuda._sleep``) for 1.5
+    times the host's time to queue the ``iters`` calls, taken from the
+    warmup calls (1 to 100 ms), so the calls run back to back on the card
+    whatever the host's pace."""
+    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
+    host_s = (time.perf_counter() - t0) / max(warmup, 1)
     events = [torch.cuda.Event(enable_timing=True) for _ in range(iters + 1)]
     torch.cuda.synchronize()
+    if queue_ahead:
+        sleep_s = min(max(1.5 * iters * host_s, 1e-3), 0.1)
+        torch.cuda._sleep(int(sleep_s * SLEEP_CYCLES_PER_S))
     events[0].record()
     for end in events[1:]:
         fn()
@@ -103,15 +122,19 @@ def frame_ms(fn: Callable, warmup: int = 5, iters: int = 20,
 
 
 def time_fn(fn: Callable, *args, iters: int = 20, warmup: int = 3,
-            device="cuda") -> Dict[str, float]:
+            device="cuda", queue_ahead: bool = False) -> Dict[str, float]:
     """ms per call of ``fn(*args)`` after ``warmup`` calls: ``mean_ms``,
     ``median_ms`` and ``fps`` (calls per second at the mean). On the card
     (the default) CUDA events sit between back-to-back calls, so a call is
-    its time on the card (``_event_times``); on the CPU (``device="cpu"``)
-    the host clock times each call."""
+    its time on the card, or its host's where that is longer; with
+    ``queue_ahead`` the card waits until the host has queued every call, so
+    a call is its time on the card alone (``_event_times``): the setting
+    for a kernel, whose wrapper may take longer on the host than the
+    kernel on the card. On the CPU (``device="cpu"``) the host clock times
+    each call."""
     dev = resolve_device(device)
     if dev.type == "cuda":
-        times = _event_times(lambda: fn(*args), warmup, iters)
+        times = _event_times(lambda: fn(*args), warmup, iters, queue_ahead)
     else:
         times, _ = frame_ms(lambda: fn(*args), warmup, iters, dev)
     mean = statistics.mean(times)
@@ -233,3 +256,12 @@ def flops_of(fn: Callable, *args, device=None) -> Dict[str, float]:
         torch.cuda.synchronize()
         out["peak_mem_bytes"] = float(torch.cuda.max_memory_allocated())
     return out
+
+
+def card_line() -> str:
+    """``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``'s
+    first line (e.g. ``NVIDIA H100 80GB HBM3, 700.00 W``): a card may be set
+    below its full power limit and then runs slower under load."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[0]

@@ -7,8 +7,9 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
 2. build: compile the five kernel sources of bevfusion_tpu_torch/csrc (one
    nvcc per source, started together); the ptxas register and spill lines;
    the count of tensor-core instructions (``HMMA``) in the SASS
-   (``cuobjdump -sass``) of the sparse-conv and weight-gradient libraries,
-   each of which must be above 0;
+   (``cuobjdump -sass``) of the sparse-conv, weight-gradient and cost
+   breakdown libraries, and of TMA bulk copies (``UBLKCP``) in the memory
+   probes' library, each of which must be above 0;
 3. sparse-conv kernel vs plain: the kernel and its plain PyTorch version
    on the same CUDA tensors at the LiDAR branch's six shapes (a voxelized
    120k-point scan at voxelnet_0p075: the input conv, a stage-0 residual
@@ -31,16 +32,21 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
    strided ones) vs autograd of the plain version, the same tolerance; its
    time beside the scalar loop on the same operands, and the ratio;
 6. the memory probes' kernels vs plain (``tools/bench_tile_micro.py``): K5,
-   the copy ``x + 1``, at [65536, 1024] bf16, and K6, the tile gather, at
-   the tool's five settings, each equal to its plain version bit for bit;
+   the copy ``x + 1``, at [65536, 1024] bf16, and K6, the tile gather, on
+   both engines (TMA bulk copies, and its first form, ``cp.async``) at the
+   tool's five settings, each equal to its plain version bit for bit;
 7. the sparse-conv cost breakdown's kernel vs plain
-   (``tools/bench_kernel_variants.py``, K7): its four modes at tiles 64 and
-   128 at the stage-0 (C = 16) and stage-1 (C = 32) submanifold convs of
-   the scan, max|d| <= 1e-4 * max(|plain|, 1); ``noskip`` equal to
-   ``current`` bit for bit, and ``current`` at tile 64 (the scalar loop, which
-   K7 keeps) within the same 1e-4 of the sparse-conv kernel without
-   epilogue (now a tensor-core kernel, so no longer bit for bit); the
-   plain versions' times;
+   (``tools/bench_kernel_variants.py``, K7) at the stage-0 (C = 16),
+   stage-1 (C = 32) and stage-2 (C = 64) submanifold convs of the scan,
+   max|d| <= 1e-4 * max(|plain|, 1) in every mode: the scalar family's four
+   modes at tiles 64 and 128, ``noskip`` equal to ``current`` bit for bit,
+   and ``current`` at tile 64 (the scalar loop, which K7 keeps) within the
+   same 1e-4 of the sparse-conv kernel without epilogue (a tensor-core
+   kernel, so not bit for bit); the tensor-core family's five modes (K1/K2's
+   own loop), ``tc`` equal to the sparse-conv kernel without epilogue and
+   ``tc_noskip`` to ``tc``, bit for bit, and ``tc_1xtf32``'s max|d| from
+   the fp32 plain conv (one TF32 product: ~1e-3 relative); the plain
+   versions' times;
 8. the LiDAR slice: TransFusion-L (voxelnet_0p075) at full width with
    seeded random weights, eval forward at batch 1 on the scan; 15 kernel
    launches per forward, every box field finite, heatmap logits within
@@ -106,8 +112,9 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
 14. the measurement tools (``bevfusion_tpu_torch/tools/``, this path's
    entry points), TF32 on, every launch count set to 0 just before and read
    just after: the memory probes (torch's ``x + 1``, K5, K6 at its five
-   settings, six bf16 matmuls), the cost breakdown (K7) at the two
-   shapes, then on the flagship held by phase 13 (in eval mode) the
+   settings, both engines, six bf16 matmuls), the cost breakdown (K7) of
+   both families at the three shapes with the slab fill, then on the
+   flagship held by phase 13 (in eval mode) the
    per-stage profile with FLOPs, the encoder, meta-chain and vtransform
    profiles and the latency benchmark's timing, and two train steps
    through the train-step benchmark; every row finite and every kernel
@@ -115,7 +122,9 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
    5``, and the same on configs/nuscenes/seg/fusion-bev256d2-lss.yaml, each in
    a subprocess: exit 0 and its latency line;
 15. a JSON line with the kernel table (the BEV pool's second shape the seg
-   grid; every kernel's launches on the seg paths), the seg results and the
+   grid; K6's two engines and K7's two families each with their ms, plain
+   ms, bound, share and launches; every kernel's launches on the seg
+   paths), the seg results and the
    script's total time, a line with the card's name and
    power limit as nvidia-smi prints them, then the last line
    ``{"ok": true, "device": {...}}``.
@@ -136,7 +145,8 @@ import time
 
 import torch
 
-from bevfusion_tpu_torch.utils.profiler import TF32_FLOPS, bound, frame_ms, nbytes, time_fn
+from bevfusion_tpu_torch.utils.profiler import (TF32_FLOPS, bound, card_line, frame_ms, nbytes,
+                                               time_fn)
 
 FP32_RTOL_KERNEL = 1e-4  # kernel vs plain on the card: summation order only
 HEATMAP_RTOL = 2e-3  # full model on the card vs on the CPU, ~40 fp32 layers
@@ -161,7 +171,7 @@ SEG_LAUNCHES = {"fusion-bev256d2-lss": {"sparse_conv": SPARSE_LAUNCHES, "bev_poo
 SEG_MASKS = (1, 6, 200, 200)  # six map classes on the 100 m x 100 m, 0.5 m output grid
 TRAIN_LAUNCHES = {"sparse_conv": 15 + 14, "sparse_conv_dw": 15, "bev_pool": 1}
 DEVICE = "cuda"
-K7_SHAPES = 2  # the cost breakdown runs at the stage-0 and stage-1 submanifold convs
+K7_SHAPES = 3  # the cost breakdown runs at the stage-0, 1 and 2 submanifold convs
 TOOL_ITERS = 5  # timed calls per op in the tools phase
 SEG_BENCHMARK = "configs/nuscenes/seg/fusion-bev256d2-lss.yaml"  # the tools phase's second CLI run
 
@@ -172,8 +182,10 @@ def check(ok: bool, what: str) -> None:
 
 
 def kernel_ms(fn) -> float:
-    """Median of 20 CUDA-event timings of ``fn`` after 5 warmup calls."""
-    return time_fn(fn, iters=20, warmup=5, device=DEVICE)["median_ms"]
+    """Median of 20 CUDA-event timings of ``fn`` after 5 warmup calls, the
+    card waiting until the host has queued the 20 (a kernel's time, not its
+    wrapper's host time)."""
+    return time_fn(fn, iters=20, warmup=5, device=DEVICE, queue_ahead=True)["median_ms"]
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -306,8 +318,7 @@ def run_model(label, model, batch, cpu_model, cpu_batch, counters, want_launches
     and the frame time. Returns (launches, heatmap rel err, frames, peak)."""
     with torch.no_grad():
         torch.cuda.synchronize()
-        for c in counters.values():
-            c.launches = 0
+        zero_counts(counters)
         out = model(batch)["boxes"]
         torch.cuda.synchronize()
         launches = {name: c.launches for name, c in counters.items()}
@@ -466,29 +477,38 @@ def tile_probe_checks(tm):
     print(f"kernel tile_copy (K5) [65536, 1024] bf16: equal to x + 1 bit for bit")
     for T, R, G, steps in tm.GATHERS:
         pool, slots = tm.gather_inputs(T, R, G, steps, DEVICE)
-        got, want = tm.gather_tiles(pool, slots, R, G), tm.gather_tiles_plain(pool, slots, R, G)
-        torch.cuda.synchronize()
-        check(bits_equal(got, want), f"K6 gather_tiles R={R} G={G}: not equal to plain")
-        errs[(R, G)] = (got.float() - want.float()).abs().max().item()
-        print(f"kernel tile_gather (K6) R={R} G={G} steps={steps} T={T}: equal to plain bit "
-              f"for bit")
+        want = tm.gather_tiles_plain(pool, slots, R, G)
+        errs[(R, G)] = 0.0
+        for engine in tm.ENGINES:
+            got = tm.gather_tiles(pool, slots, R, G, engine)
+            torch.cuda.synchronize()
+            check(bits_equal(got, want),
+                  f"K6 gather_tiles {engine} R={R} G={G}: not equal to plain")
+            errs[(R, G)] = max(errs[(R, G)], (got.float() - want.float()).abs().max().item())
+        print(f"kernel tile_gather (K6) R={R} G={G} steps={steps} T={T}: both engines "
+              f"{tm.ENGINES} equal to plain bit for bit")
     return errs
 
 
 def variant_checks(kv, sp, cases):
-    """Phase 7: K7's four modes at both tiles against their plain versions
-    (max|d| <= 1e-4 * max(|plain|, 1)); ``noskip`` equal to ``current`` bit
-    for bit, and ``current`` at tile 64 (the scalar loop) within the same 1e-4
-    of ``sparse_conv`` with no epilogue (the tensor-core kernel). Returns
-    {(shape, mode): (max|d| over the tiles, plain ms)}."""
-    out = {}
+    """Phase 7: K7's two families against their plain versions (max|d| <=
+    1e-4 * max(|plain|, 1)). The scalar family's four modes at both tiles,
+    ``noskip`` equal to ``current`` bit for bit, and ``current`` at tile 64
+    (the scalar loop) within the same 1e-4 of ``sparse_conv`` with no
+    epilogue (the tensor-core kernel). The tensor-core family's five modes
+    (K1/K2's loop), ``tc`` equal to ``sparse_conv`` with no epilogue and
+    ``tc_noskip`` to ``tc``, bit for bit; ``tc_1xtf32``'s max|d| from the
+    fp32 plain conv. Returns {(shape, mode): (max|d| over the tiles, plain
+    ms)} and {shape: tc_1xtf32's max|d| / max(|plain|, 1)}."""
+    out, one_tf32 = {}, {}
     for label, feats, nbr, w in cases:
         new = sp.sparse_conv(feats, nbr, w)
-        for mode in kv.MODES:
+        for mode in kv.MODES + kv.TC_MODES:
             want = kv.sparse_conv_variant_plain(feats, nbr, w, mode)
             scale = max(want.abs().max().item(), 1.0)
+            tiles = kv.TILES if mode in kv.MODES else (kv.TC_TILE,)
             errs = []
-            for tile in kv.TILES:
+            for tile in tiles:
                 got = kv.sparse_conv_variant(feats, nbr, w, mode, tile)
                 torch.cuda.synchronize()
                 errs.append((got - want).abs().max().item())
@@ -501,14 +521,34 @@ def variant_checks(kv, sp, cases):
                 if mode == "noskip":
                     check(torch.equal(got, kv.sparse_conv_variant(feats, nbr, w, "current", tile)),
                           f"K7 {label}: noskip differs from current at tile {tile}")
+                if mode == "tc":
+                    check(torch.equal(got, new), f"K7 {label}: tc differs from sparse_conv")
+                if mode == "tc_noskip":
+                    check(torch.equal(got, kv.sparse_conv_variant(feats, nbr, w, "tc")),
+                          f"K7 {label}: tc_noskip differs from tc")
+                if mode == "tc_1xtf32":
+                    exact = kv.sparse_conv_variant_plain(feats, nbr, w, "tc")
+                    one_tf32[label] = ((got - exact).abs().max().item()
+                                       / max(exact.abs().max().item(), 1.0))
             plain_ms = kernel_ms(lambda: kv.sparse_conv_variant_plain(feats, nbr, w, mode))
             out[(label, mode)] = (max(errs), plain_ms)
             print(f"kernel sparse_conv_variants (K7) {label} {mode}: max|d| {max(errs):.3e} at "
-                  f"tiles {kv.TILES}, plain {plain_ms:.4f} ms")
+                  f"tiles {tiles}, plain {plain_ms:.4f} ms")
         print(f"kernel sparse_conv_variants (K7) {label}: current at tile 64 (the scalar loop) "
               f"within {FP32_RTOL_KERNEL:g} of sparse_conv without epilogue, noskip equal to "
-              f"current bit for bit")
-    return out
+              f"current bit for bit; tc equal to sparse_conv without epilogue and tc_noskip to "
+              f"tc bit for bit; tc_1xtf32 max|d| / max(|fp32 plain|, 1) {one_tf32[label]:.3e}")
+    return out, one_tf32
+
+
+def zero_counts(counters) -> None:
+    """Every count of each wrapper to 0: ``launches`` and, where a wrapper
+    splits it (K6 by engine, K7 by family), each part."""
+    for c in counters.values():
+        c.launches = 0
+        for name in ("launches_by_engine", "launches_by_family"):
+            if hasattr(c, name):
+                getattr(c, name).update(dict.fromkeys(getattr(c, name), 0))
 
 
 def finite_rows(rows, what: str, keys=("ms",)) -> None:
@@ -521,14 +561,13 @@ def finite_rows(rows, what: str, keys=("ms",)) -> None:
 def tools_phase(cfg, model, batch, cases, counters):
     """Phase 14: the measurement tools, this path's entry points, with every
     launch count set to 0 just before and read just after. Returns (their
-    results, the launches)."""
+    results, the launches, K6's by engine and K7's by family)."""
     from bevfusion_tpu_torch.tools import (bench_kernel_variants as kv, bench_tile_micro as tm,
                                            bench_train_step, benchmark, profile_encoder,
                                            profile_meta, profile_stages, profile_vtransform)
 
     torch.cuda.synchronize()
-    for c in counters.values():
-        c.launches = 0
+    zero_counts(counters)
     t0 = time.perf_counter()
     res = {"ew": tm.bench_ew(DEVICE), "copy": tm.bench_copy(device=DEVICE),
            "gathers": [tm.bench_gather(*g, device=DEVICE) for g in tm.GATHERS],
@@ -553,10 +592,16 @@ def tools_phase(cfg, model, batch, cases, counters):
     res["train"] = bench_train_step.train_steps(cfg, model, batch, DEVICE, steps=2, warmup=1)
     torch.cuda.synchronize()
     launches = {name: c.launches for name, c in counters.items()}
+    parts = {"tile_gather": dict(tm.gather_tiles.launches_by_engine),
+             "sparse_conv_variants": dict(kv.sparse_conv_variant.launches_by_family)}
     res["seconds"] = time.perf_counter() - t0
-    print(f"tools: launches in the tools' run {launches}; {res['seconds']:.1f} s")
+    print(f"tools: launches in the tools' run {launches}; K6 by engine {parts['tile_gather']}, "
+          f"K7 by family {parts['sparse_conv_variants']}; {res['seconds']:.1f} s")
     for name, n in launches.items():
         check(n > 0, f"tools: the kernel {name} was not launched")
+    for name, by in parts.items():
+        for part, n in by.items():
+            check(n > 0, f"tools: the kernel {name} {part} was not launched")
 
     print(f"tools: torch x + 1 on 128 MiB bf16 {res['ew']['ms']:.4f} ms, "
           f"{res['ew']['gb_per_s']:.1f} GB/s")
@@ -565,10 +610,7 @@ def tools_phase(cfg, model, batch, cases, counters):
           f"{c['bound_ms']:.4f} ms = {c['bound_ms'] / c['ms']:.3f} of it; torch x + 1 "
           f"{c['library_ms']:.4f} ms, plain {c['plain_ms']:.4f} ms")
     for r in res["gathers"]:
-        print(f"tools: K6 {r['shape']}: {r['ms']:.4f} ms, {r['gb_per_s']:.1f} GB/s, "
-              f"{r['ns_per_tile']:.2f} ns/tile of {r['tile_bytes']} B, pool {r['pool_bytes']} B "
-              f"({r['distinct_tiles']} distinct tiles), bound {r['bound_ms']:.4f} ms, "
-              f"{tm.gather_share(r)}; plain {r['plain_ms']:.4f} ms")
+        tm.print_gather(r, "tools: K6")
     for r in res["matmuls"]:
         print(f"tools: matmul bf16 {r['shape']}: {r['ms']:.4f} ms, {r['tflops']:.1f} TFLOP/s "
               f"({r['peak_share']:.3f} of 989)")
@@ -604,7 +646,7 @@ def tools_phase(cfg, model, batch, cases, counters):
         check(proc.returncode == 0 and out and out[-1].startswith("latency:"),
               f"benchmark CLI {args}: exit {proc.returncode}, {proc.stderr[-2000:]}")
         res["benchmark_cli" if config is None else "benchmark_cli_seg"] = out[-1]
-    return res, launches
+    return res, launches, parts
 
 
 def pool_case(label, bp, vt, lut):
@@ -703,8 +745,7 @@ def seg_phase(counters, bp):
         model, batch = copy.deepcopy(cpu_model).cuda(), batch_to(cpu_batch, "cuda")
         want = dict({k: 0 for k in counters}, **want)
         torch.cuda.synchronize()
-        for c in counters.values():
-            c.launches = 0
+        zero_counts(counters)
         masks, logits = forward(model, batch)
         torch.cuda.synchronize()
         launches = {k: c.launches for k, c in counters.items()}
@@ -752,6 +793,20 @@ def summary(name, source, replaces, launches, shapes, extra_err=(), library_ms=N
             "ms": sum(s["ms"] for s in shapes), "plain_ms": sum(s["plain_ms"] for s in shapes),
             "bound_ms": sum(s["bound_ms"] for s in shapes), "bound_by": top["bound_by"],
             "library_ms": library_ms, "shapes": shapes}
+
+
+def form_summary(rows, launches):
+    """One form's sums over its shapes (a K6 engine's, a K7 family's): ms,
+    plain ms, bound, the bound's share of the ms, its launches in the
+    tools' run, and the rows. The share leaves out the rows whose own share
+    is None (K6's L2-resident settings, where the HBM bound is no floor),
+    and is None if that leaves none."""
+    ms, plain_ms, bound_ms = (sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms"))
+    bounded = [r for r in rows if r.get("hbm_share", 0.0) is not None]
+    share = (sum(r["bound_ms"] for r in bounded) / sum(r["ms"] for r in bounded)
+             if bounded else None)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "share": share,
+            "launches": launches, "shapes": rows}
 
 
 def grad_gaps(grads, ref, global_norm):
@@ -819,8 +874,7 @@ def train_step_parity(model, batch, sp, bp, counters):
 
     def counted(fn, want, what):
         torch.cuda.synchronize()
-        for c in counters.values():
-            c.launches = 0
+        zero_counts(counters)
         t0 = time.perf_counter()
         out = fn()
         seconds = time.perf_counter() - t0
@@ -930,9 +984,7 @@ def main() -> int:
 
     # 1. device
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = card_line()
     print(f"device: {name}")
     print(f"nvidia-smi: {smi}")
     torch.backends.cudnn.allow_tf32 = False
@@ -952,10 +1004,13 @@ def main() -> int:
         for line in native.build_log(lib).read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {lib}: {line.strip()}")
-    for lib in ("sparse_conv", "sparse_conv_dw"):
+    for lib in ("sparse_conv", "sparse_conv_dw", "sparse_conv_variants"):
         hmma = sum("HMMA" in line for line in native.sass(lib).splitlines())
         print(f"build: {hmma} tensor-core (HMMA) instructions in the {lib} library's SASS")
         check(hmma > 0, f"the {lib} kernel has no tensor-core (HMMA) instruction")
+    bulk = sum("UBLKCP" in line for line in native.sass("tile_micro").splitlines())
+    print(f"build: {bulk} TMA bulk copies (UBLKCP) in the tile_micro library's SASS")
+    check(bulk > 0, "the TMA gather has no bulk copy (UBLKCP) in its SASS")
 
     # 3-5. sparse-conv kernels vs plain at the LiDAR branch's shapes
     _, cpu_model, cpu_batch = build_lidar_slice("cpu", num_points=120000, seed=0)
@@ -976,10 +1031,10 @@ def main() -> int:
     # 6. the memory probes' kernels vs plain
     tile_errs = tile_probe_checks(tm)
 
-    # 7. the cost breakdown's kernel vs plain, at the scan's stage-0 and stage-1 subm convs
+    # 7. the cost breakdown's kernel vs plain, at the scan's stage-0, 1 and 2 subm convs
     k7_cases = kv.stage_cases(enc, vox.coords[0], vox.mask[0])
     check(len(k7_cases) == K7_SHAPES, f"K7: {len(k7_cases)} stage shapes")
-    k7_checks = variant_checks(kv, sp, k7_cases)
+    k7_checks, k7_one_tf32 = variant_checks(kv, sp, k7_cases)
 
     # 8. the LiDAR slice, eval forward at B=1
     counters = {"sparse_conv": sp.sparse_conv, "bev_pool": bp.bev_pool}
@@ -1082,9 +1137,14 @@ def main() -> int:
           f"train steps; on the card {lut_card_ms:.3f} ms = {lut_card_ms / step_ms:.4f} steps")
 
     # 14. the measurement tools: this path's entry points
-    tools, tool_launches = tools_phase(cfg, model, batch, k7_cases, all_counters)
+    tools, tool_launches, tool_parts = tools_phase(cfg, model, batch, k7_cases, all_counters)
 
     # 15. results
+    k7_rows = [{"shape": f"{r['shape']} tile {r['tile']} {mode}", "family": r["family"],
+                "ms": m["ms"], "plain_ms": k7_checks[(r["shape"], mode)][1],
+                "max_abs_err": k7_checks[(r["shape"], mode)][0], "bound_ms": m["bound_ms"],
+                "bound_by": m["bound_by"], "bound_fp32_fma_ms": m["bound_fp32_fma_ms"]}
+               for r in tools["breakdown"] for mode, m in r["modes"].items()]
     kernels = [
         dict(summary("sparse_conv", "bevfusion_tpu_torch/csrc/sparse_conv.cu",
                      "bevfusion_tpu/ops/sparse_conv_windowed.py:285",
@@ -1110,16 +1170,21 @@ def main() -> int:
                 "tools/bench_tile_micro.py:50", tool_launches["tile_copy"],
                 [dict(tools["copy"], max_abs_err=tile_errs["copy"])],
                 library_ms=tools["copy"]["library_ms"]),
-        summary("tile_gather", "bevfusion_tpu_torch/csrc/tile_micro.cu",
-                "tools/bench_tile_micro.py:77", tool_launches["tile_gather"],
-                [dict(r, max_abs_err=tile_errs[(r["R"], r["G"])]) for r in tools["gathers"]]),
-        summary("sparse_conv_variants", "bevfusion_tpu_torch/csrc/sparse_conv_variants.cu",
-                "tools/bench_kernel_variants.py:33", tool_launches["sparse_conv_variants"],
-                [{"shape": f"{r['shape']} tile {r['tile']} {mode}", "ms": m["ms"],
-                  "plain_ms": k7_checks[(r["shape"], mode)][1],
-                  "max_abs_err": k7_checks[(r["shape"], mode)][0], "bound_ms": m["bound_ms"],
-                  "bound_by": m["bound_by"]}
-                 for r in tools["breakdown"] for mode, m in r["modes"].items()]),
+        dict(summary("tile_gather", "bevfusion_tpu_torch/csrc/tile_micro.cu",
+                     "tools/bench_tile_micro.py:77", tool_launches["tile_gather"],
+                     [dict(r, max_abs_err=tile_errs[(r["R"], r["G"])]) for r in tools["gathers"]]),
+             engines={e: form_summary(
+                 [{"shape": r["shape"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                   **r["engines"][e]} for r in tools["gathers"]], tool_parts["tile_gather"][e])
+                 for e in tm.ENGINES}),
+        dict(summary("sparse_conv_variants", "bevfusion_tpu_torch/csrc/sparse_conv_variants.cu",
+                     "tools/bench_kernel_variants.py:33", tool_launches["sparse_conv_variants"],
+                     k7_rows),
+             families={f: form_summary([r for r in k7_rows if r["family"] == f],
+                                       tool_parts["sparse_conv_variants"][f])
+                       for f in kv.FAMILIES},
+             tc_1xtf32_rel_err_vs_fp32=k7_one_tf32,
+             split=[{k: v for k, v in r.items() if k != "modes"} for r in tools["breakdown"]]),
     ]
     for k in kernels[:3]:
         k["launches_tools"] = tool_launches[k["name"]]

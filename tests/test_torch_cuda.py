@@ -582,6 +582,26 @@ def test_seg_head_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.cuda
+def test_time_fn_queue_ahead_gives_the_cards_time(cuda):
+    """A call whose host side takes 2 ms and whose kernel takes microseconds:
+    events between back-to-back calls give the host's 2 ms; with
+    ``queue_ahead`` the card waits until all calls are queued, and the
+    interval is the kernel's."""
+    import time
+
+    from bevfusion_tpu_torch.utils.profiler import time_fn
+
+    x = torch.zeros(1024, device=cuda)
+
+    def call():
+        time.sleep(0.002)
+        x.add_(1)
+
+    assert time_fn(call, iters=10, warmup=2)["median_ms"] >= 1.5
+    assert time_fn(call, iters=10, warmup=2, queue_ahead=True)["median_ms"] < 0.5
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("M", [8, 64, 1000])
 def test_copy_kernel_equals_plain(cuda, M):
     from bevfusion_tpu_torch.tools import bench_tile_micro as tm
@@ -596,18 +616,26 @@ def test_copy_kernel_equals_plain(cuda, M):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["tma", "cp_async"])
 @pytest.mark.parametrize("T,R,G,steps", [(16, 8, 2, 3), (16, 8, 3, 5), (40, 1, 8, 64),
-                                         (12, 40, 4, 7), (6, 70, 8, 2)])
-def test_gather_kernel_equals_plain(cuda, T, R, G, steps):
-    """Tiles of 1 to 70 rows (units of 32 rows: one, and several with a
-    ragged last one), G from 2 to 8."""
+                                         (12, 40, 4, 7), (6, 70, 8, 2), (64, 2, 1200, 700),
+                                         (8, 130, 2, 900), (300, 1, 8, 2000), (64, 32, 8, 600),
+                                         (8, 130, 3, 300)])
+def test_gather_kernel_equals_plain(cuda, engine, T, R, G, steps):
+    """Both engines bit for bit: tiles of 1 to 130 rows (units of 32 rows or
+    stages of whole tiles: one, several, and split tiles of 17.5 and 32.5
+    KB with a ragged last chunk), G from 2 to 1200 (a run of steps longer
+    than one batch of slots a TMA block stages), more steps than the TMA
+    engine's persistent blocks, and runs of many rounds of its ring; each
+    launch counted under its engine."""
     from bevfusion_tpu_torch.tools import bench_tile_micro as tm
 
     pool, slots = tm.gather_inputs(T, R, G, steps, cuda, seed=R + G)
-    launches = tm.gather_tiles.launches
-    got = tm.gather_tiles(pool, slots, R, G)
+    launches = tm.gather_tiles.launches, tm.gather_tiles.launches_by_engine[engine]
+    got = tm.gather_tiles(pool, slots, R, G, engine)
     torch.cuda.synchronize()
-    assert tm.gather_tiles.launches == launches + 1
+    assert (tm.gather_tiles.launches, tm.gather_tiles.launches_by_engine[engine]) == (
+        launches[0] + 1, launches[1] + 1)
     assert torch.equal(got.view(torch.int16),
                        tm.gather_tiles_plain(pool, slots, R, G).view(torch.int16))
 
@@ -648,3 +676,46 @@ def test_variant_kernel_modes_match_plain(cuda, cin, cout, strided, tile):
     assert torch.equal(kv.sparse_conv_variant(feats, nbr, w, "noskip", tile), current)
     if tile == 64:  # K7 keeps the scalar loop; sparse_conv is now the tensor-core kernel
         _close(current, sp.sparse_conv(feats, nbr, w), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [5, 16, 32, 64])
+def test_tc_variant_modes_match_plain(cuda, c):
+    """K7's tensor-core family (K1/K2's loop): each mode within 1e-5 of its
+    plain version, ``tc`` equal to ``sparse_conv`` without epilogue (at the
+    encoder's widths) and ``tc_noskip`` to ``tc`` bit for bit, and ``tc_1xtf32`` (one TF32
+    product) visibly off the fp32 conv; each launch counted under its
+    family."""
+    from bevfusion_tpu_torch.tools import bench_kernel_variants as kv
+
+    feats, nbr, _, w, _ = (t if t is None else t.to(cuda)
+                           for t in _conv_operands(c, c, False, seed=3))
+    for mode in kv.TC_MODES:
+        launches = kv.sparse_conv_variant.launches, kv.sparse_conv_variant.launches_by_family["tc"]
+        got = kv.sparse_conv_variant(feats, nbr, w, mode)
+        torch.cuda.synchronize()
+        assert (kv.sparse_conv_variant.launches,
+                kv.sparse_conv_variant.launches_by_family["tc"]) == (launches[0] + 1,
+                                                                     launches[1] + 1)
+        _close(got, kv.sparse_conv_variant_plain(feats, nbr, w, mode))
+    tc = kv.sparse_conv_variant(feats, nbr, w, "tc")
+    if c >= 16:  # padded as sparse_conv pads it (c = 5: 16 columns here, 8 there)
+        assert torch.equal(tc, sp.sparse_conv(feats, nbr, w))
+    _close(tc, sp.sparse_conv(feats, nbr, w))
+    assert torch.equal(kv.sparse_conv_variant(feats, nbr, w, "tc_noskip"), tc)
+    one = kv.sparse_conv_variant(feats, nbr, w, "tc_1xtf32")
+    assert (one - tc).abs().max().item() > 1e-5 * tc.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_tc_variant_rejects_what_it_does_not_take(cuda):
+    from bevfusion_tpu_torch.tools import bench_kernel_variants as kv
+
+    feats, nbr, _, w, _ = (t if t is None else t.to(cuda)
+                           for t in _conv_operands(16, 32, True, seed=1))
+    launches = kv.sparse_conv_variant.launches
+    with pytest.raises(ValueError):
+        kv.sparse_conv_variant(feats, nbr, w, "tc")  # Cin != Cout
+    with pytest.raises(ValueError):
+        kv.sparse_conv_variant(feats, nbr, w[:, :, :16].contiguous(), "tc", 128)
+    assert kv.sparse_conv_variant.launches == launches

@@ -10,6 +10,7 @@ taps, which the test computes (equal counts without padding).
 """
 import ast
 import pathlib
+import time
 
 import jax
 import jax.numpy as jnp
@@ -137,6 +138,16 @@ def test_time_fn_keys_and_the_card_default():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             profiler.time_fn(lambda: None)  # the card unless the caller asks for the CPU
+
+
+def test_time_fn_queue_ahead_on_the_cpu_is_the_host_clock():
+    """``queue_ahead`` concerns the card only: on the CPU the host clock
+    times each call, with or without it."""
+    calls = []
+    r = profiler.time_fn(lambda: calls.append(time.sleep(0.002)), iters=3, warmup=1,
+                         device="cpu", queue_ahead=True)
+    assert set(r) == {"mean_ms", "median_ms", "fps"} and len(calls) == 4
+    assert r["median_ms"] >= 2.0
 
 
 def test_bound_is_the_larger_of_operations_and_bytes():

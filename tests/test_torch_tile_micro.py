@@ -116,20 +116,35 @@ def test_gather_plain_reads_the_last_steps_last_two_tiles():
     assert torch.equal(tm.gather_tiles_plain(pool, slots, 3, 4), pool[a:a + 3] + pool[b:b + 3])
 
 
-@pytest.mark.parametrize("bad", ["G1", "slots_len", "slots_dtype", "pool_width"])
+@pytest.mark.parametrize("bad", ["G1", "slots_len", "slots_dtype", "pool_width", "engine"])
 def test_gather_rejects_what_it_does_not_take(bad):
     pool, slots = tm.gather_inputs(T=8, R=2, G=4, steps=2, device="cpu")
-    R, G = 2, 4
+    R, G, engine = 2, 4, "tma"
     if bad == "G1":
         G = 1
     elif bad == "slots_len":
         slots = slots[:-1]
     elif bad == "slots_dtype":
         slots = slots.long()
+    elif bad == "engine":
+        engine = "dma"
     else:
         pool = pool[:, :64]
     with pytest.raises((ValueError, TypeError)):
-        tm.gather_tiles(pool, slots, R, G)
+        tm.gather_tiles(pool, slots, R, G, engine)
+
+
+@pytest.mark.parametrize("engine,G", [("tma", 2048), ("tma", 2049), ("cp_async", 2049)])
+def test_gather_takes_g_up_to_what_the_tma_engine_stages(engine, G):
+    """On every device, the TMA engine takes G <= 2048 (the slots a block
+    stages in shared memory at once); the first form takes any G."""
+    pool, _ = tm.gather_inputs(T=8, R=2, G=4, steps=2, device="cpu")
+    slots = torch.zeros(2 * G, dtype=torch.int32)
+    if engine == "tma" and G > tm.TMA_MAX_G:
+        with pytest.raises(ValueError):
+            tm.gather_tiles(pool, slots, 2, G, engine)
+    else:
+        assert torch.equal(tm.gather_tiles(pool, slots, 2, G, engine), pool[0:2] + pool[0:2])
 
 
 def test_probe_functions_on_the_cpu():
@@ -152,3 +167,32 @@ def test_probe_functions_on_the_cpu():
     assert g["hbm_share"] is None  # the pool fits the L2: the HBM bound is no floor there
     assert tm.gather_share(g) == "L2-resident, no HBM share"
     assert tm.gather_share(dict(g, hbm_share=0.5)) == "0.500 of the HBM bound"
+
+
+def test_gather_bench_reports_both_engines_on_the_cpu():
+    """``bench_gather`` times both engines in one run (here both take the
+    plain path, host times): per engine ms, GB/s and ns per tile of all
+    tile reads, the HBM share and the rate of all reads over 3.35 TB/s;
+    the top level is the TMA engine's, which ``gather_tiles`` launches."""
+    T, R, G, steps = 16, 8, 3, 4
+    g = tm.bench_gather(T=T, R=R, G=G, steps=steps, device="cpu", iters=2, warmup=1)
+    assert set(g["engines"]) == set(tm.ENGINES) == {"tma", "cp_async"}
+    reads = steps * G * R * 256
+    for e in g["engines"].values():
+        assert np.isfinite(e["ms"]) and e["ms"] > 0
+        assert e["gb_per_s"] == pytest.approx(reads / e["ms"] / 1e6)
+        assert e["ns_per_tile"] == pytest.approx(e["ms"] * 1e6 / (steps * G))
+        assert e["reads_over_hbm"] == pytest.approx(e["gb_per_s"] * 1e9 / 3.35e12)
+        assert e["hbm_share"] is None  # L2-resident
+    for key in ("ms", "gb_per_s", "ns_per_tile", "hbm_share", "reads_over_hbm"):
+        assert g[key] == g["engines"]["tma"][key]
+    assert np.isfinite(g["plain_ms"]) and g["library_ms"] is None
+
+
+def test_gather_counts_no_launch_on_the_cpu():
+    pool, slots = tm.gather_inputs(T=8, R=2, G=4, steps=2, device="cpu")
+    before = tm.gather_tiles.launches, dict(tm.gather_tiles.launches_by_engine)
+    for engine in tm.ENGINES:
+        assert torch.equal(tm.gather_tiles(pool, slots, 2, 4, engine),
+                           tm.gather_tiles_plain(pool, slots, 2, 4))
+    assert (tm.gather_tiles.launches, tm.gather_tiles.launches_by_engine) == before
