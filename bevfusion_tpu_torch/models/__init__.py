@@ -1,4 +1,5 @@
 """Model zoo of the port: importing this package registers every component."""
+from . import bevdepth  # noqa: F401
 from . import bevfusion  # noqa: F401
 from . import fusers  # noqa: F401
 from . import necks  # noqa: F401
@@ -7,6 +8,7 @@ from . import second  # noqa: F401
 from . import sparse_encoder  # noqa: F401
 from . import swin  # noqa: F401
 from . import vtransforms  # noqa: F401
+from .heads import centerpoint  # noqa: F401
 from .heads import segm  # noqa: F401
 from .heads import transfusion  # noqa: F401
 

@@ -4,16 +4,20 @@ Counterpart of ``bevfusion_tpu/models/bevfusion.py`` (reference
 mmdet3d/models/fusion_models/bevfusion.py:25-388): camera branch
 (backbone -> neck -> vtransform) and LiDAR branch (voxelize -> sparse
 encoder), fused in (camera, lidar) order by the fuser, then the BEV
-decoder (backbone + neck) -> the task heads: ``object`` (TransFusion,
-decoded by ``get_bboxes``) and ``map`` (BEV map segmentation), either or
-both. Either branch may be absent; with one branch there is no fuser. A
-decoder neck that returns one map (``LSSFPN``) is taken as a list of one,
-so every head reads the first map of the list. Submodules carry the
+decoder (backbone + neck) -> the task heads: ``object`` (TransFusion or
+CenterHead, decoded by ``get_bboxes``) and ``map`` (BEV map segmentation),
+either or both. The camera's vtransform (LSS, DepthLSS or BEVDepth's
+AwareBEVDepth) is called the same way whichever it is. Either branch may
+be absent; with one branch there is no fuser. A decoder neck that
+returns one map (``LSSFPN``) is taken as a list of one, so every head
+reads the first map of the list. Submodules carry the
 reference checkpoint's names (``encoders.camera.{backbone,neck,
 vtransform}``, ``encoders.lidar.backbone``, ``fuser``, ``decoder.backbone``,
 ``decoder.neck``, ``heads.{object,map}``). In training mode ``forward``
 returns the loss dict: ``loss/<head>/<name>`` scaled by ``loss_scale[head]``
-and ``stats/object/matched_ious``.
+and ``stats/object/matched_ious``; a model with a module whose loss is not
+ported yet (CenterHead, AwareBEVDepth: their ``unported_loss``) raises
+NotImplementedError in training.
 """
 from __future__ import annotations
 
@@ -122,6 +126,12 @@ class BEVFusion(nn.Module):
         head): the loss dict of the JAX package's ``BEVFusion.__call__``
         (bevfusion.py:185-205). ``timed(name, fn)`` runs each stage, the
         heads (``head/forward``, ``head/map``) and the decode."""
+        if self.training:
+            missing = [m.unported_loss for m in self.modules() if getattr(m, "unported_loss", None)]
+            if missing:
+                raise NotImplementedError(f"training needs {' and '.join(missing)}, not ported "
+                                          "yet (ROADMAP Queue 1 item 5: the CenterPoint-family "
+                                          "train step)")
         x = self.bev_features(batch, timed)
         out = {}
         if not self.training:

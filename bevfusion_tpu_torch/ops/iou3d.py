@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["box_corners_bev", "rotated_overlap_bev", "iou_3d"]
+__all__ = ["box_corners_bev", "rotated_overlap_bev", "iou_bev", "iou_3d"]
 
 _V = 8  # most vertices of the running polygon (quad ∩ quad <= 8)
 
@@ -48,7 +48,11 @@ def _clip_halfplane(poly, n, p, q):
     active = idx < n[..., None]
     emit_mask = torch.stack([active & in_cur, active & (in_cur != in_nxt)], -1).flatten(-2)
     emit_vals = torch.stack([poly, inter], -2).flatten(-3, -2)  # [..., 2V, 2]
-    pos = torch.cumsum(emit_mask.int(), -1) - 1
+    # the same integer sums as a scan along the last axis, taken along the
+    # first: PyTorch's CUDA scan of a short innermost axis over many rows
+    # took 1.6 ms a call for the 2V = 16 slots of 250,000 box pairs on an
+    # NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py's decode trace)
+    pos = emit_mask.int().movedim(-1, 0).cumsum(0).movedim(0, -1) - 1
     pos = torch.where(emit_mask & (pos < V), pos, V).long()  # V = drop slot, as JAX drops
     out = poly.new_zeros(poly.shape[:-2] + (V + 1, 2))
     out.scatter_(-2, pos[..., None].expand(*pos.shape, 2), emit_vals)
@@ -77,6 +81,15 @@ def rotated_overlap_bev(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Ten
     for e in range(4):
         poly, n = _clip_halfplane(poly, n, c2[..., e, :], c2[..., (e + 1) % 4, :])
     return _poly_area(poly, n)
+
+
+def iou_bev(boxes1: torch.Tensor, boxes2: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Rotated BEV IoU [N, M] of boxes [*, 5] = (cx, cy, dx, dy, yaw): the
+    overlap over the union of the two rectangles' areas."""
+    inter = rotated_overlap_bev(boxes1, boxes2)
+    a1 = boxes1[:, 2] * boxes1[:, 3]
+    a2 = boxes2[:, 2] * boxes2[:, 3]
+    return inter / torch.clamp(a1[:, None] + a2[None] - inter, min=eps)
 
 
 def iou_3d(boxes1: torch.Tensor, boxes2: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

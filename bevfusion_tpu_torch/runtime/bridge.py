@@ -3,7 +3,7 @@
 Inverts the layout rules of the JAX package's checkpoint adapter (which
 maps a reference torch checkpoint onto flax variables), through the
 port's copy of its rule table (``runtime/adapter.py``): every flax path
-is named with ``adapter.flax_to_torch_key`` and its array is brought back
+is named with ``flax_to_torch_key`` and its array is brought back
 to the torch layout:
 
   flax Conv HWIO               -> Conv2d OIHW
@@ -11,6 +11,11 @@ to the torch layout:
   Dense [I, O]                 -> Linear [O, I] / Conv1d [O, I, 1]
   sparse conv [K, I, O]        -> spconv [kx, ky, kz, I, O]
   q/k/v Dense                  -> packed MultiheadAttention in_proj
+
+The copied table covers the five BASELINE trees, as the JAX adapter
+does; the rules for the trees it lacks (the ResNet camera backbone, the
+SECONDFPN camera neck, BEVDepth's DepthNet) are the port's own, in
+``PORT_RULES`` below, in the same form, tried after the copied table.
 
 The port's modules carry the reference checkpoint's names, so the
 result loads with ``load_state_dict(strict=True)``; so would a released
@@ -30,7 +35,7 @@ import torch
 from ..models.swin import relative_position_index
 from . import adapter
 
-__all__ = ["jax_to_torch_state_dict"]
+__all__ = ["PORT_RULES", "flax_to_torch_key", "jax_to_torch_state_dict"]
 
 _QKV = ("q_proj", "k_proj", "v_proj")
 
@@ -54,6 +59,73 @@ def _spconv_shape(key: str, a: np.ndarray):
     if k ** 3 != K:
         raise ValueError(f"{key}: {K} offsets are not a cube")
     return (k, k, k) + a.shape[1:]
+
+
+def _bn(flax: str, torch_: str):
+    """A flax BatchNorm's four leaves (under ``flax``) -> torch's."""
+    return [(f"{flax}/{f}", f"{torch_}.{t}", adapter._id) for f, t in (
+        ("scale", "weight"), ("bias", "bias"), ("mean", "running_mean"), ("var", "running_var"))]
+
+
+def _port_rules():
+    cb, tb = "camera_backbone", "encoders.camera.backbone"
+    cn, tn = "camera_neck", "encoders.camera.neck"
+    dn, td = "camera_vtransform/depthnet", "encoders.camera.vtransform.depthnet"
+    aspp = f"{td}.depth_conv.3"
+    R = [  # ResNet camera backbone (bevfusion_tpu/models/resnet_full.py), torchvision names
+        (rf"{cb}/stem_conv/conv/kernel", f"{tb}.conv1.weight", adapter._conv),
+        *_bn(rf"{cb}/stem_bn/bn", f"{tb}.bn1"),
+        (rf"{cb}/layer(\d+)_block(\d+)/conv([123])/conv/kernel",
+         tb + ".layer{1}.{2}.conv{3}.weight", adapter._conv),
+        *_bn(rf"{cb}/layer(\d+)_block(\d+)/bn([123])/bn", tb + ".layer{1}.{2}.bn{3}"),
+        (rf"{cb}/layer(\d+)_block(\d+)/downsample_conv/conv/kernel",
+         tb + ".layer{1}.{2}.downsample.0.weight", adapter._conv),
+        *_bn(rf"{cb}/layer(\d+)_block(\d+)/downsample_bn/bn", tb + ".layer{1}.{2}.downsample.1"),
+        # SECONDFPN as the camera neck (necks/second.py:48-99)
+        (rf"{cn}/deblock(\d+)_conv/conv/kernel", tn + ".deblocks.{1}.0.weight", adapter._conv),
+        (rf"{cn}/deblock(\d+)_deconv/kernel", tn + ".deblocks.{1}.0.weight", adapter._deconv),
+        *_bn(rf"{cn}/deblock(\d+)_bn/bn", tn + ".deblocks.{1}.1"),
+        # AwareBEVDepth's DepthNet (models/bevdepth.py), BEVDepth's names
+        (rf"{dn}/reduce/Conv_0/conv/kernel", f"{td}.reduce_conv.0.weight", adapter._conv),
+        (rf"{dn}/reduce/Conv_0/conv/bias", f"{td}.reduce_conv.0.bias", adapter._id),
+        *_bn(rf"{dn}/reduce/Norm_0/bn", f"{td}.reduce_conv.1"),
+        *_bn(rf"{dn}/mlp_bn/bn", f"{td}.bn"),
+        (rf"{dn}/(depth|context)_mlp_fc([12])/kernel", td + ".{1}_mlp.fc{2}.weight", adapter._lin),
+        (rf"{dn}/(depth|context)_mlp_fc([12])/bias", td + ".{1}_mlp.fc{2}.bias", adapter._id),
+        (rf"{dn}/context_conv/conv/kernel", f"{td}.context_conv.weight", adapter._conv),
+        (rf"{dn}/context_conv/conv/bias", f"{td}.context_conv.bias", adapter._id),
+        (rf"{dn}/res(\d+)/conv([12])/conv/kernel", td + ".depth_conv.{1}.conv{2}.weight",
+         adapter._conv),
+        *_bn(rf"{dn}/res(\d+)/bn([12])/bn", td + ".depth_conv.{1}.bn{2}"),
+        (rf"{dn}/aspp/aspp(\d)_conv/kernel", aspp + ".aspp{1+}.atrous_conv.weight", adapter._conv),
+        *_bn(rf"{dn}/aspp/aspp(\d)_bn/bn", aspp + ".aspp{1+}.bn"),
+        (rf"{dn}/aspp/gp_conv/conv/kernel", f"{aspp}.global_avg_pool.1.weight", adapter._conv),
+        *_bn(rf"{dn}/aspp/gp_bn/bn", f"{aspp}.global_avg_pool.2"),
+        (rf"{dn}/aspp/out_conv/conv/kernel", f"{aspp}.conv1.weight", adapter._conv),
+        *_bn(rf"{dn}/aspp/out_bn/bn", f"{aspp}.bn1"),
+    ]
+    for flax, i in (("post_conv", 4), ("depth_out", 6)):
+        R += [(rf"{dn}/{flax}/conv/kernel", f"{td}.depth_conv.{i}.weight", adapter._conv),
+              (rf"{dn}/{flax}/conv/bias", f"{td}.depth_conv.{i}.bias", adapter._id)]
+    R += _bn(rf"{dn}/post_bn/bn", f"{td}.depth_conv.5") + _bn(rf"{dn}/depth_out_bn/bn",
+                                                              f"{td}.depth_conv.7")
+    return R
+
+
+PORT_RULES = [(re.compile("^" + rx + "$"), tmpl, cv) for rx, tmpl, cv in _port_rules()]
+
+
+def flax_to_torch_key(path: str):
+    """flax 'a/b/c' path -> (torch key, converter) or None: the copied
+    table first, then ``PORT_RULES``."""
+    hit = adapter.flax_to_torch_key(path)
+    if hit is not None:
+        return hit
+    for rx, tmpl, cv in PORT_RULES:
+        m = rx.match(path)
+        if m:
+            return adapter._fill(tmpl, m), cv
+    return None
 
 
 _INVERSE = {
@@ -81,7 +153,7 @@ def jax_to_torch_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
 
     for col, leaves in paths.items():
         for path, a in leaves.items():
-            hit = adapter.flax_to_torch_key(path)
+            hit = flax_to_torch_key(path)
             if hit is None:
                 unmapped.append(f"{col}:{path}")
                 continue

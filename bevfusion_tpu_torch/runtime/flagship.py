@@ -12,7 +12,8 @@ flagship's training step (``build_flagship(training=True)`` with
 ``runtime/train.py``) trains on the same synthetic batch plus random
 ground-truth boxes. ``build_flagship(config_path=...)`` builds any other
 config the port runs the same way, among them the three BEV
-map-segmentation configs (``SEG_CONFIGS``). The synthetic inputs are
+map-segmentation configs (``SEG_CONFIGS``) and the three camera-only
+CenterHead detectors (``DET_CAMERA_CONFIGS``). The synthetic inputs are
 byte-equal to the JAX package's.
 """
 from __future__ import annotations
@@ -39,6 +40,20 @@ FLAGSHIP_CONFIG = os.path.join(
 # mIoU 62.95, 48.56 and 57.09, from each file's header)
 SEG_CONFIGS = {name: os.path.join(REPO_ROOT, "configs/nuscenes/seg", f"{name}.yaml")
                for name in ("fusion-bev256d2-lss", "lidar-centerpoint-bev128", "camera-bev256d2")}
+# the camera-only CenterHead detectors: Swin-T + GeneralizedLSSFPN + LSS at 0.4 m (reference
+# val mAP 35.56 / NDS 41.21, from the file's header), ResNet-50 + SECONDFPN + LSS at 0.8 m, and
+# the same with BEVDepth's AwareBEVDepth; each a GeneralizedResNet + LSSFPN decoder
+DET_CAMERA_CONFIGS = {
+    name: os.path.join(REPO_ROOT, "configs/nuscenes/det/centerhead/lssfpn/camera/256x704", path)
+    for name, path in (("swint", "swint/default.yaml"), ("resnet", "resnet/default.yaml"),
+                       ("bevdepth", "resnet/bevdepth.yaml"))}
+# (mean, std) that each CenterHead branch's maps are moved to, by an affine map of its last
+# conv's output channels, when a check needs real work from the decode and the NMS: at random
+# init the maps run to 1e4 (the camera backbone's residual sums), where every box falls outside
+# the post-center range or overflows exp(dim); these give scores spread over (0, 1) and boxes
+# of 0.5-3 m near their cells
+DET_HEAD_MODERATE = {"heatmap": (-1.0, 1.5), "reg": (0.5, 0.3), "height": (0.0, 1.0),
+                     "dim": (0.0, 0.4), "rot": (0.0, 1.0), "vel": (0.0, 1.0)}
 
 
 def synthetic_calibration(B: int, N: int, image_size) -> Dict[str, np.ndarray]:

@@ -6,7 +6,10 @@ JAX tool's stages (camera backbone, neck and vtransform; LiDAR voxelize
 and sparse encoder; fuser; decoder backbone and neck; the object head's
 forward and decode, the map head), each of the config's stages timed
 alone at its real inputs (median of CUDA-event times on the card). Any
-config ``benchmark.py`` builds.
+of the nine configs ``benchmark.py`` builds: the fused flagship,
+TransFusion-L at 0.1 and 0.075 m, the three map-segmentation configs and
+the three camera-only CenterHead detectors (whose ``head/decode`` holds
+the per-task NMS).
 Stages run eagerly either way, so their sum is close to the frame time;
 use it to rank stages, ``benchmark.py`` for the frame.
 

@@ -4,7 +4,7 @@
 Run from the repository root: ``python3 chip_smoke.py``. Phases:
 
 1. device: the card's name and power limit; TF32 off for fp32 parity;
-2. build: compile the five kernel sources of bevfusion_tpu_torch/csrc (one
+2. build: compile the six kernel sources of bevfusion_tpu_torch/csrc (one
    nvcc per source, started together); the ptxas register and spill lines;
    the count of tensor-core instructions (``HMMA``) in the SASS
    (``cuobjdump -sass``) of the sparse-conv, weight-gradient and cost
@@ -83,6 +83,28 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
    kernel vs plain at the seg grid (256 x 256 cells of 0.4 m, the fused
    config's own LUT) as in phase 9: max|d|, times, the zero fill, the bound
    and the interval lengths;
+11b. det-camera: the three camera-only CenterHead detectors
+   (configs/nuscenes/det/centerhead/lssfpn/camera/256x704/: swint/default,
+   resnet/default, resnet/bevdepth) at full width with seeded random weights
+   (each head branch's last conv scaled and shifted per channel so its maps
+   on the batch have a moderate mean and spread: at random init they run to
+   1e4 and every box falls outside the range), the host pooling LUT, eval
+   forward at batch 1, TF32 off: 0 sparse-conv, 1 BEV-pool and 6 NMS
+   launches per forward (one greedy pass a task); every task's raw head
+   maps (a forward hook on ``heads.object``) within 2e-3 relative of the
+   same model on the CPU; ``get_bboxes`` on the card and on the CPU on the
+   same predictions (the CPU model's): equal keep masks and labels, kept
+   boxes and scores within 1e-5 relative, every kept box finite; ms/frame
+   and peak device memory with TF32 off and on, and the stages
+   (``tools/profile_stages.py``, ``head/forward`` and ``head/decode``
+   apart); the decode once under ``torch.profiler`` (the card's kernels
+   and copies, their device time, the NMS kernel's, the idle share of the
+   call's wall time); then the NMS kernel vs ``greedy_suppress_plain`` bit for bit on
+   every suppression matrix of the three frames' decodes, a random one,
+   one with everything suppressed, one with nothing, and one at N = 1000
+   (``pre_max_size``), with the times and the bound of the swint frame's
+   six and the four made ones; and the BEV-pool kernel vs plain at the
+   ResNet configs' shape (C = 64, 128 x 128 cells of 0.8 m) as in phase 9;
 12. the flagship's training step at full width, B = 1, host LUT, TF32 off,
    PyTorch's deterministic algorithms on (the card's own run-to-run noise
    would swamp the comparison), the heatmap head's last conv scaled by 0.2
@@ -122,9 +144,10 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
    5``, and the same on configs/nuscenes/seg/fusion-bev256d2-lss.yaml, each in
    a subprocess: exit 0 and its latency line;
 15. a JSON line with the kernel table (the BEV pool's second shape the seg
-   grid; K6's two engines and K7's two families each with their ms, plain
-   ms, bound, share and launches; every kernel's launches on the seg
-   paths), the seg results and the
+   grid, its third the ResNet det configs'; K6's two engines and K7's two
+   families each with their ms, plain ms, bound, share and launches; every
+   kernel's launches on the seg and det-camera paths; the NMS kernel's row
+   after K1-K7), the seg and det-camera results and the
    script's total time, a line with the card's name and
    power limit as nvidia-smi prints them, then the last line
    ``{"ok": true, "device": {...}}``.
@@ -145,8 +168,8 @@ import time
 
 import torch
 
-from bevfusion_tpu_torch.utils.profiler import (TF32_FLOPS, bound, card_line, frame_ms, nbytes,
-                                               time_fn)
+from bevfusion_tpu_torch.utils.profiler import (HBM_BYTES_PER_S, TF32_FLOPS, bound, card_line,
+                                               frame_ms, nbytes, time_fn)
 
 FP32_RTOL_KERNEL = 1e-4  # kernel vs plain on the card: summation order only
 HEATMAP_RTOL = 2e-3  # full model on the card vs on the CPU, ~40 fp32 layers
@@ -169,10 +192,15 @@ SEG_LAUNCHES = {"fusion-bev256d2-lss": {"sparse_conv": SPARSE_LAUNCHES, "bev_poo
                 "lidar-centerpoint-bev128": {"sparse_conv": SPARSE_LAUNCHES, "bev_pool": 0},
                 "camera-bev256d2": {"sparse_conv": 0, "bev_pool": POOL_LAUNCHES}}
 SEG_MASKS = (1, 6, 200, 200)  # six map classes on the 100 m x 100 m, 0.5 m output grid
-TRAIN_LAUNCHES = {"sparse_conv": 15 + 14, "sparse_conv_dw": 15, "bev_pool": 1}
+# launches per eval frame of each camera-only CenterHead config (phase 11b): one
+# greedy NMS pass per task group
+DET_LAUNCHES = {"sparse_conv": 0, "bev_pool": POOL_LAUNCHES, "greedy_nms": 6}
+DECODE_RTOL = 1e-5  # get_bboxes on the card vs the CPU, on the same predictions
+TRAIN_LAUNCHES = {"sparse_conv": 15 + 14, "sparse_conv_dw": 15, "bev_pool": 1, "greedy_nms": 0}
 DEVICE = "cuda"
 K7_SHAPES = 3  # the cost breakdown runs at the stage-0, 1 and 2 submanifold convs
 TOOL_ITERS = 5  # timed calls per op in the tools phase
+TOOLS_ABSENT = {"greedy_nms"}  # the tools drive the TransFusion flagship, which has no NMS
 SEG_BENCHMARK = "configs/nuscenes/seg/fusion-bev256d2-lss.yaml"  # the tools phase's second CLI run
 
 
@@ -598,7 +626,10 @@ def tools_phase(cfg, model, batch, cases, counters):
     print(f"tools: launches in the tools' run {launches}; K6 by engine {parts['tile_gather']}, "
           f"K7 by family {parts['sparse_conv_variants']}; {res['seconds']:.1f} s")
     for name, n in launches.items():
-        check(n > 0, f"tools: the kernel {name} was not launched")
+        if name in TOOLS_ABSENT:
+            check(n == 0, f"tools: the kernel {name} was launched {n} times")
+        else:
+            check(n > 0, f"tools: the kernel {name} was not launched")
     for name, by in parts.items():
         for part, n in by.items():
             check(n > 0, f"tools: the kernel {name} {part} was not launched")
@@ -712,6 +743,26 @@ def pool_case(label, bp, vt, lut):
     return entry, (depth, ctx, got, iv)
 
 
+def frame_profile(model, batch):
+    """ms/frame (median of 20), peak memory and the stages
+    (``tools/profile_stages.py``, median of 5) with TF32 off, then on; TF32
+    off again after."""
+    from bevfusion_tpu_torch.tools import profile_stages
+
+    out = {}
+    for suffix, tf32 in (("", False), ("_tf32", True)):
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+        with torch.no_grad():
+            frames, peak = frame_ms(lambda: model(batch))
+        out["frame_ms_median" + suffix] = statistics.median(frames)
+        out["peak_mem_bytes" + suffix] = peak
+        out["stage_ms" + suffix] = {
+            r["stage"]: r["ms"]
+            for r in profile_stages.profile_stages(model, batch, DEVICE, iters=5)[0]}
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    return out
+
+
 def seg_phase(counters, bp):
     """Phase 11: each map-segmentation config's eval forward on the card,
     with every launch count set to 0 just before and read just after; its
@@ -719,7 +770,6 @@ def seg_phase(counters, bp):
     peak memory and stages with TF32 off and on; then the pool kernel at the
     seg grid. Returns ({config: results}, the pool's shape entry)."""
     from bevfusion_tpu_torch.runtime.flagship import SEG_CONFIGS, batch_to, build_flagship
-    from bevfusion_tpu_torch.tools import profile_stages
 
     def forward(model, batch):
         logits = []
@@ -729,13 +779,6 @@ def seg_phase(counters, bp):
             masks = model(batch)["masks_bev"]
         hook.remove()
         return masks, logits[0]
-
-    def timed(model, batch):  # ms/frame, peak memory and stages at the current TF32 setting
-        with torch.no_grad():
-            frames, peak = frame_ms(lambda: model(batch))
-        stages = {r["stage"]: r["ms"]
-                  for r in profile_stages.profile_stages(model, batch, DEVICE, iters=5)[0]}
-        return statistics.median(frames), peak, stages
 
     res, pool_entry = {}, None
     for name, want in SEG_LAUNCHES.items():
@@ -760,10 +803,7 @@ def seg_phase(counters, bp):
         check(err <= HEATMAP_RTOL, f"seg {name}: logits rel err {err} > {HEATMAP_RTOL}")
         r = {"launches": launches, "logits_rel_err": err, "masks_mean": masks.mean().item(),
              "logits_std": logits.std().item(), "cpu_forward_s": cpu_s}
-        r["frame_ms_median"], r["peak_mem_bytes"], r["stage_ms"] = timed(model, batch)
-        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
-        r["frame_ms_median_tf32"], r["peak_mem_bytes_tf32"], r["stage_ms_tf32"] = timed(model, batch)
-        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        r.update(frame_profile(model, batch))
         if pool_entry is None and "pool_lut" in batch:
             pool_entry, _ = pool_case("seg", bp, model.encoders["camera"]["vtransform"],
                                       batch["pool_lut"])
@@ -781,6 +821,205 @@ def seg_phase(counters, bp):
         del model, batch, cpu_model, cpu_batch, masks, logits, cpu_logits
         torch.cuda.empty_cache()
     return res, pool_entry
+
+
+def moderate_head(model, batch) -> None:
+    """Each CenterHead branch's last conv scaled and shifted per output
+    channel so that its maps on ``batch`` take ``DET_HEAD_MODERATE``'s mean and std:
+    the same model up to an affine map of each output channel. At random
+    init the maps run to 1e4 (the camera backbone's residual sums), where
+    every box falls outside the post-center range or overflows ``exp``."""
+    from bevfusion_tpu_torch.runtime.flagship import DET_HEAD_MODERATE
+
+    with torch.no_grad():
+        preds = model.predict(batch)
+        for pred, head in zip(preds, model.heads["object"].task_heads):
+            for name, (mean, std) in DET_HEAD_MODERATE.items():
+                last, y = getattr(head, name)[-1], pred[name].double()
+                a = std / y.std(dim=(0, 2, 3))
+                last.weight.mul_(a[:, None, None, None].float())
+                last.bias.copy_((a * (last.bias.double() - y.mean(dim=(0, 2, 3))) + mean).float())
+
+
+def max_sm_clock_hz() -> float:
+    """The card's highest SM clock (``nvidia-smi``'s ``clocks.max.sm``)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
+def nms_kernel_cases(nms, frames):
+    """The NMS kernel against ``greedy_suppress_plain`` bit for bit on every
+    (label, suppression matrix, order) of ``frames`` and on four made ones
+    (P = 1): random at N = 500, everything suppressed, nothing suppressed,
+    random at N = 1000 (``pre_max_size``). The timed shapes: the first six
+    of ``frames`` (one frame's tasks) and the made ones, each with its
+    kernel and plain times and its bound: the larger of the bytes (the
+    matrix, the order and the keep mask once) over the memory rate and the
+    N dependent steps of the pass at one SM clock each (``operations``).
+    Returns (the kernel table's shape entries, the number of matrices held)."""
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+
+    def made(n, density):
+        sup = torch.rand(1, n, n, generator=g, device=DEVICE) < density
+        return sup, torch.randperm(n, generator=g, device=DEVICE)[None]
+
+    cases = list(frames) + [("made random N=500", *made(500, 0.02)),
+                            ("made all suppressed N=500", *made(500, 1.0)),
+                            ("made none suppressed N=500", *made(500, 0.0)),
+                            ("made random N=1000", *made(1000, 0.01))]
+    clock = max_sm_clock_hz()
+    shapes = []
+    for i, (label, sup, order) in enumerate(cases):
+        got = nms.greedy_suppress(sup, order)
+        want = nms.greedy_suppress_plain(sup, order)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"NMS kernel {label}: keep mask differs from plain")
+        if i >= 6 and i < len(frames):
+            continue
+        P, N = order.shape
+        ms = kernel_ms(lambda: nms.greedy_suppress(sup, order))
+        plain_ms = time_fn(lambda: nms.greedy_suppress_plain(sup, order), iters=5, warmup=1,
+                           device=DEVICE)["median_ms"]
+        b_bytes = nbytes(sup, order, got) / HBM_BYTES_PER_S * 1e3
+        b_steps = N / clock * 1e3
+        shapes.append({"shape": f"{label} [{P},{N},{N}]", "kept": int(got.sum()),
+                       "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": max(b_bytes, b_steps),
+                       "bound_by": "bytes" if b_bytes >= b_steps else "operations"})
+        r = shapes[-1]
+        print(f"kernel greedy_nms {r['shape']}: {r['kept']} kept, equal to plain bit for bit; "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']}: bytes {b_bytes:.5f}, {N} steps at {clock / 1e6:.0f} MHz "
+              f"{b_steps:.5f}), {r['bound_ms'] / ms:.4f} of bound")
+    return shapes, len(cases)
+
+
+def decode_trace(head, preds):
+    """``head.get_bboxes(preds)`` on the card: its wall time (host clock
+    around a synchronised call, after one warmup), then the same call once
+    under ``torch.profiler``: the card's activities (kernels, copies), their
+    summed device time, the NMS kernel's part of it, the share of the wall
+    time the card is idle, and the five kernel names with the most device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad():
+        head.get_bboxes(preds)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        head.get_bboxes(preds)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            head.get_bboxes(preds)
+            torch.cuda.synchronize()
+    acts = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.device_time for e in acts) / 1e3
+    by_name = {}
+    for e in acts:
+        n, ms = by_name.get(e.name[:90], (0, 0.0))
+        by_name[e.name[:90]] = (n + 1, ms + e.device_time / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: kv[1][1], reverse=True)[:5]
+    return {"wall_ms": wall_ms, "device_activities": len(acts), "device_busy_ms": busy_ms,
+            "nms_kernel_ms": sum(e.device_time for e in acts if "greedy_suppress" in e.name) / 1e3,
+            "idle_share": 1.0 - busy_ms / wall_ms,
+            "top": [{"name": k, "count": n, "ms": ms} for k, (n, ms) in top]}
+
+
+def det_phase(counters, bp, nms):
+    """Phase 11b: each camera-only CenterHead config's eval forward on the
+    card with every launch count set to 0 just before and read just after;
+    its raw head maps against the CPU model's; ``get_bboxes`` on the card
+    and the CPU on the same predictions; its frame time, peak memory and
+    stages with TF32 off and on; then the NMS kernel alone on the frames'
+    suppression matrices and four made ones, and the pool kernel at the
+    ResNet configs' shape. Returns ({config: results}, the NMS kernel's
+    shape entries, the pool's shape entry)."""
+    from bevfusion_tpu_torch.runtime.flagship import DET_CAMERA_CONFIGS, batch_to, build_flagship
+
+    def forward(model, batch):  # (decoded boxes, every task's raw maps)
+        maps = []
+        hook = model.heads["object"].register_forward_hook(lambda mod, args, out: maps.append(out))
+        with torch.no_grad():
+            boxes = model(batch)["boxes"]
+        hook.remove()
+        return boxes, maps[0]
+
+    res, frames, pool_entry = {}, [], None
+    for name, path in DET_CAMERA_CONFIGS.items():
+        t0 = time.perf_counter()
+        _, cpu_model, cpu_batch = build_flagship("cpu", num_points=120000, seed=0,
+                                                 config_path=path)
+        moderate_head(cpu_model, cpu_batch)
+        model, batch = copy.deepcopy(cpu_model).cuda(), batch_to(cpu_batch, "cuda")
+        want = dict({k: 0 for k in counters}, **DET_LAUNCHES)
+        torch.cuda.synchronize()
+        zero_counts(counters)
+        boxes, maps = forward(model, batch)
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        check(launches == want, f"det {name}: launches {launches}, want {want}")
+        t_cpu = time.perf_counter()
+        cpu_boxes, cpu_maps = forward(cpu_model, cpu_batch)
+        cpu_s = time.perf_counter() - t_cpu
+        map_err = max(rel_err(m[k].cpu(), c[k]) for m, c in zip(maps, cpu_maps) for k in c)
+        check(len(maps) == 6 and map_err <= HEATMAP_RTOL,
+              f"det {name}: head maps rel err {map_err} > {HEATMAP_RTOL}")
+        # the decode on the card and on the CPU, on the same (the CPU model's) maps
+        same = [{k: v.cuda() for k, v in m.items()} for m in cpu_maps]
+        with torch.no_grad():
+            dec = model.heads["object"].get_bboxes(same)
+            sups = model.heads["object"].suppressions(same)  # what get_bboxes's NMS passes took
+        frames += [(f"{name} task {t}", sup, order) for t, (sup, order) in enumerate(sups)]
+        keep = cpu_boxes["mask"]
+        check(torch.equal(dec["mask"].cpu(), keep) and torch.equal(dec["labels"].cpu(),
+                                                                     cpu_boxes["labels"]),
+              f"det {name}: keep masks or labels differ from the CPU's")
+        box_err = rel_err(dec["bboxes"].cpu()[keep], cpu_boxes["bboxes"][keep])
+        score_err = rel_err(dec["scores"].cpu(), cpu_boxes["scores"])
+        check(box_err <= DECODE_RTOL and score_err <= DECODE_RTOL,
+              f"det {name}: decode rel err boxes {box_err}, scores {score_err}")
+        trace = decode_trace(model.heads["object"], same)
+        check(trace["device_activities"] > 0 and 0.0 < trace["nms_kernel_ms"] < trace["wall_ms"],
+              f"det {name}: decode trace {trace}")
+        kept = boxes["mask"]
+        check(int(keep.sum()) > 0 and bool(torch.isfinite(dec["bboxes"][dec["mask"]]).all())
+              and bool(torch.isfinite(boxes["bboxes"][kept]).all()),
+              f"det {name}: no box kept, or a kept box not finite")
+        r = {"launches": launches, "head_maps_rel_err": map_err, "decode_boxes_rel_err": box_err,
+             "decode_scores_rel_err": score_err, "kept_same_predictions": int(keep.sum()),
+             "kept_own_forward": int(kept.sum()),
+             "kept_per_task": keep.view(6, -1).sum(1).tolist(), "cpu_forward_s": cpu_s,
+             "decode_trace": trace}
+        r.update(frame_profile(model, batch))
+        if name == "resnet":
+            pool_entry, _ = pool_case("det resnet", bp, model.encoders["camera"]["vtransform"],
+                                      batch["pool_lut"])
+        r["seconds"] = time.perf_counter() - t0
+        res[name] = r
+        print(f"det {name}: launches {launches}; head maps vs the CPU plain path: rel err "
+              f"{map_err:.3e} (CPU forward {cpu_s:.1f} s); decode on the same predictions: equal "
+              f"keep masks ({r['kept_same_predictions']} kept, per task {r['kept_per_task']}), "
+              f"boxes rel err {box_err:.3e}, scores {score_err:.3e}; {r['kept_own_forward']} kept "
+              f"in the card's own frame; {r['frame_ms_median']:.2f} ms/frame median, peak "
+              f"{r['peak_mem_bytes'] / 2**20:.1f} MiB; TF32 on {r['frame_ms_median_tf32']:.2f} "
+              f"ms, peak {r['peak_mem_bytes_tf32'] / 2**20:.1f} MiB; {r['seconds']:.1f} s")
+        for key in ("stage_ms", "stage_ms_tf32"):
+            print(f"det {name} stages, {key}: "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in r[key].items()))
+        print(f"det {name} decode (get_bboxes, TF32 off): {trace['wall_ms']:.2f} ms wall; traced: "
+              f"{trace['device_activities']} kernels and copies on the card, "
+              f"{trace['device_busy_ms']:.3f} ms busy (the NMS kernel "
+              f"{trace['nms_kernel_ms']:.3f}), idle {100 * trace['idle_share']:.1f}% of the wall; "
+              f"most device time: " + "; ".join(f"{t['name']} x{t['count']} {t['ms']:.3f} ms"
+                                                for t in trace["top"]))
+        del model, batch, cpu_model, cpu_batch, boxes, maps, cpu_boxes, cpu_maps, same, dec
+        torch.cuda.empty_cache()
+    nms_shapes, held = nms_kernel_cases(nms, frames)
+    print(f"kernel greedy_nms: {held} suppression matrices equal to plain bit for bit")
+    return res, nms_shapes, pool_entry
 
 
 def summary(name, source, replaces, launches, shapes, extra_err=(), library_ms=None):
@@ -894,7 +1133,8 @@ def train_step_parity(model, batch, sp, bp, counters):
             fwd_bwd, none, "B, through the plain versions")
     with plain_kernels(sp, bp):
         (_, _, grads_p32, _, _), _, _ = counted(fwd_bwd, none, "B', B with fp32 sparse convs")
-    forward_only = {"sparse_conv": SPARSE_LAUNCHES, "sparse_conv_dw": 0, "bev_pool": POOL_LAUNCHES}
+    forward_only = {"sparse_conv": SPARSE_LAUNCHES, "sparse_conv_dw": 0, "bev_pool": POOL_LAUNCHES,
+                    "greedy_nms": 0}
     (_, _, grads_c, preds_c, _), _, _ = counted(
         lambda: fwd_bwd(plain_backward=True), forward_only,
         "C, the kernels' forward and the plain versions' backward")
@@ -974,6 +1214,7 @@ def main() -> int:
     from bevfusion_tpu_torch import native
     from bevfusion_tpu_torch.models.vtransforms import build_pool_lut
     from bevfusion_tpu_torch.ops import bev_pool as bp
+    from bevfusion_tpu_torch.ops import nms
     from bevfusion_tpu_torch.ops import sparse_conv as sp
     from bevfusion_tpu_torch.runtime.flagship import (add_pool_lut, batch_to, build_flagship,
                                                       build_lidar_slice)
@@ -995,7 +1236,7 @@ def main() -> int:
     t0 = time.perf_counter()
     builds = {"sparse_conv": sp.build_kernels, "sparse_conv_dw": sp.build_dw_kernels,
               "bev_pool": bp.build_kernels, "tile_micro": tm.build_kernels,
-              "sparse_conv_variants": kv.build_kernels}
+              "sparse_conv_variants": kv.build_kernels, "nms": nms.build_kernels}
     with ThreadPoolExecutor(len(builds)) as ex:  # one nvcc per source, started together
         list(ex.map(lambda build: build(), builds.values()))
     build_s = time.perf_counter() - t0
@@ -1037,10 +1278,11 @@ def main() -> int:
     k7_checks, k7_one_tf32 = variant_checks(kv, sp, k7_cases)
 
     # 8. the LiDAR slice, eval forward at B=1
-    counters = {"sparse_conv": sp.sparse_conv, "bev_pool": bp.bev_pool}
+    counters = {"sparse_conv": sp.sparse_conv, "bev_pool": bp.bev_pool,
+                "greedy_nms": nms.greedy_suppress}
     lidar_launches, lidar_heat_err, lidar_frames, lidar_peak = run_model(
         "lidar slice", copy.deepcopy(cpu_model).cuda(), batch, cpu_model, cpu_batch, counters,
-        {"sparse_conv": SPARSE_LAUNCHES, "bev_pool": 0})
+        {"sparse_conv": SPARSE_LAUNCHES, "bev_pool": 0, "greedy_nms": 0})
     del cpu_model, cpu_batch, batch
 
     # 9. BEV-pool kernel vs plain at the flagship's shape, on the main path's intervals
@@ -1083,7 +1325,7 @@ def main() -> int:
     model = copy.deepcopy(cpu_model).cuda()
     launches, heat_err, frames, peak = run_model(
         "flagship", model, batch, cpu_model, cpu_batch, counters,
-        {"sparse_conv": SPARSE_LAUNCHES, "bev_pool": POOL_LAUNCHES})
+        {"sparse_conv": SPARSE_LAUNCHES, "bev_pool": POOL_LAUNCHES, "greedy_nms": 0})
     stages = {r["stage"]: r["ms"]
               for r in profile_stages.profile_stages(model, batch, DEVICE, iters=10)[0]}
     for stage, ms in stages.items():
@@ -1105,18 +1347,25 @@ def main() -> int:
     # 11. the three map-segmentation configs, eval forward at B=1, and the pool at the seg grid
     all_counters = {"sparse_conv": sp.sparse_conv, "sparse_conv_dw": sp.sparse_conv_dw,
                     "bev_pool": bp.bev_pool, "tile_copy": tm.copy_add_one,
-                    "tile_gather": tm.gather_tiles, "sparse_conv_variants": kv.sparse_conv_variant}
+                    "tile_gather": tm.gather_tiles, "sparse_conv_variants": kv.sparse_conv_variant,
+                    "greedy_nms": nms.greedy_suppress}
     t0 = time.perf_counter()
     seg, seg_pool = seg_phase(all_counters, bp)
     seg_s = time.perf_counter() - t0
     print(f"seg: the three configs and the pool at the seg grid in {seg_s:.1f} s")
+
+    # 11b. the three camera-only CenterHead configs, eval forward at B=1; NMS and the pool alone
+    t0 = time.perf_counter()
+    det, nms_shapes, det_pool = det_phase(all_counters, bp, nms)
+    det_s = time.perf_counter() - t0
+    print(f"det: the three configs, the NMS kernel and the pool at C = 64 in {det_s:.1f} s")
 
     # 12. the flagship's training step, B=1, host LUT, TF32 off: kernels vs plain
     cfg, model, batch = build_flagship("cuda", num_points=120000, seed=0, training=True)
     with torch.no_grad():  # moderate heatmap logits: an unsaturated sigmoid ranks apart
         model.heads["object"].heatmap_head[-1].weight.mul_(0.2)
     train_counters = {"sparse_conv": sp.sparse_conv, "sparse_conv_dw": sp.sparse_conv_dw,
-                      "bev_pool": bp.bev_pool}
+                      "bev_pool": bp.bev_pool, "greedy_nms": nms.greedy_suppress}
     parity = train_step_parity(model, batch, sp, bp, train_counters)
 
     # 13. five timed train steps, TF32 on
@@ -1162,7 +1411,7 @@ def main() -> int:
              step_bound_ms=step_dw["bound_ms"]),
         dict(summary("bev_pool", "bevfusion_tpu_torch/csrc/bev_pool.cu",
                      "bevfusion_tpu/ops/bev_pool_pallas.py:49", parity["launches"]["bev_pool"],
-                     [pool_entry, seg_pool]),
+                     [pool_entry, seg_pool, det_pool]),
              launches_eval=launches["bev_pool"], backward_ms=pool_bwd_ms,
              backward_plain_ms=pool_bwd_plain_ms, backward_rel_err=pool_bwd_err,
              lut_host_s=lut_s, lut_card_ms=lut_card_ms),
@@ -1186,10 +1435,19 @@ def main() -> int:
              tc_1xtf32_rel_err_vs_fp32=k7_one_tf32,
              split=[{k: v for k, v in r.items() if k != "modes"} for r in tools["breakdown"]]),
     ]
+    # not a TPU kernel: the JAX package's greedy pass is a lax.fori_loop
+    kernels.append(dict(summary("greedy_nms", "bevfusion_tpu_torch/csrc/nms.cu",
+                                "bevfusion_tpu/ops/nms.py:25",
+                                sum(r["launches"]["greedy_nms"] for r in det.values()), nms_shapes),
+                        pallas=False, launches_eval=launches["greedy_nms"],
+                        launches_lidar=lidar_launches["greedy_nms"],
+                        launches_train=parity["launches"]["greedy_nms"],
+                        launches_tools=tool_launches["greedy_nms"]))
     for k in kernels[:3]:
         k["launches_tools"] = tool_launches[k["name"]]
     for k in kernels:
         k["launches_seg"] = {name: r["launches"][k["name"]] for name, r in seg.items()}
+        k["launches_det_camera"] = {name: r["launches"][k["name"]] for name, r in det.items()}
     print(json.dumps({
         "kernels": kernels, "build_s": build_s, "total_s": time.perf_counter() - t_start,
         "flagship": {"frame_ms_median": statistics.median(frames), "peak_mem_bytes": peak,
@@ -1197,6 +1455,7 @@ def main() -> int:
                      "frame_ms_median_tf32": statistics.median(frames_tf32),
                      "peak_mem_bytes_tf32": peak_tf32, "stage_ms_tf32": stages_tf32},
         "seg": dict(seg, seconds=seg_s),
+        "det_camera": dict(det, seconds=det_s),
         "train": {"parity_tf32_off": parity, "steps_tf32_on": steps},
         "tools": {k: v for k, v in tools.items() if k not in ("copy", "gathers")},
         "lidar_slice": {"launches": lidar_launches,

@@ -17,7 +17,7 @@ from bevfusion_tpu.runtime.flagship import FLAGSHIP_CONFIG, synthetic_batch
 from bevfusion_tpu_torch.config import load_config
 from bevfusion_tpu_torch.models import build_model
 from bevfusion_tpu_torch.runtime.bridge import jax_to_torch_state_dict
-from bevfusion_tpu_torch.runtime.flagship import LIDAR_SLICE_CONFIG
+from bevfusion_tpu_torch.runtime.flagship import DET_CAMERA_CONFIGS, LIDAR_SLICE_CONFIG
 from tests.torch_port_helpers import tiny_lidar_model
 
 torch.set_num_threads(2)
@@ -85,10 +85,13 @@ def test_bridge_is_exhaustive_on_baseline_trees(cfg_path, skel_name):
 
 
 @pytest.mark.parametrize("cfg_path,skel_name", [(LIDAR_SLICE_CONFIG, "LidarOnlyDetSkeleton"),
-                                                  (FLAGSHIP_CONFIG, "BEVFusionSkeleton")],
-                         ids=["voxelnet_0p075", "flagship"])
+                                                  (FLAGSHIP_CONFIG, "BEVFusionSkeleton"),
+                                                  (DET_CAMERA_CONFIGS["swint"],
+                                                   "CameraOnlyDetSkeleton")],
+                         ids=["voxelnet_0p075", "flagship", "centerhead_swint"])
 def test_full_width_model_loads_bridge_and_reference_checkpoint(cfg_path, skel_name):
-    """voxelnet_0p075 and the fused flagship (swint_v0p075/convfuser) at
+    """voxelnet_0p075, the fused flagship (swint_v0p075/convfuser) and the
+    camera-only CenterHead detector (centerhead/.../swint/default.yaml) at
     full width: the bridged JAX variables and the reference checkpoint's
     key tree both load strictly into the port (key tree only, no forward)."""
     cfg = load_config(cfg_path)
@@ -97,3 +100,29 @@ def test_full_width_model_loads_bridge_and_reference_checkpoint(cfg_path, skel_n
     model = build_model(cfg.model, "cpu")
     model.load_state_dict(jax_to_torch_state_dict(_zero_variables(jm, batch)), strict=True)
     model.load_state_dict(getattr(skeleton, skel_name)().state_dict(), strict=True)
+
+
+@pytest.mark.parametrize("name", ["resnet", "bevdepth"])
+def test_bridge_is_exhaustive_on_the_resnet_camera_trees(name):
+    """The ResNet-50 CenterHead configs at full width: every flax path of the
+    JAX model gets a torch key through the copied table or the port's own
+    rules (``PORT_RULES``: the ResNet, the SECONDFPN camera neck, BEVDepth's
+    DepthNet), no key twice, and the result loads strictly. The JAX ResNet
+    takes no ``num_stages`` or ``norm_cfg`` (it builds four BN stages), so
+    its copy of the tree goes without them."""
+    path = DET_CAMERA_CONFIGS[name]
+    jcfg = jax_load_config(path)
+    for key in ("num_stages", "norm_cfg"):
+        jcfg.model.encoders.camera.backbone.pop(key)
+    variables = _zero_variables(jax_build_model(jcfg.model), synthetic_batch(jcfg, B=1,
+                                                                            num_points=64))
+    sd = jax_to_torch_state_dict(variables)
+    leaves = sum(len(jax.tree_util.tree_leaves(variables[c])) for c in ("params", "batch_stats"))
+    bns = sum(k.endswith("num_batches_tracked") for k in sd)
+    assert len(sd) == leaves + bns
+    ported = [k for k in sd if k.startswith(("encoders.camera.backbone.", "encoders.camera.neck.",
+                                             "encoders.camera.vtransform.depthnet."))]
+    assert any(k.startswith("encoders.camera.backbone.layer4.2.") for k in ported)
+    assert any(k.startswith("encoders.camera.vtransform.depthnet.depth_conv.3.aspp4.")
+               for k in ported) == (name == "bevdepth")
+    build_model(load_config(path).model, "cpu").load_state_dict(sd, strict=True)

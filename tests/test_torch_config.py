@@ -46,3 +46,58 @@ def test_build_model_names_what_the_config_lacks(rel, drop_fuser, message):
         build_model(model_cfg, "cpu")
     if not drop_fuser:
         assert "fuser" not in str(err.value)
+
+
+# the configs the port builds: the fused flagship, TransFusion-L at 0.1 and
+# 0.075 m, the three map-segmentation configs and the three camera-only
+# CenterHead detectors
+PORTED = [
+    "configs/nuscenes/det/transfusion/secfpn/camera+lidar/swint_v0p075/convfuser.yaml",
+    "configs/nuscenes/det/transfusion/secfpn/lidar/voxelnet.yaml",
+    "configs/nuscenes/det/transfusion/secfpn/lidar/voxelnet_0p075.yaml",
+    "configs/nuscenes/seg/fusion-bev256d2-lss.yaml",
+    "configs/nuscenes/seg/lidar-centerpoint-bev128.yaml",
+    "configs/nuscenes/seg/camera-bev256d2.yaml",
+    "configs/nuscenes/det/centerhead/lssfpn/camera/256x704/swint/default.yaml",
+    "configs/nuscenes/det/centerhead/lssfpn/camera/256x704/resnet/default.yaml",
+    "configs/nuscenes/det/centerhead/lssfpn/camera/256x704/resnet/bevdepth.yaml",
+]
+
+
+@pytest.mark.parametrize("path", CONFIGS, ids=lambda p: os.path.relpath(p, ROOT))
+def test_build_model_builds_the_ported_configs_and_no_other(path):
+    """``build_model(load_config(p).model, "cpu")`` builds 9 of the 26 files;
+    every other raises (a missing module, branch, fuser or decoder, or no
+    model at all)."""
+    from bevfusion_tpu_torch.models import build_model
+
+    rel = os.path.relpath(path, ROOT)
+    try:
+        model = build_model(load_config(path).model, "cpu")
+    except (AttributeError, KeyError, NotImplementedError, TypeError, ValueError):
+        assert rel not in PORTED
+    else:
+        assert rel in PORTED and not model.training
+    assert len(CONFIGS) == 26 and len(PORTED) == 9
+
+
+@pytest.mark.parametrize("name", ["swint", "resnet", "bevdepth"])
+def test_camera_det_configs_build(name):
+    from bevfusion_tpu_torch.models import build_model
+    from bevfusion_tpu_torch.runtime.flagship import DET_CAMERA_CONFIGS
+    from bevfusion_tpu_torch.tools.benchmark import _unported_types
+
+    cfg = load_config(DET_CAMERA_CONFIGS[name])
+    assert _unported_types(cfg.model) == []
+    model = build_model(cfg.model, "cpu")
+    head = model.heads["object"]
+    assert type(head).__name__ == "CenterHead" and len(head.task_heads) == 6
+    assert type(model.encoders["camera"]["vtransform"]).__name__ == (
+        "AwareBEVDepth" if name == "bevdepth" else "LSSTransform")
+    assert model.encoders["camera"]["vtransform"].nx == ((256, 256, 1) if name == "swint"
+                                                         else (128, 128, 1))
+    if torch.cuda.is_available():  # no device given: the card
+        assert next(build_model(cfg.model).parameters()).is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            build_model(cfg.model)

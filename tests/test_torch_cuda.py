@@ -719,3 +719,71 @@ def test_tc_variant_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         kv.sparse_conv_variant(feats, nbr, w[:, :, :16].contiguous(), "tc", 128)
     assert kv.sparse_conv_variant.launches == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,density", [(1, 0.5), (37, 0.1), (500, 0.0), (500, 0.02), (500, 1.0),
+                                       (1000, 0.005), (1300, 0.3)])
+def test_nms_kernel_equals_plain(cuda, n, density):
+    """The greedy pass of NMS (``csrc/nms.cu``) equal to its plain version
+    bit for bit: P = 3 problems, every row density from nothing suppressed
+    to everything, N below and above the block's 256 threads."""
+    from bevfusion_tpu_torch.ops import nms
+
+    g = torch.Generator().manual_seed(n)
+    sup = torch.rand(3, n, n, generator=g) < density
+    order = torch.stack([torch.randperm(n, generator=g) for _ in range(3)])
+    want = nms.greedy_suppress_plain(sup, order)
+    launches = nms.greedy_suppress.launches
+    got = nms.greedy_suppress(sup.to(cuda), order.to(cuda))
+    torch.cuda.synchronize()
+    assert nms.greedy_suppress.launches == launches + 1
+    assert got.dtype == torch.bool and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_nms_kernel_rejects_what_it_does_not_take(cuda):
+    from bevfusion_tpu_torch.ops import nms
+
+    sup = torch.zeros(2, 8, 8, dtype=torch.bool, device=cuda)
+    order = torch.arange(8, device=cuda).repeat(2, 1)
+    launches = nms.greedy_suppress.launches
+    with pytest.raises(TypeError):
+        nms.greedy_suppress(sup.float(), order)
+    with pytest.raises(TypeError):
+        nms.greedy_suppress(sup, order.int())
+    with pytest.raises(ValueError):
+        nms.greedy_suppress(sup[:, :4], order)
+    with pytest.raises(ValueError):
+        nms.greedy_suppress(sup.transpose(1, 2), order)
+    assert nms.greedy_suppress.launches == launches
+
+
+@pytest.mark.cuda
+def test_centerhead_decode_on_card_matches_cpu(cuda):
+    """CenterHead's ``get_bboxes`` (the camera configs' circle / rotated NMS
+    mix) on the card and on the CPU, on the same maps: the same keep masks
+    and labels, boxes and scores within 1e-5."""
+    from bevfusion_tpu_torch.config import load_config
+    from bevfusion_tpu_torch.models.heads.centerpoint import CenterHead
+    from bevfusion_tpu_torch.ops import nms
+    from bevfusion_tpu_torch.runtime.flagship import DET_CAMERA_CONFIGS, DET_HEAD_MODERATE
+
+    cfg = dict(load_config(DET_CAMERA_CONFIGS["resnet"]).model.heads.object)
+    cfg.pop("type")
+    head = CenterHead(**dict(cfg, in_channels=8, share_conv_channel=8))
+    g = torch.Generator().manual_seed(0)
+    preds = []
+    for task in head.task_heads:  # 128 x 128 cells, scores over (0, 1), boxes of 0.5-3 m
+        preds.append({k: torch.randn(2, getattr(task, k)[-1].out_channels, 128, 128,
+                                     generator=g) * s + m
+                      for k, (m, s) in DET_HEAD_MODERATE.items()})
+    want = head.get_bboxes(preds)
+    launches = nms.greedy_suppress.launches
+    got = head.get_bboxes([{k: v.to(cuda) for k, v in p.items()} for p in preds])
+    torch.cuda.synchronize()
+    assert nms.greedy_suppress.launches == launches + 6
+    assert torch.equal(got["mask"].cpu(), want["mask"]) and want["mask"].sum() > 100
+    assert torch.equal(got["labels"].cpu(), want["labels"])
+    _close(got["scores"].cpu(), want["scores"])
+    _close(got["bboxes"].cpu()[want["mask"]], want["bboxes"][want["mask"]])

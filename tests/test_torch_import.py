@@ -21,6 +21,8 @@ MAIN_PATH = [
     "bevfusion_tpu_torch.ops.sparse_conv",
     "bevfusion_tpu_torch.ops.grid",
     "bevfusion_tpu_torch.ops.bev_pool",
+    "bevfusion_tpu_torch.ops.iou3d",
+    "bevfusion_tpu_torch.ops.nms",
     "bevfusion_tpu_torch.core.coders",
     "bevfusion_tpu_torch.models",
     "bevfusion_tpu_torch.models.layers",
@@ -34,6 +36,8 @@ MAIN_PATH = [
     "bevfusion_tpu_torch.models.heads.transformer",
     "bevfusion_tpu_torch.models.heads.transfusion",
     "bevfusion_tpu_torch.models.heads.segm",
+    "bevfusion_tpu_torch.models.heads.centerpoint",
+    "bevfusion_tpu_torch.models.bevdepth",
     "bevfusion_tpu_torch.models.bevfusion",
     "bevfusion_tpu_torch.runtime.flagship",
     "bevfusion_tpu_torch.runtime.train",

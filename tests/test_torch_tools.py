@@ -12,6 +12,7 @@ import copy
 import functools
 import importlib
 import math
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -20,14 +21,14 @@ import torch
 from bevfusion_tpu_torch.config import Config, load_config
 from bevfusion_tpu_torch.models import build_model
 from bevfusion_tpu_torch.runtime import flagship
-from bevfusion_tpu_torch.tools import (bench_train_step, benchmark, profile_encoder, profile_meta,
-                                       profile_stages, profile_vtransform)
+from bevfusion_tpu_torch.tools import (bench_iou, bench_train_step, benchmark, profile_encoder,
+                                       profile_meta, profile_stages, profile_vtransform)
 from tests.test_bevfusion_model import make_batch, tiny_fused_config
 
 torch.set_num_threads(2)
 
 TOOLS = ["bench_tile_micro", "bench_kernel_variants", "profile_meta", "profile_encoder",
-         "profile_vtransform", "profile_stages", "bench_train_step", "benchmark"]
+         "profile_vtransform", "profile_stages", "bench_train_step", "benchmark", "bench_iou"]
 
 
 def _batch(training=False):
@@ -164,12 +165,24 @@ def test_benchmark_latency_on_the_cpu():
 
 @pytest.mark.parametrize("config,batch_size,match", [
     ("configs/nuscenes/det/transfusion/secfpn/lidar/pointpillars.yaml", 1, "not ported"),
-    ("configs/nuscenes/det/centerhead/lssfpn/camera/256x704/swint/default.yaml", 1, "not ported"),
+    ("configs/nuscenes/det/centerhead/lssfpn/camera+radar/resnet50/default.yaml", 1, "not ported"),
     (None, 2, "batch size 2"),
 ])
 def test_benchmark_raises_for_what_the_port_does_not_build(config, batch_size, match):
     with pytest.raises(NotImplementedError, match=match):
         benchmark.build(config, "cpu", batch_size=batch_size)
+
+
+def test_bench_iou_compares_another_checkouts_iou_3d():
+    """``--compare`` with this checkout as the other: the same IoUs, and a
+    finite time for each version and shape."""
+    other = bench_iou.load_other(str(Path(__file__).resolve().parents[1]))
+    rows = bench_iou.bench([("matcher", 12, 5), ("nms", 9, 9)], "cpu", iters=2, warmup=1,
+                           other=other)
+    assert [r["max_abs_diff"] for r in rows] == [0.0, 0.0]
+    assert _finite(rows) and _finite(rows, "other_ms")
+    boxes = torch.from_numpy(bench_iou.random_boxes(9, 0))
+    assert torch.allclose(bench_iou.iou3d.iou_3d(boxes, boxes).diagonal(), torch.ones(9))
 
 
 @pytest.mark.parametrize("tool", TOOLS)
