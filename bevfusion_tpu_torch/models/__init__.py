@@ -3,6 +3,8 @@ from . import bevdepth  # noqa: F401
 from . import bevfusion  # noqa: F401
 from . import fusers  # noqa: F401
 from . import necks  # noqa: F401
+from . import pillar_encoder  # noqa: F401
+from . import radar_encoder  # noqa: F401
 from . import resnet  # noqa: F401
 from . import second  # noqa: F401
 from . import sparse_encoder  # noqa: F401

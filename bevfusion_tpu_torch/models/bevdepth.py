@@ -17,8 +17,13 @@ follow BEVDepth's DepthNet (``reduce_conv``, ``bn``, ``{depth,context}_mlp.
 {fc1,fc2}``, ``context_conv``, ``depth_conv.{0..7}`` with the pyramid at
 ``depth_conv.3``: ``aspp{1..4}.{atrous_conv,bn}``, ``global_avg_pool.{1,2}``,
 ``conv1``, ``bn1``); ``runtime/bridge.py`` maps the JAX names onto them.
-The depth loss, the refinement net and ``AwareDBEVDepth`` are not ported
-yet (ROADMAP Queue 1 items 5 and 6h).
+``AwareDBEVDepth`` adds the sparse depth of the points its ``use_points``
+names (LiDAR or radar): rasterized per camera, encoded by three strided
+conv-BN-ReLUs (``dtransform.{0..8}``, DepthLSS's, to 1/8 of the image),
+concatenated with the image features and brought back to their width by a
+3x3 conv-BN-ReLU (``fuse_depth.{0,1}``, the JAX package's ``fuse_depth``:
+a name of the port's own) before the DepthNet. The depth loss and the
+refinement net are not ported yet (ROADMAP Queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -30,9 +35,9 @@ import torch.nn as nn
 from ..registry import VTRANSFORMS
 from ..utils.profiler import untimed
 from .layers import BasicBlock, BatchNorm1d, BatchNorm2d, conv_bn_relu
-from .vtransforms import _BaseLSS
+from .vtransforms import _BaseLSS, rasterize_depth
 
-__all__ = ["SELayer", "ASPP", "DepthNet", "calib_mlp_input", "AwareBEVDepth"]
+__all__ = ["SELayer", "ASPP", "DepthNet", "calib_mlp_input", "AwareBEVDepth", "AwareDBEVDepth"]
 
 
 class SELayer(nn.Module):
@@ -141,18 +146,69 @@ class AwareBEVDepth(_BaseLSS):
             raise NotImplementedError("AwareBEVDepth: bevdepth_refine (DepthRefinement) is not "
                                       "ported; no config sets it")
         super().__init__(**lss)
+        self.use_points = use_points
 
     def build_nets(self, in_channels: int) -> None:
         self.depthnet = DepthNet(in_channels, in_channels, self.C, self.D)
 
+    def add_depth(self, x: torch.Tensor, points: torch.Tensor, points_mask: torch.Tensor,
+                  mats: Dict[str, torch.Tensor], timed=untimed) -> torch.Tensor:
+        """The DepthNet's input from the image features [B*N, Cin, fH, fW]:
+        they alone here (the points are not used)."""
+        return x
+
     def forward(self, img_feats: torch.Tensor, points: torch.Tensor, points_mask: torch.Tensor,
                 mats: Dict[str, torch.Tensor], timed=untimed) -> torch.Tensor:
-        """img_feats [B, N, Cin, fH, fW] -> BEV [B, C, X', Y'] (the points are
-        not used). ``timed(name, fn)`` runs each piece."""
+        """img_feats [B, N, Cin, fH, fW] -> BEV [B, C, X', Y'].
+        ``timed(name, fn)`` runs each piece."""
         B, N, Cin, fH, fW = img_feats.shape
         mlp_in = calib_mlp_input(mats["camera_intrinsics"][..., :3, :3].float(),
                                  mats["img_aug_matrix"].float(), mats["lidar_aug_matrix"].float(),
                                  mats["camera2ego"].float())
-        x = timed("depthnet", lambda: self.depthnet(img_feats.reshape(B * N, Cin, fH, fW),
-                                                    mlp_in))
+        x = self.add_depth(img_feats.reshape(B * N, Cin, fH, fW), points, points_mask, mats, timed)
+        x = timed("depthnet", lambda: self.depthnet(x, mlp_in))
         return self.to_bev(x, B, mats, timed)
+
+
+def _conv_out(size: int, kernel: int, stride: int, pad: int) -> int:
+    return (size + 2 * pad - kernel) // stride + 1
+
+
+@VTRANSFORMS.register
+class AwareDBEVDepth(AwareBEVDepth):
+    """BEVDepth with the sparse depth of ``use_points`` (aware_bevdepth.py:
+    503-697, as the JAX package has it): the depth image's features at 1/8
+    of the image are concatenated with the image features before the
+    DepthNet, so the features must be at stride 8. Elsewhere (a stride-16
+    neck, as camera+radar/resnet50/dlss.yaml has) the two maps differ in
+    size and the build raises; the JAX package fails there too, at the
+    concatenation (ROADMAP Queue 3)."""
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        iH, iW = self.image_size
+        depth = tuple(_conv_out(_conv_out(s, 5, 4, 2), 5, 2, 2) for s in (iH, iW))
+        feats = tuple(self.frustum.shape[1:3])
+        if depth != feats:
+            raise ValueError(
+                f"AwareDBEVDepth: the depth branch gives {depth[0]} x {depth[1]} (image "
+                f"{iH} x {iW} at stride 8) but the image features are {feats[0]} x {feats[1]}: "
+                "the two are concatenated, so the features must be at stride 8. The JAX "
+                "package fails at the same concatenation (bevfusion_tpu/models/bevdepth.py:208)")
+
+    def build_nets(self, in_channels: int) -> None:
+        self.dtransform = nn.Sequential(*conv_bn_relu(1, 8, 1, bias=True),
+                                        *conv_bn_relu(8, 32, 5, 4, 2, bias=True),
+                                        *conv_bn_relu(32, 64, 5, 2, 2, bias=True))
+        self.fuse_depth = nn.Sequential(*conv_bn_relu(in_channels + 64, in_channels, 3, 1, 1,
+                                                      bias=True))
+        super().build_nets(in_channels)
+
+    def add_depth(self, x: torch.Tensor, points: torch.Tensor, points_mask: torch.Tensor,
+                  mats: Dict[str, torch.Tensor], timed=untimed) -> torch.Tensor:
+        """[the encoded depth image, the image features] -> ``fuse_depth``."""
+        d = timed("rasterize_depth", lambda: rasterize_depth(
+            points, points_mask, mats["lidar2image"], mats["img_aug_matrix"],
+            mats["lidar_aug_matrix"], self.image_size))
+        d = timed("dtransform", lambda: self.dtransform(d.view(x.shape[0], 1, *self.image_size)))
+        return timed("fuse_depth", lambda: self.fuse_depth(torch.cat([d, x], 1)))

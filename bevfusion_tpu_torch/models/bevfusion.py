@@ -2,17 +2,21 @@
 
 Counterpart of ``bevfusion_tpu/models/bevfusion.py`` (reference
 mmdet3d/models/fusion_models/bevfusion.py:25-388): camera branch
-(backbone -> neck -> vtransform) and LiDAR branch (voxelize -> sparse
-encoder), fused in (camera, lidar) order by the fuser, then the BEV
-decoder (backbone + neck) -> the task heads: ``object`` (TransFusion or
-CenterHead, decoded by ``get_bboxes``) and ``map`` (BEV map segmentation),
-either or both. The camera's vtransform (LSS, DepthLSS or BEVDepth's
-AwareBEVDepth) is called the same way whichever it is. Either branch may
-be absent; with one branch there is no fuser. A decoder neck that
-returns one map (``LSSFPN``) is taken as a list of one, so every head
-reads the first map of the list. Submodules carry the
-reference checkpoint's names (``encoders.camera.{backbone,neck,
-vtransform}``, ``encoders.lidar.backbone``, ``fuser``, ``decoder.backbone``,
+(backbone -> neck -> vtransform), LiDAR branch (voxelize -> sparse
+encoder, or with ``voxelize_reduce: false`` the unreduced point table ->
+a pillar encoder) and radar branch (voxelize to the point table -> the
+radar pillar encoder), fused in (camera, lidar, radar) order by the
+fuser, then the BEV decoder (backbone + neck) -> the task heads:
+``object`` (TransFusion or CenterHead, decoded by ``get_bboxes``) and
+``map`` (BEV map segmentation), either or both. The camera's vtransform
+(LSS, DepthLSS or BEVDepth's AwareBEVDepth / AwareDBEVDepth) is called
+the same way whichever it is, with the LiDAR points, or the radar points
+where it sets ``use_points: radar``. Any branch may be absent; with one
+branch there is no fuser. A decoder neck that returns one map
+(``LSSFPN``) is taken as a list of one, so every head reads the first
+map of the list. Submodules carry the reference checkpoint's names
+(``encoders.camera.{backbone,neck,vtransform}``,
+``encoders.{lidar,radar}.backbone``, ``fuser``, ``decoder.backbone``,
 ``decoder.neck``, ``heads.{object,map}``). In training mode ``forward``
 returns the loss dict: ``loss/<head>/<name>`` scaled by ``loss_scale[head]``
 and ``stats/object/matched_ious``; a model with a module whose loss is not
@@ -31,6 +35,7 @@ from ..registry import BACKBONES, FUSERS, FUSIONMODELS, HEADS, NECKS, VTRANSFORM
 from ..utils.profiler import untimed
 
 HEAD_NAMES = ("object", "map")
+POINT_KEYS = {"lidar": "points", "radar": "radar"}  # each point branch's batch key (+ "_mask")
 
 
 @FUSIONMODELS.register
@@ -40,9 +45,6 @@ class BEVFusion(nn.Module):
                  loss_scale: Optional[Dict[str, float]] = None):
         super().__init__()
         encoders = {k: v for k, v in (encoders or {}).items() if v is not None}
-        if "radar" in encoders:
-            raise NotImplementedError("the radar branch is not ported yet (ROADMAP Queue 1 "
-                                      "item 6h: RadarEncoder)")
         heads = {k: v for k, v in (heads or {}).items() if v is not None}
         if not heads or set(heads) - set(HEAD_NAMES):
             raise NotImplementedError(f"BEVFusion: heads {sorted(heads)}; the port runs "
@@ -58,15 +60,16 @@ class BEVFusion(nn.Module):
             self.encoders["camera"] = nn.ModuleDict({
                 "backbone": BACKBONES.build(cam["backbone"]), "neck": NECKS.build(cam["neck"]),
                 "vtransform": VTRANSFORMS.build(cam["vtransform"])})
-        if "lidar" in encoders:
-            lidar = encoders["lidar"]
-            vox = dict(lidar["voxelize"])
-            if not lidar.get("voxelize_reduce", True):
-                raise NotImplementedError("pillar (unreduced) voxelization is not ported yet")
-            self.lidar_voxelize = Voxelization(vox["voxel_size"], vox["point_cloud_range"],
-                                               vox.get("max_num_points", 10),
-                                               vox.get("max_voxels", 120000))
-            self.encoders["lidar"] = nn.ModuleDict({"backbone": BACKBONES.build(lidar["backbone"])})
+        for name, max_voxels in (("lidar", 120000), ("radar", 30000)):
+            if name in encoders:
+                branch = encoders[name]
+                vox = dict(branch["voxelize"])
+                setattr(self, f"{name}_voxelize", Voxelization(
+                    vox["voxel_size"], vox["point_cloud_range"], vox.get("max_num_points", 10),
+                    vox.get("max_voxels", max_voxels),
+                    "mean" if branch.get("voxelize_reduce", True) else None))
+                self.encoders[name] = nn.ModuleDict(
+                    {"backbone": BACKBONES.build(branch["backbone"])})
         if fuser is not None:
             self.fuser = FUSERS.build(fuser)
         self.decoder = nn.ModuleDict({"backbone": BACKBONES.build(decoder["backbone"]),
@@ -78,8 +81,10 @@ class BEVFusion(nn.Module):
         """img [B, N, 3, H, W], the camera matrices under the JAX package's
         key names (``camera2lidar``, ``camera_intrinsics``, ``lidar2image``,
         ``img_aug_matrix``, ``lidar_aug_matrix``), ``pool_lut`` when present,
-        and the points for the sparse depth -> BEV map [B, C, X, Y]."""
+        and the points of the vtransform's depth (``points``, or ``radar``
+        where it sets ``use_points: radar``) -> BEV map [B, C, X, Y]."""
         cam = self.encoders["camera"]
+        pts = POINT_KEYS[getattr(cam["vtransform"], "use_points", "lidar")]
         img = batch["img"]
         B, N = img.shape[:2]
         feats = timed("camera/backbone",
@@ -89,14 +94,22 @@ class BEVFusion(nn.Module):
             feats = feats[0]
         feats = feats.view(B, N, *feats.shape[1:])
         return timed("camera/vtransform", lambda: cam["vtransform"](
-            feats, batch["points"], batch["points_mask"], batch))
+            feats, batch.get(pts), batch.get(f"{pts}_mask"), batch))
 
-    def extract_lidar_features(self, points, points_mask, timed=untimed):
-        """points [B, P, C], points_mask [B, P] -> BEV map [B, C', X, Y]."""
-        vox = timed("lidar/voxelize",
-                    lambda: self.lidar_voxelize(points, points_mask, training=self.training))
-        return timed("lidar/sparse_encoder", lambda: self.encoders["lidar"]["backbone"](
-            vox.feats, vox.coords, vox.mask))
+    def extract_point_features(self, name: str, points, points_mask, timed=untimed):
+        """The ``lidar`` or ``radar`` branch: points [B, P, C], points_mask
+        [B, P] -> BEV map [B, C', X, Y]. A reduced voxelization feeds the
+        sparse encoder (stage ``lidar/sparse_encoder``); the unreduced point
+        table, its coords, mask and counts feed a pillar encoder (stage
+        ``<name>/encoder``)."""
+        voxelize = getattr(self, f"{name}_voxelize")
+        vox = timed(f"{name}/voxelize",
+                    lambda: voxelize(points, points_mask, training=self.training))
+        backbone = self.encoders[name]["backbone"]
+        if voxelize.reduce is None:
+            return timed(f"{name}/encoder", lambda: backbone(vox.feats, vox.coords, vox.mask,
+                                                             vox.num_points))
+        return timed(f"{name}/sparse_encoder", lambda: backbone(vox.feats, vox.coords, vox.mask))
 
     def bev_features(self, batch: Dict[str, Any], timed=untimed) -> List[torch.Tensor]:
         """The decoder's BEV maps for ``batch``, as a list (a neck that returns
@@ -105,9 +118,10 @@ class BEVFusion(nn.Module):
         features = []
         if "camera" in self.encoders:
             features.append(self.extract_camera_features(batch, timed))
-        if "lidar" in self.encoders:
-            features.append(self.extract_lidar_features(batch["points"], batch["points_mask"],
-                                                        timed))
+        for name, key in POINT_KEYS.items():
+            if name in self.encoders:
+                features.append(self.extract_point_features(name, batch[key], batch[f"{key}_mask"],
+                                                            timed))
         x = timed("fuser", lambda: self.fuser(features)) if hasattr(self, "fuser") else features[0]
         x = timed("decoder/backbone", lambda: self.decoder["backbone"](x))
         x = timed("decoder/neck", lambda: self.decoder["neck"](x))

@@ -102,13 +102,13 @@ def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]
 
 
 def Norm(norm_type: str, num_features: int, eps: float = 1e-5,
-         momentum: float = 0.1) -> nn.BatchNorm2d:
-    """BatchNorm2d selected by a reference-style norm type (momentum in the
-    torch convention)."""
+         momentum: float = 0.1, dims: int = 2) -> nn.modules.batchnorm._BatchNorm:
+    """BatchNorm2d (``dims=1``: BatchNorm1d) selected by a reference-style
+    norm type (momentum in the torch convention)."""
     if not (norm_type.startswith("BN") or norm_type.startswith("SyncBN")
             or norm_type == "naiveSyncBN"):
         raise NotImplementedError(f"norm type {norm_type!r} (ROADMAP: LN/GN norms)")
-    return BatchNorm2d(num_features, eps=eps, momentum=momentum)
+    return (BatchNorm1d if dims == 1 else BatchNorm2d)(num_features, eps=eps, momentum=momentum)
 
 
 class ConvBNAct(nn.Module):

@@ -15,7 +15,7 @@ bf16 contraction moved points by up to 0.2 m), and the 3x3 inverses are
 taken in float64 like the JAX package's host LUT. ``build_pool_lut``
 makes the pool's intervals from the calibration; the same function serves
 the host LUT of a deployed rig and the in-graph route. The BEVDepth family
-is not ported yet (ROADMAP Queue 1 item 6f).
+(``AwareBEVDepth``, ``AwareDBEVDepth``) lives in ``models/bevdepth.py``.
 """
 from __future__ import annotations
 

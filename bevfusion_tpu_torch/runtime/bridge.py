@@ -14,8 +14,15 @@ to the torch layout:
 
 The copied table covers the five BASELINE trees, as the JAX adapter
 does; the rules for the trees it lacks (the ResNet camera backbone, the
-SECONDFPN camera neck, BEVDepth's DepthNet) are the port's own, in
+SECONDFPN camera neck, BEVDepth's DepthNet, the pillar and radar feature
+nets, a SECOND as the radar branch's ``pts_bev_encoder``,
+AwareDBEVDepth's ``fuse_depth``) are the port's own, in
 ``PORT_RULES`` below, in the same form, tried after the copied table.
+The feature nets' follow mmdet3d's module names (``pts_voxel_encoder.
+pfn_layers.{i}``, ``pts_voxel_encoder.rfn_layers.{i}``, each ``.linear``
+and ``.norm``); ``fuse_depth.{0,1}`` is a name of the port's own. The
+reference is not in the repository, so none of these is checked against
+a released checkpoint.
 
 The port's modules carry the reference checkpoint's names, so the
 result loads with ``load_state_dict(strict=True)``; so would a released
@@ -104,6 +111,22 @@ def _port_rules():
         (rf"{dn}/aspp/out_conv/conv/kernel", f"{aspp}.conv1.weight", adapter._conv),
         *_bn(rf"{dn}/aspp/out_bn/bn", f"{aspp}.bn1"),
     ]
+    # the pillar and radar feature nets (models/{pillar,radar}_encoder.py), mmdet3d's names
+    for branch, net, layer in (("lidar", "PillarFeatureNet_0/pfn", "pfn_layers"),
+                               ("radar", "RadarFeatureNet_0/rfn", "rfn_layers")):
+        fx, tx = f"{branch}_backbone/{net}", f"encoders.{branch}.backbone.pts_voxel_encoder.{layer}"
+        R += [(rf"{fx}(\d+)/linear/kernel", tx + ".{1}.linear.weight", adapter._lin),
+              *_bn(rf"{fx}(\d+)/norm/bn", tx + ".{1}.norm")]
+    # a SECOND as RadarEncoder's optional pts_bev_encoder (no config sets one)
+    fs, ts = "radar_backbone/SECOND_0", "encoders.radar.backbone.pts_bev_encoder"
+    R += [(rf"{fs}/block(\d+)_conv(\d+)/conv/kernel", ts + ".blocks.{1}.{2*3}.weight",
+           adapter._conv),
+          *_bn(rf"{fs}/block(\d+)_bn(\d+)/bn", ts + ".blocks.{1}.{2*3+1}")]
+    # AwareDBEVDepth's fuse_depth (models/bevdepth.py), a name of the port's own
+    fd, tf = "camera_vtransform/fuse_depth", "encoders.camera.vtransform.fuse_depth"
+    R += [(rf"{fd}/Conv_0/conv/kernel", f"{tf}.0.weight", adapter._conv),
+          (rf"{fd}/Conv_0/conv/bias", f"{tf}.0.bias", adapter._id),
+          *_bn(rf"{fd}/Norm_0/bn", f"{tf}.1")]
     for flax, i in (("post_conv", 4), ("depth_out", 6)):
         R += [(rf"{dn}/{flax}/conv/kernel", f"{td}.depth_conv.{i}.weight", adapter._conv),
               (rf"{dn}/{flax}/conv/bias", f"{td}.depth_conv.{i}.bias", adapter._id)]

@@ -12,9 +12,12 @@ flagship's training step (``build_flagship(training=True)`` with
 ``runtime/train.py``) trains on the same synthetic batch plus random
 ground-truth boxes. ``build_flagship(config_path=...)`` builds any other
 config the port runs the same way, among them the three BEV
-map-segmentation configs (``SEG_CONFIGS``) and the three camera-only
-CenterHead detectors (``DET_CAMERA_CONFIGS``). The synthetic inputs are
-byte-equal to the JAX package's.
+map-segmentation configs (``SEG_CONFIGS``), the three camera-only
+CenterHead detectors (``DET_CAMERA_CONFIGS``) and the two pillar configs
+(``PILLAR_CONFIGS``: PointPillars, camera + radar). The synthetic inputs
+are byte-equal to the JAX package's; the radar scan
+(``synthetic_radar_scan``), which the JAX package does not make, is the
+port's own.
 """
 from __future__ import annotations
 
@@ -47,6 +50,18 @@ DET_CAMERA_CONFIGS = {
     name: os.path.join(REPO_ROOT, "configs/nuscenes/det/centerhead/lssfpn/camera/256x704", path)
     for name, path in (("swint", "swint/default.yaml"), ("resnet", "resnet/default.yaml"),
                        ("bevdepth", "resnet/bevdepth.yaml"))}
+# the pillar-encoder configs: LiDAR-only PointPillars TransFusion (a pillar feature net and a
+# dense scatter at 0.2 m), and camera + radar CenterHead (ResNet-50 + SECONDFPN + LSS at 0.8 m
+# beside a radar pillar branch, ConvFuser, GeneralizedResNet + LSSFPN)
+PILLAR_CONFIGS = {
+    "pointpillars": os.path.join(REPO_ROOT,
+                                 "configs/nuscenes/det/transfusion/secfpn/lidar/pointpillars.yaml"),
+    "camera+radar": os.path.join(
+        REPO_ROOT, "configs/nuscenes/det/centerhead/lssfpn/camera+radar/resnet50/default.yaml")}
+# its AwareDBEVDepth variant, which neither package builds (the depth branch at stride 8
+# against stride-16 image features; ROADMAP Queue 3)
+DLSS_CONFIG = os.path.join(REPO_ROOT,
+                           "configs/nuscenes/det/centerhead/lssfpn/camera+radar/resnet50/dlss.yaml")
 # (mean, std) that each CenterHead branch's maps are moved to, by an affine map of its last
 # conv's output channels, when a check needs real work from the decode and the NMS: at random
 # init the maps run to 1e4 (the camera backbone's residual sums), where every box falls outside
@@ -153,6 +168,51 @@ def synthetic_lidar_scan(num_points: int, pcr, seed: int = 0, n_beams: int = 32,
     return out, mask
 
 
+def synthetic_radar_scan(num_points: int = 300, pcr=(-51.2, -51.2, -5.0, 51.2, 51.2, 3.0),
+                         channels: int = 45, seed: int = 0):
+    """A seeded radar scan of ``num_points`` slots (the JAX loader's
+    ``max_num``, 300), 85% of them filled: returns from 24 objects (70%,
+    1 m clusters, 2-50 m out) and clutter (30%), xyz in the cloud range near
+    the ground (the radars sit 1.3 m below the LiDAR), then RCS (dBsm),
+    the velocity and the ego-compensated velocity (m/s; static returns
+    near 0, movers up to 15), the sweep's time lag (0 / 0.07 / 0.13 s),
+    then one-hot groups of 0 / 1 in the nuScenes radar's encoding (dynamic
+    property 8, ambiguity 5, invalid state 18, PDH ordinal 7, a filter
+    flag 1) for the remaining channels. Returns (points [num_points,
+    channels] float32, mask [num_points] bool); padded slots are 0."""
+    rng = np.random.RandomState(seed)
+    pcr = np.asarray(pcr, np.float32)
+    n = int(0.85 * num_points)
+    n_obj = 24
+    az, rad = rng.uniform(-np.pi, np.pi, n_obj), rng.uniform(2.0, 50.0, n_obj)
+    centre = np.stack([rad * np.cos(az), rad * np.sin(az)], -1)
+    speed = np.where(rng.rand(n_obj) < 0.4, rng.uniform(-15, 15, n_obj), 0.0)
+    on_obj = rng.rand(n) < 0.7
+    obj = rng.randint(0, n_obj, n)
+    xy = np.where(on_obj[:, None], centre[obj] + rng.normal(0, 1.0, (n, 2)),
+                  rng.uniform(pcr[:2] * 0.98, pcr[3:5] * 0.98, (n, 2)))
+    xy = np.clip(xy, pcr[:2] + 0.01, pcr[3:5] - 0.01)
+    z = np.clip(rng.normal(-1.3, 0.3, n), pcr[2] + 0.01, pcr[5] - 0.01)
+    heading = np.arctan2(xy[:, 1], xy[:, 0])
+    v = np.where(on_obj, speed[obj], 0.0) + rng.normal(0, 0.2, n)
+    vel = np.stack([v * np.cos(heading), v * np.sin(heading)], -1)
+    comp = vel + rng.normal(0, 0.1, (n, 2))
+    lag = rng.randint(0, 3, n) * 0.065  # three sweeps
+    dense = np.concatenate([xy, z[:, None], rng.normal(5.0, 8.0, (n, 1)), vel, comp,
+                            lag[:, None]], -1)
+    groups = []
+    for size in (8, 5, 18, 7, 1):
+        onehot = np.zeros((n, size))
+        onehot[np.arange(n), rng.randint(0, size, n)] = 1.0
+        groups.append(onehot)
+    feats = np.concatenate([dense] + groups, -1)[:, :channels]
+    out = np.zeros((num_points, channels), np.float32)
+    out[:n, :feats.shape[1]] = feats
+    mask = np.zeros((num_points,), bool)
+    mask[:n] = True
+    return out, mask
+
+
 def _fan_in(module: nn.Module, weight: torch.Tensor) -> int:
     if isinstance(module, SparseConv3d):  # [kx, ky, kz, Cin, Cout]
         return weight.numel() // weight.shape[-1]
@@ -201,7 +261,8 @@ def synthetic_batch(cfg, B: int = 1, num_points: int = 200000, num_gt: int = 64,
     then transposed to NCHW) and ``synthetic_calibration``; with
     ``training``, ``num_gt`` random boxes per sample (``gt_boxes [B, G, 9]``,
     ``gt_labels``, ``gt_valid``), drawn from the same ``RandomState`` in the
-    same order."""
+    same order; with a radar branch, ``radar [B, 300, C]`` and ``radar_mask``
+    (``synthetic_radar_scan``, C the radar feature net's ``in_channels``)."""
     rng = np.random.RandomState(seed)
     iH, iW = cfg.image_size
     N = 6
@@ -212,6 +273,13 @@ def synthetic_batch(cfg, B: int = 1, num_points: int = 200000, num_gt: int = 64,
              "points": np.stack([p for p, _ in pm]),
              "points_mask": np.stack([m for _, m in pm])}
     batch.update(synthetic_calibration(B, N, (iH, iW)))
+    radar = (cfg.model.get("encoders") or {}).get("radar")
+    if radar:
+        rm = [synthetic_radar_scan(pcr=radar["voxelize"]["point_cloud_range"],
+                                   channels=radar["backbone"]["pts_voxel_encoder"]["in_channels"],
+                                   seed=seed + b) for b in range(B)]
+        batch["radar"] = np.stack([p for p, _ in rm])
+        batch["radar_mask"] = np.stack([m for _, m in rm])
     if training:
         G = num_gt
         batch["gt_boxes"] = np.concatenate([
@@ -258,7 +326,8 @@ def build_flagship(device="cuda", num_points: int = 120000, seed: int = 0,
     """The fused flagship (swint_v0p075/convfuser.yaml), or the config at
     ``config_path``, at full width with seeded random weights on ``device``
     (the card unless the caller passes ``"cpu"``), and a batch of one sample
-    (six 256x704 images, one scan of ``num_points``, the synthetic rig) with
+    (six 256x704 images, one scan of ``num_points``, the synthetic rig, and
+    ``synthetic_radar_scan`` where the config has a radar branch) with
     the pooling LUT where the config has an LSS camera branch, built on the
     CPU (``bench.py``'s main path). With ``training`` the model is in
     training mode and the batch carries 64 random ground-truth boxes for

@@ -5,16 +5,18 @@ batch-1 wall clock, warmup 5, device-synchronised timing): host clock
 around each frame, each ending in a synchronise. Any config whose modules
 the port has (``_unported_types`` empty) builds through
 ``runtime/flagship.py:build_flagship``, at full width with seeded random
-weights on a synthetic batch with the host pooling LUT: nine configs, the
-fused flagship
+weights on a synthetic batch with the host pooling LUT (and the radar
+scan where there is a radar branch): eleven configs, the fused flagship
 (configs/nuscenes/det/transfusion/secfpn/camera+lidar/swint_v0p075/convfuser.yaml,
 the default), TransFusion-L at 0.1 m and 0.075 m
 (configs/nuscenes/det/transfusion/secfpn/lidar/voxelnet{,_0p075}.yaml), the
 three BEV map-segmentation configs (configs/nuscenes/seg/{fusion-bev256d2-lss,
-lidar-centerpoint-bev128,camera-bev256d2}.yaml) and the three camera-only
+lidar-centerpoint-bev128,camera-bev256d2}.yaml), the three camera-only
 CenterHead detectors (configs/nuscenes/det/centerhead/lssfpn/camera/256x704/
-{swint/default,resnet/default,resnet/bevdepth}.yaml). Any other config, or a
-batch size other than 1, raises.
+{swint/default,resnet/default,resnet/bevdepth}.yaml), PointPillars
+(configs/nuscenes/det/transfusion/secfpn/lidar/pointpillars.yaml) and camera +
+radar CenterHead (configs/nuscenes/det/centerhead/lssfpn/camera+radar/resnet50/
+default.yaml). Any other config, or a batch size other than 1, raises.
 
 Run: ``python -m bevfusion_tpu_torch.tools.benchmark [config] [--iters 20]`` (on the card).
 """

@@ -3,13 +3,14 @@ by default).
 
 Counterpart of ``tools/profile_stages.py``: the forward split into the
 JAX tool's stages (camera backbone, neck and vtransform; LiDAR voxelize
-and sparse encoder; fuser; decoder backbone and neck; the object head's
-forward and decode, the map head), each of the config's stages timed
-alone at its real inputs (median of CUDA-event times on the card). Any
-of the nine configs ``benchmark.py`` builds: the fused flagship,
-TransFusion-L at 0.1 and 0.075 m, the three map-segmentation configs and
-the three camera-only CenterHead detectors (whose ``head/decode`` holds
-the per-task NMS).
+and sparse encoder, or pillar encoder; radar voxelize and encoder; fuser;
+decoder backbone and neck; the object head's forward and decode, the map
+head), each of the config's stages timed alone at its real inputs (median
+of CUDA-event times on the card). Any of the eleven configs
+``benchmark.py`` builds: the fused flagship, TransFusion-L at 0.1 and 0.075
+m, the three map-segmentation configs, the three camera-only CenterHead
+detectors (whose ``head/decode`` holds the per-task NMS), PointPillars and
+camera + radar CenterHead.
 Stages run eagerly either way, so their sum is close to the frame time;
 use it to rank stages, ``benchmark.py`` for the frame.
 

@@ -105,6 +105,23 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
    (``pre_max_size``), with the times and the bound of the swint frame's
    six and the four made ones; and the BEV-pool kernel vs plain at the
    ResNet configs' shape (C = 64, 128 x 128 cells of 0.8 m) as in phase 9;
+11c. pillar: PointPillars TransFusion
+   (configs/nuscenes/det/transfusion/secfpn/lidar/pointpillars.yaml: the
+   120k-point scan as a [60000, 20, 5] pillar table, PillarFeatureNet, the
+   scatter to 512 x 512, SECOND + SECONDFPN, TransFusion at 128 x 128) at full
+   width with seeded random weights, eval at batch 1, TF32 off: no kernel
+   launch (0 sparse-conv, 0 BEV-pool, 0 NMS), every box field finite,
+   heatmap logits within 2e-3 relative of the CPU model; the occupied and
+   the capped pillar counts; ms/frame, peak memory and stages with TF32 off
+   and on, and the pillar encoder's share of the stages; then camera + radar
+   CenterHead (configs/nuscenes/det/centerhead/lssfpn/camera+radar/resnet50/
+   default.yaml: ResNet-50 + SECONDFPN + LSS at 0.8 m, a 300-point
+   45-channel radar scan through four RFN layers and the scatter to 128 x
+   128, ConvFuser, GeneralizedResNet + LSSFPN, CenterHead) as each phase-11b
+   frame, head moderated, launches 0 / 1 / 6, the radar branch's stages
+   (``radar/voxelize``, ``radar/encoder``) among the stages; last,
+   resnet50/dlss.yaml must raise its stride ValueError (the depth branch
+   32 x 88 against 16 x 44 features);
 12. the flagship's training step at full width, B = 1, host LUT, TF32 off,
    PyTorch's deterministic algorithms on (the card's own run-to-run noise
    would swamp the comparison), the heatmap head's last conv scaled by 0.2
@@ -146,8 +163,8 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
 15. a JSON line with the kernel table (the BEV pool's second shape the seg
    grid, its third the ResNet det configs'; K6's two engines and K7's two
    families each with their ms, plain ms, bound, share and launches; every
-   kernel's launches on the seg and det-camera paths; the NMS kernel's row
-   after K1-K7), the seg and det-camera results and the
+   kernel's launches on the seg, det-camera and pillar paths; the NMS
+   kernel's row after K1-K7), the seg, det-camera and pillar results and the
    script's total time, a line with the card's name and
    power limit as nvidia-smi prints them, then the last line
    ``{"ok": true, "device": {...}}``.
@@ -928,98 +945,166 @@ def decode_trace(head, preds):
             "top": [{"name": k, "count": n, "ms": ms} for k, (n, ms) in top]}
 
 
-def det_phase(counters, bp, nms):
-    """Phase 11b: each camera-only CenterHead config's eval forward on the
-    card with every launch count set to 0 just before and read just after;
-    its raw head maps against the CPU model's; ``get_bboxes`` on the card
-    and the CPU on the same predictions; its frame time, peak memory and
-    stages with TF32 off and on; then the NMS kernel alone on the frames'
-    suppression matrices and four made ones, and the pool kernel at the
-    ResNet configs' shape. Returns ({config: results}, the NMS kernel's
-    shape entries, the pool's shape entry)."""
-    from bevfusion_tpu_torch.runtime.flagship import DET_CAMERA_CONFIGS, batch_to, build_flagship
+def det_forward(model, batch):
+    """(decoded boxes, every task's raw maps) of one eval forward."""
+    maps = []
+    hook = model.heads["object"].register_forward_hook(lambda mod, args, out: maps.append(out))
+    with torch.no_grad():
+        boxes = model(batch)["boxes"]
+    hook.remove()
+    return boxes, maps[0]
 
-    def forward(model, batch):  # (decoded boxes, every task's raw maps)
-        maps = []
-        hook = model.heads["object"].register_forward_hook(lambda mod, args, out: maps.append(out))
-        with torch.no_grad():
-            boxes = model(batch)["boxes"]
-        hook.remove()
-        return boxes, maps[0]
+
+def det_frame(label, path, counters, want):
+    """One CenterHead config's eval forward on the card (its head moderated
+    first), with every launch count set to 0 just before and read just
+    after (``want`` the counts a frame must show); its raw head maps against
+    the CPU model's; ``get_bboxes`` on the card and the CPU on the same
+    predictions; the decode traced; its frame time, peak memory and stages
+    with TF32 off and on. Returns (results, the suppression matrices of its
+    NMS passes, the card's model, its batch)."""
+    from bevfusion_tpu_torch.runtime.flagship import batch_to, build_flagship
+
+    t0 = time.perf_counter()
+    _, cpu_model, cpu_batch = build_flagship("cpu", num_points=120000, seed=0, config_path=path)
+    moderate_head(cpu_model, cpu_batch)
+    model, batch = copy.deepcopy(cpu_model).cuda(), batch_to(cpu_batch, "cuda")
+    want = dict({k: 0 for k in counters}, **want)
+    torch.cuda.synchronize()
+    zero_counts(counters)
+    boxes, maps = det_forward(model, batch)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    check(launches == want, f"{label}: launches {launches}, want {want}")
+    t_cpu = time.perf_counter()
+    cpu_boxes, cpu_maps = det_forward(cpu_model, cpu_batch)
+    cpu_s = time.perf_counter() - t_cpu
+    map_err = max(rel_err(m[k].cpu(), c[k]) for m, c in zip(maps, cpu_maps) for k in c)
+    check(len(maps) == 6 and map_err <= HEATMAP_RTOL,
+          f"{label}: head maps rel err {map_err} > {HEATMAP_RTOL}")
+    # the decode on the card and on the CPU, on the same (the CPU model's) maps
+    same = [{k: v.cuda() for k, v in m.items()} for m in cpu_maps]
+    with torch.no_grad():
+        dec = model.heads["object"].get_bboxes(same)
+        sups = model.heads["object"].suppressions(same)  # what get_bboxes's NMS passes took
+    keep = cpu_boxes["mask"]
+    check(torch.equal(dec["mask"].cpu(), keep) and torch.equal(dec["labels"].cpu(),
+                                                                 cpu_boxes["labels"]),
+          f"{label}: keep masks or labels differ from the CPU's")
+    box_err = rel_err(dec["bboxes"].cpu()[keep], cpu_boxes["bboxes"][keep])
+    score_err = rel_err(dec["scores"].cpu(), cpu_boxes["scores"])
+    check(box_err <= DECODE_RTOL and score_err <= DECODE_RTOL,
+          f"{label}: decode rel err boxes {box_err}, scores {score_err}")
+    trace = decode_trace(model.heads["object"], same)
+    check(trace["device_activities"] > 0 and 0.0 < trace["nms_kernel_ms"] < trace["wall_ms"],
+          f"{label}: decode trace {trace}")
+    kept = boxes["mask"]
+    check(int(keep.sum()) > 0 and bool(torch.isfinite(dec["bboxes"][dec["mask"]]).all())
+          and bool(torch.isfinite(boxes["bboxes"][kept]).all()),
+          f"{label}: no box kept, or a kept box not finite")
+    r = {"launches": launches, "head_maps_rel_err": map_err, "decode_boxes_rel_err": box_err,
+         "decode_scores_rel_err": score_err, "kept_same_predictions": int(keep.sum()),
+         "kept_own_forward": int(kept.sum()),
+         "kept_per_task": keep.view(6, -1).sum(1).tolist(), "cpu_forward_s": cpu_s,
+         "decode_trace": trace}
+    r.update(frame_profile(model, batch))
+    r["seconds"] = time.perf_counter() - t0
+    print(f"{label}: launches {launches}; head maps vs the CPU plain path: rel err "
+          f"{map_err:.3e} (CPU forward {cpu_s:.1f} s); decode on the same predictions: equal "
+          f"keep masks ({r['kept_same_predictions']} kept, per task {r['kept_per_task']}), "
+          f"boxes rel err {box_err:.3e}, scores {score_err:.3e}; {r['kept_own_forward']} kept "
+          f"in the card's own frame; {r['frame_ms_median']:.2f} ms/frame median, peak "
+          f"{r['peak_mem_bytes'] / 2**20:.1f} MiB; TF32 on {r['frame_ms_median_tf32']:.2f} "
+          f"ms, peak {r['peak_mem_bytes_tf32'] / 2**20:.1f} MiB; {r['seconds']:.1f} s")
+    for key in ("stage_ms", "stage_ms_tf32"):
+        print(f"{label} stages, {key}: " + ", ".join(f"{k} {v:.2f}" for k, v in r[key].items()))
+    print(f"{label} decode (get_bboxes, TF32 off): {trace['wall_ms']:.2f} ms wall; traced: "
+          f"{trace['device_activities']} kernels and copies on the card, "
+          f"{trace['device_busy_ms']:.3f} ms busy (the NMS kernel "
+          f"{trace['nms_kernel_ms']:.3f}), idle {100 * trace['idle_share']:.1f}% of the wall; "
+          f"most device time: " + "; ".join(f"{t['name']} x{t['count']} {t['ms']:.3f} ms"
+                                            for t in trace["top"]))
+    return r, [(f"{label} task {t}", sup, order) for t, (sup, order) in enumerate(sups)], \
+        model, batch
+
+
+def det_phase(counters, bp, nms):
+    """Phase 11b: each camera-only CenterHead config's frame (``det_frame``);
+    then the NMS kernel alone on the frames' suppression matrices and four
+    made ones, and the pool kernel at the ResNet configs' shape. Returns
+    ({config: results}, the NMS kernel's shape entries, the pool's shape
+    entry)."""
+    from bevfusion_tpu_torch.runtime.flagship import DET_CAMERA_CONFIGS
 
     res, frames, pool_entry = {}, [], None
     for name, path in DET_CAMERA_CONFIGS.items():
-        t0 = time.perf_counter()
-        _, cpu_model, cpu_batch = build_flagship("cpu", num_points=120000, seed=0,
-                                                 config_path=path)
-        moderate_head(cpu_model, cpu_batch)
-        model, batch = copy.deepcopy(cpu_model).cuda(), batch_to(cpu_batch, "cuda")
-        want = dict({k: 0 for k in counters}, **DET_LAUNCHES)
-        torch.cuda.synchronize()
-        zero_counts(counters)
-        boxes, maps = forward(model, batch)
-        torch.cuda.synchronize()
-        launches = {k: c.launches for k, c in counters.items()}
-        check(launches == want, f"det {name}: launches {launches}, want {want}")
-        t_cpu = time.perf_counter()
-        cpu_boxes, cpu_maps = forward(cpu_model, cpu_batch)
-        cpu_s = time.perf_counter() - t_cpu
-        map_err = max(rel_err(m[k].cpu(), c[k]) for m, c in zip(maps, cpu_maps) for k in c)
-        check(len(maps) == 6 and map_err <= HEATMAP_RTOL,
-              f"det {name}: head maps rel err {map_err} > {HEATMAP_RTOL}")
-        # the decode on the card and on the CPU, on the same (the CPU model's) maps
-        same = [{k: v.cuda() for k, v in m.items()} for m in cpu_maps]
-        with torch.no_grad():
-            dec = model.heads["object"].get_bboxes(same)
-            sups = model.heads["object"].suppressions(same)  # what get_bboxes's NMS passes took
-        frames += [(f"{name} task {t}", sup, order) for t, (sup, order) in enumerate(sups)]
-        keep = cpu_boxes["mask"]
-        check(torch.equal(dec["mask"].cpu(), keep) and torch.equal(dec["labels"].cpu(),
-                                                                     cpu_boxes["labels"]),
-              f"det {name}: keep masks or labels differ from the CPU's")
-        box_err = rel_err(dec["bboxes"].cpu()[keep], cpu_boxes["bboxes"][keep])
-        score_err = rel_err(dec["scores"].cpu(), cpu_boxes["scores"])
-        check(box_err <= DECODE_RTOL and score_err <= DECODE_RTOL,
-              f"det {name}: decode rel err boxes {box_err}, scores {score_err}")
-        trace = decode_trace(model.heads["object"], same)
-        check(trace["device_activities"] > 0 and 0.0 < trace["nms_kernel_ms"] < trace["wall_ms"],
-              f"det {name}: decode trace {trace}")
-        kept = boxes["mask"]
-        check(int(keep.sum()) > 0 and bool(torch.isfinite(dec["bboxes"][dec["mask"]]).all())
-              and bool(torch.isfinite(boxes["bboxes"][kept]).all()),
-              f"det {name}: no box kept, or a kept box not finite")
-        r = {"launches": launches, "head_maps_rel_err": map_err, "decode_boxes_rel_err": box_err,
-             "decode_scores_rel_err": score_err, "kept_same_predictions": int(keep.sum()),
-             "kept_own_forward": int(kept.sum()),
-             "kept_per_task": keep.view(6, -1).sum(1).tolist(), "cpu_forward_s": cpu_s,
-             "decode_trace": trace}
-        r.update(frame_profile(model, batch))
+        res[name], sups, model, batch = det_frame(f"det {name}", path, counters, DET_LAUNCHES)
+        frames += sups
         if name == "resnet":
             pool_entry, _ = pool_case("det resnet", bp, model.encoders["camera"]["vtransform"],
                                       batch["pool_lut"])
-        r["seconds"] = time.perf_counter() - t0
-        res[name] = r
-        print(f"det {name}: launches {launches}; head maps vs the CPU plain path: rel err "
-              f"{map_err:.3e} (CPU forward {cpu_s:.1f} s); decode on the same predictions: equal "
-              f"keep masks ({r['kept_same_predictions']} kept, per task {r['kept_per_task']}), "
-              f"boxes rel err {box_err:.3e}, scores {score_err:.3e}; {r['kept_own_forward']} kept "
-              f"in the card's own frame; {r['frame_ms_median']:.2f} ms/frame median, peak "
-              f"{r['peak_mem_bytes'] / 2**20:.1f} MiB; TF32 on {r['frame_ms_median_tf32']:.2f} "
-              f"ms, peak {r['peak_mem_bytes_tf32'] / 2**20:.1f} MiB; {r['seconds']:.1f} s")
-        for key in ("stage_ms", "stage_ms_tf32"):
-            print(f"det {name} stages, {key}: "
-                  + ", ".join(f"{k} {v:.2f}" for k, v in r[key].items()))
-        print(f"det {name} decode (get_bboxes, TF32 off): {trace['wall_ms']:.2f} ms wall; traced: "
-              f"{trace['device_activities']} kernels and copies on the card, "
-              f"{trace['device_busy_ms']:.3f} ms busy (the NMS kernel "
-              f"{trace['nms_kernel_ms']:.3f}), idle {100 * trace['idle_share']:.1f}% of the wall; "
-              f"most device time: " + "; ".join(f"{t['name']} x{t['count']} {t['ms']:.3f} ms"
-                                                for t in trace["top"]))
-        del model, batch, cpu_model, cpu_batch, boxes, maps, cpu_boxes, cpu_maps, same, dec
+        del model, batch, sups
         torch.cuda.empty_cache()
     nms_shapes, held = nms_kernel_cases(nms, frames)
     print(f"kernel greedy_nms: {held} suppression matrices equal to plain bit for bit")
     return res, nms_shapes, pool_entry
+
+
+def pillar_phase(counters):
+    """Phase 11c: PointPillars' eval frame (``run_model``: launches, boxes,
+    heatmap against the CPU model) with its pillar counts, frame time, peak
+    memory and stages with TF32 off and on; camera + radar CenterHead's frame
+    (``det_frame``); dlss.yaml's refusal. Returns {config: results}."""
+    from bevfusion_tpu_torch.config import load_config
+    from bevfusion_tpu_torch.models import build_model
+    from bevfusion_tpu_torch.runtime.flagship import (DLSS_CONFIG, PILLAR_CONFIGS, batch_to,
+                                                      build_flagship)
+
+    t0 = time.perf_counter()
+    cfg, cpu_model, cpu_batch = build_flagship("cpu", num_points=120000, seed=0,
+                                               config_path=PILLAR_CONFIGS["pointpillars"])
+    vox = cpu_model.lidar_voxelize(cpu_batch["points"], cpu_batch["points_mask"])
+    cap = cfg.model.encoders.lidar.voxelize.max_num_points
+    pillars = {"in_range_points": int(cpu_batch["points_mask"].sum()),
+               "pillar_rows": int(vox.mask.numel()), "occupied_pillars": int(vox.mask.sum()),
+               "capped_pillars": int((vox.num_points == cap).sum())}
+    print(f"pointpillars: {pillars['in_range_points']} points in range occupy "
+          f"{pillars['occupied_pillars']} of {pillars['pillar_rows']} pillar rows; "
+          f"{pillars['capped_pillars']} pillars hold the cap of {cap} points")
+    model, batch = copy.deepcopy(cpu_model).cuda(), batch_to(cpu_batch, "cuda")
+    launches, heat_err, _, _ = run_model("pointpillars", model, batch, cpu_model, cpu_batch,
+                                         counters, dict.fromkeys(counters, 0))
+    r = dict(pillars, launches=launches, heatmap_rel_err=heat_err, **frame_profile(model, batch))
+    share = {k: r[k]["lidar/encoder"] / sum(r[k].values()) for k in ("stage_ms", "stage_ms_tf32")}
+    print(f"pointpillars: {r['frame_ms_median']:.2f} ms/frame median, peak "
+          f"{r['peak_mem_bytes'] / 2**20:.1f} MiB; TF32 on {r['frame_ms_median_tf32']:.2f} ms, "
+          f"peak {r['peak_mem_bytes_tf32'] / 2**20:.1f} MiB; the pillar encoder (PFN + scatter) "
+          f"{100 * share['stage_ms']:.1f}% of the stages' sum (TF32 on "
+          f"{100 * share['stage_ms_tf32']:.1f}%)")
+    for key in ("stage_ms", "stage_ms_tf32"):
+        print(f"pointpillars stages, {key}: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in r[key].items()))
+    r["encoder_share"] = share
+    r["seconds"] = time.perf_counter() - t0
+    res = {"pointpillars": r}
+    del model, batch, cpu_model, cpu_batch, vox
+    torch.cuda.empty_cache()
+
+    res["camera+radar"], _, model, batch = det_frame(
+        "camera+radar", PILLAR_CONFIGS["camera+radar"], counters, DET_LAUNCHES)
+    del model, batch
+    torch.cuda.empty_cache()
+
+    refused = None
+    try:
+        build_model(load_config(DLSS_CONFIG).model, "cpu")
+    except ValueError as e:  # the refusal this phase checks for
+        refused = str(e)
+    check(refused is not None and "32 x 88" in refused and "16 x 44" in refused,
+          f"dlss.yaml: built, or refused with another message ({refused})")
+    print(f"dlss.yaml refused: {refused}")
+    res["dlss_refusal"] = refused
+    return res
 
 
 def summary(name, source, replaces, launches, shapes, extra_err=(), library_ms=None):
@@ -1360,6 +1445,12 @@ def main() -> int:
     det_s = time.perf_counter() - t0
     print(f"det: the three configs, the NMS kernel and the pool at C = 64 in {det_s:.1f} s")
 
+    # 11c. the pillar configs, eval forward at B=1: PointPillars, camera + radar; dlss refused
+    t0 = time.perf_counter()
+    pillar = pillar_phase(all_counters)
+    pillar_s = time.perf_counter() - t0
+    print(f"pillar: PointPillars, camera + radar and the dlss refusal in {pillar_s:.1f} s")
+
     # 12. the flagship's training step, B=1, host LUT, TF32 off: kernels vs plain
     cfg, model, batch = build_flagship("cuda", num_points=120000, seed=0, training=True)
     with torch.no_grad():  # moderate heatmap logits: an unsaturated sigmoid ranks apart
@@ -1448,6 +1539,8 @@ def main() -> int:
     for k in kernels:
         k["launches_seg"] = {name: r["launches"][k["name"]] for name, r in seg.items()}
         k["launches_det_camera"] = {name: r["launches"][k["name"]] for name, r in det.items()}
+        k["launches_pillar"] = {name: pillar[name]["launches"][k["name"]]
+                                for name in ("pointpillars", "camera+radar")}
     print(json.dumps({
         "kernels": kernels, "build_s": build_s, "total_s": time.perf_counter() - t_start,
         "flagship": {"frame_ms_median": statistics.median(frames), "peak_mem_bytes": peak,
@@ -1456,6 +1549,7 @@ def main() -> int:
                      "peak_mem_bytes_tf32": peak_tf32, "stage_ms_tf32": stages_tf32},
         "seg": dict(seg, seconds=seg_s),
         "det_camera": dict(det, seconds=det_s),
+        "pillar": dict(pillar, seconds=pillar_s),
         "train": {"parity_tf32_off": parity, "steps_tf32_on": steps},
         "tools": {k: v for k, v in tools.items() if k not in ("copy", "gathers")},
         "lidar_slice": {"launches": lidar_launches,

@@ -17,7 +17,8 @@ from bevfusion_tpu.runtime.flagship import FLAGSHIP_CONFIG, synthetic_batch
 from bevfusion_tpu_torch.config import load_config
 from bevfusion_tpu_torch.models import build_model
 from bevfusion_tpu_torch.runtime.bridge import jax_to_torch_state_dict
-from bevfusion_tpu_torch.runtime.flagship import DET_CAMERA_CONFIGS, LIDAR_SLICE_CONFIG
+from bevfusion_tpu_torch.runtime.flagship import (DET_CAMERA_CONFIGS, LIDAR_SLICE_CONFIG,
+                                                  PILLAR_CONFIGS)
 from tests.torch_port_helpers import tiny_lidar_model
 
 torch.set_num_threads(2)
@@ -125,4 +126,25 @@ def test_bridge_is_exhaustive_on_the_resnet_camera_trees(name):
     assert any(k.startswith("encoders.camera.backbone.layer4.2.") for k in ported)
     assert any(k.startswith("encoders.camera.vtransform.depthnet.depth_conv.3.aspp4.")
                for k in ported) == (name == "bevdepth")
+    build_model(load_config(path).model, "cpu").load_state_dict(sd, strict=True)
+
+
+@pytest.mark.parametrize("name", ["pointpillars", "camera+radar"])
+def test_bridge_is_exhaustive_on_the_pillar_trees(name):
+    """The two pillar configs at full width: every flax path of the JAX model
+    (the pillar and radar feature nets: ``PORT_RULES``) gets a torch key, no
+    key twice, and the result loads strictly (every key of the port's
+    model, none else); the first Linear of each
+    feature net is as wide as the reference's rule makes the port's."""
+    path = PILLAR_CONFIGS[name]
+    jcfg = jax_load_config(path)
+    batch = synthetic_batch(jcfg, B=1, num_points=64)
+    if name == "camera+radar":
+        batch.update(radar=jnp.zeros((1, 300, 45)), radar_mask=jnp.ones((1, 300), bool))
+    variables = _zero_variables(jax_build_model(jcfg.model), batch)
+    sd = jax_to_torch_state_dict(variables)  # raises on a flax path without a key
+    branch, layers, width = (("lidar", "pfn_layers", 5 + 5) if name == "pointpillars"
+                             else ("radar", "rfn_layers", 45 + 2))
+    first = f"encoders.{branch}.backbone.pts_voxel_encoder.{layers}.0.linear.weight"
+    assert sd[first].shape[1] == width
     build_model(load_config(path).model, "cpu").load_state_dict(sd, strict=True)

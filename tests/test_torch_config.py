@@ -49,8 +49,8 @@ def test_build_model_names_what_the_config_lacks(rel, drop_fuser, message):
 
 
 # the configs the port builds: the fused flagship, TransFusion-L at 0.1 and
-# 0.075 m, the three map-segmentation configs and the three camera-only
-# CenterHead detectors
+# 0.075 m, the three map-segmentation configs, the three camera-only
+# CenterHead detectors, PointPillars and camera + radar CenterHead
 PORTED = [
     "configs/nuscenes/det/transfusion/secfpn/camera+lidar/swint_v0p075/convfuser.yaml",
     "configs/nuscenes/det/transfusion/secfpn/lidar/voxelnet.yaml",
@@ -61,24 +61,29 @@ PORTED = [
     "configs/nuscenes/det/centerhead/lssfpn/camera/256x704/swint/default.yaml",
     "configs/nuscenes/det/centerhead/lssfpn/camera/256x704/resnet/default.yaml",
     "configs/nuscenes/det/centerhead/lssfpn/camera/256x704/resnet/bevdepth.yaml",
+    "configs/nuscenes/det/transfusion/secfpn/lidar/pointpillars.yaml",
+    "configs/nuscenes/det/centerhead/lssfpn/camera+radar/resnet50/default.yaml",
 ]
 
 
 @pytest.mark.parametrize("path", CONFIGS, ids=lambda p: os.path.relpath(p, ROOT))
 def test_build_model_builds_the_ported_configs_and_no_other(path):
-    """``build_model(load_config(p).model, "cpu")`` builds 9 of the 26 files;
-    every other raises (a missing module, branch, fuser or decoder, or no
-    model at all)."""
+    """``build_model(load_config(p).model, "cpu")`` builds 11 of the 26 files;
+    every other raises (a missing branch, fuser or decoder, no model at all,
+    or dlss.yaml's depth branch at another stride than its image features).
+    No file names a module type the port lacks."""
     from bevfusion_tpu_torch.models import build_model
+    from bevfusion_tpu_torch.tools.benchmark import _unported_types
 
     rel = os.path.relpath(path, ROOT)
+    assert _unported_types(load_config(path).get("model") or {}) == []
     try:
         model = build_model(load_config(path).model, "cpu")
     except (AttributeError, KeyError, NotImplementedError, TypeError, ValueError):
         assert rel not in PORTED
     else:
         assert rel in PORTED and not model.training
-    assert len(CONFIGS) == 26 and len(PORTED) == 9
+    assert len(CONFIGS) == 26 and len(PORTED) == 11
 
 
 @pytest.mark.parametrize("name", ["swint", "resnet", "bevdepth"])

@@ -787,3 +787,24 @@ def test_centerhead_decode_on_card_matches_cpu(cuda):
     assert torch.equal(got["labels"].cpu(), want["labels"])
     _close(got["scores"].cpu(), want["scores"])
     _close(got["bboxes"].cpu()[want["mask"]], want["bboxes"][want["mask"]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,want", [("pointpillars", (0, 0, 0)), ("camera+radar", (0, 1, 6))])
+def test_pillar_config_frame_launches(cuda, name, want):
+    """One eval frame of each pillar config at full width on the card: its
+    launches of the sparse-conv, BEV-pool and NMS kernels (PointPillars runs
+    no hand kernel; camera + radar pools once and runs one NMS pass a task);
+    PointPillars' box fields finite (CenterHead's maps at random init run
+    to where ``exp(dim)`` overflows: chip_smoke.py moderates them first)."""
+    from bevfusion_tpu_torch.ops import nms
+    from bevfusion_tpu_torch.runtime.flagship import PILLAR_CONFIGS, build_flagship
+
+    _, model, batch = build_flagship(cuda, config_path=PILLAR_CONFIGS[name])
+    kernels = (sp.sparse_conv, bp.bev_pool, nms.greedy_suppress)
+    before = [k.launches for k in kernels]
+    with torch.no_grad():
+        boxes = model(batch)["boxes"]
+    torch.cuda.synchronize()
+    assert tuple(k.launches - b for k, b in zip(kernels, before)) == want
+    assert name != "pointpillars" or all(torch.isfinite(v.float()).all() for v in boxes.values())

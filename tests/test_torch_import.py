@@ -33,6 +33,8 @@ MAIN_PATH = [
     "bevfusion_tpu_torch.models.resnet",
     "bevfusion_tpu_torch.models.vtransforms",
     "bevfusion_tpu_torch.models.fusers",
+    "bevfusion_tpu_torch.models.pillar_encoder",
+    "bevfusion_tpu_torch.models.radar_encoder",
     "bevfusion_tpu_torch.models.heads.transformer",
     "bevfusion_tpu_torch.models.heads.transfusion",
     "bevfusion_tpu_torch.models.heads.segm",

@@ -163,14 +163,20 @@ def test_benchmark_latency_on_the_cpu():
     assert len(r["frames_ms"]) == 2 and math.isfinite(r["mean_ms"]) and r["fps"] > 0
 
 
-@pytest.mark.parametrize("config,batch_size,match", [
-    ("configs/nuscenes/det/transfusion/secfpn/lidar/pointpillars.yaml", 1, "not ported"),
-    ("configs/nuscenes/det/centerhead/lssfpn/camera+radar/resnet50/default.yaml", 1, "not ported"),
-    (None, 2, "batch size 2"),
+@pytest.mark.parametrize("config,batch_size,error,match", [
+    ("configs/nuscenes/det/centerhead/lssfpn/camera+radar/resnet50/dlss.yaml", 1, ValueError,
+     r"depth branch gives 32 x 88 .* 16 x 44"),
+    ("addfuser", 1, NotImplementedError, "not ported: fuser: AddFuser"),
+    (None, 2, NotImplementedError, "batch size 2"),
 ])
-def test_benchmark_raises_for_what_the_port_does_not_build(config, batch_size, match):
-    with pytest.raises(NotImplementedError, match=match):
-        benchmark.build(config, "cpu", batch_size=batch_size)
+def test_benchmark_raises_for_what_the_port_does_not_build(config, batch_size, error, match,
+                                                           tmp_path):
+    if config == "addfuser":  # every config's modules are ported: a made one names a type
+        config = tmp_path / "addfuser.yaml"  # the port lacks
+        config.write_text("model:\n  type: BEVFusion\n  fuser:\n    type: AddFuser\n"
+                          "    in_channels: [80, 256]\n    out_channels: 256\n")
+    with pytest.raises(error, match=match):
+        benchmark.build(None if config is None else str(config), "cpu", batch_size=batch_size)
 
 
 def test_bench_iou_compares_another_checkouts_iou_3d():
