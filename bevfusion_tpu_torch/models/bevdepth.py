@@ -1,14 +1,19 @@
-"""BEVDepth's camera-aware view transform (NCHW), eval.
+"""BEVDepth's camera-aware view transform (NCHW) and its depth loss.
 
-Counterpart of ``SELayer``, ``ASPP``, ``DepthNet``, ``calib_mlp_input`` and
-``AwareBEVDepth`` in ``bevfusion_tpu/models/bevdepth.py`` (reference
+Counterpart of ``SELayer``, ``ASPP``, ``DepthNet``, ``calib_mlp_input``,
+``downsampled_gt_depth``, ``bce_depth_loss`` and ``AwareBEVDepth`` in
+``bevfusion_tpu/models/bevdepth.py`` (reference
 mmdet3d/models/vtransforms/aware_bevdepth.py): a 27-value calibration
 vector per camera (intrinsics, image and LiDAR augmentation, camera to
 ego) goes through a BatchNorm and two MLPs whose sigmoids gate the
 reduced image features, one gate for the context channels and one for the
 depth branch (three BasicBlocks, an atrous pyramid, a 3x3 and a 1x1 conv,
 each with BN); the softmax over the D depth bins times the context is
-pooled into the BEV grid as in LSS (``vtransforms._BaseLSS``).
+pooled into the BEV grid as in LSS (``vtransforms._BaseLSS``). Given the
+LiDAR depth images (``data/transforms.py:GTDepth``) in training, the
+forward also returns the depth loss: the binary cross-entropy of the depth
+softmax against the one-hot bin of each ``bevdepth_downsample`` block's
+nearest return, on the blocks that hold one.
 
 The gate is the JAX package's: ``x * sigmoid(mlp(calib))``, with no
 parameters of its own (the reference's SELayer adds ``conv_reduce`` and
@@ -22,22 +27,25 @@ names (LiDAR or radar): rasterized per camera, encoded by three strided
 conv-BN-ReLUs (``dtransform.{0..8}``, DepthLSS's, to 1/8 of the image),
 concatenated with the image features and brought back to their width by a
 3x3 conv-BN-ReLU (``fuse_depth.{0,1}``, the JAX package's ``fuse_depth``:
-a name of the port's own) before the DepthNet. The depth loss and the
-refinement net are not ported yet (ROADMAP Queue 1 item 5).
+a name of the port's own) before the DepthNet. The refinement net is not
+ported (``bevdepth_refine``: the JAX package never reads it; every config
+sets it false).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..registry import VTRANSFORMS
 from ..utils.profiler import untimed
-from .layers import BasicBlock, BatchNorm1d, BatchNorm2d, conv_bn_relu
+from .layers import BasicBlock, BatchNorm1d, BatchNorm2d, at_least_fp32, conv_bn_relu
 from .vtransforms import _BaseLSS, rasterize_depth
 
-__all__ = ["SELayer", "ASPP", "DepthNet", "calib_mlp_input", "AwareBEVDepth", "AwareDBEVDepth"]
+__all__ = ["SELayer", "ASPP", "DepthNet", "calib_mlp_input", "downsampled_gt_depth",
+           "bce_depth_loss", "AwareBEVDepth", "AwareDBEVDepth"]
 
 
 class SELayer(nn.Module):
@@ -131,12 +139,44 @@ def calib_mlp_input(intrins: torch.Tensor, img_aug: torch.Tensor, lidar_aug: tor
     return torch.cat([feats, camera2ego[..., :3, :4].reshape(B, N, 12)], -1).reshape(B * N, 27)
 
 
+def downsampled_gt_depth(gt_depths: torch.Tensor, factor: int, dbound: Sequence[float],
+                         D: int) -> torch.Tensor:
+    """Depth images [B, N, H, W] (0 where no point) -> one-hot depth bins
+    [B*N*(H/factor)*(W/factor), D], blocks in (camera, row, column) order
+    (aware_bevdepth.py:442-478): each factor x factor block's nearest depth
+    (0 counts as 1e5), binned by ``dbound`` (start, stop, step) over D + 1
+    bins with bin 0 and anything out of range as background, bin 0 dropped;
+    a background block is a row of zeros."""
+    B, N, H, W = gt_depths.shape
+    g = gt_depths.reshape(B * N, H // factor, factor, W // factor, factor)
+    g = g.permute(0, 1, 3, 2, 4).reshape(-1, factor * factor)
+    g = torch.where(g == 0.0, torch.full_like(g, 1e5), g).amin(-1)
+    g = (g - (dbound[0] - dbound[2])) / dbound[2]
+    g = torch.where((g < D + 1) & (g >= 0.0), g, torch.zeros_like(g))
+    return F.one_hot(g.long(), D + 1)[:, 1:].to(gt_depths.dtype)
+
+
+def bce_depth_loss(depth: torch.Tensor, gt_depths: torch.Tensor, factor: int,
+                   dbound: Sequence[float], D: int, loss_factor: float = 3.0) -> torch.Tensor:
+    """The depth loss: ``depth`` [B, N, D, fH, fW] softmax probabilities,
+    ``gt_depths`` [B, N, H, W]; the binary cross-entropy against
+    ``downsampled_gt_depth`` (probabilities clipped to [1e-6, 1 - 1e-6]),
+    summed over the blocks that hold a return and their D bins, over the
+    number of those blocks (at least 1), times ``loss_factor``."""
+    preds = at_least_fp32(depth).permute(0, 1, 3, 4, 2).reshape(-1, D)
+    labels = downsampled_gt_depth(gt_depths, factor, dbound, D).to(preds.dtype)
+    fg = labels.amax(1) > 0.0
+    p = preds.clamp(1e-6, 1 - 1e-6)
+    bce = -(labels * torch.log(p) + (1 - labels) * torch.log(1 - p))
+    bce = torch.where(fg[:, None], bce, torch.zeros_like(bce))
+    return loss_factor * bce.sum() / torch.clamp(fg.sum().to(bce.dtype), min=1.0)
+
+
 @VTRANSFORMS.register
 class AwareBEVDepth(_BaseLSS):
     """Camera-only BEVDepth: ``DepthNet`` on the image features and the
-    calibration, then the LSS pool and the optional downsample."""
-
-    unported_loss = "the BEVDepth depth loss (bevfusion_tpu/models/bevdepth.py:118-142)"
+    calibration, then the LSS pool and the optional downsample; the depth
+    loss (``bce_depth_loss``) where the caller passes depth images."""
 
     def __init__(self, bevdepth_downsample: int = 8, bevdepth_refine: bool = False,
                  depth_loss_factor: float = 3.0, use_points: str = "lidar", **lss):
@@ -147,6 +187,8 @@ class AwareBEVDepth(_BaseLSS):
                                       "ported; no config sets it")
         super().__init__(**lss)
         self.use_points = use_points
+        self.bevdepth_downsample = bevdepth_downsample
+        self.depth_loss_factor = depth_loss_factor
 
     def build_nets(self, in_channels: int) -> None:
         self.depthnet = DepthNet(in_channels, in_channels, self.C, self.D)
@@ -158,16 +200,23 @@ class AwareBEVDepth(_BaseLSS):
         return x
 
     def forward(self, img_feats: torch.Tensor, points: torch.Tensor, points_mask: torch.Tensor,
-                mats: Dict[str, torch.Tensor], timed=untimed) -> torch.Tensor:
-        """img_feats [B, N, Cin, fH, fW] -> BEV [B, C, X', Y'].
-        ``timed(name, fn)`` runs each piece."""
+                mats: Dict[str, torch.Tensor], timed=untimed,
+                gt_depths: Optional[torch.Tensor] = None):
+        """img_feats [B, N, Cin, fH, fW] -> BEV [B, C, X', Y']; with
+        ``gt_depths`` [B, N, iH, iW], (BEV, depth loss). ``timed(name, fn)``
+        runs each piece."""
         B, N, Cin, fH, fW = img_feats.shape
-        mlp_in = calib_mlp_input(mats["camera_intrinsics"][..., :3, :3].float(),
-                                 mats["img_aug_matrix"].float(), mats["lidar_aug_matrix"].float(),
-                                 mats["camera2ego"].float())
+        mlp_in = calib_mlp_input(*(at_least_fp32(m) for m in (
+            mats["camera_intrinsics"][..., :3, :3], mats["img_aug_matrix"],
+            mats["lidar_aug_matrix"], mats["camera2ego"])))
         x = self.add_depth(img_feats.reshape(B * N, Cin, fH, fW), points, points_mask, mats, timed)
         x = timed("depthnet", lambda: self.depthnet(x, mlp_in))
-        return self.to_bev(x, B, mats, timed)
+        if gt_depths is None:
+            return self.to_bev(x, B, mats, timed)
+        bev, depth = self.to_bev(x, B, mats, timed, return_depth=True)
+        return bev, timed("depth_loss", lambda: bce_depth_loss(
+            depth, gt_depths, self.bevdepth_downsample, self.dbound, self.D,
+            self.depth_loss_factor))
 
 
 def _conv_out(size: int, kernel: int, stride: int, pad: int) -> int:

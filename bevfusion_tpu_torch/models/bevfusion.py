@@ -18,10 +18,10 @@ map of the list. Submodules carry the reference checkpoint's names
 (``encoders.camera.{backbone,neck,vtransform}``,
 ``encoders.{lidar,radar}.backbone``, ``fuser``, ``decoder.backbone``,
 ``decoder.neck``, ``heads.{object,map}``). In training mode ``forward``
-returns the loss dict: ``loss/<head>/<name>`` scaled by ``loss_scale[head]``
-and ``stats/object/matched_ious``; a model with a module whose loss is not
-ported yet (CenterHead, AwareBEVDepth: their ``unported_loss``) raises
-NotImplementedError in training.
+returns the loss dict: ``loss/<head>/<name>`` scaled by ``loss_scale[head]``,
+``stats/object/matched_ious`` (TransFusion) and, where a depth-supervised
+vtransform (``AwareBEVDepth``, ``AwareDBEVDepth``) gets the batch's
+``depths``, its unscaled ``loss/depth``.
 """
 from __future__ import annotations
 
@@ -33,6 +33,7 @@ import torch.nn as nn
 from ..ops.voxelize import Voxelization
 from ..registry import BACKBONES, FUSERS, FUSIONMODELS, HEADS, NECKS, VTRANSFORMS
 from ..utils.profiler import untimed
+from .bevdepth import AwareBEVDepth
 
 HEAD_NAMES = ("object", "map")
 POINT_KEYS = {"lidar": "points", "radar": "radar"}  # each point branch's batch key (+ "_mask")
@@ -77,12 +78,16 @@ class BEVFusion(nn.Module):
         self.heads = nn.ModuleDict({k: HEADS.build(v) for k, v in heads.items()})
         self.loss_scale = dict(loss_scale or {})
 
-    def extract_camera_features(self, batch: Dict[str, Any], timed=untimed) -> torch.Tensor:
+    def extract_camera_features(self, batch: Dict[str, Any], timed=untimed,
+                                aux: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
         """img [B, N, 3, H, W], the camera matrices under the JAX package's
         key names (``camera2lidar``, ``camera_intrinsics``, ``lidar2image``,
         ``img_aug_matrix``, ``lidar_aug_matrix``), ``pool_lut`` when present,
         and the points of the vtransform's depth (``points``, or ``radar``
-        where it sets ``use_points: radar``) -> BEV map [B, C, X, Y]."""
+        where it sets ``use_points: radar``) -> BEV map [B, C, X, Y]. Given
+        ``aux`` and the batch's ``depths`` [B, N, H, W], a depth-supervised
+        vtransform puts its loss there as ``loss/depth`` (JAX
+        bevfusion.py:116-121)."""
         cam = self.encoders["camera"]
         pts = POINT_KEYS[getattr(cam["vtransform"], "use_points", "lidar")]
         img = batch["img"]
@@ -93,8 +98,13 @@ class BEVFusion(nn.Module):
         if isinstance(feats, (list, tuple)):
             feats = feats[0]
         feats = feats.view(B, N, *feats.shape[1:])
-        return timed("camera/vtransform", lambda: cam["vtransform"](
-            feats, batch.get(pts), batch.get(f"{pts}_mask"), batch))
+        vt = cam["vtransform"]
+        if aux is None or not isinstance(vt, AwareBEVDepth) or batch.get("depths") is None:
+            return timed("camera/vtransform", lambda: vt(
+                feats, batch.get(pts), batch.get(f"{pts}_mask"), batch))
+        bev, aux["loss/depth"] = timed("camera/vtransform", lambda: vt(
+            feats, batch.get(pts), batch.get(f"{pts}_mask"), batch, gt_depths=batch["depths"]))
+        return bev
 
     def extract_point_features(self, name: str, points, points_mask, timed=untimed):
         """The ``lidar`` or ``radar`` branch: points [B, P, C], points_mask
@@ -111,13 +121,15 @@ class BEVFusion(nn.Module):
                                                              vox.num_points))
         return timed(f"{name}/sparse_encoder", lambda: backbone(vox.feats, vox.coords, vox.mask))
 
-    def bev_features(self, batch: Dict[str, Any], timed=untimed) -> List[torch.Tensor]:
+    def bev_features(self, batch: Dict[str, Any], timed=untimed,
+                     aux: Optional[Dict[str, torch.Tensor]] = None) -> List[torch.Tensor]:
         """The decoder's BEV maps for ``batch``, as a list (a neck that returns
         one map gives a list of one). ``timed(name, fn)`` runs each stage
-        (the profiling tools pass a timer)."""
+        (the profiling tools pass a timer); ``aux`` takes the depth loss
+        (``extract_camera_features``)."""
         features = []
         if "camera" in self.encoders:
-            features.append(self.extract_camera_features(batch, timed))
+            features.append(self.extract_camera_features(batch, timed, aux))
         for name, key in POINT_KEYS.items():
             if name in self.encoders:
                 features.append(self.extract_point_features(name, batch[key], batch[f"{key}_mask"],
@@ -137,17 +149,12 @@ class BEVFusion(nn.Module):
         object head, ``masks_bev`` [B, classes, X, Y] from the map head.
         Training (``batch`` with ``gt_boxes``, ``gt_labels``, ``gt_valid`` for
         the object head, ``gt_masks_bev`` [B, classes, X, Y] for the map
-        head): the loss dict of the JAX package's ``BEVFusion.__call__``
-        (bevfusion.py:185-205). ``timed(name, fn)`` runs each stage, the
+        head, ``depths`` [B, N, H, W] for a depth-supervised vtransform): the
+        loss dict of the JAX package's ``BEVFusion.__call__``
+        (bevfusion.py:155-205). ``timed(name, fn)`` runs each stage, the
         heads (``head/forward``, ``head/map``) and the decode."""
-        if self.training:
-            missing = [m.unported_loss for m in self.modules() if getattr(m, "unported_loss", None)]
-            if missing:
-                raise NotImplementedError(f"training needs {' and '.join(missing)}, not ported "
-                                          "yet (ROADMAP Queue 1 item 5: the CenterPoint-family "
-                                          "train step)")
-        x = self.bev_features(batch, timed)
-        out = {}
+        out, aux = {}, {}
+        x = self.bev_features(batch, timed, aux if self.training else None)
         if not self.training:
             if "object" in self.heads:
                 head = self.heads["object"]
@@ -167,4 +174,5 @@ class BEVFusion(nn.Module):
             losses = timed("head/map", lambda: self.heads["map"](x[0], batch["gt_masks_bev"]))
             scale = self.loss_scale.get("map", 1.0)
             out.update({f"loss/map/{k}": v * scale for k, v in losses.items()})
+        out.update(aux)  # the depth loss, unscaled
         return out

@@ -1,6 +1,6 @@
-"""CenterHead (CenterPoint) multi-task detection head (NCHW), eval.
+"""CenterHead (CenterPoint) multi-task detection head (NCHW).
 
-Counterpart of ``SeparateHead`` and ``CenterHead`` (forward and
+Counterpart of ``SeparateHead`` and ``CenterHead`` (forward, ``loss`` and
 ``get_bboxes``) in ``bevfusion_tpu/models/heads/centerpoint.py``
 (reference mmdet3d/models/heads/bbox/centerpoint.py): a shared 3x3
 conv-BN-ReLU, then per task group a ``SeparateHead`` of branches (heatmap,
@@ -10,14 +10,16 @@ decodes each task with ``CenterPointBBoxCoder`` (sigmoid heatmap, ``exp``
 of the dims where ``norm_bbox``) and suppresses per task with circle NMS or
 rotated BEV NMS (``ops/nms.py``, one kernel launch a task), keeps the top
 ``post_max_size`` survivors by score, offsets the labels by task and moves
-the boxes' gravity center to the bottom center.
+the boxes' gravity center to the bottom center. ``loss`` draws each task's
+gaussian heatmap targets at the boxes' integer centers and takes the
+gaussian focal loss on the heatmaps and the L1 loss on the regression maps
+gathered there.
 
 Module names follow the reference checkpoint: ``shared_conv.{conv,bn}``,
 ``task_heads.{t}.{branch}.{i}.{conv,bn}`` and ``task_heads.{t}.{branch}.{n}``
 for the final conv. Every sort is stable (``jnp.argsort`` and
 ``jax.lax.top_k`` keep equal scores in index order). ``DCNSeparateHead``
-and the loss are not ported yet (ROADMAP Queue 1 items 6i and 5):
-``unported_loss`` names the loss, and ``BEVFusion`` raises in training.
+is not ported yet (ROADMAP Queue 1 #9, the long tail); no config uses it.
 """
 from __future__ import annotations
 
@@ -28,8 +30,10 @@ import torch.nn as nn
 
 from ...core.coders import CenterPointBBoxCoder
 from ...ops import nms
+from ...ops.gaussian import draw_heatmap_gaussians, gaussian_radius
 from ...registry import HEADS
-from ..layers import ConvBNAct
+from ..layers import ConvBNAct, at_least_fp32
+from ..losses import clip_sigmoid, gaussian_focal_loss, l1_loss
 
 __all__ = ["SeparateHead", "CenterHead"]
 
@@ -66,23 +70,23 @@ def _rank(keep: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
 
 @HEADS.register
 class CenterHead(nn.Module):
-    unported_loss = "CenterHead.loss (bevfusion_tpu/models/heads/centerpoint.py:166-237)"
-
     def __init__(self, in_channels: int = 128, tasks: Sequence[Sequence[str]] = (),
                  train_cfg: Optional[dict] = None, test_cfg: Optional[dict] = None,
                  bbox_coder: Optional[dict] = None, common_heads: Optional[dict] = None,
                  loss_cls: Optional[dict] = None, loss_bbox: Optional[dict] = None,
                  separate_head: Optional[dict] = None, share_conv_channel: int = 64,
                  num_heatmap_convs: int = 2, norm_bbox: bool = True):
-        """``train_cfg``, ``loss_cls`` and ``loss_bbox`` belong to the loss,
-        which is not ported yet."""
+        """``loss_cls`` and ``loss_bbox`` name the losses ``loss`` computes
+        (gaussian focal, L1, as the JAX package fixes them; ``loss_bbox``'s
+        ``loss_weight`` is not read there either)."""
         super().__init__()
         sep = dict(separate_head or {})
         if sep.pop("type", None) == "DCNSeparateHead":
             raise NotImplementedError("CenterHead: DCNSeparateHead (DeformConv2dPack) is not "
-                                      "ported yet (ROADMAP Queue 1 item 6i); no config uses it")
+                                      "ported yet (ROADMAP Queue 1 #9); no config uses it")
         sep_kw = {k: v for k, v in sep.items() if k in ("head_conv", "final_kernel", "init_bias")}
         self.tasks = [list(t) for t in tasks]
+        self.train_cfg = dict(train_cfg or {})
         self.test_cfg = dict(test_cfg or {})
         self.norm_bbox = norm_bbox
         coder_cfg = dict(bbox_coder or {})
@@ -101,6 +105,74 @@ class CenterHead(nn.Module):
         """feats [B, Cin, H, W] -> per task a dict of maps [B, c, H, W]."""
         x = self.shared_conv(feats)
         return [head(x) for head in self.task_heads]
+
+    def _task_of_label(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """label -> (task, class within the task) lookup tables."""
+        pairs = [(t, c) for t, names in enumerate(self.tasks) for c in range(len(names))]
+        return tuple(torch.tensor(v, dtype=torch.long, device=device) for v in zip(*pairs))
+
+    def loss(self, preds: List[Dict[str, torch.Tensor]], gt_boxes: torch.Tensor,
+             gt_labels: torch.Tensor, gt_valid: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """gt_boxes [B, G, 9] (x, y, z bottom, w, l, h, yaw, vx, vy); gt_labels
+        [B, G] int; gt_valid [B, G] bool. Returns ``heatmap/task{t}`` (gaussian
+        focal loss over the positives, the cells where the target is 1) and
+        ``bbox/task{t}`` (L1 of the reg, height, dim, rot, vel maps at the
+        boxes' integer centers against the targets, over the boxes) for each
+        task, as the JAX package's ``CenterHead.loss`` (centerpoint.py:166-237;
+        reference centerpoint.py:585-634). A box counts where it is valid, its
+        integer center (truncated toward zero, as ``astype(int32)``) lies on
+        the map and its size is positive; labels are clipped into the task
+        table. The L1 term is weighted by ``code_weights`` only: the config's
+        ``loss_bbox.loss_weight`` is ignored, as in the JAX package (an
+        inherited divergence, ROADMAP Queue 3). The targets carry no
+        gradient."""
+        cfg = self.train_cfg
+        osf = cfg["out_size_factor"]
+        vx, vy = cfg["voxel_size"][0], cfg["voxel_size"][1]
+        pcr = cfg["point_cloud_range"]
+        fX, fY = cfg["grid_size"][0] // osf, cfg["grid_size"][1] // osf
+        dev = gt_boxes.device
+        code_weights = torch.tensor(cfg["code_weights"], dtype=torch.float32, device=dev)
+        t_of, c_of = self._task_of_label(dev)
+        with torch.no_grad():
+            boxes = at_least_fp32(gt_boxes)
+            gz = boxes[..., 2] + boxes[..., 5] * 0.5  # gravity center (centerpoint.py:448-450)
+            coor_x = (boxes[..., 0] - pcr[0]) / vx / osf
+            coor_y = (boxes[..., 1] - pcr[1]) / vy / osf
+            ix, iy = coor_x.to(torch.int32), coor_y.to(torch.int32)  # toward zero
+            in_range = (ix >= 0) & (ix < fX) & (iy >= 0) & (iy < fY)
+            wf, lf = boxes[..., 3] / vx / osf, boxes[..., 4] / vy / osf
+            radius = torch.clamp(gaussian_radius((lf, wf), cfg["gaussian_overlap"]).to(
+                torch.int32), min=cfg["min_radius"])
+            ok = gt_valid.bool() & in_range & (wf > 0) & (lf > 0)
+            ind = (ix.long() * fY + iy.long()).clamp(0, fX * fY - 1)  # centerpoint.py:560
+            dims = boxes[..., 3:6]
+            if self.norm_bbox:
+                dims = torch.log(torch.clamp(dims, min=1e-8))
+            anno = torch.cat([(coor_x - ix)[..., None], (coor_y - iy)[..., None], gz[..., None],
+                              dims, torch.sin(boxes[..., 6:7]), torch.cos(boxes[..., 6:7]),
+                              boxes[..., 7:9]], -1)  # [B, G, 10]
+            label = gt_labels.long().clamp(0, len(t_of) - 1)
+            gt_task, gt_cls = t_of[label], c_of[label]
+            centers = torch.stack([iy, ix], -1)  # (x, y) = (last, second-to-last) of [X, Y]
+
+        losses = {}
+        for t, pred in enumerate(preds):
+            with torch.no_grad():
+                m_t = ok & (gt_task == t)
+                empty = torch.zeros((len(self.tasks[t]), fX, fY), dtype=torch.float32, device=dev)
+                hm = torch.stack([draw_heatmap_gaussians(empty, centers[b], radius[b], gt_cls[b],
+                                                         m_t[b]) for b in range(len(m_t))])
+                num_pos = torch.clamp((hm == 1.0).sum().float(), min=1.0)
+                w = m_t[..., None].float() * code_weights
+                num = m_t.float().sum()
+            losses[f"heatmap/task{t}"] = gaussian_focal_loss(clip_sigmoid(pred["heatmap"]), hm,
+                                                             avg_factor=num_pos)
+            maps = torch.cat([pred[k] for k in ("reg", "height", "dim", "rot", "vel")], 1)
+            gathered = maps.flatten(2).gather(
+                2, ind[:, None, :].expand(-1, maps.shape[1], -1)).transpose(1, 2)  # [B, G, 10]
+            losses[f"bbox/task{t}"] = l1_loss(gathered, anno, weight=w, avg_factor=num + 1e-4)
+        return losses
 
     def _decode_task(self, t: int, pred: Dict[str, torch.Tensor]):
         """Task ``t``'s decode and its NMS's input to the greedy pass:

@@ -10,7 +10,8 @@ Every BatchNorm of the port is ``BatchNorm1d`` / ``BatchNorm2d`` below:
 torch's normalisation, with running statistics that move like flax's
 (towards the *biased* batch variance; torch's own take the unbiased one).
 ``Dropout`` and ``DropPath`` draw their masks from an explicit
-``torch.Generator`` (``set_dropout_generator``).
+``torch.Generator`` (``set_dropout_generator``). ``at_least_fp32`` is the
+cast of the losses and the softmaxes that the port computes in fp32.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 __all__ = ["BatchNorm1d", "BatchNorm2d", "Dropout", "DropPath", "set_dropout_generator", "Norm",
-           "ConvBNAct", "conv_bn_relu", "BasicBlock", "resize_bilinear"]
+           "ConvBNAct", "conv_bn_relu", "BasicBlock", "resize_bilinear", "at_least_fp32"]
 
 
 class _FlaxStatsBatchNorm:
@@ -166,3 +167,9 @@ def resize_bilinear(x: torch.Tensor, size, align_corners: bool = False) -> torch
     if tuple(size) == tuple(x.shape[-2:]):
         return x
     return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=align_corners)
+
+
+def at_least_fp32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in fp32, or as it is if wider: a model made float64 (the CPU
+    parity tests' reference runs) stays float64 through its losses."""
+    return x if x.dtype == torch.float64 else x.float()

@@ -28,7 +28,7 @@ from ..ops.bev_pool import BEVPoolFunction, PoolIntervals, build_intervals, cell
 from ..ops.grid import create_frustum, gen_dx_bx
 from ..registry import VTRANSFORMS
 from ..utils.profiler import untimed
-from .layers import conv_bn_relu
+from .layers import at_least_fp32, conv_bn_relu
 
 __all__ = ["get_geometry", "rasterize_depth", "lss_constants", "build_pool_lut",
            "LSSTransform", "DepthLSSTransform"]
@@ -129,7 +129,7 @@ class _BaseLSS(nn.Module):
                  xbound=(-51.2, 51.2, 0.4), ybound=(-51.2, 51.2, 0.4), zbound=(-10.0, 10.0, 20.0),
                  dbound=(1.0, 60.0, 0.5), downsample: int = 1):
         super().__init__()
-        self.image_size = tuple(image_size)
+        self.image_size, self.dbound = tuple(image_size), tuple(dbound)
         self.dx, self.bx, nx, frustum = lss_constants(image_size, feature_size, xbound, ybound,
                                                       zbound, dbound)
         self.nx = tuple(int(n) for n in nx)
@@ -166,22 +166,24 @@ class _BaseLSS(nn.Module):
             depth, ctx, PoolIntervals(*(lut[k] for k in PoolIntervals._fields)), Z, X, Y)
 
     def to_bev(self, x: torch.Tensor, B: int, mats: Dict[str, torch.Tensor],
-               timed=untimed) -> torch.Tensor:
+               timed=untimed, return_depth: bool = False):
         """The depthnet's output ``x`` [B*N, D+C, fH, fW] -> BEV [B, C, X', Y']:
-        the softmax over depth bins (fp32), the context channels-last, the
-        pool and the downsample, each through ``timed``."""
+        the softmax over depth bins (fp32 or wider), the context channels-last, the
+        pool and the downsample, each through ``timed``. With
+        ``return_depth``, (BEV, the softmax [B, N, D, fH, fW])."""
         BN, _, fH, fW = x.shape
         N = BN // B
 
         def split():
-            depth = x[:, :self.D].float().softmax(1).view(B, N, self.D, fH, fW)
+            depth = at_least_fp32(x[:, :self.D]).softmax(1).view(B, N, self.D, fH, fW)
             ctx = x[:, self.D:].permute(0, 2, 3, 1).contiguous().view(B, N, fH, fW, self.C)
             return depth, ctx
 
         depth, ctx = timed("depth softmax + ctx channels-last", split)
         bev = timed("bev_pool" if mats.get("pool_lut") is not None else
                     "build_pool_lut + bev_pool", lambda: self.pool(depth, ctx, mats))
-        return timed("downsample", lambda: self.downsample(bev))
+        bev = timed("downsample", lambda: self.downsample(bev))
+        return (bev, depth) if return_depth else bev
 
 
 @VTRANSFORMS.register

@@ -10,7 +10,8 @@ branch and BEV tail alone are TransFusion-L
 reference val mAP 64.68 / NDS 69.28; ``build_lidar_slice``). The
 flagship's training step (``build_flagship(training=True)`` with
 ``runtime/train.py``) trains on the same synthetic batch plus random
-ground-truth boxes. ``build_flagship(config_path=...)`` builds any other
+ground-truth boxes and the targets ``add_train_targets`` makes (the
+depth images, map masks). ``build_flagship(config_path=...)`` builds any other
 config the port runs the same way, among them the three BEV
 map-segmentation configs (``SEG_CONFIGS``), the three camera-only
 CenterHead detectors (``DET_CAMERA_CONFIGS``) and the two pillar configs
@@ -29,6 +30,7 @@ import torch
 import torch.nn as nn
 
 from ..config import Config, load_config
+from ..data.transforms import GTDepth
 from ..devices import resolve_device
 from ..models import build_model
 from ..models.sparse_encoder import SparseConv3d
@@ -291,6 +293,37 @@ def synthetic_batch(cfg, B: int = 1, num_points: int = 200000, num_gt: int = 64,
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
+def add_train_targets(cfg, batch: Dict[str, torch.Tensor], seed: int = 0
+                      ) -> Dict[str, torch.Tensor]:
+    """``batch`` (``synthetic_batch``'s, CPU tensors) with the training
+    targets that the heads and the depth loss read beside the boxes:
+    ``depths`` [B, N, iH, iW], each sample's valid points projected into its
+    cameras by ``GTDepth`` (with the options of the config's
+    ``train_pipeline`` entry: nuScenes' keep the keyframe's points only);
+    and where the config has a map head, seeded random ``gt_masks_bev``
+    [B, classes, X, Y] (30% of the cells set) on the head's output grid. The
+    batch's own arrays are left as they are."""
+    opts = next((dict(t) for t in cfg.get("train_pipeline") or []
+                 if t.get("type") == "GTDepth"), {})
+    opts.pop("type", None)
+    gt_depth = GTDepth(**opts)
+    depths = []
+    for b in range(batch["img"].shape[0]):
+        pts = batch["points"][b][batch["points_mask"][b]].numpy()
+        data = {"points": pts, "img": list(batch["img"][b].numpy().transpose(0, 2, 3, 1)),
+                **{k: batch[k][b].numpy() for k in ("lidar2image", "img_aug_matrix",
+                                                     "lidar_aug_matrix")}}
+        depths.append(gt_depth(data)["depths"])
+    out = dict(batch, depths=torch.from_numpy(np.stack(depths)))
+    head = (cfg.model.get("heads") or {}).get("map")
+    if head:
+        grid = [round((hi - lo) / step) for lo, hi, step in head["grid_transform"]["output_scope"]]
+        rng = np.random.RandomState(seed + 7)  # apart from synthetic_batch's, the JAX one's
+        masks = rng.rand(batch["img"].shape[0], len(head["classes"]), *grid) < 0.3
+        out["gt_masks_bev"] = torch.from_numpy(masks.astype(np.float32))
+    return out
+
+
 def add_pool_lut(cfg, batch: Dict[str, Any]) -> Dict[str, Any]:
     """``batch`` with ``pool_lut``, the pooling intervals for its
     calibration (``models/vtransforms.py:build_pool_lut``), built on the
@@ -331,10 +364,12 @@ def build_flagship(device="cuda", num_points: int = 120000, seed: int = 0,
     the pooling LUT where the config has an LSS camera branch, built on the
     CPU (``bench.py``'s main path). With ``training`` the model is in
     training mode and the batch carries 64 random ground-truth boxes for
-    the object head (a map head's training targets are not made here)."""
+    the object head and ``add_train_targets``'s depth images and map
+    masks."""
     dev = resolve_device(device)
     cfg = load_config(config_path or FLAGSHIP_CONFIG)
     model = init_weights(build_model(cfg.model, "cpu"), seed).to(dev).train(training)
-    batch = add_pool_lut(cfg, synthetic_batch(cfg, B=1, num_points=num_points, seed=seed,
-                                              training=training))
-    return cfg, model, batch_to(batch, dev)
+    batch = synthetic_batch(cfg, B=1, num_points=num_points, seed=seed, training=training)
+    if training:
+        batch = add_train_targets(cfg, batch, seed)
+    return cfg, model, batch_to(add_pool_lut(cfg, batch), dev)

@@ -1,18 +1,21 @@
-"""Flagship train-step benchmark.
+"""Train-step benchmark.
 
-Counterpart of ``tools/bench_train_step.py``: the fused flagship's
-training step at batch 1 through ``runtime/train.py`` (forward with the
-TransFusion loss and its auction matcher, backward through the sparse-conv
-and BEV-pool autograd Functions, AdamW with the config's clip and
-schedules), fp32 with cuDNN's TF32 as PyTorch sets it (the port has no
-bf16 training yet). Each step is split into forward, backward and
-optimizer on the host clock around synchronises, and the auction
+Counterpart of ``tools/bench_train_step.py``: the training step at batch 1
+of the fused flagship, or of the config ``--config`` names, through
+``runtime/train.py`` (forward with the heads' losses, TransFusion's with
+its auction matcher, and the depth loss where the config has one; backward
+through the sparse-conv and BEV-pool autograd Functions; AdamW with the
+config's clip and schedules), fp32 with cuDNN's TF32 as PyTorch sets it
+(the port has no bf16 training yet), on ``runtime/flagship.py``'s synthetic
+batch and its training targets. Each step is split into forward, backward
+and optimizer on the host clock around synchronises, and the auction
 matcher's calls inside the forward are timed alone.
 
-    python -m bevfusion_tpu_torch.tools.bench_train_step [--steps 10]
+    python -m bevfusion_tpu_torch.tools.bench_train_step [--config PATH] [--steps 10]
 
-Prints one JSON line with the JAX tool's keys (``metric``, ``value``,
-``unit``, ``loss_total``, ``steps_per_s``) and the split.
+Prints one JSON line with the JAX tool's keys (``metric``, named after the
+config's file, ``value``, ``unit``, ``loss_total``, ``steps_per_s``) and
+the split; ``auction_ms`` is null where no matcher runs.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import argparse
 import contextlib
 import json
 import math
+import os
 import statistics
 import sys
 import time
@@ -72,7 +76,7 @@ def train_steps(cfg, model, batch, device="cuda", steps: int = 5, warmup: int = 
     opt = train.build_optimizer(
         opt_cfg, train.build_lr_schedule(cfg.lr_config, opt_cfg.lr, HORIZON), model,
         cfg.optimizer_config.grad_clip,
-        train.build_momentum_schedule(cfg.momentum_config, 0.9, HORIZON))
+        train.build_momentum_schedule(cfg.get("momentum_config"), 0.9, HORIZON))
     step = train.make_train_step(model, opt, dev, seed=seed)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
 
@@ -114,11 +118,12 @@ def train_steps(cfg, model, batch, device="cuda", steps: int = 5, warmup: int = 
     }
 
 
-def result_line(res) -> dict:
-    """The JAX tool's JSON keys, with the split and the matcher's median."""
+def result_line(res, name: str = "flagship") -> dict:
+    """The JAX tool's JSON keys, the metric named ``{name}_train_step_ms``,
+    with the split and the matcher's median (null where it never ran)."""
     ms = res["ms_median"]
     tf32 = "TF32 convs" if torch.backends.cudnn.allow_tf32 else "no TF32"
-    return {"metric": "flagship_train_step_ms", "value": ms["step"],
+    return {"metric": f"{name}_train_step_ms", "value": ms["step"],
             "unit": f"ms/step, median (B=1, fp32, {tf32}, fwd+bwd+AdamW)",
             "loss_total": res["losses"][-1], "steps_per_s": 1e3 / ms["step"],
             "forward_ms": ms["forward"], "backward_ms": ms["backward"],
@@ -131,13 +136,17 @@ def main(argv=None) -> int:
     from ..runtime.flagship import build_flagship
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", default=None,
+                    help="a config the port builds (default: the fused flagship)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--points", type=int, default=120000)
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    cfg, model, batch = build_flagship(dev, num_points=args.points, training=True)
-    print(json.dumps(result_line(train_steps(cfg, model, batch, dev, args.steps))))
+    cfg, model, batch = build_flagship(dev, num_points=args.points, training=True,
+                                       config_path=args.config)
+    name = os.path.splitext(os.path.basename(args.config))[0] if args.config else "flagship"
+    print(json.dumps(result_line(train_steps(cfg, model, batch, dev, args.steps), name)))
     return 0
 
 

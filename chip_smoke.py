@@ -142,6 +142,20 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
    kernel 15 + 14 times (forward, backward-data: the input conv's voxel
    features need no gradient), the weight-gradient kernel 15 times and
    the BEV-pool kernel once, pass C the forward's 15 + 1;
+12b. the train steps of nine more configs (``TRAIN_CONFIG_LAUNCHES``: the three seg
+   configs, TransFusion-L voxelnet_0p075, PointPillars, the three camera
+   CenterHead configs and camera + radar), each at full width, B = 1, with
+   64 random boxes or seeded map masks [1, 6, 200, 200] and the depth
+   images of ``runtime/flagship.py:add_train_targets``, the head moderated
+   (TransFusion's heatmap conv scaled by 0.2, CenterHead's branches by
+   ``moderate_head`` on the training forward), held as phase 12 holds the
+   flagship, TF32 off: pass A's launches equal ``TRAIN_CONFIG_LAUNCHES``
+   (sparse conv 29 and weight gradient 15 where a sparse encoder runs, the
+   pool once where a camera does, the NMS never), every loss of A within
+   1e-4 of B's, every gradient of A within 5e-3 in norm of C's, the B' gate
+   where sparse convs run, the matcher's targets replayed where TransFusion's
+   head runs; then 3 timed steps after 1 warmup with TF32 on: ms a step
+   (forward, backward, optimizer) and the peak memory;
 13. five timed train steps with TF32 on (``tools/bench_train_step.py`` on
    ``runtime/train.py``: AdamW, clip 35, the config's cosine lr with linear
    warmup and cyclic momentum): losses finite, parameters changed; median
@@ -164,8 +178,9 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
    grid, its third the ResNet det configs'; K6's two engines and K7's two
    families each with their ms, plain ms, bound, share and launches; every
    kernel's launches on the seg, det-camera and pillar paths; the NMS
-   kernel's row after K1-K7), the seg, det-camera and pillar results and the
-   script's total time, a line with the card's name and
+   kernel's row after K1-K7; every kernel's launches in each train step of
+   phases 12 and 12b), the seg, det-camera, pillar and train-config results
+   and the script's total time, a line with the card's name and
    power limit as nvidia-smi prints them, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -214,6 +229,14 @@ SEG_MASKS = (1, 6, 200, 200)  # six map classes on the 100 m x 100 m, 0.5 m outp
 DET_LAUNCHES = {"sparse_conv": 0, "bev_pool": POOL_LAUNCHES, "greedy_nms": 6}
 DECODE_RTOL = 1e-5  # get_bboxes on the card vs the CPU, on the same predictions
 TRAIN_LAUNCHES = {"sparse_conv": 15 + 14, "sparse_conv_dw": 15, "bev_pool": 1, "greedy_nms": 0}
+# the configs phase 12b trains beside the flagship, in its order (voxelnet.yaml
+# differs from voxelnet_0p075.yaml only in its voxel size), and their launches a step
+_SPARSE_STEP = {"sparse_conv": 15 + 14, "sparse_conv_dw": 15}
+TRAIN_CONFIG_LAUNCHES = {
+    "seg-fused": dict(_SPARSE_STEP, bev_pool=1), "seg-lidar": _SPARSE_STEP,
+    "seg-camera": {"bev_pool": 1}, "transfusion-l": _SPARSE_STEP, "pointpillars": {},
+    "det-swint": {"bev_pool": 1}, "det-resnet": {"bev_pool": 1}, "det-bevdepth": {"bev_pool": 1},
+    "camera+radar": {"bev_pool": 1}}
 DEVICE = "cuda"
 K7_SHAPES = 3  # the cost breakdown runs at the stage-0, 1 and 2 submanifold convs
 TOOL_ITERS = 5  # timed calls per op in the tools phase
@@ -1144,31 +1167,37 @@ def grad_gaps(grads, ref, global_norm):
     return gaps, worst
 
 
-def train_step_parity(model, batch, sp, bp, counters):
-    """Phase 12: passes of one forward + backward, same weights and batch,
-    a freshly seeded dropout generator each; every later pass takes the
-    first one's proposals and Hungarian targets (``recorded_proposals``,
-    ``recorded_targets``), and whether its own would differ is reported.
+def train_step_parity(label, model, batch, sp, bp, counters, want):
+    """One config's train step held to the plain path (phases 12 and 12b):
+    passes of one forward + backward, same weights and batch, a freshly
+    seeded dropout generator each; where the object head is TransFusion's
+    (the auction matcher), every later pass takes the first one's proposals
+    and Hungarian targets (``recorded_proposals``, ``recorded_targets``), and
+    whether its own would differ is reported. ``want``: the launches of pass
+    A by name (every other counter 0).
 
     - A: through the kernels (launches counted);
     - B: through the plain versions, the sparse convs in float64 rounded
-      once (``sparse_conv_exact``): the loss and the proposals' heatmap
-      scores within 1e-4 relative of A (the forward kernels);
+      once (``sparse_conv_exact``): every loss within 1e-4 relative of A's
+      (the forward kernels), and with the matcher the proposals' heatmap
+      scores too;
     - C: A's forward through the kernels, the backward through the plain
       versions: every parameter's gradient within 5e-3 relative in norm of
-      A's (the backward kernels: backward-data, the weight gradient). A
-      shares C's ReLU masks, batch statistics and top-k; against B they
-      differ wherever a rounding difference moves an input across a tie,
-      and a gradient jumps there (PERF.md §6);
-    - B': B with the sparse convs in fp32 (cuBLAS): how far each of B's
-      gradients moves under a rounding-level change of the forward. Every
-      gradient of A within 5e-3 relative in norm of B's plus
-      ``TRAIN_GRAD_SENSITIVITY`` times that move (the forward kernels'
-      effect on the gradients)."""
+      A's (the backward kernels: backward-data, the weight gradient); every
+      parameter has a gradient. A shares C's ReLU masks, batch statistics and
+      top-k; against B they differ wherever a rounding difference moves an
+      input across a tie, and a gradient jumps there (PERF.md §6);
+    - B' (where sparse convs run): B with the sparse convs in fp32 (cuBLAS):
+      how far each of B's gradients moves under a rounding-level change of
+      the forward. Every gradient of A within 5e-3 relative in norm of B's
+      plus ``TRAIN_GRAD_SENSITIVITY`` times that move (the forward kernels'
+      effect on the gradients). Elsewhere A vs B's gradient gap is reported."""
     from bevfusion_tpu_torch.models.layers import set_dropout_generator
 
     params = dict(model.named_parameters())
-    head = model.heads["object"]
+    head = model.heads["object"] if "object" in model.heads else None
+    matcher = hasattr(head, "_targets")  # TransFusion's Hungarian targets
+    sparse = want.get("sparse_conv", 0) > 0
     store, tops = {}, {}
     exact = sparse_conv_exact(sp)
     # cuDNN's and index_add_'s atomics otherwise make two kernel passes differ
@@ -1177,115 +1206,191 @@ def train_step_parity(model, batch, sp, bp, counters):
     torch.use_deterministic_algorithms(True, warn_only=True)
 
     def fwd_bwd(plain_backward=False):
-        preds = {}
+        preds, own = {}, None
         hook = head.register_forward_hook(
-            lambda mod, args, out: preds.update({k: v.detach() for k, v in out.items()}))
+            lambda mod, args, out: preds.update({k: v.detach() for k, v in out.items()})) \
+            if matcher else None
         set_dropout_generator(model, torch.Generator(device=DEVICE).manual_seed(0))
         model.zero_grad(set_to_none=True)
-        with recorded_targets(head, store) as compute, recorded_proposals(head, tops) as own_top:
+        with contextlib.ExitStack() as replay:
+            if matcher:
+                compute = replay.enter_context(recorded_targets(head, store))
+                own_top = replay.enter_context(recorded_proposals(head, tops))
             losses = model(batch)
-        hook.remove()
+        if hook:
+            hook.remove()
         total = sum(v for k, v in losses.items() if k.startswith("loss/"))
         with plain_kernels(sp, bp, exact) if plain_backward else contextlib.nullcontext():
             total.backward()
         torch.cuda.synchronize()
-        with torch.no_grad():
-            own = compute(0, preds, batch["gt_boxes"][0], batch["gt_labels"][0],
-                          batch["gt_valid"][0], 1)
-        preds["own_top"] = own_top[0] if own_top else tops["top"]
+        if matcher:
+            with torch.no_grad():
+                own = compute(0, preds, batch["gt_boxes"][0], batch["gt_labels"][0],
+                              batch["gt_valid"][0], 1)
+            preds["own_top"] = own_top[0] if own_top else tops["top"]
         return ({k: v.item() for k, v in losses.items()}, total.item(),
                 {n: p.grad.clone() for n, p in params.items() if p.grad is not None}, preds, own)
 
-    def counted(fn, want, what):
+    def counted(fn, launches_want, what):
         torch.cuda.synchronize()
         zero_counts(counters)
         t0 = time.perf_counter()
         out = fn()
         seconds = time.perf_counter() - t0
         launches = {name: c.launches for name, c in counters.items()}
-        print(f"train step, {what}: launches {launches}; {seconds:.2f} s")
-        check(launches == want, f"train step, {what}: launches {launches}, want {want}")
+        print(f"{label}, {what}: launches {launches}; {seconds:.2f} s")
+        check(launches == launches_want,
+              f"{label}, {what}: launches {launches}, want {launches_want}")
         return out, launches, seconds
 
+    none = dict.fromkeys(counters, 0)
     (losses, total, grads, preds, own), launches, kernel_s = counted(
-        fwd_bwd, TRAIN_LAUNCHES, "A, forward + backward through the kernels")
+        fwd_bwd, dict(none, **want), "A, forward + backward through the kernels")
     missing = sorted(set(params) - set(grads))
-    check(not missing, f"train step: parameters without a gradient {missing[:5]}")
-    check(math.isfinite(total), f"train step: loss {total}")
-    none = {name: 0 for name in counters}
+    check(not missing, f"{label}: parameters without a gradient {missing[:5]}")
+    check(math.isfinite(total), f"{label}: loss {total}")
     with plain_kernels(sp, bp, exact):
         (losses_p, total_p, grads_p, preds_p, own_p), _, plain_s = counted(
             fwd_bwd, none, "B, through the plain versions")
-    with plain_kernels(sp, bp):
-        (_, _, grads_p32, _, _), _, _ = counted(fwd_bwd, none, "B', B with fp32 sparse convs")
-    forward_only = {"sparse_conv": SPARSE_LAUNCHES, "sparse_conv_dw": 0, "bev_pool": POOL_LAUNCHES,
-                    "greedy_nms": 0}
+    if sparse:
+        with plain_kernels(sp, bp):
+            (_, _, grads_p32, _, _), _, _ = counted(fwd_bwd, none, "B', B with fp32 sparse convs")
+    forward_only = dict(none, sparse_conv=SPARSE_LAUNCHES if sparse else 0,
+                        bev_pool=want.get("bev_pool", 0))
     (_, _, grads_c, preds_c, _), _, _ = counted(
         lambda: fwd_bwd(plain_backward=True), forward_only,
         "C, the kernels' forward and the plain versions' backward")
 
-    heat_err = rel_err(preds["dense_heatmap"], preds_p["dense_heatmap"])
-    score_err = rel_err(preds["query_heatmap_score"], preds_p["query_heatmap_score"])
-    same_queries = torch.equal(preds["query_labels"], preds_p["query_labels"])
-    own_queries = torch.equal(preds["own_top"], preds_p["own_top"])
-    same_targets = all(torch.equal(a, b) for a, b in zip(own, own_p))
-    same_forward = torch.equal(preds["dense_heatmap"], preds_c["dense_heatmap"])
-    print(f"train step: A vs B: dense heatmap rel err {heat_err:.3e}; the same proposals "
-          f"{same_queries} (their scores rel err {score_err:.3e}); B's own proposals equal "
-          f"A's: {own_queries}; its own Hungarian targets: {same_targets}; A and C's forwards "
-          f"equal: {same_forward}")
-    check(same_queries and score_err <= TRAIN_LOSS_RTOL, "train step: proposals differ")
+    out = {"launches": launches}
+    if matcher:
+        heat_err = rel_err(preds["dense_heatmap"], preds_p["dense_heatmap"])
+        score_err = rel_err(preds["query_heatmap_score"], preds_p["query_heatmap_score"])
+        same_queries = torch.equal(preds["query_labels"], preds_p["query_labels"])
+        own_queries = torch.equal(preds["own_top"], preds_p["own_top"])
+        same_targets = all(torch.equal(a, b) for a, b in zip(own, own_p))
+        same_forward = torch.equal(preds["dense_heatmap"], preds_c["dense_heatmap"])
+        print(f"{label}: A vs B: dense heatmap rel err {heat_err:.3e}; the same proposals "
+              f"{same_queries} (their scores rel err {score_err:.3e}); B's own proposals equal "
+              f"A's: {own_queries}; its own Hungarian targets: {same_targets}; A and C's "
+              f"forwards equal: {same_forward}")
+        check(same_queries and score_err <= TRAIN_LOSS_RTOL, f"{label}: proposals differ")
+        out.update(heatmap_rel_err=heat_err, same_forward_a_c=same_forward,
+                   same_own_proposals=own_queries, same_own_targets=same_targets)
     loss_err = max(abs(losses[k] - v) / max(abs(v), 1e-6) for k, v in losses_p.items())
     loss_err = max(loss_err, abs(total - total_p) / abs(total_p))
-    print(f"train step: losses {losses}; A vs B max rel err {loss_err:.3e} "
-          f"(B {plain_s:.2f} s)")
-    check(loss_err <= TRAIN_LOSS_RTOL, f"train step: loss rel err {loss_err}")
+    print(f"{label}: losses {losses}; A vs B max rel err {loss_err:.3e} (B {plain_s:.2f} s)")
+    check(loss_err <= TRAIN_LOSS_RTOL, f"{label}: loss rel err {loss_err}")
 
     global_norm = math.sqrt(sum(float(g.double().square().sum()) for g in grads_c.values()))
     gaps, worst = grad_gaps(grads, grads_c, global_norm)
     zero = [n for n, (_, r) in gaps.items() if r <= ZERO_GRAD * global_norm]
     for n, (diff, ref) in gaps.items():
         if n in zero:
-            check(diff <= ZERO_GRAD * global_norm, f"train step: {n} grad |d| {diff}")
+            check(diff <= ZERO_GRAD * global_norm, f"{label}: {n} grad |d| {diff}")
         else:
             check(diff <= TRAIN_GRAD_RTOL * ref,
-                  f"train step: {n} grad rel err {diff / ref} (norm {ref / global_norm:.3e} of "
+                  f"{label}: {n} grad rel err {diff / ref} (norm {ref / global_norm:.3e} of "
                   f"the global norm)")
-    print(f"train step: {len(grads)} parameter gradients, A vs C max rel err {worst[0]:.3e} in "
+    print(f"{label}: {len(grads)} parameter gradients, A vs C max rel err {worst[0]:.3e} in "
           f"norm ({worst[1]}); {len(zero)} zero but for rounding (< {ZERO_GRAD:g} of the "
           f"global norm {global_norm:.4e})")
     gaps_ab, worst_ab = grad_gaps(grads, grads_p, global_norm)
-    gaps_bb, worst_bb = grad_gaps(grads_p32, grads_p, global_norm)
-    used, beyond = {}, []  # A vs B over what the gate allows; those past 5e-3 alone
-    for n, (diff, ref) in gaps_ab.items():
-        alone = ZERO_GRAD * global_norm if n in zero else TRAIN_GRAD_RTOL * ref
-        used[n] = diff / (alone + TRAIN_GRAD_SENSITIVITY * gaps_bb[n][0])
-        if diff > alone:
-            beyond.append(n)
-    order = sorted(used, key=used.get, reverse=True)
+    out.update(losses=losses, loss_rel_err=loss_err, grad_rel_err=worst[0],
+               grad_rel_err_vs_plain=worst_ab[0], zero_grads=len(zero), kernel_s=kernel_s,
+               plain_s=plain_s)
+    if sparse:
+        gaps_bb, worst_bb = grad_gaps(grads_p32, grads_p, global_norm)
+        used, beyond = {}, []  # A vs B over what the gate allows; those past 5e-3 alone
+        for n, (diff, ref) in gaps_ab.items():
+            alone = ZERO_GRAD * global_norm if n in zero else TRAIN_GRAD_RTOL * ref
+            used[n] = diff / (alone + TRAIN_GRAD_SENSITIVITY * gaps_bb[n][0])
+            if diff > alone:
+                beyond.append(n)
+        order = sorted(used, key=used.get, reverse=True)
 
-    def rel(gap):
-        return gap[0] / max(gap[1], ZERO_GRAD * global_norm)
+        def rel(gap):
+            return gap[0] / max(gap[1], ZERO_GRAD * global_norm)
 
-    print(f"train step: A vs B max rel err {worst_ab[0]:.3e} ({worst_ab[1]}), B' vs B "
-          f"{worst_bb[0]:.3e} ({worst_bb[1]}); {len(beyond)} gradients of A past "
-          f"{TRAIN_GRAD_RTOL:g} of B's; the gate ({TRAIN_GRAD_RTOL:g} + {TRAIN_GRAD_SENSITIVITY} x "
-          f"B' vs B) most used by: "
-          + "; ".join(f"{n} {used[n]:.3f} (A vs B {rel(gaps_ab[n]):.3e}, B' vs B "
-                      f"{rel(gaps_bb[n]):.3e})" for n in order[:5]))
-    for n in order:
-        check(used[n] <= 1.0, f"train step: {n} grad A vs B rel err {rel(gaps_ab[n])}, B' vs B "
-              f"{rel(gaps_bb[n])}: {used[n]:.3f} of the gate")
+        print(f"{label}: A vs B max rel err {worst_ab[0]:.3e} ({worst_ab[1]}), B' vs B "
+              f"{worst_bb[0]:.3e} ({worst_bb[1]}); {len(beyond)} gradients of A past "
+              f"{TRAIN_GRAD_RTOL:g} of B's; the gate ({TRAIN_GRAD_RTOL:g} + "
+              f"{TRAIN_GRAD_SENSITIVITY} x B' vs B) most used by: "
+              + "; ".join(f"{n} {used[n]:.3f} (A vs B {rel(gaps_ab[n]):.3e}, B' vs B "
+                          f"{rel(gaps_bb[n]):.3e})" for n in order[:5]))
+        for n in order:
+            check(used[n] <= 1.0, f"{label}: {n} grad A vs B rel err {rel(gaps_ab[n])}, B' vs "
+                  f"B {rel(gaps_bb[n])}: {used[n]:.3f} of the gate")
+        out.update(plain_grad_rel_err_fp32_vs_float64=worst_bb[0],
+                   grad_vs_plain_share_of_gate=used[order[0]], grads_past_rtol_vs_plain=len(beyond))
+    else:
+        print(f"{label}: A vs B max rel err {worst_ab[0]:.3e} in norm ({worst_ab[1]}; not gated: "
+              f"no sparse conv, so no B' to scale the gate)")
     torch.use_deterministic_algorithms(False)
     torch.backends.cudnn.deterministic = False
-    return {"launches": launches, "losses": losses, "loss_rel_err": loss_err,
-            "grad_rel_err": worst[0], "grad_rel_err_vs_plain": worst_ab[0],
-            "plain_grad_rel_err_fp32_vs_float64": worst_bb[0],
-            "grad_vs_plain_share_of_gate": used[order[0]], "grads_past_rtol_vs_plain": len(beyond),
-            "zero_grads": len(zero),
-            "heatmap_rel_err": heat_err, "same_forward_a_c": same_forward,
-            "same_own_proposals": own_queries, "same_own_targets": same_targets,
-            "kernel_s": kernel_s, "plain_s": plain_s}
+    return out
+
+
+def prepare_train_model(model, batch) -> None:
+    """Moderate a training model's head on ``batch`` as the parity phases need:
+    TransFusion's heatmap head's last conv scaled by 0.2 (an unsaturated
+    sigmoid ranks apart); each CenterHead branch's last conv by
+    ``moderate_head``, on the training forward (batch statistics)."""
+    from bevfusion_tpu_torch.models.layers import set_dropout_generator
+
+    head = model.heads["object"] if "object" in model.heads else None
+    if hasattr(head, "heatmap_head"):
+        with torch.no_grad():
+            head.heatmap_head[-1].weight.mul_(0.2)
+    elif hasattr(head, "task_heads"):
+        set_dropout_generator(model, torch.Generator(device=DEVICE).manual_seed(0))
+        moderate_head(model, batch)
+
+
+def train_configs_phase(sp, bp, counters):
+    """Phase 12b: each config of ``TRAIN_CONFIG_LAUNCHES`` built for training at full
+    width (B = 1, 64 random boxes or seeded map masks and the depth images of
+    ``add_train_targets``), its head moderated, held to the plain path by
+    ``train_step_parity`` with TF32 off; then 3 timed steps after 1 warmup
+    with TF32 on (``tools/bench_train_step.py``): ms a step split into
+    forward, backward and optimizer, the peak memory less what was allocated
+    before the config was built (the flagship's model). Returns {config:
+    results}."""
+    from bevfusion_tpu_torch.runtime.flagship import (DET_CAMERA_CONFIGS, LIDAR_SLICE_CONFIG,
+                                                      PILLAR_CONFIGS, SEG_CONFIGS, build_flagship)
+    from bevfusion_tpu_torch.tools.bench_train_step import train_steps
+
+    paths = {"seg-fused": SEG_CONFIGS["fusion-bev256d2-lss"],
+             "seg-lidar": SEG_CONFIGS["lidar-centerpoint-bev128"],
+             "seg-camera": SEG_CONFIGS["camera-bev256d2"], "transfusion-l": LIDAR_SLICE_CONFIG,
+             "pointpillars": PILLAR_CONFIGS["pointpillars"],
+             **{f"det-{k}": p for k, p in DET_CAMERA_CONFIGS.items()},
+             "camera+radar": PILLAR_CONFIGS["camera+radar"]}
+    res = {}
+    for name, want in TRAIN_CONFIG_LAUNCHES.items():
+        t0 = time.perf_counter()
+        resident = torch.cuda.memory_allocated()  # the flagship's, held for phases 13-14
+        cfg, model, batch = build_flagship("cuda", num_points=120000, seed=0, training=True,
+                                           config_path=paths[name])
+        if "map" in model.heads:
+            check(tuple(batch["gt_masks_bev"].shape) == SEG_MASKS,
+                  f"train {name}: masks {tuple(batch['gt_masks_bev'].shape)}")
+        prepare_train_model(model, batch)
+        r = train_step_parity(f"train {name}", model, batch, sp, bp, counters, want)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        steps = train_steps(cfg, model, batch, DEVICE, steps=3, warmup=1)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        check(not steps.pop("unchanged"), f"train {name}: timed steps left parameters unchanged")
+        med, own = steps["ms_median"], steps["peak_mem_bytes"] - resident
+        r.update(steps_tf32_on=steps, peak_mem_bytes_own=own, seconds=time.perf_counter() - t0)
+        print(f"train {name} (TF32 on): median ms/step {med['step']:.2f} (forward "
+              f"{med['forward']:.2f}, backward {med['backward']:.2f}, optimizer "
+              f"{med['optimizer']:.2f}); peak device memory {own / 2**20:.1f} MiB of its own "
+              f"({steps['peak_mem_bytes'] / 2**20:.1f} with the flagship's); auction "
+              f"{[round(a, 2) for a in steps['auction_ms']]} ms; {r['seconds']:.1f} s")
+        res[name] = r
+        del cfg, model, batch
+        torch.cuda.empty_cache()
+    return res
 
 
 def main() -> int:
@@ -1453,11 +1558,15 @@ def main() -> int:
 
     # 12. the flagship's training step, B=1, host LUT, TF32 off: kernels vs plain
     cfg, model, batch = build_flagship("cuda", num_points=120000, seed=0, training=True)
-    with torch.no_grad():  # moderate heatmap logits: an unsaturated sigmoid ranks apart
-        model.heads["object"].heatmap_head[-1].weight.mul_(0.2)
-    train_counters = {"sparse_conv": sp.sparse_conv, "sparse_conv_dw": sp.sparse_conv_dw,
-                      "bev_pool": bp.bev_pool, "greedy_nms": nms.greedy_suppress}
-    parity = train_step_parity(model, batch, sp, bp, train_counters)
+    prepare_train_model(model, batch)
+    parity = train_step_parity("train step", model, batch, sp, bp, all_counters, TRAIN_LAUNCHES)
+
+    # 12b. the train steps of nine more configs, each held to the plain path, then timed
+    t0 = time.perf_counter()
+    train_cfgs = train_configs_phase(sp, bp, all_counters)
+    train_cfgs_s = time.perf_counter() - t0
+    print(f"train configs: {len(train_cfgs)} configs' steps held and timed in "
+          f"{train_cfgs_s:.1f} s")
 
     # 13. five timed train steps, TF32 on
     torch.backends.cudnn.allow_tf32 = True
@@ -1532,7 +1641,6 @@ def main() -> int:
                                 sum(r["launches"]["greedy_nms"] for r in det.values()), nms_shapes),
                         pallas=False, launches_eval=launches["greedy_nms"],
                         launches_lidar=lidar_launches["greedy_nms"],
-                        launches_train=parity["launches"]["greedy_nms"],
                         launches_tools=tool_launches["greedy_nms"]))
     for k in kernels[:3]:
         k["launches_tools"] = tool_launches[k["name"]]
@@ -1541,6 +1649,8 @@ def main() -> int:
         k["launches_det_camera"] = {name: r["launches"][k["name"]] for name, r in det.items()}
         k["launches_pillar"] = {name: pillar[name]["launches"][k["name"]]
                                 for name in ("pointpillars", "camera+radar")}
+        k["launches_train"] = {"flagship": parity["launches"][k["name"]],
+                               **{name: r["launches"][k["name"]] for name, r in train_cfgs.items()}}
     print(json.dumps({
         "kernels": kernels, "build_s": build_s, "total_s": time.perf_counter() - t_start,
         "flagship": {"frame_ms_median": statistics.median(frames), "peak_mem_bytes": peak,
@@ -1551,6 +1661,7 @@ def main() -> int:
         "det_camera": dict(det, seconds=det_s),
         "pillar": dict(pillar, seconds=pillar_s),
         "train": {"parity_tf32_off": parity, "steps_tf32_on": steps},
+        "train_configs": dict(train_cfgs, seconds=train_cfgs_s),
         "tools": {k: v for k, v in tools.items() if k not in ("copy", "gathers")},
         "lidar_slice": {"launches": lidar_launches,
                         "frame_ms_median": statistics.median(lidar_frames),

@@ -41,6 +41,7 @@ MAIN_PATH = [
     "bevfusion_tpu_torch.models.heads.centerpoint",
     "bevfusion_tpu_torch.models.bevdepth",
     "bevfusion_tpu_torch.models.bevfusion",
+    "bevfusion_tpu_torch.data.transforms",
     "bevfusion_tpu_torch.runtime.flagship",
     "bevfusion_tpu_torch.runtime.train",
 ]
@@ -90,7 +91,7 @@ def test_bridge_imports_no_jax():
 
 def test_every_port_module_imports_no_jax():
     mods, walked = _imported_after([WALK])
-    for name in ("runtime.bridge", "runtime.adapter", "runtime.train", "core.matching",
+    for name in ("runtime.bridge", "runtime.adapter", "runtime.train", "core.matching", "data.transforms",
                  "models.losses", "ops.gaussian", "ops.iou3d", "devices", "utils.profiler",
                  "tools.bench_tile_micro", "tools.bench_kernel_variants", "tools.profile_meta",
                  "tools.profile_encoder", "tools.profile_vtransform", "tools.profile_stages",

@@ -12,8 +12,18 @@ channels that hold NaN where a test says so. Weights are the JAX package's
 random variables carried across by the bridge. Held at max|d| <= 1e-5 *
 max(|want|, 1): the modules, every task's raw head maps and the decoded
 boxes (keep masks and labels equal; the maps moderated per branch as that
-file does). A NaN in a radar feature channel reaches neither package's
-Linear (``nan_to_num`` after the decoration).
+file does), and AwareDBEVDepth's depth loss at stride 8 (eval). A NaN in a
+radar feature channel reaches neither package's Linear (``nan_to_num``
+after the decoration).
+
+The tiny camera + radar model's training (16 random boxes) is held as
+tests/test_torch_camera_det_model.py holds the camera detectors: the port
+in float64 to 1e-4 (losses; all gradients together in norm; each
+parameter's to 1e-3; measured 1.5e-6 and 5.9e-6) and in fp32 (losses to
+1e-3; its gradients move 7.8% in norm from float64 there), against the JAX
+model built in float64, its gradient taken eagerly: XLA's jitted gradient
+of a pillar net in training mode is wrong on the CPU backend (ROADMAP
+Queue 3, tests/test_torch_pillar.py).
 """
 import functools
 
@@ -28,11 +38,14 @@ from bevfusion_tpu.models import build_model as jax_build_model
 from bevfusion_tpu.models import radar_encoder as jax_radar
 from bevfusion_tpu.ops import voxelize as jvox
 from bevfusion_tpu_torch.config import Config, load_config
+from bevfusion_tpu_torch.data.transforms import GTDepth
 from bevfusion_tpu_torch.models import bevdepth, build_model, radar_encoder
 from bevfusion_tpu_torch.runtime import flagship
 from bevfusion_tpu_torch.runtime.bridge import jax_to_torch_state_dict
 from tests.test_bevfusion_model import make_batch
-from tests.test_torch_camera_det_model import RIG_SEED, _is_head, _moderate, tiny_det_config
+from tests.test_torch_camera_det_model import (RIG_SEED, _is_head, _moderate,
+                                               assert_training_matches, jax_value_and_grad,
+                                               tiny_det_config, train_batch)
 from tests.torch_port_helpers import jittered_rig, load_bridged, random_variables, rel_err
 
 torch.set_num_threads(2)
@@ -155,6 +168,28 @@ def test_aware_dbevdepth_matches_jax_at_stride_8():
     assert rel_err(without.numpy(), want) > 1e-3  # the points' depth takes part
 
 
+def test_aware_dbevdepth_depth_loss_matches_jax_at_stride_8():
+    """The depth loss of the stride-8 module against the JAX one's, on the
+    depth images ``GTDepth`` makes of the points through the same rig (4 x 8
+    blocks of 8 x 8 pixels a camera, 8 bins of 1 m)."""
+    feats, pts, pmask, mats = _dbev_inputs()
+    data = {"points": pts[0][pmask[0]], "img": [np.zeros((32, 64, 3))] * 2,
+            **{k: mats[k][0] for k in ("lidar2image", "img_aug_matrix", "lidar_aug_matrix")}}
+    depths = GTDepth()(data)["depths"][None]
+    jm = jax_bevdepth.AwareDBEVDepth(**DBEV)
+    variables = random_variables(jm.init, feats, pts, pmask, mats, seed=16)
+    want_bev, want = jax.jit(lambda v: jm.apply(v, feats, pts, pmask, mats, gt_depths=depths,
+                                                depth_loss=True))(variables)
+    vt = load_bridged(bevdepth.AwareDBEVDepth(**DBEV), variables, "camera_vtransform",
+                      "encoders.camera.vtransform.")
+    with torch.no_grad():
+        bev, got = vt(_t(feats.transpose(0, 1, 4, 2, 3)), _t(pts), _t(pmask),
+                      {k: _t(v) for k, v in mats.items()}, gt_depths=_t(depths))
+    assert vt.bevdepth_downsample == 8 and (depths > 0).sum() > 50
+    assert rel_err(bev.numpy(), np.asarray(want_bev).transpose(0, 3, 1, 2)) <= RTOL
+    assert float(want) > 0.1 and abs(got.item() - float(want)) <= RTOL * float(want)
+
+
 def test_aware_dbevdepth_refuses_stride_16_as_jax_fails_there():
     """At stride 16 the depth branch (stride 8) and the image features differ
     in size: the JAX module fails at the concatenation, the port at build."""
@@ -274,3 +309,11 @@ def test_camera_radar_model_fuses_the_radar_map():
     assert list(model.encoders) == ["camera", "radar"]
     assert model.fuser[0].in_channels == 32
     assert rel_err(blind.numpy(), full.numpy()) > 1e-3
+
+
+def test_camera_radar_model_training_matches_jax_float64():
+    variables, runs = _jax_run()
+    cfg, batch = tiny_radar_config(), train_batch(runs[0][0])
+    want = jax_value_and_grad(cfg, variables, batch, jit=False)  # eager: see the docstring
+    assert {k for k in want[0] if "bbox" in k and float(want[0][k]) > 0}
+    assert_training_matches(cfg, variables, batch, want)

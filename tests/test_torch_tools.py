@@ -11,6 +11,7 @@ on the card unless ``--device cpu``: without CUDA it raises.
 import copy
 import functools
 import importlib
+import json
 import math
 from pathlib import Path
 
@@ -155,6 +156,25 @@ def test_bench_train_step_runs_two_steps():
     assert line["metric"] == "flagship_train_step_ms"
     assert all(math.isfinite(line[k]) for k in ("value", "loss_total", "steps_per_s",
                                                 "forward_ms", "backward_ms", "optimizer_ms"))
+
+
+def test_bench_train_step_main_takes_a_centerhead_config(tmp_path, capsys):
+    """``--config`` with a tiny camera CenterHead detector (AwareBEVDepth, so
+    the step adds the depth loss): one JSON line, the metric named after the
+    file, no matcher."""
+    from tests.test_torch_camera_det_model import tiny_det_config
+
+    flag = load_config(flagship.FLAGSHIP_CONFIG)
+    path = tmp_path / "tiny_bevdepth.yaml"
+    path.write_text(json.dumps({  # JSON is YAML
+        "image_size": [32, 64], "point_cloud_range": [-16.0, -16.0, -5.0, 16.0, 16.0, 3.0],
+        "model": tiny_det_config("bevdepth"), "optimizer": dict(flag.optimizer),
+        "optimizer_config": dict(flag.optimizer_config), "lr_config": dict(flag.lr_config)}))
+    assert bench_train_step.main(["--config", str(path), "--device", "cpu", "--steps", "1",
+                                  "--points", "3000"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["metric"] == "tiny_bevdepth_train_step_ms" and line["auction_ms"] is None
+    assert all(math.isfinite(line[k]) for k in ("value", "loss_total", "forward_ms"))
 
 
 def test_benchmark_latency_on_the_cpu():
