@@ -1,0 +1,137 @@
+"""Batching data loader: numpy collation + background prefetch.
+
+A copy of ``bevfusion_tpu/data/loader.py``, held to it by
+tests/test_torch_data.py, with one fault repaired: there a shard's length
+is ``len(dataset) // num_shards`` on every rank, so where the shards are
+uneven the low ranks never yield their last sample (3 samples on 2 ranks:
+sample 2 is never loaded). Here a shard's length is that of its own
+indices, so every sample is yielded exactly once across the ranks. And
+an error that a worker thread meets while loading is raised in the
+consumer, where the JAX loader's consumer waits for that thread forever.
+
+Replaces the reference's torch DataLoader (mmdet build_dataloader with
+workers_per_gpu processes) with a thread-pool prefetcher producing
+fixed-shape numpy batches; ``runtime/eval.py:to_model_batch`` turns one
+into tensors on the device. For multi-process eval each process loads its
+shard (``num_shards``, ``shard_id``).
+"""
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Any, Dict, Iterator, List, Optional
+
+import numpy as np
+
+__all__ = ["collate", "DataLoader"]
+
+_BATCH_KEYS = (
+    "img", "points", "points_mask", "gt_boxes", "gt_labels", "gt_valid",
+    "gt_masks_bev", "depths", "camera_intrinsics", "camera2ego", "lidar2ego",
+    "lidar2camera", "camera2lidar", "lidar2image", "img_aug_matrix",
+    "lidar_aug_matrix",
+)
+
+
+def collate(samples: List[Dict[str, Any]]) -> Dict[str, Any]:
+    batch: Dict[str, Any] = {}
+    for k in _BATCH_KEYS:
+        if k in samples[0]:
+            batch[k] = np.stack([np.asarray(s[k]) for s in samples])
+    if "pool_lut" in samples[0]:
+        # per-sample calibration LUT (ops/bev_pool_lut.py): a dict of
+        # arrays, stacked per leaf (each sample's has a leading axis of 1)
+        keys = samples[0]["pool_lut"].keys()
+        batch["pool_lut"] = {
+            k: np.concatenate([np.asarray(s["pool_lut"][k]) for s in samples])
+            for k in keys}
+    metas = [s.get("metas") for s in samples]
+    if any(m is not None for m in metas):
+        batch["metas"] = metas
+    return batch
+
+
+class DataLoader:
+    def __init__(self, dataset, batch_size: int, shuffle: bool = False,
+                 num_workers: int = 2, seed: int = 0, drop_last: bool = True,
+                 num_shards: int = 1, shard_id: int = 0):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.num_workers = max(1, num_workers)
+        self.seed = seed
+        self.drop_last = drop_last
+        self.num_shards = num_shards
+        self.shard_id = shard_id
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int):
+        self.epoch = epoch
+        if hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(epoch)
+
+    def __len__(self):
+        n = len(self._indices())
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def _indices(self) -> np.ndarray:
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            rng = np.random.RandomState(self.seed + self.epoch)
+            rng.shuffle(idx)
+        return idx[self.shard_id :: self.num_shards]
+
+    def __iter__(self) -> Iterator[Dict[str, Any]]:
+        indices = self._indices()
+        n_batches = len(self)
+        batch_idx = [
+            indices[i * self.batch_size : (i + 1) * self.batch_size]
+            for i in range(n_batches)
+        ]
+
+        q: "queue.Queue" = queue.Queue(maxsize=self.num_workers * 2)
+        stop = threading.Event()
+
+        def worker(worker_id: int):
+            try:
+                for bi, ids in enumerate(batch_idx):
+                    if bi % self.num_workers != worker_id:
+                        continue
+                    if stop.is_set():
+                        return
+                    samples = [self.dataset[int(i)] for i in ids]
+                    q.put((bi, collate(samples)))
+            except Exception as e:  # raised in the consumer, not lost with the thread
+                q.put((None, e))
+                return
+            q.put((None, None))
+
+        threads = [
+            threading.Thread(target=worker, args=(w,), daemon=True)
+            for w in range(self.num_workers)
+        ]
+        for t in threads:
+            t.start()
+
+        try:
+            buffered: Dict[int, Dict[str, Any]] = {}
+            done = 0
+            want = 0
+            while done < self.num_workers or buffered or want < n_batches:
+                if want in buffered:
+                    yield buffered.pop(want)
+                    want += 1
+                    continue
+                if done == self.num_workers and want >= n_batches:
+                    break
+                bi, batch = q.get()
+                if bi is None:
+                    if batch is not None:
+                        raise batch
+                    done += 1
+                    continue
+                buffered[bi] = batch
+        finally:
+            stop.set()

@@ -21,16 +21,19 @@ class Registry:
             raise KeyError(f"{cls.__name__} already registered in {self.name}")
         return cls
 
+    def get(self, key: str):
+        """The class registered under ``key``."""
+        if key not in self._registry:
+            raise KeyError(f"{key!r} is not registered in {self.name}; "
+                           f"available: {sorted(self._registry)}")
+        return self._registry[key]
+
     def build(self, cfg: Mapping):
         """Instantiate ``cfg['type']`` with the remaining keys as kwargs."""
         if not isinstance(cfg, Mapping):
             raise TypeError(f"cfg must be a mapping, got {type(cfg)}")
         cfg = dict(cfg)
-        name = cfg.pop("type")
-        if name not in self._registry:
-            raise KeyError(f"{name!r} is not registered in {self.name}; "
-                           f"available: {sorted(self._registry)}")
-        return self._registry[name](**cfg)
+        return self.get(cfg.pop("type"))(**cfg)
 
 
 BACKBONES = Registry("backbones")
@@ -39,3 +42,6 @@ HEADS = Registry("heads")
 VTRANSFORMS = Registry("vtransforms")
 FUSERS = Registry("fusers")
 FUSIONMODELS = Registry("fusion_models")
+# the host data layer (``data/``)
+DATASETS = Registry("datasets")
+PIPELINES = Registry("pipelines")

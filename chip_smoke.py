@@ -122,6 +122,23 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
    (``radar/voxelize``, ``radar/encoder``) among the stages; last,
    resnet50/dlss.yaml must raise its stride ValueError (the depth branch
    32 x 88 against 16 x 44 features);
+11d. cli: the eval entry point on files. A seeded 4-sample nuScenes-format
+   set (``bevfusion_tpu_torch/data/synthetic.py``) under build/cli_smoke/: an
+   info pkl, six 900 x 1600 PNG cameras a sample on a jittered ring, a
+   keyframe and 9 sweeps of 30,000 points as .bin (300,000 points, the
+   pipeline's ``max_points``), a few boxes, no map location; a seeded
+   checkpoint of each config written with ``save_checkpoint`` and restored
+   into a model on the card. The flagship's four samples go through the
+   nuScenes test pipeline, the threaded loader and ``run_model_on_loader``,
+   then ``format_results`` (``evaluate_dataset(metric="bbox")`` up to the
+   devkit); the fused seg config (fusion-bev256d2-lss) through
+   ``bevfusion_tpu_torch.tools.test.main([..., "--eval", "map"])``. Each
+   run launches the sparse-conv kernel 15 and the BEV pool (intervals built
+   in the graph) once a frame, nothing else; the submission holds the four
+   tokens, the schema's keys and finite values; the map metrics' keys, each
+   finite; one loaded sample's heatmap / map logits within 2e-3 relative of
+   the CPU model's; the host pipeline's ms a sample, the frame's ms on a
+   loaded sample with TF32 off and on;
 12. the flagship's training step at full width, B = 1, host LUT, TF32 off,
    PyTorch's deterministic algorithms on (the card's own run-to-run noise
    would swamp the comparison), the heatmap head's last conv scaled by 0.2
@@ -179,7 +196,8 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
    families each with their ms, plain ms, bound, share and launches; every
    kernel's launches on the seg, det-camera and pillar paths; the NMS
    kernel's row after K1-K7; every kernel's launches in each train step of
-   phases 12 and 12b), the seg, det-camera, pillar and train-config results
+   phases 12 and 12b; their launches in each run of phase 11d), the seg,
+   det-camera, pillar, cli and train-config results
    and the script's total time, a line with the card's name and
    power limit as nvidia-smi prints them, then the last line
    ``{"ok": true, "device": {...}}``.
@@ -193,6 +211,7 @@ import json
 from concurrent.futures import ThreadPoolExecutor
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -242,6 +261,7 @@ K7_SHAPES = 3  # the cost breakdown runs at the stage-0, 1 and 2 submanifold con
 TOOL_ITERS = 5  # timed calls per op in the tools phase
 TOOLS_ABSENT = {"greedy_nms"}  # the tools drive the TransFusion flagship, which has no NMS
 SEG_BENCHMARK = "configs/nuscenes/seg/fusion-bev256d2-lss.yaml"  # the tools phase's second CLI run
+CLI_SAMPLES = 4  # samples of the synthesized nuScenes-format set of phase 11d
 
 
 def check(ok: bool, what: str) -> None:
@@ -1130,6 +1150,159 @@ def pillar_phase(counters):
     return res
 
 
+def cli_phase(counters, smi):
+    """Phase 11d: the eval entry point on files. A seeded 4-sample
+    nuScenes-format set (``data/synthetic.py``) under build/cli_smoke/ (six
+    900 x 1600 PNG cameras a sample, jittered; a keyframe and 9 sweeps of
+    30,000 points as .bin), a seeded checkpoint of each config
+    (``save_checkpoint``) restored into a model on the card; the flagship
+    through ``run_model_on_loader`` and ``format_results`` (what
+    ``evaluate_dataset(metric="bbox")`` does before the devkit), the fused
+    seg config through ``tools/test.py``'s ``main`` with ``--eval map``, each
+    launch count set to 0 just before and read just after; one loaded
+    sample's heatmap / map logits against the CPU model's on the same
+    sample; the host pipeline's ms a sample and the frame's ms on a loaded
+    sample with TF32 off and on. Returns {config: results}."""
+    from bevfusion_tpu_torch.config import load_config
+    from bevfusion_tpu_torch.data import DataLoader, build_dataset, collate
+    from bevfusion_tpu_torch.data.synthetic import write_synthetic_nuscenes
+    from bevfusion_tpu_torch.models import build_model
+    from bevfusion_tpu_torch.runtime.checkpoint import restore_checkpoint, save_checkpoint
+    from bevfusion_tpu_torch.runtime.eval import run_model_on_loader, to_model_batch
+    from bevfusion_tpu_torch.runtime.flagship import FLAGSHIP_CONFIG, SEG_CONFIGS, init_weights
+    from bevfusion_tpu_torch.tools import test as test_cli
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "cli_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_synthetic_nuscenes(root, num_samples=CLI_SAMPLES, seed=0)
+    res = {"write_s": time.perf_counter() - t0}
+    overrides = {"dataset_root": root + "/"}
+    want = dict(dict.fromkeys(counters, 0), sparse_conv=SPARSE_LAUNCHES * CLI_SAMPLES,
+                bev_pool=POOL_LAUNCHES * CLI_SAMPLES)
+
+    def loaded(cfg, model, cpu_model, logits_of):
+        """Sample 0 of the config's test set: the host pipeline's ms a sample
+        (all samples, serially), the card's output against the CPU model's,
+        and the frame on it with TF32 off and on."""
+        dataset = build_dataset(cfg.data.test)
+        t = time.perf_counter()
+        samples = [dataset[i] for i in range(len(dataset))]
+        out = {"pipeline_ms_per_sample": (time.perf_counter() - t) * 1e3 / len(samples),
+               "points_in_sample0": int(samples[0]["points_mask"].sum())}
+        np_batch = collate(samples[:1])
+        for k in ("gt_masks_bev", "metas"):
+            np_batch.pop(k, None)
+        batch, cpu_batch = to_model_batch(np_batch, DEVICE), to_model_batch(np_batch, "cpu")
+        with torch.no_grad():
+            got = logits_of(model, batch)
+            t = time.perf_counter()
+            want_cpu = logits_of(cpu_model, cpu_batch)
+            out["cpu_forward_s"] = time.perf_counter() - t
+        out["rel_err"] = rel_err(got.cpu(), want_cpu)
+        out["std"] = want_cpu.std().item()
+        for suffix, tf32 in (("", False), ("_tf32", True)):
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+            with torch.no_grad():
+                frames, peak = frame_ms(lambda: model(batch))
+            out["frame_ms_median" + suffix] = statistics.median(frames)
+            out["peak_mem_bytes" + suffix] = peak
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        return out
+
+    # the fused flagship: run_model_on_loader, then the submission
+    t1 = time.perf_counter()
+    cfg = load_config(FLAGSHIP_CONFIG, overrides=overrides)
+    cpu_model = init_weights(build_model(cfg.model, "cpu"), seed=0)
+    ckpt = os.path.join(root, "ckpt", "flagship", "epoch_1.pth")
+    save_checkpoint(ckpt, cpu_model, meta={"seed": 0})
+    model = build_model(cfg.model, DEVICE)
+    restore_checkpoint(ckpt, model)
+    dataset = build_dataset(cfg.data.test)
+    loader = DataLoader(dataset, batch_size=1, num_workers=2, drop_last=False)
+    torch.cuda.synchronize()
+    zero_counts(counters)
+    t = time.perf_counter()
+    results = run_model_on_loader(model, loader)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t
+    launches = {k: c.launches for k, c in counters.items()}
+    check(launches == want, f"cli flagship: launches {launches}, want {want}")
+    sub = dataset.format_results(results, os.path.join(root, "out", "results_nusc.json"))
+    tokens = {info["token"] for info in dataset.data_infos}
+    check(set(sub) == {"meta", "results"} and set(sub["results"]) == tokens
+          and len(tokens) == CLI_SAMPLES, f"cli flagship: submission tokens {sorted(sub['results'])}")
+    annos = [a for v in sub["results"].values() for a in v]
+    keys = {"sample_token", "translation", "size", "rotation", "velocity", "detection_name",
+            "detection_score", "attribute_name"}
+    check(bool(annos) and all(set(a) == keys for a in annos), "cli flagship: submission schema")
+    check(all(math.isfinite(x) for a in annos for k in ("translation", "size", "rotation",
+                                                         "velocity") for x in a[k])
+          and all(math.isfinite(a["detection_score"]) for a in annos),
+          "cli flagship: a non-finite value in the submission")
+    r = {"launches": launches, "eval_loop_s": loop_s, "boxes": len(annos),
+         **loaded(cfg, model, cpu_model, lambda m, b: m.predict(b)["dense_heatmap"])}
+    check(r["rel_err"] <= HEATMAP_RTOL, f"cli flagship: heatmap rel err {r['rel_err']}")
+    r["seconds"] = time.perf_counter() - t1
+    res["flagship"] = r
+    print(f"cli flagship: {CLI_SAMPLES} loaded samples through run_model_on_loader in "
+          f"{loop_s:.2f} s, launches {launches}; the submission holds {len(annos)} boxes over "
+          f"{len(tokens)} tokens, every value finite; heatmap (std {r['std']:.3f}) vs the CPU "
+          f"plain path on loaded sample 0 ({r['points_in_sample0']} points): rel err "
+          f"{r['rel_err']:.3e} (CPU forward {r['cpu_forward_s']:.1f} s); host pipeline "
+          f"{r['pipeline_ms_per_sample']:.1f} ms a sample; {r['frame_ms_median']:.2f} ms/frame "
+          f"median on a loaded sample (TF32 on {r['frame_ms_median_tf32']:.2f} ms), peak "
+          f"{r['peak_mem_bytes'] / 2**20:.1f} MiB; {smi}")
+    del model, cpu_model, loader, results
+    torch.cuda.empty_cache()
+
+    # the fused seg config: tools/test.py end to end
+    t1 = time.perf_counter()
+    path = SEG_CONFIGS["fusion-bev256d2-lss"]
+    cfg = load_config(path, overrides=overrides)
+    cpu_model = init_weights(build_model(cfg.model, "cpu"), seed=0)
+    ckpt = os.path.join(root, "ckpt", "seg", "epoch_1.pth")
+    save_checkpoint(ckpt, cpu_model, meta={"seed": 0})
+    torch.cuda.synchronize()
+    zero_counts(counters)
+    t = time.perf_counter()
+    metrics = test_cli.main([path, ckpt, "--eval", "map", "--out-dir", os.path.join(root, "out"),
+                             "--device", DEVICE, f"dataset_root={root}/"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t
+    launches = {k: c.launches for k, c in counters.items()}
+    check(launches == want, f"cli seg: launches {launches}, want {want}")
+    want_keys = {f"map/{c}/iou@max" for c in cfg.map_classes} | {"map/mean/iou@max"}
+    check(metrics is not None and set(metrics) == want_keys
+          and all(math.isfinite(v) for v in metrics.values()), f"cli seg: map metrics {metrics}")
+    model = build_model(cfg.model, DEVICE)
+    restore_checkpoint(ckpt, model)
+
+    def map_logits(m, b):
+        out = []
+        hook = m.heads["map"].classifier.register_forward_hook(lambda mod, a, o: out.append(o))
+        m(b)
+        hook.remove()
+        return out[0]
+
+    r = {"launches": launches, "cli_s": cli_s, "metrics": metrics,
+         **loaded(cfg, model, cpu_model, map_logits)}
+    check(r["rel_err"] <= HEATMAP_RTOL, f"cli seg: logits rel err {r['rel_err']}")
+    r["seconds"] = time.perf_counter() - t1
+    res["seg"] = r
+    print(f"cli seg fusion-bev256d2-lss: tools/test.py --eval map on {CLI_SAMPLES} samples in "
+          f"{cli_s:.2f} s, launches {launches}, metrics {metrics}; map logits (std "
+          f"{r['std']:.3f}) vs the CPU plain path on loaded sample 0: rel err {r['rel_err']:.3e} "
+          f"(CPU forward {r['cpu_forward_s']:.1f} s); host pipeline "
+          f"{r['pipeline_ms_per_sample']:.1f} ms a sample; {r['frame_ms_median']:.2f} ms/frame "
+          f"median on a loaded sample (TF32 on {r['frame_ms_median_tf32']:.2f} ms), peak "
+          f"{r['peak_mem_bytes'] / 2**20:.1f} MiB; {smi}")
+    del model, cpu_model
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
 def summary(name, source, replaces, launches, shapes, extra_err=(), library_ms=None):
     """One kernel's entry of the JSON line: times and bounds summed over
     its shapes, the largest error, the limit of the largest bound."""
@@ -1556,6 +1729,15 @@ def main() -> int:
     pillar_s = time.perf_counter() - t0
     print(f"pillar: PointPillars, camera + radar and the dlss refusal in {pillar_s:.1f} s")
 
+    # 11d. the eval entry point on files: the flagship and the fused seg config from a dataset
+    t0 = time.perf_counter()
+    cli = cli_phase(all_counters, smi)
+    cli_s = time.perf_counter() - t0
+    print(f"cli: the synthesized set ({cli['write_s']:.1f} s), the flagship through "
+          f"run_model_on_loader and the fused seg config through tools/test.py in {cli_s:.1f} s; "
+          f"host pipeline {cli['flagship']['pipeline_ms_per_sample']:.1f} ms a sample, "
+          f"{cli['flagship']['frame_ms_median_tf32']:.2f} ms a loaded flagship frame (TF32 on)")
+
     # 12. the flagship's training step, B=1, host LUT, TF32 off: kernels vs plain
     cfg, model, batch = build_flagship("cuda", num_points=120000, seed=0, training=True)
     prepare_train_model(model, batch)
@@ -1649,6 +1831,7 @@ def main() -> int:
         k["launches_det_camera"] = {name: r["launches"][k["name"]] for name, r in det.items()}
         k["launches_pillar"] = {name: pillar[name]["launches"][k["name"]]
                                 for name in ("pointpillars", "camera+radar")}
+        k["launches_cli"] = {name: cli[name]["launches"][k["name"]] for name in ("flagship", "seg")}
         k["launches_train"] = {"flagship": parity["launches"][k["name"]],
                                **{name: r["launches"][k["name"]] for name, r in train_cfgs.items()}}
     print(json.dumps({
@@ -1660,6 +1843,7 @@ def main() -> int:
         "seg": dict(seg, seconds=seg_s),
         "det_camera": dict(det, seconds=det_s),
         "pillar": dict(pillar, seconds=pillar_s),
+        "cli": dict(cli, seconds=cli_s),
         "train": {"parity_tf32_off": parity, "steps_tf32_on": steps},
         "train_configs": dict(train_cfgs, seconds=train_cfgs_s),
         "tools": {k: v for k, v in tools.items() if k not in ("copy", "gathers")},

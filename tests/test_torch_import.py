@@ -95,7 +95,9 @@ def test_every_port_module_imports_no_jax():
                  "models.losses", "ops.gaussian", "ops.iou3d", "devices", "utils.profiler",
                  "tools.bench_tile_micro", "tools.bench_kernel_variants", "tools.profile_meta",
                  "tools.profile_encoder", "tools.profile_vtransform", "tools.profile_stages",
-                 "tools.bench_train_step", "tools.benchmark"):
+                 "tools.bench_train_step", "tools.benchmark", "core.box_np", "data.points",
+                 "data.loading", "data.loader", "data.nuscenes", "data.synthetic",
+                 "runtime.checkpoint", "runtime.eval", "tools.test"):
         assert f"bevfusion_tpu_torch.{name}" in walked, name
     assert len(walked) >= 40
     _assert_no_jax(mods)
