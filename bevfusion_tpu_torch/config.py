@@ -48,6 +48,23 @@ class Config(dict):
             return [Config.from_dict(v) for v in d]
         return d
 
+    def to_dict(self) -> Dict[str, Any]:
+        """The tree as plain dicts and lists."""
+        def conv(v):
+            if isinstance(v, dict):
+                return {k: conv(x) for k, x in v.items()}
+            if isinstance(v, list):
+                return [conv(x) for x in v]
+            return v
+
+        return conv(self)
+
+    def dump(self, path: str) -> None:
+        """Write the tree as YAML at ``path`` (what a run directory's
+        ``configs.yaml`` holds)."""
+        with open(path, "w") as f:
+            yaml.safe_dump(self.to_dict(), f, sort_keys=False)
+
 
 def _deep_merge(dst: Dict[str, Any], src: Dict[str, Any]) -> None:
     for k, v in src.items():

@@ -7,14 +7,23 @@ z_bottom, dx(w), dy(l), dz(h), yaw, (vx, vy); LiDAR frame, bottom-center
 origin) and core/bbox/box_np_ops.py (corners, points-in-box). The
 pipeline runs on the host in numpy; only padded fixed-shape arrays
 become tensors (``runtime/eval.py:to_model_batch``).
+
+``points_in_rbbox_libm`` is the port's form of the JAX package's other
+points-in-box test, the C++ loop of its native host library
+(``bevfusion_tpu/native/csrc/host_ops.cpp:38-54``), which its
+``ObjectPaste`` calls.
 """
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["LiDARBoxes3D", "rotation_2d", "points_in_rbbox", "corners_bev"]
+__all__ = ["LiDARBoxes3D", "rotation_2d", "points_in_rbbox", "points_in_rbbox_libm",
+           "corners_bev"]
 
 
 def rotation_2d(angle: float) -> np.ndarray:
@@ -131,14 +140,8 @@ def corners_bev(boxes: np.ndarray) -> np.ndarray:
     return out + np.stack([cx, cy], -1)[:, None]
 
 
-def points_in_rbbox(points: np.ndarray, boxes: np.ndarray) -> np.ndarray:
-    """[P, >=3] points vs [N, 7] boxes -> [P, N] bool.
-
-    Closed-form point-in-rotated-box test (replaces the reference's
-    roiaware_pool3d CUDA points_in_boxes, SURVEY §2.10 item 6)."""
+def _inside(points: np.ndarray, boxes: np.ndarray, c: np.ndarray, s: np.ndarray) -> np.ndarray:
     d = points[:, None, :3] - boxes[None, :, :3]  # bottom-center origin
-    yaw = boxes[:, 6]
-    c, s = np.cos(-yaw), np.sin(-yaw)
     lx = d[..., 0] * c[None] - d[..., 1] * s[None]
     ly = d[..., 0] * s[None] + d[..., 1] * c[None]
     lz = d[..., 2]
@@ -148,3 +151,35 @@ def points_in_rbbox(points: np.ndarray, boxes: np.ndarray) -> np.ndarray:
         & (lz >= 0)
         & (lz <= boxes[None, :, 5])
     )
+
+
+def points_in_rbbox(points: np.ndarray, boxes: np.ndarray) -> np.ndarray:
+    """[P, >=3] points vs [N, 7] boxes -> [P, N] bool.
+
+    Closed-form point-in-rotated-box test (replaces the reference's
+    roiaware_pool3d CUDA points_in_boxes, SURVEY §2.10 item 6)."""
+    yaw = boxes[:, 6]
+    return _inside(points, boxes, np.cos(-yaw), np.sin(-yaw))
+
+
+@functools.lru_cache(maxsize=None)
+def _libm():
+    lib = ctypes.CDLL(ctypes.util.find_library("m"))
+    for fn in (lib.cosf, lib.sinf):
+        fn.restype, fn.argtypes = ctypes.c_float, [ctypes.c_float]
+    return lib
+
+
+def points_in_rbbox_libm(points: np.ndarray, boxes: np.ndarray) -> np.ndarray:
+    """``points_in_rbbox`` as the JAX package's native C++ loop computes it,
+    bit for bit: float32 points and boxes, and each box's cos and sin of
+    -yaw from the C library's ``cosf`` / ``sinf``, as ``std::cos`` of a
+    float calls them. numpy's float32 cos and sin differ from those in the
+    last bit for about 15% of angles, which moves a point on a box's face
+    across it."""
+    points = np.ascontiguousarray(points, np.float32)
+    boxes = np.ascontiguousarray(boxes[:, :7], np.float32)
+    libm = _libm()
+    c = np.array([libm.cosf(-float(y)) for y in boxes[:, 6]], np.float32)
+    s = np.array([libm.sinf(-float(y)) for y in boxes[:, 6]], np.float32)
+    return _inside(points, boxes, c, s)

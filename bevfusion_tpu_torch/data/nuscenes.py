@@ -7,22 +7,33 @@ calibration matrix construction :209-286, CBGS cat ids :169-191,
 detection eval via nuScenes devkit :410-466, map IoU sweep :498-531) and
 dataset_wrappers.py:7-76 (class-balanced resampling).
 
-As in the JAX package, a sample's pipeline RNG is seeded with
+One fault repaired: the JAX package seeds a sample's pipeline RNG with
 ``hash(token)``, which ``PYTHONHASHSEED`` changes from process to
-process: the training augmentations are not reproducible across runs
-(ROADMAP Queue 3). The test pipeline draws nothing from it.
+process, so a run resumed in a new process draws other augmentations
+than the run it continues. Here the seed is ``sample_seed(token, epoch)``,
+a CRC-32 of the token: the same in every process. The test pipeline draws
+nothing from it.
 """
 from __future__ import annotations
 
 import os
 import pickle
+import zlib
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 
 from ..registry import DATASETS, PIPELINES
 
-__all__ = ["NuScenesDataset", "CBGSDataset", "build_dataset", "quaternion_to_matrix"]
+__all__ = ["NuScenesDataset", "CBGSDataset", "build_dataset", "quaternion_to_matrix",
+           "sample_seed"]
+
+
+def sample_seed(token: str, epoch: int) -> int:
+    """The pipeline RNG's seed for the sample ``token`` in ``epoch``: the
+    JAX package's ``(hash(token) + epoch * 131071) % 2**31`` with the
+    token's CRC-32 for ``hash``, so it does not change between processes."""
+    return (zlib.crc32(token.encode()) + max(epoch, 0) * 131071) % (2**31)
 
 
 def quaternion_to_matrix(q) -> np.ndarray:
@@ -210,9 +221,7 @@ class NuScenesDataset:
             (len(data.get("image_paths", [1])), 1, 1),
         )
         data["lidar_aug_matrix"] = np.eye(4, dtype=np.float32)
-        data["_rng"] = np.random.RandomState(
-            (hash(data["token"]) + max(self.epoch, 0) * 131071) % (2**31)
-        )
+        data["_rng"] = np.random.RandomState(sample_seed(data["token"], self.epoch))
         for t in self.pipeline:
             data = t(data)
         data.pop("_rng", None)

@@ -1,8 +1,10 @@
-"""A seeded nuScenes-format dataset on disk, for driving the eval entry
-point (``tools/test.py``) without the real dataset.
+"""A seeded nuScenes-format dataset on disk, for driving the eval and train
+entry points (``tools/test.py``, ``tools/train.py``) without the real
+dataset.
 
 ``write_synthetic_nuscenes`` writes what the converter writes for
-nuScenes (``nuscenes_infos_val.pkl``) and the files it points at: per
+nuScenes (``nuscenes_infos_val.pkl``, and ``nuscenes_infos_train.pkl``
+when asked for a train split) and the files it points at: per
 sample a keyframe and its sweeps as ``.bin`` point clouds (float32 x, y,
 z, intensity, ring), each scan a beam model (``runtime/flagship.py:
 synthetic_lidar_scan``) seen from the sweep's own pose, and one PNG a
@@ -20,6 +22,7 @@ from typing import Dict, Sequence
 
 import numpy as np
 
+from ..core.box_np import points_in_rbbox
 from ..runtime.flagship import synthetic_lidar_scan
 
 __all__ = ["CAMERAS", "camera_ring", "jittered_rig", "matrix_to_quaternion",
@@ -130,9 +133,16 @@ def write_synthetic_nuscenes(root: str, num_samples: int = 4, num_cameras: int =
                              points_per_sweep: int = 30000, num_sweeps: int = 9,
                              point_cloud_range=(-54.0, -54.0, -5.0, 54.0, 54.0, 3.0),
                              num_gt: int = 6, seed: int = 0, rig_seed: int = 0,
-                             focal: float = 0.6) -> str:
+                             focal: float = 0.6, train_samples: int = 0) -> str:
     """Write ``num_samples`` samples under ``root`` and their info pkl;
-    returns the pkl's path (``root/nuscenes_infos_val.pkl``).
+    returns the pkl's path (``root/nuscenes_infos_val.pkl``). With
+    ``train_samples`` > 0 it also writes that many samples of a train split
+    (``root/nuscenes_infos_train.pkl``, tokens ``synthetic_train_<seed + 1>_<i>``),
+    drawn from ``seed + 1`` in the same way, but
+    each box is placed around a keyframe point (its bottom 0.1-0.5 m below
+    it) and ``num_lidar_pts`` counts the keyframe points inside it, so the
+    GT database (``data/converter.py:create_gt_database``) has crops to
+    paste.
 
     Each sample has ``num_cameras`` cameras of ``image_hw`` (focal length
     ``focal`` x the image width, the principal point at the centre; the
@@ -143,17 +153,33 @@ def write_synthetic_nuscenes(root: str, num_samples: int = 4, num_cameras: int =
     from ``seed``."""
     root = os.path.abspath(root)
     os.makedirs(os.path.join(root, "samples"), exist_ok=True)
+    kw = dict(num_cameras=num_cameras, image_hw=image_hw, points_per_sweep=points_per_sweep,
+              num_sweeps=num_sweeps, point_cloud_range=point_cloud_range, num_gt=num_gt,
+              rig_seed=rig_seed, focal=focal)
+    if train_samples > 0:
+        _write_split(root, "train", f"synthetic_train_{seed + 1}", train_samples,
+                     seed=seed + 1, **kw)
+    return _write_split(root, "val", f"synthetic_{seed}", num_samples, seed=seed, **kw)
+
+
+def _write_split(root: str, split: str, prefix: str, num_samples: int, num_cameras: int,
+                 image_hw: Sequence[int], points_per_sweep: int, num_sweeps: int,
+                 point_cloud_range, num_gt: int, seed: int, rig_seed: int,
+                 focal: float) -> str:
+    """``write_synthetic_nuscenes``' samples of one split, their tokens
+    ``<prefix>_<i>``; returns the path of ``nuscenes_infos_<split>.pkl``."""
     H, W = image_hw
     pcr = np.asarray(point_cloud_range, np.float32)
     rng = np.random.RandomState(seed)
     base = camera_ring(num_cameras, (H, W), focal)
     infos = []
     for i in range(num_samples):
-        token = f"synthetic_{seed}_{i:04d}"
+        token = f"{prefix}_{i:04d}"
         rig = jittered_rig(base, rig_seed + i)
         timestamp = 1_530_000_000_000_000 + 500_000 * i  # 2 Hz keyframes, microseconds
         lidar_path = os.path.join(root, "samples", f"{token}_lidar.bin")
-        _scan(points_per_sweep, pcr, seed * 1000 + 100 * i).tofile(lidar_path)
+        keyframe = _scan(points_per_sweep, pcr, seed * 1000 + 100 * i)
+        keyframe.tofile(lidar_path)
         sweeps = []
         for j in range(1, num_sweeps + 1):
             path = os.path.join(root, "samples", f"{token}_sweep{j}.bin")
@@ -180,17 +206,24 @@ def write_synthetic_nuscenes(root: str, num_samples: int = 4, num_cameras: int =
             rng.uniform(0.6 * pcr[0], 0.6 * pcr[3], (num_gt, 2)), rng.uniform(-2, 0, (num_gt, 1)),
             rng.uniform(0.5, 4, (num_gt, 3)), rng.uniform(-np.pi, np.pi, (num_gt, 1))],
             -1).astype(np.float32)
+        names = np.array([CLASSES[k] for k in rng.randint(0, len(CLASSES), num_gt)])
+        velocity = rng.uniform(-3, 3, (num_gt, 2)).astype(np.float32)
+        num_pts = rng.randint(1, 200, num_gt)
+        if split == "train":  # each box around a keyframe point, so the GT database gets crops
+            near = np.flatnonzero((np.abs(keyframe[:, :2]) < 0.6 * pcr[3:5]).all(1))
+            at = keyframe[rng.choice(near, num_gt, replace=False), :3]
+            boxes[:, :2] = at[:, :2] + rng.uniform(-0.3, 0.3, (num_gt, 2))
+            boxes[:, 2] = at[:, 2] - rng.uniform(0.1, 0.5, num_gt)
+            num_pts = points_in_rbbox(keyframe, boxes).sum(0)
         infos.append({
             "token": token, "lidar_path": lidar_path, "sweeps": sweeps, "cams": cams,
             "timestamp": timestamp,
             "lidar2ego_translation": list(LIDAR2EGO_T), "lidar2ego_rotation": [1.0, 0, 0, 0],
             "ego2global_translation": [600.0 + 2.0 * i, 1600.0, 0.0],
             "ego2global_rotation": _yaw_quaternion(0.3 + 0.01 * i),
-            "gt_boxes": boxes,
-            "gt_names": np.array([CLASSES[k] for k in rng.randint(0, len(CLASSES), num_gt)]),
-            "gt_velocity": rng.uniform(-3, 3, (num_gt, 2)).astype(np.float32),
-            "num_lidar_pts": rng.randint(1, 200, num_gt), "valid_flag": np.ones(num_gt, bool)})
-    ann_file = os.path.join(root, "nuscenes_infos_val.pkl")
+            "gt_boxes": boxes, "gt_names": names, "gt_velocity": velocity,
+            "num_lidar_pts": num_pts, "valid_flag": np.ones(num_gt, bool)})
+    ann_file = os.path.join(root, f"nuscenes_infos_{split}.pkl")
     with open(ann_file, "wb") as f:
         pickle.dump({"infos": infos, "metadata": {"version": "v1.0-trainval"}}, f)
     return ann_file

@@ -11,7 +11,9 @@ The schedules give optax's numbers (``optax.join_schedules``,
 optimizer applies the JAX package's optax chain in its order:
 clip-by-global-norm -> Adam (beta1 per step from the momentum schedule)
 -> decoupled weight decay on every parameter -> learning rate -> lr
-multipliers. Schedules are plain functions of the step count.
+multipliers. Schedules are plain functions of the step count. The
+optimizer's state (``AdamW.state_dict``) holds the moments and the step
+count by parameter name, so a run resumes where it stopped.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from ..devices import resolve_device
 from ..models.layers import set_dropout_generator
 
 __all__ = ["build_lr_schedule", "build_momentum_schedule", "build_optimizer", "AdamW",
-           "make_train_step"]
+           "make_train_step", "step_seed"]
 
 Schedule = Callable[[int], float]
 
@@ -123,7 +125,9 @@ class AdamW:
 
     with n the 1-based step, ``b1_t`` from ``momentum_schedule`` (or
     ``b1``) and ``lr_t`` from ``lr_schedule`` at the 0-based step. Updates
-    in place with ``torch._foreach_*`` ops."""
+    in place with ``torch._foreach_*`` ops. ``state_dict`` /
+    ``load_state_dict`` carry ``mu``, ``nu`` (by parameter name) and
+    ``count``, the optax state's counterpart."""
 
     def __init__(self, params: Iterable[Tuple[str, torch.Tensor]], lr_schedule: Schedule,
                  weight_decay: float = 0.01, max_norm: Optional[float] = None,
@@ -145,6 +149,30 @@ class AdamW:
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
+
+    def state_dict(self) -> Dict[str, object]:
+        """``{"count": n, "mu": {name: tensor}, "nu": {name: tensor}}`` (the
+        tensors themselves, not copies)."""
+        return {"count": self.count, "mu": dict(zip(self.names, self.mu)),
+                "nu": dict(zip(self.names, self.nu))}
+
+    def load_state_dict(self, state: Dict[str, object]) -> None:
+        """Copy ``state`` (``state_dict``'s layout, on any device) into this
+        optimizer's moments; every parameter name must be there with its
+        shape, and no other (as ``load_state_dict(strict=True)``)."""
+        for key in ("mu", "nu"):
+            got = state[key]
+            if set(got) != set(self.names):
+                missing, unexpected = set(self.names) - set(got), set(got) - set(self.names)
+                raise KeyError(f"optimizer state {key}: missing {sorted(missing)[:5]}, "
+                               f"unexpected {sorted(unexpected)[:5]}")
+            with torch.no_grad():
+                for name, t in zip(self.names, getattr(self, key)):
+                    if got[name].shape != t.shape:
+                        raise ValueError(f"optimizer state {key}[{name}]: shape "
+                                         f"{tuple(got[name].shape)}, want {tuple(t.shape)}")
+                    t.copy_(got[name])
+        self.count = int(state["count"])
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -191,10 +219,19 @@ def build_optimizer(optimizer_cfg: dict, lr_schedule: Schedule, model: nn.Module
                  custom_keys=(cfg.get("paramwise_cfg") or {}).get("custom_keys"))
 
 
+def step_seed(seed: int, step: int) -> int:
+    """The dropout generator's seed at optimizer step ``step`` of a run
+    seeded with ``seed``."""
+    return seed * 2**32 + step
+
+
 def make_train_step(model: nn.Module, optimizer: AdamW, device="cuda", seed: int = 0):
     """One train step of ``model`` on ``device`` (the card unless the
     caller passes ``"cpu"``): the model goes to training mode, its dropout
-    and drop-path draw from a ``torch.Generator`` seeded with ``seed``.
+    and drop-path draw from a ``torch.Generator`` seeded before every step
+    with ``step_seed(seed, optimizer.count)``, as the JAX train CLI keys its
+    dropout with the step (``PRNGKey(state.step)``): a run resumed at step
+    n draws the masks that the uninterrupted run drew there.
 
     Returns ``step(batch, mark=None) -> logs``: forward (the loss dict),
     ``backward()`` of the sum of its ``loss/`` entries, the optimizer
@@ -204,9 +241,11 @@ def make_train_step(model: nn.Module, optimizer: AdamW, device="cuda", seed: int
     no counterpart: the port's rulebooks drop no neighbor pair."""
     dev = resolve_device(device)
     model.to(dev).train()
-    set_dropout_generator(model, torch.Generator(device=dev).manual_seed(seed))
+    generator = torch.Generator(device=dev)
+    set_dropout_generator(model, generator)
 
     def step(batch: Dict[str, torch.Tensor], mark: Optional[Callable[[str], None]] = None):
+        generator.manual_seed(step_seed(seed, optimizer.count))
         losses = model(batch)
         total = sum(v for k, v in losses.items() if k.startswith("loss/"))
         if mark:

@@ -139,6 +139,30 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
    finite; one loaded sample's heatmap / map logits within 2e-3 relative of
    the CPU model's; the host pipeline's ms a sample, the frame's ms on a
    loaded sample with TF32 off and on;
+11e. train-cli: the train entry point on files, TF32 on. A seeded
+   nuScenes-format set under build/train_cli_smoke/ (a train split of 3
+   samples with boxes around keyframe points, which CBGS makes 9, so 2
+   steps an epoch at B = 4; a val split of 2; six 900 x 1600 PNG cameras,
+   300,000 points a sample) and its GT database (``create_gt_database``); a
+   seeded TransFusion-L (voxelnet_0p075) checkpoint. Run A: the flagship
+   through ``bevfusion_tpu_torch.tools.train.main`` for 2 epochs at its
+   samples_per_gpu of 4 with ObjectPaste, ``--load-from`` the TransFusion-L
+   checkpoint (the keys left missing must be the camera branch's and the
+   fuser's), eval off (no devkit), both checkpoints kept, each holding
+   the optimizer state and {epoch, iter}; run B: resumed from A's
+   ``epoch_1``; A and B's final weights and optimizer moments compared and,
+   where they differ, run A' (A again): B's max|d| within 2x A''s and B
+   bit-equal wherever A' is; then the forward, the backward, the voxel
+   means' ``index_add_``, the pool's backward and a cuDNN conv's backward
+   each run twice on the same inputs, to name what is not deterministic;
+   last the fused seg config (fusion-bev256d2-lss) for 1 epoch with the
+   loop's per-epoch ``map`` eval (the map metrics' keys, finite). Every run's
+   launches equal the count the code predicts: a step 4 x (29 sparse conv,
+   15 weight gradient) and one BEV pool (the batch's intervals together),
+   a val frame 15 and 1; losses finite; ms a step (median, host clock
+   around a synchronised step), ms a step waiting on the loader, the
+   peak memory, the loss at the first and last step, the checkpoint's
+   size;
 12. the flagship's training step at full width, B = 1, host LUT, TF32 off,
    PyTorch's deterministic algorithms on (the card's own run-to-run noise
    would swamp the comparison), the heatmap head's last conv scaled by 0.2
@@ -196,8 +220,8 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
    families each with their ms, plain ms, bound, share and launches; every
    kernel's launches on the seg, det-camera and pillar paths; the NMS
    kernel's row after K1-K7; every kernel's launches in each train step of
-   phases 12 and 12b; their launches in each run of phase 11d), the seg,
-   det-camera, pillar, cli and train-config results
+   phases 12 and 12b; their launches in each run of phase 11d and of phase
+   11e), the seg, det-camera, pillar, cli, train-cli and train-config results
    and the script's total time, a line with the card's name and
    power limit as nvidia-smi prints them, then the last line
    ``{"ok": true, "device": {...}}``.
@@ -262,6 +286,9 @@ TOOL_ITERS = 5  # timed calls per op in the tools phase
 TOOLS_ABSENT = {"greedy_nms"}  # the tools drive the TransFusion flagship, which has no NMS
 SEG_BENCHMARK = "configs/nuscenes/seg/fusion-bev256d2-lss.yaml"  # the tools phase's second CLI run
 CLI_SAMPLES = 4  # samples of the synthesized nuScenes-format set of phase 11d
+TRAIN_CLI_SAMPLES = 3  # phase 11e's train split: CBGS makes 9 of them, 2 steps an epoch at B = 4
+TRAIN_CLI_VAL_SAMPLES = 2  # phase 11e's val split (the seg config's per-epoch eval)
+TRAIN_CLI_BATCH = 4  # the flagship's and the seg config's samples_per_gpu
 
 
 def check(ok: bool, what: str) -> None:
@@ -548,8 +575,8 @@ def sparse_kernel_phases(sp, kv, cases):
 
 
 def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
-    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a.view(torch.int16),
-                                                                      b.view(torch.int16))
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
 
 
 def tile_probe_checks(tm):
@@ -1303,6 +1330,311 @@ def cli_phase(counters, smi):
     return res
 
 
+RESUME_PARTS = ("parameters", "buffers", "mu", "nu")
+
+
+def checkpoint_gaps(path_a: str, path_b: str):
+    """Two train checkpoints side by side, in four parts: the trainable
+    parameters (the state dict's entries the optimizer holds moments for),
+    the buffers (BatchNorm statistics) and AdamW's ``mu`` and ``nu``. Returns
+    ({part: {"max": the largest relative gap of a tensor, max|a - b| /
+    max(|a|, |b|), "tensor": the tensor that holds it, "norm": the part's
+    |a - b| / |a| over all its tensors, "abs": the largest |a - b|,
+    "abs_tensor": its tensor}}, the names of the tensors that are
+    bit-equal, the number of tensors). The optimizer's step counts must
+    agree."""
+    a, b = (torch.load(p, map_location="cpu", weights_only=False) for p in (path_a, path_b))
+    check(a["optimizer"]["count"] == b["optimizer"]["count"] and a["meta"] == b["meta"],
+          f"train-cli: {path_a} and {path_b} stand at other steps")
+    params = set(a["optimizer"]["mu"])
+    pairs = [("parameters" if k in params else "buffers", f"state_dict.{k}", v,
+              b["state_dict"][k]) for k, v in a["state_dict"].items()]
+    pairs += [(m, f"{m}.{k}", v, b["optimizer"][m][k]) for m in ("mu", "nu")
+              for k, v in a["optimizer"][m].items()]
+    gaps = {part: {"max": 0.0, "tensor": None, "abs": 0.0, "abs_tensor": None}
+            for part in RESUME_PARTS}
+    sq = {part: [0.0, 0.0] for part in RESUME_PARTS}  # sum (a - b)^2, sum a^2
+    equal = set()
+    for part, name, x, y in pairs:
+        x, y = x.double(), y.double()
+        sq[part][1] += x.square().sum().item()
+        if bits_equal(x, y):
+            equal.add(name)
+            continue
+        d = x - y
+        sq[part][0] += d.square().sum().item()
+        absd = d.abs().max().item()
+        rel = absd / torch.maximum(x.abs().max(), y.abs().max()).item()
+        if rel > gaps[part]["max"]:
+            gaps[part].update(max=rel, tensor=name)
+        if absd > gaps[part]["abs"]:
+            gaps[part].update(abs=absd, abs_tensor=name)
+    for part, (num, den) in sq.items():
+        gaps[part]["norm"] = math.sqrt(num / den) if den > 0 else 0.0
+    return gaps, equal, len(pairs)
+
+
+def resume_holds(gaps_b, equal_b, gaps_a2, equal_a2) -> bool:
+    """The resume gate: in every part, B's gaps to A (the largest of a
+    tensor and the part's norm) within 2x those of a second uninterrupted
+    run A', and B bit-equal wherever A' is."""
+    return (all(gaps_b[p][k] <= 2 * gaps_a2[p][k] for p in RESUME_PARTS
+                for k in ("max", "norm")) and equal_a2 <= equal_b)
+
+
+def gaps_text(gaps) -> str:
+    return "; ".join(f"{p} max {g['max']:.3e} ({g['tensor']}), norm "
+                     f"{g['norm']:.3e}, max|d| {g['abs']:.3e} ({g['abs_tensor']})"
+                     for p, g in gaps.items())
+
+
+def nondeterministic_ops(model, np_batch, bp):
+    """Which ops of the flagship's train step give other bits on the same
+    inputs, each run twice on the card: the whole forward (the loss dict),
+    the backward (every parameter's gradient), and the ops that sum with
+    atomics or may: the voxel means' ``index_add_`` (ops/voxelize.py), the
+    BEV pool's backward (ops/bev_pool.py:bev_pool_backward, ``index_add_``),
+    and cuDNN's backward of the decoder's first conv. Returns {op: True
+    where the two runs differ}, and the count of gradients that differ."""
+    from bevfusion_tpu_torch.models.layers import set_dropout_generator
+    from bevfusion_tpu_torch.models.vtransforms import build_pool_lut
+    from bevfusion_tpu_torch.runtime.eval import to_model_batch
+
+    batch = to_model_batch(np_batch, DEVICE)
+    model.train()
+    passes = []
+    for _ in range(2):
+        set_dropout_generator(model, torch.Generator(device=DEVICE).manual_seed(0))
+        model.zero_grad(set_to_none=True)
+        losses = model(batch)
+        sum(v for k, v in losses.items() if k.startswith("loss/")).backward()
+        passes.append(({k: v.detach() for k, v in losses.items()},
+                       {n: p.grad.clone() for n, p in model.named_parameters()
+                        if p.grad is not None}))
+    (l0, g0), (l1, g1) = passes
+    out = {"forward (the loss dict)": any(not bits_equal(l0[k], l1[k]) for k in l0)}
+    differ = sum(not bits_equal(g0[n], g1[n]) for n in g0)
+    out["backward (the gradients)"] = differ > 0
+    with torch.no_grad():
+        vox = [model.lidar_voxelize(batch["points"], batch["points_mask"], training=True).feats
+               for _ in range(2)]
+    out["index_add_ of the voxel means (ops/voxelize.py)"] = not bits_equal(*vox)
+    vt = model.encoders["camera"]["vtransform"]
+    lut = build_pool_lut(vt.frustum, vt.dx, vt.bx, vt.nx, batch)
+    iv = bp.PoolIntervals(*(lut[k] for k in bp.PoolIntervals._fields))
+    X, Y, Z = vt.nx
+    g = torch.Generator(device=DEVICE).manual_seed(2)
+    B, N = batch["img"].shape[:2]
+    fH, fW = vt.frustum.shape[1:3]
+    depth = torch.randn(B, N, vt.D, fH, fW, generator=g, device=DEVICE).softmax(2)
+    ctx = torch.randn(B, N, fH, fW, vt.C, generator=g, device=DEVICE)
+    gout = torch.randn(B, Z * vt.C, X, Y, generator=g, device=DEVICE)
+    grads = [bp.bev_pool_backward(depth, ctx, iv, gout, Z, X, Y) for _ in range(2)]
+    out["bev_pool_backward's index_add_ (ops/bev_pool.py)"] = not all(
+        bits_equal(a, b) for a, b in zip(*grads))
+    conv = next(m for m in model.decoder["backbone"].modules()
+                if isinstance(m, torch.nn.Conv2d))
+    x = torch.randn(B, conv.in_channels, X // 2, Y // 2, generator=g, device=DEVICE)
+    dy = torch.randn(conv(x).shape, generator=g, device=DEVICE)
+    conv_grads = [torch.autograd.grad(conv(x.requires_grad_()), (x, conv.weight), dy)
+                  for _ in range(2)]
+    out["cuDNN conv2d backward (decoder.backbone's first conv)"] = not all(
+        bits_equal(a, b) for a, b in zip(*conv_grads))
+    model.zero_grad(set_to_none=True)
+    return out, differ
+
+
+def train_cli_phase(counters, smi, bp):
+    """Phase 11e: the train entry point on files. A seeded nuScenes-format
+    set under build/train_cli_smoke/ (``write_synthetic_nuscenes`` with a
+    train split of ``TRAIN_CLI_SAMPLES``, boxes around keyframe points) and
+    its GT database (``create_gt_database``); a seeded TransFusion-L
+    (voxelnet_0p075) checkpoint. Run A: the flagship through
+    ``tools/train.py``'s ``main`` for 2 epochs at its samples_per_gpu (4),
+    ``--load-from`` the TransFusion-L checkpoint (the fused recipe), eval
+    off (no devkit), both epochs' checkpoints kept; run B: resumed from A's
+    ``epoch_1``; A and B's final state compared (``checkpoint_gaps``: the
+    parameters, the buffers, ``mu`` and ``nu`` apart), and where they differ
+    run A' (A again) and C (resumed from ``epoch_1`` with the moments
+    zeroed): in every part B's gap within 2x A''s and B bit-equal wherever
+    A' is, C refused by the same gate, and the ops that give other bits on
+    the same inputs named (``nondeterministic_ops``). Then the fused seg
+    config for 1 epoch with its per-epoch ``map`` eval. Each run's launches
+    against ``_SPARSE_STEP`` x the batch + one pool a step (+ ``POOL_LAUNCHES``
+    / 15 sparse convs a val sample for the seg eval), and the matcher's calls
+    timed (``timed_auction``), TF32 on. Returns the results."""
+    from bevfusion_tpu_torch.config import load_config
+    from bevfusion_tpu_torch.data import DataLoader, build_dataset
+    from bevfusion_tpu_torch.data.converter import create_gt_database
+    from bevfusion_tpu_torch.data.synthetic import CLASSES, write_synthetic_nuscenes
+    from bevfusion_tpu_torch.models import build_model
+    from bevfusion_tpu_torch.runtime.checkpoint import restore_checkpoint, save_checkpoint
+    from bevfusion_tpu_torch.runtime.flagship import (FLAGSHIP_CONFIG, LIDAR_SLICE_CONFIG,
+                                                      SEG_CONFIGS, init_weights)
+    from bevfusion_tpu_torch.tools import train as train_cli
+    from bevfusion_tpu_torch.tools.bench_train_step import timed_auction
+
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "train_cli_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_synthetic_nuscenes(root, num_samples=TRAIN_CLI_VAL_SAMPLES, seed=0,
+                             train_samples=TRAIN_CLI_SAMPLES)
+    create_gt_database(root, os.path.join(root, "nuscenes_infos_train.pkl"), CLASSES)
+    res = {"write_s": time.perf_counter() - t0}
+    lidar = os.path.join(root, "ckpt", "transfusion_l.pth")
+    save_checkpoint(lidar, init_weights(build_model(load_config(LIDAR_SLICE_CONFIG).model, "cpu"),
+                                        seed=0))
+    common = ["--device", DEVICE, f"dataset_root={root}/", "max_epochs=2",
+              "evaluation.disable=true", "checkpoint.max_keep=2"]
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+
+    def run(name, argv, per_step, per_val=None):
+        """``tools/train.py``'s main on ``argv``, the counts set to 0 just
+        before and read just after; the launches against ``per_step`` x its
+        steps (+ ``per_val`` x the val samples evaluated)."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(counters)
+        t = time.perf_counter()
+        auctions = []
+        with timed_auction(auctions, DEVICE):
+            out = train_cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches = {k: c.launches for k, c in counters.items()}
+        steps = len(out["history"])
+        evals = len(out["eval"]) * TRAIN_CLI_VAL_SAMPLES
+        want = {k: per_step.get(k, 0) * steps + (per_val or {}).get(k, 0) * evals
+                for k in counters}
+        check(launches == want, f"train-cli {name}: launches {launches}, want {want} "
+              f"({steps} steps, {evals} val samples)")
+        losses = [h["loss"] for h in out["history"]]
+        check(steps > 0 and all(math.isfinite(v) for v in losses),
+              f"train-cli {name}: losses {losses}")
+        r = {"launches": launches, "launches_want": want, "steps": steps,
+             "steps_per_epoch": out["steps_per_epoch"], "start_epoch": out["start_epoch"],
+             "step_ms_median": statistics.median(h["step_ms"] for h in out["history"]),
+             "wait_ms_median": statistics.median(h["wait_ms"] for h in out["history"]),
+             "step_ms": [h["step_ms"] for h in out["history"]],
+             "wait_ms": [h["wait_ms"] for h in out["history"]],
+             "loss_first": losses[0], "loss_last": losses[-1],
+             "peak_mem_bytes_own": torch.cuda.max_memory_allocated() - resident,
+             "checkpoint_bytes": os.path.getsize(out["checkpoints"][-1]),
+             "eval": out["eval"], "seconds": seconds,
+             "auction_ms": [ms for ms, _, _ in auctions],
+             "auction_assigned": [[a, v] for _, a, v in auctions]}
+        print(f"train-cli {name}: {steps} steps ({out['steps_per_epoch']} an epoch, from epoch "
+              f"{out['start_epoch']}) in {seconds:.1f} s; median {r['step_ms_median']:.1f} ms a "
+              f"step (TF32 on), {r['wait_ms_median']:.1f} ms a step waiting on the loader; loss "
+              f"{r['loss_first']:.4f} -> {r['loss_last']:.4f}; peak "
+              f"{r['peak_mem_bytes_own'] / 2**20:.1f} MiB; checkpoint "
+              f"{r['checkpoint_bytes'] / 2**20:.1f} MiB; launches {launches} (want {want}); {smi}")
+        if auctions:
+            ms = r["auction_ms"]
+            print(f"train-cli {name}: the matcher {len(ms)} calls ({len(ms) / steps:g} a step), "
+                  f"median {statistics.median(ms):.1f} ms a call (min {min(ms):.1f}, max "
+                  f"{max(ms):.1f}), {sum(ms) / steps:.1f} ms a step, "
+                  f"{sum(ms) / sum(r['step_ms']):.1%} of the steps' time; rows assigned / valid "
+                  f"a call {r['auction_assigned']}")
+        return r, out
+
+    per_step = {k: v * TRAIN_CLI_BATCH for k, v in _SPARSE_STEP.items()}
+    per_step["bev_pool"] = POOL_LAUNCHES  # one pool a step: the batch's intervals together
+    run_a = os.path.join(root, "runs", "a")
+    res["a"], out_a = run("A (flagship, 2 epochs, load_from TransFusion-L)",
+                          [FLAGSHIP_CONFIG, "--run-dir", run_a, "--load-from", lidar, *common],
+                          per_step)
+    prefixes = {".".join(k.split(".")[:2]) for k in out_a["missing_keys"]}
+    check(prefixes == {"encoders.camera", "fuser.0", "fuser.1"} and not out_a["unexpected_keys"],
+          f"train-cli A: load_from left {sorted(prefixes)} missing, "
+          f"{out_a['unexpected_keys'][:3]} unexpected")
+    res["a"]["missing_keys"] = len(out_a["missing_keys"])
+    for epoch in (1, 2):
+        ckpt = torch.load(os.path.join(run_a, f"epoch_{epoch}"), map_location="cpu",
+                          weights_only=False)
+        check(ckpt["meta"] == {"epoch": epoch, "iter": epoch * out_a["steps_per_epoch"]}
+              and ckpt["optimizer"]["count"] == epoch * out_a["steps_per_epoch"],
+              f"train-cli A: epoch_{epoch} holds {ckpt['meta']}")
+        del ckpt
+    run_b = os.path.join(root, "runs", "b")
+    res["b"], _ = run("B (resumed from A's epoch_1)",
+                      [FLAGSHIP_CONFIG, "--run-dir", run_b, "--resume-from",
+                       os.path.join(run_a, "epoch_1"), *common], per_step)
+    check(res["b"]["start_epoch"] == 1, f"train-cli B: started at epoch {res['b']['start_epoch']}")
+    gaps_b, equal_b, n = checkpoint_gaps(os.path.join(run_a, "epoch_2"),
+                                         os.path.join(run_b, "epoch_2"))
+    res["resume"] = {"gaps_b": gaps_b, "bit_equal_b": len(equal_b), "tensors": n}
+    if len(equal_b) == n:
+        print(f"train-cli resume: B's final weights, buffers and optimizer moments equal A's bit "
+              f"for bit ({n} tensors)")
+    else:
+        run_a2 = os.path.join(root, "runs", "a2")
+        res["a2"], _ = run("A' (A again)", [FLAGSHIP_CONFIG, "--run-dir", run_a2, "--load-from",
+                                            lidar, *common], per_step)
+        gaps_a2, equal_a2, _ = checkpoint_gaps(os.path.join(run_a, "epoch_2"),
+                                               os.path.join(run_a2, "epoch_2"))
+        # the gate's control: a resume that keeps the weights and the step count but
+        # loses AdamW's moments must be refused
+        lost = torch.load(os.path.join(run_a, "epoch_1"), map_location="cpu", weights_only=False)
+        for m in ("mu", "nu"):
+            lost["optimizer"][m] = {k: torch.zeros_like(v) for k, v in lost["optimizer"][m].items()}
+        lost_path = os.path.join(root, "ckpt", "epoch_1_moments_lost")
+        torch.save(lost, lost_path)
+        del lost
+        run_c = os.path.join(root, "runs", "c")
+        res["c"], _ = run("C (resumed from A's epoch_1 with the moments zeroed)",
+                          [FLAGSHIP_CONFIG, "--run-dir", run_c, "--resume-from", lost_path,
+                           *common], per_step)
+        gaps_c, equal_c, _ = checkpoint_gaps(os.path.join(run_a, "epoch_2"),
+                                             os.path.join(run_c, "epoch_2"))
+        cfg = load_config(FLAGSHIP_CONFIG, overrides={"dataset_root": root + "/"})
+        model = build_model(cfg.model, DEVICE)
+        restore_checkpoint(os.path.join(run_a, "epoch_2"), model)
+        np_batch = next(iter(DataLoader(build_dataset(cfg.data.train), TRAIN_CLI_BATCH,
+                                        num_workers=2)))
+        np_batch.pop("metas", None)
+        ops, grads_differ = nondeterministic_ops(model, np_batch, bp)
+        del model
+        res["resume"].update(gaps_a2=gaps_a2, bit_equal_a2=len(equal_a2), gaps_c=gaps_c,
+                             bit_equal_c=len(equal_c), ops=ops, gradients_differ=grads_differ)
+        print(f"train-cli resume, each part's gaps to A's final state (the largest relative "
+              f"gap of a tensor and the tensor, the part's relative gap in norm, the largest "
+              f"absolute gap and its tensor): B {gaps_text(gaps_b)}; {len(equal_b)} of {n} "
+              f"tensors bit-equal")
+        print(f"train-cli resume: A' {gaps_text(gaps_a2)}; {len(equal_a2)} bit-equal")
+        print(f"train-cli resume: C (moments lost) {gaps_text(gaps_c)}; {len(equal_c)} bit-equal")
+        print(f"train-cli resume: on the same inputs twice: {grads_differ} gradients differ; "
+              + "; ".join(f"{op}: {'differs' if d else 'bit-equal'}" for op, d in ops.items()))
+        check(resume_holds(gaps_b, equal_b, gaps_a2, equal_a2),
+              f"train-cli resume: B {gaps_text(gaps_b)} against 2x A' {gaps_text(gaps_a2)}; "
+              f"bit-equal in A' but not in B: {sorted(equal_a2 - equal_b)[:5]}")
+        check(not resume_holds(gaps_c, equal_c, gaps_a2, equal_a2),
+              f"train-cli resume: the gate passed C, a resume that lost the moments: "
+              f"{gaps_text(gaps_c)}")
+    torch.cuda.empty_cache()
+
+    # the fused seg config: 1 epoch and its per-epoch map eval, inside the loop
+    path = SEG_CONFIGS["fusion-bev256d2-lss"]
+    res["seg"], out_seg = run(
+        "seg fusion-bev256d2-lss (1 epoch + map eval)",
+        [path, "--run-dir", os.path.join(root, "runs", "seg"), "--device", DEVICE,
+         f"dataset_root={root}/", "max_epochs=1"], per_step,
+        {"sparse_conv": SPARSE_LAUNCHES, "bev_pool": POOL_LAUNCHES})
+    want_keys = {f"map/{c}/iou@max" for c in load_config(path).data.val.map_classes} | {
+        "map/mean/iou@max"}
+    metrics = out_seg["eval"].get(1)
+    check(metrics is not None and set(metrics) == want_keys
+          and all(math.isfinite(v) for v in metrics.values()),
+          f"train-cli seg: the loop's eval gave {metrics}")
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    shutil.rmtree(root, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
 def summary(name, source, replaces, launches, shapes, extra_err=(), library_ms=None):
     """One kernel's entry of the JSON line: times and bounds summed over
     its shapes, the largest error, the limit of the largest bound."""
@@ -1738,6 +2070,14 @@ def main() -> int:
           f"host pipeline {cli['flagship']['pipeline_ms_per_sample']:.1f} ms a sample, "
           f"{cli['flagship']['frame_ms_median_tf32']:.2f} ms a loaded flagship frame (TF32 on)")
 
+    # 11e. the train entry point on files: the flagship 2 epochs at B=4, resumed; the seg config
+    t0 = time.perf_counter()
+    train_cli = train_cli_phase(all_counters, smi, bp)
+    train_cli_s = time.perf_counter() - t0
+    runs = "A, B, A', C" if "a2" in train_cli else "A, B"
+    print(f"train-cli: the synthesized set and its GT database ({train_cli['write_s']:.1f} s), "
+          f"runs {runs} of the flagship and the seg config's epoch in {train_cli_s:.1f} s")
+
     # 12. the flagship's training step, B=1, host LUT, TF32 off: kernels vs plain
     cfg, model, batch = build_flagship("cuda", num_points=120000, seed=0, training=True)
     prepare_train_model(model, batch)
@@ -1832,6 +2172,8 @@ def main() -> int:
         k["launches_pillar"] = {name: pillar[name]["launches"][k["name"]]
                                 for name in ("pointpillars", "camera+radar")}
         k["launches_cli"] = {name: cli[name]["launches"][k["name"]] for name in ("flagship", "seg")}
+        k["launches_train_cli"] = {name: train_cli[name]["launches"][k["name"]]
+                                   for name in ("a", "b", "a2", "c", "seg") if name in train_cli}
         k["launches_train"] = {"flagship": parity["launches"][k["name"]],
                                **{name: r["launches"][k["name"]] for name, r in train_cfgs.items()}}
     print(json.dumps({
@@ -1844,6 +2186,7 @@ def main() -> int:
         "det_camera": dict(det, seconds=det_s),
         "pillar": dict(pillar, seconds=pillar_s),
         "cli": dict(cli, seconds=cli_s),
+        "train_cli": dict(train_cli, seconds=train_cli_s),
         "train": {"parity_tf32_off": parity, "steps_tf32_on": steps},
         "train_configs": dict(train_cfgs, seconds=train_cfgs_s),
         "tools": {k: v for k, v in tools.items() if k not in ("copy", "gathers")},

@@ -3,6 +3,9 @@ import jax
 import numpy as np
 
 from bevfusion_tpu.models import build_model as jax_build_model
+from bevfusion_tpu.registry import PIPELINES as JAX_PIPELINES
+from bevfusion_tpu_torch.data import synthetic
+from bevfusion_tpu_torch.registry import PIPELINES
 from bevfusion_tpu_torch.runtime.bridge import jax_to_torch_state_dict
 from tests.test_bevfusion_model import make_batch, tiny_fused_config
 
@@ -107,3 +110,67 @@ def boundary_margin(frustum, dx, bx, nx, mats):
     q = (pts - (np.asarray(bx, f8) - np.asarray(dx, f8) / 2)) / np.asarray(dx, f8)
     near = ((q >= -1) & (q <= np.asarray(nx, f8) + 1)).all(-1)
     return float((np.abs(q - np.round(q)) * np.asarray(dx, f8))[near].min())
+
+
+# ---------------------------------------------------------------- the tiny models from files
+# (tests/test_torch_eval.py, tests/test_torch_train_cli*.py; registered here, in a module
+# that pytest never collects, so it is imported once per process)
+
+EVAL_RIG_SEED = 1  # a jitter whose frustum points all keep >= 1e-4 m from cell boundaries
+PCR = [-16.0, -16.0, -4.0, 16.0, 16.0, 4.0]
+MAP_CLASSES = ["drivable_area", "divider"]
+MATS = ["camera_intrinsics", "camera2ego", "lidar2ego", "lidar2camera", "camera2lidar",
+        "lidar2image", "img_aug_matrix", "lidar_aug_matrix"]
+
+
+class PointMasksBEV:
+    """Test-only map targets on the tiny map head's 16 x 16 grid of 1 m:
+    class 0 where a point falls, class 1 where a box centre does."""
+
+    def __call__(self, data):
+        masks = np.zeros((2, 16, 16), np.float32)
+        for k, xy in enumerate((data["points"].tensor[:, :2], data["gt_bboxes_3d"].tensor[:, :2])):
+            ij = np.floor(xy + 8).astype(int)
+            ok = ((ij >= 0) & (ij < 16)).all(1)
+            masks[k, ij[ok, 0], ij[ok, 1]] = 1.0
+        data["gt_masks_bev"] = masks
+        return data
+
+
+PIPELINES.register(PointMasksBEV)
+JAX_PIPELINES.register()(PointMasksBEV)
+
+
+def tiny_config(head):
+    """The tiny fused model with ``head`` and a test pipeline at its sizes
+    (the nuScenes pipeline's steps), the dataset under ``dataset_root``."""
+    return {
+        "dataset_root": "data/nuscenes/", "point_cloud_range": PCR,
+        "model": tiny_fused_config(head=head),
+        "test_pipeline": [
+            {"type": "LoadMultiViewImageFromFiles", "to_float32": True},
+            {"type": "LoadPointsFromFile", "coord_type": "LIDAR", "load_dim": 5, "use_dim": 5},
+            {"type": "LoadPointsFromMultiSweeps", "sweeps_num": 9, "load_dim": 5, "use_dim": 5,
+             "pad_empty_sweeps": True, "remove_close": True},
+            {"type": "LoadAnnotations3D", "with_bbox_3d": True, "with_label_3d": True},
+            {"type": "ImageAug3D", "final_dim": [32, 64], "resize_lim": [0.5, 0.5],
+             "bot_pct_lim": [0.0, 0.0], "rot_lim": [0.0, 0.0], "rand_flip": False,
+             "is_train": False},
+            {"type": "GlobalRotScaleTrans", "resize_lim": [1.0, 1.0], "rot_lim": [0.0, 0.0],
+             "trans_lim": 0.0, "is_train": False},
+            {"type": "LoadBEVSegmentation", "dataset_root": "${dataset_root}",
+             "xbound": [-8.0, 8.0, 1.0], "ybound": [-8.0, 8.0, 1.0], "classes": MAP_CLASSES},
+            {"type": "PointsRangeFilter", "point_cloud_range": "${point_cloud_range}"},
+            {"type": "PointMasksBEV"},
+            {"type": "ImageNormalize", "mean": [0.485, 0.456, 0.406],
+             "std": [0.229, 0.224, 0.225]},
+            {"type": "PadBatch", "max_points": 512, "max_gt_boxes": 8},
+            {"type": "Collect3D", "keys": ["img", "points", "gt_bboxes_3d", "gt_labels_3d",
+                                           "gt_masks_bev"], "meta_keys": MATS}],
+        "data": {"test": {
+            "type": "NuScenesDataset", "dataset_root": "${dataset_root}",
+            "ann_file": "${dataset_root + 'nuscenes_infos_val.pkl'}",
+            "pipeline": "${test_pipeline}",
+            "object_classes": list(synthetic.CLASSES), "map_classes": MAP_CLASSES,
+            "modality": {"use_camera": True, "use_lidar": True}, "test_mode": True}},
+    }
