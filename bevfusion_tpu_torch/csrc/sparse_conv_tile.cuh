@@ -1,6 +1,7 @@
 // The loop of the sparse-conv gather-GEMM kernel (K1/K2; the design note is
-// in sparse_conv.cu): its shared-memory layout, its 3xTF32 tile product and
-// the kernel, with a compile-time mode. sparse_conv.cu instantiates the
+// in sparse_conv.cu): its shared-memory layout, the tile's prologue (which
+// the bf16 form in sparse_conv.cu shares), its 3xTF32 tile product and the
+// kernel, with a compile-time mode. sparse_conv.cu instantiates the
 // production mode (kTileConv) only; sparse_conv_variants.cu instantiates the
 // others, K7's tensor-core family, each of which runs the same prologue,
 // cp.async ring, 64-site blocks of 4 warps and mma.sync tiles with one part
@@ -131,6 +132,64 @@ __device__ __forceinline__ void mma_stage(const float* stage, float (&acc)[COUT_
   }
 }
 
+// The prologue of a 64-site tile, which every mode and the bf16 form in
+// sparse_conv.cu share: the tile's neighbor rows into nbr_s [K][kTile] (-1
+// for a miss or a row >= cap_in; kTileNoGather: a hit reads the site's own
+// row), one hit bit per (offset, site) into mask_s [K][kTile / 32], a
+// barrier, then this warp's list `act` of the offsets any site of the tile
+// hits, in order (every offset for kTileNoSkip); returns its length. A warp
+// covers 32 sites of one offset; kLoads loads in flight a thread.
+template <int MODE, int kThreads>
+__device__ __forceinline__ int tile_prologue(const int* nbr, int cap_in, int cap_out, int K,
+                                             int row0, int* nbr_s, uint32_t* mask_s, int* act,
+                                             int tid, int lane) {
+  constexpr int kWords = kTile / 32, kLoads = 4;
+  for (int e0 = tid; e0 < K * kTile; e0 += kLoads * kThreads) {
+    int src[kLoads];
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j) {
+      const int e = e0 + j * kThreads, row = row0 + e % kTile;
+      src[j] = e < K * kTile && row < cap_out
+                   ? __ldg(nbr + static_cast<size_t>(e / kTile) * cap_out + row)
+                   : -1;
+    }
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j) {
+      const int e = e0 + j * kThreads;
+      if (e >= K * kTile) break;  // the same for the whole warp
+      int v = src[j] < 0 || src[j] >= cap_in ? -1 : src[j];
+      if constexpr (MODE == kTileNoGather) {  // a hit reads the site's own row
+        const int row = row0 + e % kTile;
+        if (v >= 0) v = row < cap_in ? row : -1;
+      }
+      nbr_s[e] = v;
+      const uint32_t hits = __ballot_sync(0xffffffffu, v >= 0);
+      if (lane == 0) mask_s[e / 32] = hits;
+    }
+  }
+  __syncthreads();
+
+  int n_act = 0;
+  if constexpr (MODE == kTileNoSkip) {  // every offset
+    for (int k = lane; k < K; k += 32) act[k] = k;
+    n_act = K;
+  } else {
+    for (int base = 0; base < K; base += 32) {
+      const int k = base + lane;
+      uint32_t any = 0;
+      if (k < K) {
+#pragma unroll
+        for (int j = 0; j < kWords; ++j) any |= mask_s[k * kWords + j];
+      }
+      const uint32_t b = __ballot_sync(0xffffffffu, any != 0);
+      if (any) act[n_act + __popc(b & ((1u << lane) - 1u))] = k;
+      n_act += __popc(b);
+    }
+  }
+  __syncwarp();
+  return n_act;
+}
+
 template <int MODE, int CIN_PAD, int COUT_PAD>
 __global__ void __launch_bounds__(Layout<CIN_PAD, COUT_PAD>::kThreads)
     sparse_conv_tc_kernel(const Params p) {
@@ -154,52 +213,9 @@ __global__ void __launch_bounds__(Layout<CIN_PAD, COUT_PAD>::kThreads)
     for (int e = tid; e < S * L::kStage / 4; e += kThreads)
       r4[e] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  // the tile's neighbor rows, and one hit bit per (offset, site); a warp
-  // covers 32 sites of one offset; kLoads loads in flight a thread
-  constexpr int kLoads = 4;
-  for (int e0 = tid; e0 < K * kTile; e0 += kLoads * kThreads) {
-    int src[kLoads];
-#pragma unroll
-    for (int j = 0; j < kLoads; ++j) {
-      const int e = e0 + j * kThreads, row = row0 + e % kTile;
-      src[j] = e < K * kTile && row < p.cap_out
-                   ? __ldg(p.nbr + static_cast<size_t>(e / kTile) * p.cap_out + row)
-                   : -1;
-    }
-#pragma unroll
-    for (int j = 0; j < kLoads; ++j) {
-      const int e = e0 + j * kThreads;
-      if (e >= K * kTile) break;  // the same for the whole warp
-      int v = src[j] < 0 || src[j] >= p.cap_in ? -1 : src[j];
-      if constexpr (MODE == kTileNoGather) {  // a hit reads the site's own row
-        const int row = row0 + e % kTile;
-        if (v >= 0) v = row < p.cap_in ? row : -1;
-      }
-      nbr_s[e] = v;
-      const uint32_t hits = __ballot_sync(0xffffffffu, v >= 0);
-      if (lane == 0) mask_s[e / 32] = hits;
-    }
-  }
-  __syncthreads();
-
-  int n_act = 0;  // the offsets any site of the tile hits, in order
-  if constexpr (MODE == kTileNoSkip) {  // every offset
-    for (int k = lane; k < K; k += 32) act[k] = k;
-    n_act = K;
-  } else {
-    for (int base = 0; base < K; base += 32) {
-      const int k = base + lane;
-      uint32_t any = 0;
-      if (k < K) {
-#pragma unroll
-        for (int j = 0; j < kWords; ++j) any |= mask_s[k * kWords + j];
-      }
-      const uint32_t b = __ballot_sync(0xffffffffu, any != 0);
-      if (any) act[n_act + __popc(b & ((1u << lane) - 1u))] = k;
-      n_act += __popc(b);
-    }
-  }
-  __syncwarp();
+  // the offsets any site of the tile hits, in order
+  const int n_act = tile_prologue<MODE, kThreads>(p.nbr, p.cap_in, p.cap_out, K, row0, nbr_s,
+                                                  mask_s, act, tid, lane);
 
   // active offset i -> stage i % S: its gathered rows and W[k]
   auto fetch = [&](int i) {

@@ -22,6 +22,13 @@ returns the loss dict: ``loss/<head>/<name>`` scaled by ``loss_scale[head]``,
 ``stats/object/matched_ious`` (TransFusion) and, where a depth-supervised
 vtransform (``AwareBEVDepth``, ``AwareDBEVDepth``) gets the batch's
 ``depths``, its unscaled ``loss/depth``.
+
+``compute_dtype`` (``build_model(..., dtype=)``; fp32 by default) is the
+JAX model's ``dtype``: at bf16 the branches, the fuser, the decoder and
+the heads' networks run under ``runtime/precision.py:autocast`` (images,
+voxel features and point tables cast to bf16 on the way in, as the JAX
+package casts them), and the decode and the losses run outside it on fp32
+predictions.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ import torch.nn as nn
 
 from ..ops.voxelize import Voxelization
 from ..registry import BACKBONES, FUSERS, FUSIONMODELS, HEADS, NECKS, VTRANSFORMS
+from ..runtime import precision
 from ..utils.profiler import untimed
 from .bevdepth import AwareBEVDepth
 
@@ -41,6 +49,8 @@ POINT_KEYS = {"lidar": "points", "radar": "radar"}  # each point branch's batch 
 
 @FUSIONMODELS.register
 class BEVFusion(nn.Module):
+    compute_dtype = torch.float32  # build_model sets the config's
+
     def __init__(self, encoders: Dict[str, Any], decoder: Dict[str, Any],
                  heads: Dict[str, Any], fuser: Optional[Dict[str, Any]] = None,
                  loss_scale: Optional[Dict[str, float]] = None):
@@ -90,7 +100,7 @@ class BEVFusion(nn.Module):
         bevfusion.py:116-121)."""
         cam = self.encoders["camera"]
         pts = POINT_KEYS[getattr(cam["vtransform"], "use_points", "lidar")]
-        img = batch["img"]
+        img = precision.to_compute(batch["img"], self.compute_dtype)
         B, N = img.shape[:2]
         feats = timed("camera/backbone",
                       lambda: cam["backbone"](img.reshape(B * N, *img.shape[2:])))
@@ -116,10 +126,11 @@ class BEVFusion(nn.Module):
         vox = timed(f"{name}/voxelize",
                     lambda: voxelize(points, points_mask, training=self.training))
         backbone = self.encoders[name]["backbone"]
+        feats = precision.to_compute(vox.feats, self.compute_dtype)
         if voxelize.reduce is None:
-            return timed(f"{name}/encoder", lambda: backbone(vox.feats, vox.coords, vox.mask,
+            return timed(f"{name}/encoder", lambda: backbone(feats, vox.coords, vox.mask,
                                                              vox.num_points))
-        return timed(f"{name}/sparse_encoder", lambda: backbone(vox.feats, vox.coords, vox.mask))
+        return timed(f"{name}/sparse_encoder", lambda: backbone(feats, vox.coords, vox.mask))
 
     def bev_features(self, batch: Dict[str, Any], timed=untimed,
                      aux: Optional[Dict[str, torch.Tensor]] = None) -> List[torch.Tensor]:
@@ -139,10 +150,19 @@ class BEVFusion(nn.Module):
         x = timed("decoder/neck", lambda: self.decoder["neck"](x))
         return list(x) if isinstance(x, (list, tuple)) else [x]
 
+    def autocast(self, batch: Dict[str, Any]):
+        """The forward's autocast (``runtime/precision.py``) on the batch's
+        device: on at bf16, a no-op at fp32."""
+        key = "img" if "img" in batch else "points" if "points" in batch else "radar"
+        return precision.autocast(self.compute_dtype, batch[key].device)
+
     def predict(self, batch: Dict[str, Any], timed=untimed) -> Dict[str, torch.Tensor]:
-        """The object head's raw predictions for ``batch``."""
-        x = self.bev_features(batch, timed)
-        return timed("head/forward", lambda: self.heads["object"](x[0]))
+        """The object head's raw predictions for ``batch`` (bf16 tensors in
+        fp32)."""
+        with self.autocast(batch):
+            x = self.bev_features(batch, timed)
+            preds = timed("head/forward", lambda: self.heads["object"](x[0]))
+        return precision.upcast(preds)
 
     def forward(self, batch: Dict[str, Any], timed=untimed) -> Dict[str, Any]:
         """Eval: ``boxes`` {"bboxes", "scores", "labels", "mask"} from the
@@ -153,25 +173,29 @@ class BEVFusion(nn.Module):
         loss dict of the JAX package's ``BEVFusion.__call__``
         (bevfusion.py:155-205). ``timed(name, fn)`` runs each stage, the
         heads (``head/forward``, ``head/map``) and the decode."""
-        out, aux = {}, {}
-        x = self.bev_features(batch, timed, aux if self.training else None)
+        out, aux, losses = {}, {}, {}
+        with self.autocast(batch):
+            x = self.bev_features(batch, timed, aux if self.training else None)
+            if "object" in self.heads:
+                preds = timed("head/forward", lambda: self.heads["object"](x[0]))
+            if "map" in self.heads:
+                head = self.heads["map"]
+                if self.training:
+                    losses = timed("head/map", lambda: head(x[0], batch["gt_masks_bev"]))
+                else:
+                    out["masks_bev"] = timed("head/map", lambda: head(x[0]))
         if not self.training:
             if "object" in self.heads:
-                head = self.heads["object"]
-                preds = timed("head/forward", lambda: head(x[0]))
-                out["boxes"] = timed("head/decode", lambda: head.get_bboxes(preds))
-            if "map" in self.heads:
-                out["masks_bev"] = timed("head/map", lambda: self.heads["map"](x[0]))
+                out["boxes"] = timed("head/decode", lambda: self.heads["object"].get_bboxes(
+                    precision.upcast(preds)))
             return out
         if "object" in self.heads:
-            head = self.heads["object"]
-            losses = head.loss(timed("head/forward", lambda: head(x[0])), batch["gt_boxes"],
-                               batch["gt_labels"], batch["gt_valid"])
+            obj = self.heads["object"].loss(precision.upcast(preds), batch["gt_boxes"],
+                                            batch["gt_labels"], batch["gt_valid"])
             scale = self.loss_scale.get("object", 1.0)
             out.update({f"stats/object/{k}" if k == "matched_ious" else f"loss/object/{k}":
-                        v if k == "matched_ious" else v * scale for k, v in losses.items()})
+                        v if k == "matched_ious" else v * scale for k, v in obj.items()})
         if "map" in self.heads:
-            losses = timed("head/map", lambda: self.heads["map"](x[0], batch["gt_masks_bev"]))
             scale = self.loss_scale.get("map", 1.0)
             out.update({f"loss/map/{k}": v * scale for k, v in losses.items()})
         out.update(aux)  # the depth loss, unscaled

@@ -4,7 +4,7 @@ Counterpart of ``bevfusion_tpu/models/fusers.py:ConvFuser`` (reference
 mmdet3d/models/fusers/conv.py:12-23): concat in (camera, lidar, radar) order,
 3x3 conv without bias, BN, ReLU. The module is the reference's
 ``nn.Sequential``, so its keys are ``fuser.0.weight``, ``fuser.1.*``.
-``AddFuser`` is not ported yet (ROADMAP Queue 1 item 8).
+``AddFuser`` is not ported yet (ROADMAP Queue 1 #9).
 """
 from __future__ import annotations
 

@@ -22,7 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...registry import HEADS
-from ..layers import conv_bn_relu, resize_bilinear
+from ..layers import at_least_fp32, conv_bn_relu, resize_bilinear
 
 __all__ = ["sigmoid_xent_loss", "sigmoid_focal_loss", "BEVGridTransform", "BEVSegmentationHead"]
 
@@ -78,9 +78,11 @@ class BEVGridTransform(nn.Module):
         if self.prescale_factor != 1:
             x = resize_bilinear(x, (int(x.shape[-2] * self.prescale_factor),
                                     int(x.shape[-1] * self.prescale_factor)))
-        grid = self.grid.to(x.dtype).expand(x.shape[0], -1, -1, -1)
-        return F.grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
-                             align_corners=False)
+        # the sampling grid and weights in fp32 (or wider) at any compute dtype
+        xf = at_least_fp32(x)
+        grid = self.grid.to(xf.dtype).expand(x.shape[0], -1, -1, -1)
+        return F.grid_sample(xf, grid, mode="bilinear", padding_mode="zeros",
+                             align_corners=False).to(x.dtype)
 
 
 @HEADS.register

@@ -16,7 +16,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..layers import BatchNorm1d, Dropout
+from ...runtime.precision import fp32_region
+from ..layers import BatchNorm1d, Dropout, LayerNorm, at_least_fp32
 
 # flax LayerNorm's default epsilon, which the JAX package's decoder uses
 LAYER_NORM_EPS = 1e-6
@@ -39,7 +40,9 @@ class PositionEmbeddingLearned(nn.Module):
 class MultiheadAttention(nn.Module):
     """torch MultiheadAttention math on batch-first [B, L, C], written out
     (q scaled by head_dim**-0.5, softmax over keys), with dropout on the
-    attention weights in training."""
+    attention weights in training. The logits and softmax are fp32 at any
+    compute dtype (JAX transformer.py:58), the weights then in the values'
+    dtype."""
 
     def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
@@ -58,9 +61,11 @@ class MultiheadAttention(nn.Module):
         qh = F.linear(q, wq, bq).view(B, Lq, H, -1).transpose(1, 2)
         kh = F.linear(k, wk, bk).view(B, k.shape[1], H, -1).transpose(1, 2)
         vh = F.linear(v, wv, bv).view(B, v.shape[1], H, -1).transpose(1, 2)
-        attn = self.attn_drop(
-            torch.softmax((qh * qh.shape[-1] ** -0.5) @ kh.transpose(-1, -2), dim=-1))
-        out = (attn @ vh).transpose(1, 2).reshape(B, Lq, C)
+        with fp32_region(q):
+            qf, kf = at_least_fp32(qh), at_least_fp32(kh)
+            attn = torch.softmax((qf * qh.shape[-1] ** -0.5) @ kf.transpose(-1, -2), dim=-1)
+            attn = attn.to(vh.dtype)
+        out = (self.attn_drop(attn) @ vh).transpose(1, 2).reshape(B, Lq, C)
         return self.out_proj(out)
 
 
@@ -80,7 +85,7 @@ class TransformerDecoderLayer(nn.Module):
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
         self.norm1, self.norm2, self.norm3 = (
-            nn.LayerNorm(d_model, eps=LAYER_NORM_EPS) for _ in range(3))
+            LayerNorm(d_model, eps=LAYER_NORM_EPS) for _ in range(3))
         self.self_posembed = PositionEmbeddingLearned(2, d_model, bn_momentum)
         self.cross_posembed = PositionEmbeddingLearned(2, d_model, bn_momentum)
 

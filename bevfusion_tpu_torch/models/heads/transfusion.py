@@ -12,6 +12,11 @@ dense gaussian heatmap target and the focal / L1 losses.
 The top-k is a stable descending sort, so equal scores are taken in
 index order as ``jax.lax.top_k`` takes them. NMS (``nms_type`` set) is
 not ported yet.
+
+At any compute dtype the heatmap sigmoid, the proposals' scores, the
+query and BEV positions and the centers (the positions added) are fp32
+(or wider); the JAX package adds the positions to bf16 centers
+(``heads/transfusion.py:139``), which rounds a center to bf16.
 """
 from __future__ import annotations
 
@@ -26,7 +31,7 @@ from ...core.matching import auction_assignment, hungarian_costs
 from ...ops.gaussian import draw_heatmap_gaussians, gaussian_radius
 from ...ops.iou3d import iou_3d
 from ...registry import HEADS
-from ..layers import ConvBNAct
+from ..layers import ConvBNAct, at_least_fp32
 from ..losses import clip_sigmoid, gaussian_focal_loss, l1_loss, sigmoid_focal_loss
 from .transformer import FFNHead, TransformerDecoderLayer
 
@@ -80,7 +85,7 @@ class TransFusionHead(nn.Module):
         flat = lidar_feat.flatten(2).transpose(1, 2)  # [B, H*W, C] BEV tokens
         dense_heatmap = self.heatmap_head(lidar_feat)
 
-        heatmap = dense_heatmap.detach().sigmoid()
+        heatmap = at_least_fp32(dense_heatmap.detach()).sigmoid()
         pad = self.nms_kernel_size // 2
         local_max = torch.zeros_like(heatmap)
         local_max[:, :, pad:H - pad, pad:W - pad] = F.max_pool2d(
@@ -99,17 +104,18 @@ class TransFusionHead(nn.Module):
         onehot = F.one_hot(top_cls, ncls).to(feats.dtype).transpose(1, 2)
         query_feat = query_feat + self.class_encoding(onehot).transpose(1, 2)
 
-        query_pos = torch.stack([top_idx // W, top_idx % W], -1).to(feats.dtype) + 0.5
+        pos_dtype = heatmap.dtype  # fp32, or float64 in a float64 model
+        query_pos = torch.stack([top_idx // W, top_idx % W], -1).to(pos_dtype) + 0.5
         gx, gy = torch.meshgrid(torch.arange(H, device=feats.device),
                                 torch.arange(W, device=feats.device), indexing="ij")
-        bev_pos = (torch.stack([gx, gy], -1).reshape(1, H * W, 2).to(feats.dtype) + 0.5
+        bev_pos = (torch.stack([gx, gy], -1).reshape(1, H * W, 2).to(pos_dtype) + 0.5
                    ).expand(B, -1, -1)
 
         layers = []
         for decoder, ffn in zip(self.decoder, self.prediction_heads):
             query_feat = decoder(query_feat, flat, query_pos, bev_pos)
             res = ffn(query_feat.transpose(1, 2))
-            res["center"] = res["center"] + query_pos
+            res["center"] = at_least_fp32(res["center"]) + query_pos
             layers.append(res)
             query_pos = res["center"].detach()
         if self.auxiliary:

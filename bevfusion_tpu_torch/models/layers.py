@@ -12,6 +12,10 @@ torch's normalisation, with running statistics that move like flax's
 ``Dropout`` and ``DropPath`` draw their masks from an explicit
 ``torch.Generator`` (``set_dropout_generator``). ``at_least_fp32`` is the
 cast of the losses and the softmaxes that the port computes in fp32.
+
+At bf16 (``runtime/precision.py``) a BatchNorm or ``LayerNorm`` takes its
+statistics in fp32 and returns its input's dtype, as flax's norms under
+``dtype=bfloat16``.
 """
 from __future__ import annotations
 
@@ -21,8 +25,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-__all__ = ["BatchNorm1d", "BatchNorm2d", "Dropout", "DropPath", "set_dropout_generator", "Norm",
-           "ConvBNAct", "conv_bn_relu", "BasicBlock", "resize_bilinear", "at_least_fp32"]
+__all__ = ["BatchNorm1d", "BatchNorm2d", "LayerNorm", "Dropout", "DropPath",
+           "set_dropout_generator", "Norm", "ConvBNAct", "conv_bn_relu", "BasicBlock",
+           "resize_bilinear", "at_least_fp32"]
 
 
 class _FlaxStatsBatchNorm:
@@ -38,7 +43,7 @@ class _FlaxStatsBatchNorm:
         self._check_input_dim(x)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, [0, *range(2, x.dim())], correction=0)
+            var, mean = torch.var_mean(at_least_fp32(x), [0, *range(2, x.dim())], correction=0)
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked += 1
@@ -51,6 +56,16 @@ class BatchNorm1d(_FlaxStatsBatchNorm, nn.BatchNorm1d):
 
 class BatchNorm2d(_FlaxStatsBatchNorm, nn.BatchNorm2d):
     pass
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` with its statistics and affine in fp32 (or wider)
+    and the result in the input's dtype, as flax's ``LayerNorm`` (CUDA
+    autocast would return fp32 from a bf16 input)."""
+
+    def forward(self, x):
+        return F.layer_norm(at_least_fp32(x), self.normalized_shape, self.weight, self.bias,
+                            self.eps).to(x.dtype)
 
 
 class _Random(nn.Module):
@@ -67,7 +82,10 @@ class _Random(nn.Module):
         if self.generator is None:
             raise RuntimeError(f"{type(self).__name__}({self.rate}) in training draws from an "
                                "explicit generator: call set_dropout_generator(model, g) first")
-        u = torch.rand(shape, generator=self.generator, device=x.device, dtype=x.dtype)
+        # drawn in fp32 (float64 for a float64 model) at any compute dtype: a
+        # bf16 run keeps an fp32 run's masks
+        u = torch.rand(shape, generator=self.generator, device=x.device,
+                       dtype=torch.promote_types(x.dtype, torch.float32))
         keep = 1.0 - self.rate
         return torch.where(u < keep, x / keep, 0.0)
 
@@ -166,7 +184,8 @@ def resize_bilinear(x: torch.Tensor, size, align_corners: bool = False) -> torch
     sampling grid for both ``align_corners`` values, so this is that call."""
     if tuple(size) == tuple(x.shape[-2:]):
         return x
-    return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=align_corners)
+    return F.interpolate(x, size=tuple(size), mode="bilinear",
+                         align_corners=align_corners).to(x.dtype)
 
 
 def at_least_fp32(x: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,7 @@ Counterparts of ``bevfusion_tpu/models/necks.py``: ``GeneralizedLSSFPN``
 (reference mmdet3d/models/necks/generalized_lss.py:13-103, module names
 ``lateral_convs.i`` / ``fpn_convs.i``) and ``LSSFPN`` (reference
 necks/lss.py:13-65, the ``fuse`` and ``upsample`` Sequentials).
-``DetectronFPN`` is not ported yet (ROADMAP Queue 1 item 6).
+``DetectronFPN`` is not ported yet (ROADMAP Queue 1 #9).
 """
 from __future__ import annotations
 

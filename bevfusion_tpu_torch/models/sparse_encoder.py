@@ -27,6 +27,13 @@ Module and parameter names follow the reference checkpoint
 (``conv_input``, ``encoder_layers.encoder_layerN.M.conv1`` ...; spconv
 weights ``[kx, ky, kz, Cin, Cout]``), so a released state dict loads
 as is.
+
+The features run in the voxel features' dtype (the model's compute
+dtype): at bf16 every sparse conv is the bf16 kernel (the fp32 weight
+cast to bf16; at eval the folded BatchNorm's scale and shift fp32 into
+its epilogue), the dense stage ``F.conv3d`` under autocast, and
+BatchNorm takes its moments and normalises in fp32, writing bf16
+(``bevfusion_tpu/models/sparse_encoder.py:57-72``).
 """
 from __future__ import annotations
 
@@ -40,6 +47,7 @@ from ..ops import sparse_conv as sp
 from ..ops.sparse_conv import _triple
 from ..registry import BACKBONES
 from ..utils.profiler import untimed
+from .layers import at_least_fp32
 
 
 class MaskedBatchNorm(nn.BatchNorm1d):
@@ -55,31 +63,35 @@ class MaskedBatchNorm(nn.BatchNorm1d):
         return scale, self.bias - self.running_mean * scale
 
     def _train(self, x: torch.Tensor, m: torch.Tensor, dims) -> torch.Tensor:
-        """x with its active entries ``m`` (float 0/1, broadcastable)
-        normalised by their moments over ``dims``; inactive entries 0."""
+        """x with its active entries ``m`` (0/1, broadcastable) normalised
+        by their moments over ``dims``, in fp32 (or wider) and returned in
+        x's dtype; inactive entries 0."""
+        xf = at_least_fp32(x)
+        m = m.to(xf.dtype)
         cnt = torch.clamp(m.sum(), min=1.0)
-        mean = (x * m).sum(dims, keepdim=True) / cnt
-        var = ((x - mean) ** 2 * m).sum(dims, keepdim=True) / cnt
+        mean = (xf * m).sum(dims, keepdim=True) / cnt
+        var = ((xf - mean) ** 2 * m).sum(dims, keepdim=True) / cnt
         with torch.no_grad():
-            self.running_mean.lerp_(mean.flatten(), self.momentum)
-            self.running_var.lerp_(var.flatten(), self.momentum)
+            self.running_mean.lerp_(mean.flatten().to(self.running_mean.dtype), self.momentum)
+            self.running_var.lerp_(var.flatten().to(self.running_var.dtype), self.momentum)
             self.num_batches_tracked += 1
         shape = mean.shape
-        y = (x - mean) * torch.rsqrt(var + self.eps) * self.weight.view(shape) \
+        y = (xf - mean) * torch.rsqrt(var + self.eps) * self.weight.view(shape) \
             + self.bias.view(shape)
-        return y * m
+        return (y * m).to(x.dtype)
 
     def sparse(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """Training: x [N, C] site rows (the batch's samples stacked), mask [N]."""
-        return self._train(x, mask[:, None].to(x.dtype), (0,))
+        return self._train(x, mask[:, None], (0,))
 
     def dense(self, x: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
-        """x [B, C, Z, X, Y]; active [B, 1, Z, X, Y] float 0/1; inactive
-        sites come out zero."""
+        """x [B, C, Z, X, Y]; active [B, 1, Z, X, Y] 0/1; inactive sites come
+        out zero; the result in x's dtype."""
         if self.training:
             return self._train(x, active, (0, 2, 3, 4))
         scale, shift = self.fold()
-        return (x * scale.view(1, -1, 1, 1, 1) + shift.view(1, -1, 1, 1, 1)) * active
+        y = at_least_fp32(x) * scale.view(1, -1, 1, 1, 1) + shift.view(1, -1, 1, 1, 1)
+        return (y * active).to(x.dtype)
 
 
 class SparseConv3d(nn.Module):
@@ -104,6 +116,7 @@ class SparseConv3d(nn.Module):
         residuals = residuals or [None] * len(xs)
         if not self.training:
             scale, shift = bn.fold()
+            w = w.to(xs[0].dtype)
             return [sp.sparse_conv(x, nbr, w, scale, shift, r, relu=True)
                     for x, nbr, r in zip(xs, nbrs, residuals)]
         nbrs_t = nbrs_t or [None] * len(xs)
@@ -143,7 +156,7 @@ def _dilate(active: torch.Tensor, kernel_size, stride, padding) -> torch.Tensor:
     """Active output sites of a strided conv on the z-major grid."""
     (kx, ky, kz), (sx, sy, sz), (px, py, pz) = (
         _triple(kernel_size), _triple(stride), _triple(padding))
-    return F.max_pool3d(active, (kz, kx, ky), (sz, sx, sy), (pz, px, py))
+    return F.max_pool3d(active, (kz, kx, ky), (sz, sx, sy), (pz, px, py)).to(active.dtype)
 
 
 @BACKBONES.register
@@ -250,7 +263,7 @@ class SparseEncoder(nn.Module):
                              .permute(3, 0, 1, 2) for x, s in zip(xs, stage)])
             occ = torch.stack([sp.occupancy_zmajor(s["ids"], s["mask"], s["grid"])
                                for s in stage])
-            return d.contiguous(), occ[:, None].float()
+            return d.contiguous(), occ[:, None].to(d.dtype)
 
         for i, layer in enumerate(self.encoder_layers.children()):
             if dense is None and self.dense_from_stage == i:

@@ -32,8 +32,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..registry import BACKBONES
+from ..runtime.precision import fp32_region
 from .heads.transformer import LAYER_NORM_EPS
-from .layers import DropPath, Dropout
+from .layers import DropPath, Dropout, LayerNorm, at_least_fp32
 
 __all__ = ["SwinTransformer", "relative_position_index"]
 
@@ -68,7 +69,7 @@ def _mask_on(H: int, W: int, ws: int, shift: int, device: torch.device) -> torch
 
 
 def _layer_norm(dim: int) -> nn.LayerNorm:
-    return nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
+    return LayerNorm(dim, eps=LAYER_NORM_EPS)
 
 
 def _window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
@@ -87,7 +88,9 @@ def _window_reverse(wins: torch.Tensor, ws: int, H: int, W: int) -> torch.Tensor
 
 class WindowMSA(nn.Module):
     """Multi-head self-attention inside each window, with the learned
-    relative-position bias; fp32 matmul + softmax."""
+    relative-position bias; the logits, bias, mask and softmax in fp32 at
+    any compute dtype (the JAX package's ``preferred_element_type``), the
+    weights then in the values' dtype."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, attn_drop: float = 0.0,
@@ -109,13 +112,16 @@ class WindowMSA(nn.Module):
         Bn, N, C = x.shape
         nh = self.num_heads
         q, k, v = self.qkv(x).view(Bn, N, 3, nh, C // nh).permute(2, 0, 3, 1, 4)
-        attn = (q * self.scale) @ k.transpose(-2, -1)  # [Bn, nh, N, N]
-        bias = self.relative_position_bias_table[self.relative_position_index.view(-1)]
-        attn = attn + bias.view(N, N, nh).permute(2, 0, 1)[None]
-        if mask is not None:
-            nW = mask.shape[0]
-            attn = (attn.view(Bn // nW, nW, nh, N, N) + mask[None, :, None]).view(Bn, nh, N, N)
-        out = self.attn_drop(attn.softmax(-1)) @ v
+        with fp32_region(x):
+            attn = (at_least_fp32(q) * self.scale) @ at_least_fp32(k).transpose(-2, -1)
+            bias = self.relative_position_bias_table[self.relative_position_index.view(-1)]
+            attn = attn + bias.view(N, N, nh).permute(2, 0, 1)[None]
+            if mask is not None:
+                nW = mask.shape[0]
+                attn = attn.view(Bn // nW, nW, nh, N, N) + mask[None, :, None]
+                attn = attn.view(Bn, nh, N, N)
+            attn = attn.softmax(-1).to(v.dtype)
+        out = self.attn_drop(attn) @ v
         return self.proj_drop(self.proj(out.transpose(1, 2).reshape(Bn, N, C)))
 
 

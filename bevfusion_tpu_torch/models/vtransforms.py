@@ -27,6 +27,7 @@ import torch.nn as nn
 from ..ops.bev_pool import BEVPoolFunction, PoolIntervals, build_intervals, cell_ids_from_geometry
 from ..ops.grid import create_frustum, gen_dx_bx
 from ..registry import VTRANSFORMS
+from ..runtime.precision import fp32_region
 from ..utils.profiler import untimed
 from .layers import at_least_fp32, conv_bn_relu
 
@@ -168,20 +169,25 @@ class _BaseLSS(nn.Module):
     def to_bev(self, x: torch.Tensor, B: int, mats: Dict[str, torch.Tensor],
                timed=untimed, return_depth: bool = False):
         """The depthnet's output ``x`` [B*N, D+C, fH, fW] -> BEV [B, C, X', Y']:
-        the softmax over depth bins (fp32 or wider), the context channels-last, the
-        pool and the downsample, each through ``timed``. With
+        the softmax over depth bins and the context channels-last (both fp32
+        or wider: K4 is fp32 at any compute dtype), the pool, the BEV map in
+        ``x``'s dtype, the downsample, each through ``timed``. With
         ``return_depth``, (BEV, the softmax [B, N, D, fH, fW])."""
         BN, _, fH, fW = x.shape
         N = BN // B
 
         def split():
             depth = at_least_fp32(x[:, :self.D]).softmax(1).view(B, N, self.D, fH, fW)
-            ctx = x[:, self.D:].permute(0, 2, 3, 1).contiguous().view(B, N, fH, fW, self.C)
-            return depth, ctx
+            ctx = at_least_fp32(x[:, self.D:]).permute(0, 2, 3, 1).contiguous()
+            return depth, ctx.view(B, N, fH, fW, self.C)
+
+        def pool():
+            with fp32_region(x):
+                return self.pool(depth, ctx, mats).to(x.dtype)
 
         depth, ctx = timed("depth softmax + ctx channels-last", split)
         bev = timed("bev_pool" if mats.get("pool_lut") is not None else
-                    "build_pool_lut + bev_pool", lambda: self.pool(depth, ctx, mats))
+                    "build_pool_lut + bev_pool", pool)
         bev = timed("downsample", lambda: self.downsample(bev))
         return (bev, depth) if return_depth else bev
 

@@ -13,7 +13,7 @@ The result is a keep mask over the original indices (fixed shapes), and
 an invalid detection is never kept. Every function takes a batch of
 problems, ``[P, N, ...]``, so one kernel launch serves a frame's batch.
 ``box3d_multiclass_nms_mask`` and ``aligned_3d_nms_mask`` are not ported
-yet: no config reaches them (ROADMAP Queue 1 item 6i).
+yet: no config reaches them (ROADMAP Queue 1 #9).
 """
 from __future__ import annotations
 

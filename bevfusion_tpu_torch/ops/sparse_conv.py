@@ -1,8 +1,10 @@
 """Sparse 3D convolution: rulebooks over sorted site ids, the gather-GEMM
 kernel (``csrc/sparse_conv.cu``: a ``cp.async`` ring feeding 3xTF32
 tensor-core tiles), the weight-gradient kernel
-(``csrc/sparse_conv_dw.cu``), each with its plain version, and the
-autograd Function that trains through both.
+(``csrc/sparse_conv_dw.cu``), each with its plain version and a bf16 form
+(bf16 rows and one bf16 tensor-core product a step, fp32 sums: the TPU
+kernels' own precision), and the autograd Function that trains through
+both.
 
 Counterpart of ``bevfusion_tpu/ops/sparse_conv.py`` (the rulebook
 subset the encoder runs) and of the windowed Pallas kernels of
@@ -32,8 +34,8 @@ __all__ = [
     "SparseGrid", "kernel_offsets", "lin_ids", "unlin_ids", "conv_out_shape",
     "build_subm_rulebook", "downsample_sites", "build_conv_rulebook",
     "to_dense", "to_dense_zmajor", "occupancy_zmajor",
-    "build_conv_transpose_rulebook", "sparse_conv", "sparse_conv_plain", "sparse_conv_dw",
-    "sparse_conv_dw_plain", "SparseConvFunction",
+    "build_conv_transpose_rulebook", "sparse_conv", "sparse_conv_bf16", "sparse_conv_plain",
+    "sparse_conv_dw", "sparse_conv_dw_bf16", "sparse_conv_dw_plain", "SparseConvFunction",
 ]
 
 
@@ -232,13 +234,21 @@ def sparse_conv_plain(feats: torch.Tensor, nbr: torch.Tensor, weight: torch.Tens
     windowed kernels' eval epilogue): one gather of all K neighbor rows of
     every output site, misses zeroed, then one
     ``[cap_out, K*Cin] @ [K*Cin, Cout]`` matmul, then
-    ``relu(y*scale + shift + residual)``, each part optional."""
+    ``relu(y*scale + shift + residual)``, each part optional. In bf16
+    (``feats``, ``weight``, ``residual`` bf16; ``scale``, ``shift`` fp32) the
+    bf16 kernel's contract: the product and the epilogue in fp32, rounded
+    once to bf16. Never under autocast."""
+    out_dtype = feats.dtype
+    if out_dtype == torch.bfloat16:
+        feats, weight = feats.float(), weight.float()
+        residual = None if residual is None else residual.float()
     K, Cin, Cout = weight.shape
     nbr_sm = nbr.t().reshape(-1)  # site-major [cap_out*K]
-    g = feats.index_select(0, nbr_sm.clamp(min=0))
-    g = torch.where((nbr_sm >= 0)[:, None], g, 0.0)
-    y = g.reshape(-1, K * Cin) @ weight.reshape(K * Cin, Cout)
-    return _epilogue(y, scale, shift, residual, relu)
+    with torch.autocast(feats.device.type, enabled=False):
+        g = feats.index_select(0, nbr_sm.clamp(min=0))
+        g = torch.where((nbr_sm >= 0)[:, None], g, 0.0)
+        y = g.reshape(-1, K * Cin) @ weight.reshape(K * Cin, Cout)
+        return _epilogue(y, scale, shift, residual, relu).to(out_dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -253,12 +263,15 @@ def _kernel_fn():
 def build_kernels() -> None:
     """Compile and load the kernel library (done anyway at first launch)."""
     _kernel_fn()
+    _bf16_kernel_fn()
 
 
-def _check_cuda_args(what: str, feats, nbr, K: int, Cin: int, Cout: int, **others) -> None:
+def _check_cuda_args(what: str, feats, nbr, K: int, Cin: int, Cout: int,
+                     dtype=torch.float32, **others) -> None:
     """Raise unless ``feats [cap_in, Cin]`` and every tensor of ``others``
-    (name -> (tensor or None, wanted shape)) are contiguous fp32 and ``nbr
-    [K, cap_out]`` is contiguous int32, all on feats' device, with 1..128
+    (name -> (tensor or None, wanted shape)) are contiguous ``dtype`` (fp32
+    or bf16; ``scale`` and ``shift`` fp32 in either) and ``nbr [K,
+    cap_out]`` is contiguous int32, all on feats' device, with 1..128
     channels in and out."""
     named = {"feats": (feats, (feats.shape[0], Cin) if feats.dim() == 2 else (-1, Cin)),
              "nbr": (nbr, (K, nbr.shape[-1]) if nbr.dim() == 2 else (K, -1)), **others}
@@ -267,7 +280,7 @@ def _check_cuda_args(what: str, feats, nbr, K: int, Cin: int, Cout: int, **other
             continue
         if t.device != feats.device:
             raise ValueError(f"{what}: {name} is on {t.device}, feats on {feats.device}")
-        want = torch.int32 if name == "nbr" else torch.float32
+        want = {"nbr": torch.int32, "scale": torch.float32, "shift": torch.float32}.get(name, dtype)
         if t.dtype != want:
             raise TypeError(f"{what}: {name} must be {want}, got {t.dtype}")
         if not t.is_contiguous():
@@ -282,40 +295,79 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _launch_conv(what: str, fn, dtype, feats, nbr, weight, scale, shift, residual, relu):
+    """Check the operands of a forward kernel (``dtype`` throughout,
+    ``scale``/``shift`` fp32), allocate ``out`` and launch ``fn`` on the
+    current stream; returns out."""
+    if weight.dim() != 3:
+        raise ValueError(f"{what}: weight must be [K, Cin, Cout], got {tuple(weight.shape)}")
+    K, Cin, Cout = weight.shape
+    cap_out = nbr.shape[-1]
+    _check_cuda_args(what, feats, nbr, K, Cin, Cout, dtype, weight=(weight, (K, Cin, Cout)),
+                     scale=(scale, (Cout,)), shift=(shift, (Cout,)),
+                     residual=(residual, (cap_out, Cout)))
+    out = torch.empty((cap_out, Cout), dtype=dtype, device=feats.device)
+    if cap_out == 0:
+        return out
+    with torch.cuda.device(feats.device):
+        rc = fn()(_ptr(feats), _ptr(nbr), _ptr(weight), _ptr(scale), _ptr(shift),
+                  _ptr(residual), _ptr(out), feats.shape[0], cap_out, K, Cin, Cout,
+                  int(relu), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{what}: kernel launch failed with cudaError {rc}")
+    return out
+
+
 def sparse_conv(feats: torch.Tensor, nbr: torch.Tensor, weight: torch.Tensor,
                 scale=None, shift=None, residual=None, relu: bool = False) -> torch.Tensor:
     """``out [cap_out, Cout] = relu(sum_k feats[nbr[k]] @ weight[k] * scale
     + shift + residual)`` (each epilogue part optional; nbr -1 = miss).
 
-    CUDA tensors launch the hand-written kernel (fp32; contiguous inputs;
-    Cin, Cout <= 128) on the current stream; CPU tensors take
-    ``sparse_conv_plain``. ``sparse_conv.launches`` counts kernel launches.
+    CUDA tensors launch the hand-written kernel on the current stream:
+    fp32 operands the 3xTF32 kernel, bf16 ones (``scale``, ``shift`` fp32)
+    its bf16 form (``sparse_conv_bf16``); contiguous inputs, Cin, Cout <=
+    128. CPU tensors take ``sparse_conv_plain``. ``sparse_conv.launches``
+    counts the fp32 kernel's launches.
     """
     if feats.device.type == "cpu":
         return sparse_conv_plain(feats, nbr, weight, scale, shift, residual, relu)
     if feats.device.type != "cuda":
         raise ValueError(f"sparse_conv: unsupported device {feats.device}")
-    if weight.dim() != 3:
-        raise ValueError(f"sparse_conv: weight must be [K, Cin, Cout], got {tuple(weight.shape)}")
-    K, Cin, Cout = weight.shape
-    cap_out = nbr.shape[-1]
-    _check_cuda_args("sparse_conv", feats, nbr, K, Cin, Cout, weight=(weight, (K, Cin, Cout)),
-                     scale=(scale, (Cout,)), shift=(shift, (Cout,)),
-                     residual=(residual, (cap_out, Cout)))
-    out = torch.empty((cap_out, Cout), dtype=torch.float32, device=feats.device)
-    if cap_out == 0:
-        return out
-    fn = _kernel_fn()
-    with torch.cuda.device(feats.device):
-        rc = fn(_ptr(feats), _ptr(nbr), _ptr(weight), _ptr(scale), _ptr(shift),
-                _ptr(residual), _ptr(out), feats.shape[0], cap_out, K, Cin, Cout,
-                int(relu), torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"sparse_conv: kernel launch failed with cudaError {rc}")
-    sparse_conv.launches += 1
+    if feats.dtype == torch.bfloat16:
+        return sparse_conv_bf16(feats, nbr, weight, scale, shift, residual, relu)
+    out = _launch_conv("sparse_conv", _kernel_fn, torch.float32, feats, nbr, weight, scale, shift,
+                       residual, relu)
+    if out.shape[0]:
+        sparse_conv.launches += 1
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _bf16_kernel_fn():
+    fn = native.load_library("sparse_conv").bevf_sparse_conv_bf16
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp] * 7 + [i32] * 6 + [vp]
+    fn.restype = i32
+    return fn
+
+
+def sparse_conv_bf16(feats: torch.Tensor, nbr: torch.Tensor, weight: torch.Tensor,
+                     scale=None, shift=None, residual=None, relu: bool = False) -> torch.Tensor:
+    """The bf16 form of ``sparse_conv`` on CUDA tensors: ``feats``,
+    ``weight``, ``residual`` and ``out`` bf16, ``scale`` / ``shift`` fp32;
+    one bf16 tensor-core product a 16-deep step with fp32 sums, the epilogue
+    in fp32, one rounding to bf16 (``sparse_conv_plain``'s bf16 contract).
+    ``sparse_conv_bf16.launches`` counts its launches."""
+    if feats.device.type != "cuda":
+        raise ValueError(f"sparse_conv_bf16: feats on {feats.device}, not a CUDA device")
+    out = _launch_conv("sparse_conv_bf16", _bf16_kernel_fn, torch.bfloat16, feats, nbr, weight,
+                       scale, shift, residual, relu)
+    if out.shape[0]:
+        sparse_conv_bf16.launches += 1
+    return out
+
+
+sparse_conv_bf16.launches = 0
 sparse_conv.launches = 0
 
 
@@ -334,13 +386,18 @@ def sparse_conv_dw_plain(feats: torch.Tensor, nbr: torch.Tensor,
     """Plain PyTorch version of the weight-gradient kernel: the gradient of
     ``sparse_conv_plain`` (``subm_gather_gemm``) with respect to its weight.
     One gather ``[cap_out, K*Cin]`` of every output site's neighbor rows,
-    misses zeroed, then ``g^T @ dout`` folded to ``[K, Cin, Cout]``."""
+    misses zeroed, then ``g^T @ dout`` folded to ``[K, Cin, Cout]``. bf16
+    ``feats`` and ``dout`` give an fp32 dW (the products exact, fp32 sums),
+    as the bf16 kernel. Never under autocast."""
+    if feats.dtype == torch.bfloat16:
+        feats, dout = feats.float(), dout.float()
     K, cap_out = nbr.shape
     Cin = feats.shape[1]
     nbr_sm = nbr.t().reshape(-1)
-    g = feats.index_select(0, nbr_sm.clamp(min=0))
-    g = torch.where((nbr_sm >= 0)[:, None], g, 0.0).reshape(cap_out, K * Cin)
-    return (g.t() @ dout).reshape(K, Cin, dout.shape[1])
+    with torch.autocast(feats.device.type, enabled=False):
+        g = feats.index_select(0, nbr_sm.clamp(min=0))
+        g = torch.where((nbr_sm >= 0)[:, None], g, 0.0).reshape(cap_out, K * Cin)
+        return (g.t() @ dout).reshape(K, Cin, dout.shape[1])
 
 
 @functools.lru_cache(maxsize=None)
@@ -355,6 +412,26 @@ def _dw_kernel_fn():
 def build_dw_kernels() -> None:
     """Compile and load the weight-gradient library (done anyway at first launch)."""
     _dw_kernel_fn()
+    _dw_bf16_kernel_fn()
+
+
+def _launch_dw(what: str, fn, dtype, feats, nbr, dout) -> torch.Tensor:
+    """Check the operands of a weight-gradient kernel (``dtype``),
+    allocate dW and the partial scratch (fp32) and launch ``fn``'s two
+    passes on the current stream; returns dW."""
+    K, cap_out, Cin, Cout = nbr.shape[0], nbr.shape[-1], feats.shape[-1], dout.shape[-1]
+    _check_cuda_args(what, feats, nbr, K, Cin, Cout, dtype, dout=(dout, (cap_out, Cout)))
+    dw = torch.empty((K, Cin, Cout), dtype=torch.float32, device=feats.device)
+    if cap_out == 0:
+        return dw.zero_()
+    chunks = -(-cap_out // DW_CHUNK)
+    partial = torch.empty((chunks, K, Cin, Cout), dtype=torch.float32, device=feats.device)
+    with torch.cuda.device(feats.device):
+        rc = fn()(_ptr(feats), _ptr(nbr), _ptr(dout), _ptr(partial), _ptr(dw), feats.shape[0],
+                  cap_out, K, Cin, Cout, DW_CHUNK, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{what}: kernel launch failed with cudaError {rc}")
+    return dw
 
 
 def sparse_conv_dw(feats: torch.Tensor, nbr: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
@@ -366,31 +443,47 @@ def sparse_conv_dw(feats: torch.Tensor, nbr: torch.Tensor, dout: torch.Tensor) -
     Cin, Cout <= 128; the hit pairs compacted per offset and chunk and
     multiplied on the tensor cores in the 3xTF32 split) on the current
     stream, with a fixed-order reduction over its warps and site chunks,
-    so the result is the same from run to run; CPU
-    tensors take ``sparse_conv_dw_plain``. ``sparse_conv_dw.launches``
-    counts kernel launches.
+    so the result is the same from run to run; bf16 ``feats`` and ``dout``
+    its bf16 form (``sparse_conv_dw_bf16``, fp32 dW). CPU tensors take
+    ``sparse_conv_dw_plain``. ``sparse_conv_dw.launches`` counts the fp32
+    kernel's launches.
     """
     if feats.device.type == "cpu":
         return sparse_conv_dw_plain(feats, nbr, dout)
     if feats.device.type != "cuda":
         raise ValueError(f"sparse_conv_dw: unsupported device {feats.device}")
-    K, cap_out, Cin, Cout = nbr.shape[0], nbr.shape[-1], feats.shape[-1], dout.shape[-1]
-    _check_cuda_args("sparse_conv_dw", feats, nbr, K, Cin, Cout, dout=(dout, (cap_out, Cout)))
-    dw = torch.empty((K, Cin, Cout), dtype=torch.float32, device=feats.device)
-    if cap_out == 0:
-        return dw.zero_()
-    chunks = -(-cap_out // DW_CHUNK)
-    partial = torch.empty((chunks, K, Cin, Cout), dtype=torch.float32, device=feats.device)
-    fn = _dw_kernel_fn()
-    with torch.cuda.device(feats.device):
-        rc = fn(_ptr(feats), _ptr(nbr), _ptr(dout), _ptr(partial), _ptr(dw), feats.shape[0],
-                cap_out, K, Cin, Cout, DW_CHUNK, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"sparse_conv_dw: kernel launch failed with cudaError {rc}")
-    sparse_conv_dw.launches += 1
+    if feats.dtype == torch.bfloat16:
+        return sparse_conv_dw_bf16(feats, nbr, dout)
+    dw = _launch_dw("sparse_conv_dw", _dw_kernel_fn, torch.float32, feats, nbr, dout)
+    if nbr.shape[-1]:
+        sparse_conv_dw.launches += 1
     return dw
 
 
+@functools.lru_cache(maxsize=None)
+def _dw_bf16_kernel_fn():
+    fn = native.load_library("sparse_conv_dw").bevf_sparse_conv_dw_bf16
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp] * 5 + [i32] * 6 + [vp]
+    fn.restype = i32
+    return fn
+
+
+def sparse_conv_dw_bf16(feats: torch.Tensor, nbr: torch.Tensor,
+                        dout: torch.Tensor) -> torch.Tensor:
+    """The bf16 form of ``sparse_conv_dw`` on CUDA tensors: bf16 ``feats``
+    and ``dout``, fp32 dW; one bf16 tensor-core product (exact in fp32) a
+    16-site step, fp32 sums in the fp32 form's fixed order.
+    ``sparse_conv_dw_bf16.launches`` counts its launches."""
+    if feats.device.type != "cuda":
+        raise ValueError(f"sparse_conv_dw_bf16: feats on {feats.device}, not a CUDA device")
+    dw = _launch_dw("sparse_conv_dw_bf16", _dw_bf16_kernel_fn, torch.bfloat16, feats, nbr, dout)
+    if nbr.shape[-1]:
+        sparse_conv_dw_bf16.launches += 1
+    return dw
+
+
+sparse_conv_dw_bf16.launches = 0
 sparse_conv_dw.launches = 0
 
 
@@ -411,13 +504,17 @@ class SparseConvFunction(torch.autograd.Function):
 
     No backward-data runs when ``feats`` needs no gradient (the voxel
     features into the input conv). On CUDA tensors every part launches a
-    kernel; on CPU tensors the plain versions.
+    kernel; on CPU tensors the plain versions. In bf16 (``feats`` bf16,
+    ``weight`` the fp32 parameter) the weight is cast to bf16 here, inside
+    the Function, and the weight gradient is the bf16 kernel's fp32 dW: a
+    cast outside would round that dW to bf16 in its own backward.
     """
 
     @staticmethod
     def forward(ctx, feats, weight, nbr, nbr_t=None):
-        ctx.save_for_backward(feats, weight, nbr, nbr_t)
-        return sparse_conv(feats, nbr, weight)
+        w = weight.to(feats.dtype)
+        ctx.save_for_backward(feats, w, nbr, nbr_t)
+        return sparse_conv(feats, nbr, w)
 
     @staticmethod
     def backward(ctx, dout):

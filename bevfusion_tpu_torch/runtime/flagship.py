@@ -354,8 +354,8 @@ def build_lidar_slice(device="cuda", num_points: int = 120000,
 
 
 def build_flagship(device="cuda", num_points: int = 120000, seed: int = 0,
-                   training: bool = False, config_path: Optional[str] = None
-                   ) -> Tuple[Config, nn.Module, Dict[str, Any]]:
+                   training: bool = False, config_path: Optional[str] = None,
+                   dtype=torch.float32) -> Tuple[Config, nn.Module, Dict[str, Any]]:
     """The fused flagship (swint_v0p075/convfuser.yaml), or the config at
     ``config_path``, at full width with seeded random weights on ``device``
     (the card unless the caller passes ``"cpu"``), and a batch of one sample
@@ -365,10 +365,11 @@ def build_flagship(device="cuda", num_points: int = 120000, seed: int = 0,
     CPU (``bench.py``'s main path). With ``training`` the model is in
     training mode and the batch carries 64 random ground-truth boxes for
     the object head and ``add_train_targets``'s depth images and map
-    masks."""
+    masks. The model computes in ``dtype`` (``runtime/precision.py``); its
+    weights are the same fp32 values at either dtype."""
     dev = resolve_device(device)
     cfg = load_config(config_path or FLAGSHIP_CONFIG)
-    model = init_weights(build_model(cfg.model, "cpu"), seed).to(dev).train(training)
+    model = init_weights(build_model(cfg.model, "cpu", dtype), seed).to(dev).train(training)
     batch = synthetic_batch(cfg, B=1, num_points=num_points, seed=seed, training=training)
     if training:
         batch = add_train_targets(cfg, batch, seed)

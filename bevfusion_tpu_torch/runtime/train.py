@@ -238,7 +238,12 @@ def make_train_step(model: nn.Module, optimizer: AdamW, device="cuda", seed: int
     update; ``logs`` holds the detached loss dict and ``loss/total``.
     ``mark(phase)``, if given, is called after "forward", "backward" and
     "optimizer" (a timer hook). The JAX step's ``diag/window_overflow`` has
-    no counterpart: the port's rulebooks drop no neighbor pair."""
+    no counterpart: the port's rulebooks drop no neighbor pair. The forward
+    runs at the model's compute dtype (``runtime/precision.py``; at bf16
+    the sparse convs' data gradients through the bf16 K1/K2 and their
+    weight gradients through the bf16 K3); the parameters, gradients and
+    AdamW's moments are fp32, and there is no loss scaling, as in the JAX
+    package."""
     dev = resolve_device(device)
     model.to(dev).train()
     generator = torch.Generator(device=dev)

@@ -5,13 +5,15 @@ of the fused flagship, or of the config ``--config`` names, through
 ``runtime/train.py`` (forward with the heads' losses, TransFusion's with
 its auction matcher, and the depth loss where the config has one; backward
 through the sparse-conv and BEV-pool autograd Functions; AdamW with the
-config's clip and schedules), fp32 with cuDNN's TF32 as PyTorch sets it
-(the port has no bf16 training yet), on ``runtime/flagship.py``'s synthetic
+config's clip and schedules), in bf16 by default as the JAX tool
+(``tools/bench_train_step.py:56``; ``--dtype float32``: fp32 with cuDNN's
+TF32, ``runtime/precision.py``), on ``runtime/flagship.py``'s synthetic
 batch and its training targets. Each step is split into forward, backward
 and optimizer on the host clock around synchronises, and the auction
 matcher's calls inside the forward are timed alone.
 
-    python -m bevfusion_tpu_torch.tools.bench_train_step [--config PATH] [--steps 10]
+    python -m bevfusion_tpu_torch.tools.bench_train_step [--config PATH] [--steps 10] \
+        [--dtype bfloat16|float32]
 
 Prints one JSON line with the JAX tool's keys (``metric``, named after the
 config's file, ``value``, ``unit``, ``loss_total``, ``steps_per_s``) and
@@ -31,6 +33,7 @@ import time
 import torch
 
 from ..devices import resolve_device
+from ..runtime import precision
 from ..utils.profiler import synchronize
 
 HORIZON = 1000  # steps of the lr and momentum schedules
@@ -118,13 +121,14 @@ def train_steps(cfg, model, batch, device="cuda", steps: int = 5, warmup: int = 
     }
 
 
-def result_line(res, name: str = "flagship") -> dict:
+def result_line(res, name: str = "flagship", dtype: str = "float32") -> dict:
     """The JAX tool's JSON keys, the metric named ``{name}_train_step_ms``,
-    with the split and the matcher's median (null where it never ran)."""
+    with the split and the matcher's median (null where it never ran);
+    the unit names the compute ``dtype``."""
     ms = res["ms_median"]
     tf32 = "TF32 convs" if torch.backends.cudnn.allow_tf32 else "no TF32"
     return {"metric": f"{name}_train_step_ms", "value": ms["step"],
-            "unit": f"ms/step, median (B=1, fp32, {tf32}, fwd+bwd+AdamW)",
+            "unit": f"ms/step, median (B=1, {dtype}, {tf32}, fwd+bwd+AdamW)",
             "loss_total": res["losses"][-1], "steps_per_s": 1e3 / ms["step"],
             "forward_ms": ms["forward"], "backward_ms": ms["backward"],
             "optimizer_ms": ms["optimizer"],
@@ -141,12 +145,16 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--points", type=int, default=120000)
+    ap.add_argument("--dtype", default="bfloat16", choices=list(precision.COMPUTE_DTYPES))
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
+    precision.apply_tf32_defaults()
     cfg, model, batch = build_flagship(dev, num_points=args.points, training=True,
-                                       config_path=args.config)
+                                       config_path=args.config,
+                                       dtype=precision.parse_dtype(args.dtype))
     name = os.path.splitext(os.path.basename(args.config))[0] if args.config else "flagship"
-    print(json.dumps(result_line(train_steps(cfg, model, batch, dev, args.steps), name)))
+    print(json.dumps(result_line(train_steps(cfg, model, batch, dev, args.steps), name,
+                                 args.dtype)))
     return 0
 
 

@@ -18,7 +18,12 @@ CenterHead detectors (configs/nuscenes/det/centerhead/lssfpn/camera/256x704/
 radar CenterHead (configs/nuscenes/det/centerhead/lssfpn/camera+radar/resnet50/
 default.yaml). Any other config, or a batch size other than 1, raises.
 
-Run: ``python -m bevfusion_tpu_torch.tools.benchmark [config] [--iters 20]`` (on the card).
+The model computes in bf16 by default, as the JAX tool builds it
+(``tools/benchmark.py:26``, ``dtype=jnp.bfloat16``); ``--dtype float32``
+keeps the fp32 figures (TF32 convolutions, ``runtime/precision.py``).
+
+Run: ``python -m bevfusion_tpu_torch.tools.benchmark [config] [--iters 20]
+[--dtype bfloat16|float32]`` (on the card).
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ import sys
 import torch
 
 from ..devices import resolve_device
+from ..runtime import precision
 from ..utils.profiler import frame_ms
 
 
@@ -52,10 +58,12 @@ def _unported_types(model_cfg):
             if cfg and "type" in cfg and cfg["type"] not in reg._registry]
 
 
-def build(config=None, device="cuda", num_points: int = 120000, batch_size: int = 1):
+def build(config=None, device="cuda", num_points: int = 120000, batch_size: int = 1,
+          dtype=torch.float32):
     """(cfg, model, batch) of a config the port builds (the flagship when
-    ``config`` is None); raises NotImplementedError for a batch size other
-    than 1 or a config with modules the port lacks, naming them."""
+    ``config`` is None), computing in ``dtype``; raises NotImplementedError
+    for a batch size other than 1 or a config with modules the port lacks,
+    naming them."""
     from ..config import load_config
     from ..runtime.flagship import build_flagship
 
@@ -66,7 +74,7 @@ def build(config=None, device="cuda", num_points: int = 120000, batch_size: int 
         missing = _unported_types(load_config(config).model)
         if missing:
             raise NotImplementedError(f"{config}: not ported: {', '.join(missing)}")
-    return build_flagship(device, num_points=num_points, config_path=config)
+    return build_flagship(device, num_points=num_points, config_path=config, dtype=dtype)
 
 
 def latency(model, batch, device="cuda", iters: int = 20, warmup: int = 5):
@@ -88,13 +96,16 @@ def main(argv=None) -> int:
     ap.add_argument("--warmup", type=int, default=5)
     ap.add_argument("--batch-size", type=int, default=1)
     ap.add_argument("--points", type=int, default=120000)
+    ap.add_argument("--dtype", default="bfloat16", choices=list(precision.COMPUTE_DTYPES))
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    _, model, batch = build(args.config, dev, args.points, args.batch_size)
+    precision.apply_tf32_defaults()
+    _, model, batch = build(args.config, dev, args.points, args.batch_size,
+                            precision.parse_dtype(args.dtype))
     r = latency(model, batch, dev, args.iters, args.warmup)
     card = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"latency: {r['mean_ms']:.2f} ms (median {r['median_ms']:.2f})  fps: {r['fps']:.2f}  "
-          f"[{card}, cuDNN TF32 {torch.backends.cudnn.allow_tf32}]")
+          f"[{card}, {args.dtype}, cuDNN TF32 {torch.backends.cudnn.allow_tf32}]")
     return 0
 
 

@@ -8,9 +8,11 @@ through the hand-written kernel (K1/K2: C 16/32/64, folded BN, residual
 and ReLU in its epilogue), and stage 3 as the port's encoder runs it,
 dense (the densify scatter and ``F.conv3d``), with ``conv_out``. The caps
 are the config's ``site_caps``, which the model runs (the JAX tool sized
-its own).
+its own). In bf16 by default, as the JAX tool (``tools/profile_encoder.py:124-126``:
+the bf16 kernels, bf16 features); ``--dtype float32`` for the fp32 figures.
 
-Run: ``python -m bevfusion_tpu_torch.tools.profile_encoder`` (on the card).
+Run: ``python -m bevfusion_tpu_torch.tools.profile_encoder [--dtype bfloat16|float32]``
+(on the card).
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import sys
 import torch
 
 from ..devices import resolve_device
+from ..runtime import precision
 from ..utils.profiler import op_timer
 from .profile_meta import print_rows
 
@@ -41,13 +44,18 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--points", type=int, default=120000)
     ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--dtype", default="bfloat16", choices=list(precision.COMPUTE_DTYPES))
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    _, model, batch = build_flagship(dev, num_points=args.points)
+    precision.apply_tf32_defaults()
+    dtype = precision.parse_dtype(args.dtype)
+    _, model, batch = build_flagship(dev, num_points=args.points, dtype=dtype)
     with torch.no_grad():
         vox = model.lidar_voxelize(batch["points"], batch["points_mask"])
-        rows, _ = profile_encoder(model.encoders["lidar"]["backbone"], vox.feats[0],
-                                  vox.coords[0], vox.mask[0], dev, args.iters)
+        with model.autocast(batch):
+            rows, _ = profile_encoder(model.encoders["lidar"]["backbone"],
+                                      precision.to_compute(vox.feats[0], dtype), vox.coords[0],
+                                      vox.mask[0], dev, args.iters)
     print_rows(rows)
     return 0
 

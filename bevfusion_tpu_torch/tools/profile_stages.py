@@ -14,14 +14,18 @@ camera + radar CenterHead.
 Stages run eagerly either way, so their sum is close to the frame time;
 use it to rank stages, ``benchmark.py`` for the frame.
 
-``--flops`` adds each stage's GFLOP (``utils/profiler.flops_of``: the ATen
-ops plus the port's kernels), TFLOP/s and its share of the peak of the
-precision it runs in: TF32 (495 TFLOP/s) where cuDNN's TF32 switch is on,
-else fp32 (67 TFLOP/s). ``--tf32 on|off`` sets both of PyTorch's TF32
-switches; by default they stay as PyTorch sets them (cuDNN convolutions
-in TF32, matmuls in fp32). JSON goes only to a path given as ``--out``.
+The model computes in bf16 by default, as the JAX tool builds it
+(``tools/profile_stages.py:53``); ``--dtype float32`` keeps the fp32
+figures. ``--flops`` adds each stage's GFLOP (``utils/profiler.flops_of``:
+the ATen ops plus the port's kernels), TFLOP/s and its share of the peak
+of the precision it runs in: bf16 (989 TFLOP/s) in a bf16 model, TF32
+(495 TFLOP/s) where cuDNN's TF32 switch is on, else fp32 (67 TFLOP/s).
+``--tf32 on|off`` sets both of PyTorch's TF32 switches; by default they
+are the fp32 runs' (``runtime/precision.py:TF32``: cuDNN convolutions in
+TF32, matmuls in fp32). JSON goes only to a path given as ``--out``.
 
-Run: ``python -m bevfusion_tpu_torch.tools.profile_stages [config] [--flops]`` (on the card).
+Run: ``python -m bevfusion_tpu_torch.tools.profile_stages [config] [--flops]
+[--dtype bfloat16|float32]`` (on the card).
 """
 from __future__ import annotations
 
@@ -32,11 +36,14 @@ import sys
 import torch
 
 from ..devices import resolve_device
-from ..utils.profiler import FP32_FLOPS, TF32_FLOPS, op_timer
+from ..runtime import precision
+from ..utils.profiler import BF16_FLOPS, FP32_FLOPS, TF32_FLOPS, op_timer
 
 
-def peak_flops():
+def peak_flops(dtype=torch.float32):
     """(peak FLOP/s, its name) of the precision the convolutions run in."""
+    if dtype == torch.bfloat16:
+        return BF16_FLOPS, "bf16 tensor cores, 989 TFLOP/s"
     if torch.backends.cudnn.allow_tf32:
         return TF32_FLOPS, "TF32 tensor cores, 495 TFLOP/s"
     return FP32_FLOPS, "fp32 without tensor cores, 67 TFLOP/s"
@@ -50,7 +57,7 @@ def profile_stages(model, batch, device="cuda", iters: int = 20, warmup: int = 3
     rows = []
     with torch.no_grad():
         out = model(batch, timed=op_timer(rows, dev, iters, warmup, flops))
-    peak, _ = peak_flops()
+    peak, _ = peak_flops(model.compute_dtype)
     for r in rows:
         r["stage"] = r.pop("op")
         if flops:
@@ -60,7 +67,7 @@ def profile_stages(model, batch, device="cuda", iters: int = 20, warmup: int = 3
     return rows, out
 
 
-def print_table(rows, flops: bool) -> None:
+def print_table(rows, flops: bool, dtype=torch.float32) -> None:
     total = sum(r["ms"] for r in rows)
     if not flops:
         print("| stage | ms |\n|---|---|")
@@ -74,7 +81,7 @@ def print_table(rows, flops: bool) -> None:
               f"| {100 * r['peak_share']:.2f}% |")
     gflop = sum(r["gflop"] for r in rows)
     print(f"| **sum** | **{total:.2f}** | **{gflop:.2f}** | **{gflop / total:.3f}** | "
-          f"**{100 * gflop / total * 1e12 / peak_flops()[0]:.2f}%** |")
+          f"**{100 * gflop / total * 1e12 / peak_flops(dtype)[0]:.2f}%** |")
 
 
 def main(argv=None) -> int:
@@ -89,21 +96,25 @@ def main(argv=None) -> int:
     ap.add_argument("--tf32", choices=["on", "off"], default=None,
                     help="both TF32 switches on or off (default: as PyTorch sets them)")
     ap.add_argument("--out", default=None, help="write the rows as JSON to this path")
+    ap.add_argument("--dtype", default="bfloat16", choices=list(precision.COMPUTE_DTYPES))
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
+    dtype = precision.parse_dtype(args.dtype)
+    precision.apply_tf32_defaults()
     if args.tf32 is not None:
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = args.tf32 == "on"
     card = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"device: {card}; cuDNN TF32 {torch.backends.cudnn.allow_tf32}, matmul TF32 "
-          f"{torch.backends.cuda.matmul.allow_tf32}; peak: {peak_flops()[1]}")
-    _, model, batch = build(args.config, dev, args.points)
+    print(f"device: {card}; {args.dtype}; cuDNN TF32 {torch.backends.cudnn.allow_tf32}, matmul "
+          f"TF32 {torch.backends.cuda.matmul.allow_tf32}; peak: {peak_flops(dtype)[1]}")
+    _, model, batch = build(args.config, dev, args.points, dtype=dtype)
     rows, _ = profile_stages(model, batch, dev, args.iters, flops=args.flops)
-    print_table(rows, args.flops)
+    print_table(rows, args.flops, dtype)
     if args.out:
         with open(args.out, "w") as fh:
-            json.dump({"device": card, "cudnn_tf32": torch.backends.cudnn.allow_tf32,
+            json.dump({"device": card, "dtype": args.dtype,
+                       "cudnn_tf32": torch.backends.cudnn.allow_tf32,
                        "matmul_tf32": torch.backends.cuda.matmul.allow_tf32,
-                       "peak": peak_flops()[1], "stages": rows}, fh, indent=1)
+                       "peak": peak_flops(dtype)[1], "stages": rows}, fh, indent=1)
     return 0
 
 

@@ -30,6 +30,7 @@ from ..config import load_config
 from ..data import DataLoader, build_dataset
 from ..devices import resolve_device
 from ..models import build_model
+from ..runtime import precision
 from ..runtime.checkpoint import restore_checkpoint
 from ..runtime.eval import evaluate_dataset
 
@@ -84,7 +85,8 @@ def main(argv: Optional[List[str]] = None) -> Optional[Dict[str, float]]:
         torch.distributed.barrier()
 
     cfg = load_config(args.config, overrides=parse_overrides(args.opts))
-    model = build_model(cfg.model, device)
+    precision.apply_tf32_defaults()
+    model = build_model(cfg.model, device)  # fp32, as the JAX CLI (tools/test.py:41)
     restore_checkpoint(args.checkpoint, model)
     dataset = build_dataset(cfg.data.test)
     # round-robin dataset shard per process (multi_gpu_test semantics,

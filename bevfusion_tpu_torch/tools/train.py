@@ -26,9 +26,14 @@ bbox, ``map``: map) unless the config names ``evaluation.metric``; the JAX
 CLI takes bbox for every config, so its seg runs fail at their first eval
 (the detection eval finds no boxes). ``evaluation.save_best`` (default
 ``mAP``, which no metric key matches, as in the JAX CLI) writes ``best``
-when it names a key. The run is fp32 (the config's ``precision`` is not
-read: ROADMAP Queue 1 #6) on one process; ``WORLD_SIZE`` > 1 raises (data
-parallelism is ROADMAP Queue 1 #7).
+when it names a key. The model computes in the config's
+``precision.compute_dtype``, as the JAX CLI (``configs/default.yaml``:
+``bfloat16``; ``precision.compute_dtype=float32`` on the command line for
+fp32; ``runtime/precision.py``): the parameters, gradients, AdamW's
+moments and so the checkpoints are fp32 at either dtype, and a checkpoint
+of one dtype resumes at the other. The TF32 switches are the fp32 runs'
+defaults (``precision.apply_tf32_defaults``). One process; ``WORLD_SIZE``
+> 1 raises (data parallelism is ROADMAP Queue 1 #7).
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ from ..data import DataLoader, build_dataset
 from ..devices import resolve_device
 from ..models import build_model
 from ..runtime.checkpoint import load_weights, restore_checkpoint, save_checkpoint
+from ..runtime import precision
 from ..runtime.eval import evaluate_dataset, to_model_batch
 from ..runtime.train import (build_lr_schedule, build_momentum_schedule, build_optimizer,
                              make_train_step)
@@ -65,8 +71,8 @@ def eval_metrics(cfg) -> List[str]:
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
-    """Run the training; returns what it did: ``run_dir``, ``start_epoch``,
-    ``steps_per_epoch``, ``missing_keys`` / ``unexpected_keys`` of
+    """Run the training; returns what it did: ``run_dir``, ``compute_dtype``,
+    ``start_epoch``, ``steps_per_epoch``, ``missing_keys`` / ``unexpected_keys`` of
     ``--load-from``, ``checkpoints`` written, ``eval`` ({epoch: metrics}) and
     ``history``, one record a step (epoch, iter, ``loss``, ``wait_ms`` spent
     waiting on the loader, ``step_ms`` of the step up to a synchronise)."""
@@ -93,8 +99,11 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     os.makedirs(run_dir, exist_ok=True)
     cfg.dump(os.path.join(run_dir, "configs.yaml"))
 
+    precision.apply_tf32_defaults()
+    dtype = precision.config_dtype(cfg)
+    print(f"compute dtype {precision.dtype_name(dtype)} (precision.compute_dtype)")
     torch.manual_seed(seed)
-    model = build_model(cfg.model, "cpu").to(device)
+    model = build_model(cfg.model, "cpu", dtype).to(device)
     loader = DataLoader(build_dataset(cfg.data.train), batch_size=cfg.data.samples_per_gpu,
                         shuffle=True, num_workers=cfg.data.workers_per_gpu, seed=seed)
     max_epochs, steps_per_epoch = int(cfg.max_epochs), len(loader)
@@ -104,7 +113,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         model, grad_clip=(cfg.get("optimizer_config") or {}).get("grad_clip"),
         momentum_schedule=build_momentum_schedule(cfg.get("momentum_config"), 0.9, total_steps))
 
-    out: Dict[str, Any] = {"run_dir": run_dir, "steps_per_epoch": steps_per_epoch,
+    out: Dict[str, Any] = {"run_dir": run_dir, "compute_dtype": precision.dtype_name(dtype),
+                           "steps_per_epoch": steps_per_epoch,
                            "missing_keys": [], "unexpected_keys": [], "checkpoints": [],
                            "eval": {}, "history": []}
     resume, load_from = args.resume_from or cfg.get("resume_from"), \

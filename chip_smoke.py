@@ -8,8 +8,9 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
    nvcc per source, started together); the ptxas register and spill lines;
    the count of tensor-core instructions (``HMMA``) in the SASS
    (``cuobjdump -sass``) of the sparse-conv, weight-gradient and cost
-   breakdown libraries, and of TMA bulk copies (``UBLKCP``) in the memory
-   probes' library, each of which must be above 0;
+   breakdown libraries, of bf16 m16n8k16 ones (``HMMA.16816.F32.BF16``, the
+   bf16 forms) in the first two, and of TMA bulk copies (``UBLKCP``) in the
+   memory probes' library, each of which must be above 0;
 3. sparse-conv kernel vs plain: the kernel and its plain PyTorch version
    on the same CUDA tensors at the LiDAR branch's six shapes (a voxelized
    120k-point scan at voxelnet_0p075: the input conv, a stage-0 residual
@@ -31,6 +32,15 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
    mirrored weights for submanifold convs, the transposed rulebooks for the
    strided ones) vs autograd of the plain version, the same tolerance; its
    time beside the scalar loop on the same operands, and the ratio;
+5b. the bf16 forms of K1/K2 and K3 at the same six shapes (the operands
+   rounded to bf16; scale and shift fp32): K1/K2 with and without the
+   epilogue, every valid element within one bf16 rounding (2^-7 of |plain|)
+   plus 1e-4 of the scale of its bf16 plain version (the product and the
+   epilogue in fp32, one rounding), the count of elements that differ
+   printed; K3 (fp32 dW) within 1e-4 * max(|plain|, 1), equal bits across
+   two calls; each one's median time, bound (the bytes at bf16 rows; one
+   bf16 product a useful multiply-add at 989 TFLOP/s) and share, beside
+   the fp32 kernels' times of phases 3-4;
 6. the memory probes' kernels vs plain (``tools/bench_tile_micro.py``): K5,
    the copy ``x + 1``, at [65536, 1024] bf16, and K6, the tile gather, on
    both engines (TMA bulk copies, and its first form, ``cp.async``) at the
@@ -69,6 +79,13 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
    CPU (plain path, same LUT); ms/frame, peak device memory and the time
    of each stage (``tools/profile_stages.py``); the frame and its stages
    again with TF32 on;
+10b. the same flagship frame at bf16 (``compute_dtype`` on the same
+   weights): 15 bf16 sparse convs, no fp32 one, 1 pool, no NMS; every box
+   field finite and fp32; the head's BEV input and the dense heatmap
+   logits within 0.15 relative in norm of the fp32 frame (TF32 off); ms a
+   frame and peak at fp32 and bf16 in turns, cuDNN TF32 on and matmul TF32
+   off (``runtime/precision.py``), the bf16 stages, and one frame of each
+   traced (``torch.profiler``: kernels on the card, busy time, idle share);
 11. the three BEV map-segmentation configs (configs/nuscenes/seg/: fused
    fusion-bev256d2-lss, LiDAR-only lidar-centerpoint-bev128, camera-only
    camera-bev256d2) at full width with seeded random weights, the host
@@ -155,14 +172,24 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
    bit-equal wherever A' is; then the forward, the backward, the voxel
    means' ``index_add_``, the pool's backward and a cuDNN conv's backward
    each run twice on the same inputs, to name what is not deterministic;
-   last the fused seg config (fusion-bev256d2-lss) for 1 epoch with the
-   loop's per-epoch ``map`` eval (the map metrics' keys, finite). Every run's
+   then the same runs A, B, A' and C at the config's own precision, bf16
+   (the resume gate must hold B and refuse C again); these runs at fp32
+   (``precision.compute_dtype=float32``); last the fused seg config
+   (fusion-bev256d2-lss, fp32) for 1 epoch with the loop's per-epoch
+   ``map`` eval (the map metrics' keys, finite). Every run's
    launches equal the count the code predicts: a step 4 x (29 sparse conv,
    15 weight gradient) and one BEV pool (the batch's intervals together),
-   a val frame 15 and 1; losses finite; ms a step (median, host clock
+   a val frame 15 and 1 (at bf16 the same counts on the bf16 kernels);
+   losses finite; ms a step (median, host clock
    around a synchronised step), ms a step waiting on the loader, the
    peak memory, the loss at the first and last step, the checkpoint's
    size;
+11f. one bf16 eval frame of each of the ten other served configs
+   (TransFusion-L at 0.075 and 0.1 m, the three seg configs, the three
+   camera CenterHead configs, PointPillars, camera + radar) built at bf16
+   on the card, CenterHead heads moderated: the launches of the config's
+   fp32 frame with the sparse convs on the bf16 kernel, every output
+   finite; ms a frame (median of 5) and the peak;
 12. the flagship's training step at full width, B = 1, host LUT, TF32 off,
    PyTorch's deterministic algorithms on (the card's own run-to-run noise
    would swamp the comparison), the heatmap head's last conv scaled by 0.2
@@ -203,6 +230,16 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
    ms/step split into forward, backward and optimizer (host clock around
    synchronises), peak device memory, and the auction matcher's time
    within the forward;
+13b. the flagship's train step at bf16 on the phase-13 model: an fp32 pass
+   records its proposals and Hungarian targets, the bf16 pass replays them
+   (deterministic algorithms, TF32 off): 29 bf16 K1/K2, 15 bf16 K3, 1
+   pool, no fp32 sparse conv; the losses finite, every gradient fp32 and
+   finite; all gradients within 1e-2 relative in norm of the same forward's
+   with the plain versions' backward (the bf16 kernels' backward alone), and
+   within 8x of the fp32 pass's as far as a TF32 pass moves them from it
+   (at random init a rounding-level change of the forward moves the
+   gradients far: phase 12's B'), cosines printed; then 5 timed bf16
+   steps: ms a step and the peak;
 14. the measurement tools (``bevfusion_tpu_torch/tools/``, this path's
    entry points), TF32 on, every launch count set to 0 just before and read
    just after: the memory probes (torch's ``x + 1``, K5, K6 at its five
@@ -213,13 +250,16 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
    profiles and the latency benchmark's timing, and two train steps
    through the train-step benchmark; every row finite and every kernel
    launched; then ``python -m bevfusion_tpu_torch.tools.benchmark --iters
-   5``, and the same on configs/nuscenes/seg/fusion-bev256d2-lss.yaml, each in
-   a subprocess: exit 0 and its latency line;
+   5`` (at the CLI's default bf16), and the same on
+   configs/nuscenes/seg/fusion-bev256d2-lss.yaml, each in a subprocess:
+   exit 0 and its latency line;
 15. a JSON line with the kernel table (the BEV pool's second shape the seg
    grid, its third the ResNet det configs'; K6's two engines and K7's two
    families each with their ms, plain ms, bound, share and launches; every
    kernel's launches on the seg, det-camera and pillar paths; the NMS
-   kernel's row after K1-K7; every kernel's launches in each train step of
+   kernel's row after K1-K7, then the bf16 forms of K1/K2 and K3, their
+   launches those of the bf16 train step (13b); every kernel's launches in
+   each train step of
    phases 12 and 12b; their launches in each run of phase 11d and of phase
    11e), the seg, det-camera, pillar, cli, train-cli and train-config results
    and the script's total time, a line with the card's name and
@@ -243,8 +283,8 @@ import time
 
 import torch
 
-from bevfusion_tpu_torch.utils.profiler import (HBM_BYTES_PER_S, TF32_FLOPS, bound, card_line,
-                                               frame_ms, nbytes, time_fn)
+from bevfusion_tpu_torch.utils.profiler import (BF16_FLOPS, HBM_BYTES_PER_S, TF32_FLOPS, bound,
+                                               card_line, frame_ms, nbytes, time_fn)
 
 FP32_RTOL_KERNEL = 1e-4  # kernel vs plain on the card: summation order only
 HEATMAP_RTOL = 2e-3  # full model on the card vs on the CPU, ~40 fp32 layers
@@ -281,9 +321,26 @@ TRAIN_CONFIG_LAUNCHES = {
     "det-swint": {"bev_pool": 1}, "det-resnet": {"bev_pool": 1}, "det-bevdepth": {"bev_pool": 1},
     "camera+radar": {"bev_pool": 1}}
 DEVICE = "cuda"
+BF16_REL = 2.0 ** -7  # one bf16 rounding, relative: a bf16 kernel against its bf16 plain version
+# a bf16 frame's head input and heatmap logits against the fp32 frame of the same weights,
+# relative in norm: the CPU tests (tests/test_torch_precision_models.py) measure 1.0e-2 to
+# 5.8e-2 on the tiny models, at most 2.3x the JAX package's own bf16 gap; this allows ~2.5x
+# the largest for the deeper full-width nets. A gap below BF16_MIN_GAP means no bf16 ran.
+BF16_EVAL_GAP = 0.15
+BF16_MIN_GAP = 1e-4
+# the bf16 step's gradients, relative in norm over all of them: through the kernels against
+# the same forward with the plain versions' backward (the kernels' bf16 backward-data rounds
+# a few elements the other way), and against the fp32 step as a multiple of how far TF32 moves
+# them (bf16 rounds to 8 significant bits, TF32 the conv and matmul inputs to 11: 2^3)
+BF16_TRAIN_KERNEL_GAP = 1e-2
+BF16_TRAIN_VS_TF32 = 8.0
+BF16_TRAIN_LAUNCHES = {"sparse_conv_bf16": 15 + 14, "sparse_conv_dw_bf16": 15, "bev_pool": 1}
+VOXELNET_0P1 = "configs/nuscenes/det/transfusion/secfpn/lidar/voxelnet.yaml"  # TransFusion-L 0.1 m
 K7_SHAPES = 3  # the cost breakdown runs at the stage-0, 1 and 2 submanifold convs
 TOOL_ITERS = 5  # timed calls per op in the tools phase
-TOOLS_ABSENT = {"greedy_nms"}  # the tools drive the TransFusion flagship, which has no NMS
+# the tools drive the TransFusion flagship, which has no NMS, at fp32 in this process (their
+# CLIs' bf16 default runs in the benchmark subprocesses)
+TOOLS_ABSENT = {"greedy_nms", "sparse_conv_bf16", "sparse_conv_dw_bf16"}
 SEG_BENCHMARK = "configs/nuscenes/seg/fusion-bev256d2-lss.yaml"  # the tools phase's second CLI run
 CLI_SAMPLES = 4  # samples of the synthesized nuScenes-format set of phase 11d
 TRAIN_CLI_SAMPLES = 3  # phase 11e's train split: CBGS makes 9 of them, 2 steps an epoch at B = 4
@@ -983,24 +1040,24 @@ def nms_kernel_cases(nms, frames):
     return shapes, len(cases)
 
 
-def decode_trace(head, preds):
-    """``head.get_bboxes(preds)`` on the card: its wall time (host clock
-    around a synchronised call, after one warmup), then the same call once
-    under ``torch.profiler``: the card's activities (kernels, copies), their
-    summed device time, the NMS kernel's part of it, the share of the wall
-    time the card is idle, and the five kernel names with the most device
-    time."""
+def traced(fn, mark=None):
+    """``fn()`` on the card: its wall time (host clock around a synchronised
+    call, after one warmup), then the same call once under
+    ``torch.profiler``: the card's activities (kernels, copies), their
+    summed device time, the part of it in kernels whose name holds ``mark``,
+    the share of the wall time the card is idle, and the five kernel names
+    with the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.no_grad():
-        head.get_bboxes(preds)
+        fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        head.get_bboxes(preds)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            head.get_bboxes(preds)
+            fn()
             torch.cuda.synchronize()
     acts = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.device_time for e in acts) / 1e3
@@ -1010,9 +1067,17 @@ def decode_trace(head, preds):
         by_name[e.name[:90]] = (n + 1, ms + e.device_time / 1e3)
     top = sorted(by_name.items(), key=lambda kv: kv[1][1], reverse=True)[:5]
     return {"wall_ms": wall_ms, "device_activities": len(acts), "device_busy_ms": busy_ms,
-            "nms_kernel_ms": sum(e.device_time for e in acts if "greedy_suppress" in e.name) / 1e3,
+            "mark_ms": sum(e.device_time for e in acts if mark and mark in e.name) / 1e3,
             "idle_share": 1.0 - busy_ms / wall_ms,
             "top": [{"name": k, "count": n, "ms": ms} for k, (n, ms) in top]}
+
+
+def decode_trace(head, preds):
+    """``head.get_bboxes(preds)`` traced (``traced``), the NMS kernel's
+    device time apart."""
+    r = traced(lambda: head.get_bboxes(preds), "greedy_suppress")
+    r["nms_kernel_ms"] = r.pop("mark_ms")
+    return r
 
 
 def det_forward(model, batch):
@@ -1541,79 +1606,103 @@ def train_cli_phase(counters, smi, bp):
                   f"a call {r['auction_assigned']}")
         return r, out
 
+    def flagship_runs(out, tag, extra, per_step, name_ops):
+        """Runs A, B and, where they differ, A' and C of the flagship with the
+        extra arguments ``extra`` (the compute dtype), their results into
+        ``out``; with ``name_ops`` the ops that are not deterministic are
+        named too."""
+        run_a = os.path.join(root, "runs", "a" + tag.strip())
+        out["a"], out_a = run(f"A{tag} (flagship, 2 epochs, load_from TransFusion-L)",
+                              [FLAGSHIP_CONFIG, "--run-dir", run_a, "--load-from", lidar,
+                               *common, *extra], per_step)
+        prefixes = {".".join(k.split(".")[:2]) for k in out_a["missing_keys"]}
+        check(prefixes == {"encoders.camera", "fuser.0", "fuser.1"}
+              and not out_a["unexpected_keys"],
+              f"train-cli A{tag}: load_from left {sorted(prefixes)} missing, "
+              f"{out_a['unexpected_keys'][:3]} unexpected")
+        out["a"]["missing_keys"] = len(out_a["missing_keys"])
+        for epoch in (1, 2):
+            ckpt = torch.load(os.path.join(run_a, f"epoch_{epoch}"), map_location="cpu",
+                              weights_only=False)
+            check(ckpt["meta"] == {"epoch": epoch, "iter": epoch * out_a["steps_per_epoch"]}
+                  and ckpt["optimizer"]["count"] == epoch * out_a["steps_per_epoch"],
+                  f"train-cli A{tag}: epoch_{epoch} holds {ckpt['meta']}")
+            del ckpt
+        run_b = os.path.join(root, "runs", "b" + tag.strip())
+        out["b"], _ = run(f"B{tag} (resumed from A's epoch_1)",
+                          [FLAGSHIP_CONFIG, "--run-dir", run_b, "--resume-from",
+                           os.path.join(run_a, "epoch_1"), *common, *extra], per_step)
+        check(out["b"]["start_epoch"] == 1,
+              f"train-cli B{tag}: started at epoch {out['b']['start_epoch']}")
+        gaps_b, equal_b, n = checkpoint_gaps(os.path.join(run_a, "epoch_2"),
+                                             os.path.join(run_b, "epoch_2"))
+        out["resume"] = {"gaps_b": gaps_b, "bit_equal_b": len(equal_b), "tensors": n}
+        if len(equal_b) == n:
+            print(f"train-cli{tag} resume: B's final weights, buffers and optimizer moments "
+                  f"equal A's bit for bit ({n} tensors)")
+        else:
+            run_a2 = os.path.join(root, "runs", "a2" + tag.strip())
+            out["a2"], _ = run(f"A'{tag} (A again)",
+                               [FLAGSHIP_CONFIG, "--run-dir", run_a2, "--load-from", lidar,
+                                *common, *extra], per_step)
+            gaps_a2, equal_a2, _ = checkpoint_gaps(os.path.join(run_a, "epoch_2"),
+                                                   os.path.join(run_a2, "epoch_2"))
+            # the gate's control: a resume that keeps the weights and the step count but
+            # loses AdamW's moments must be refused
+            lost = torch.load(os.path.join(run_a, "epoch_1"), map_location="cpu",
+                              weights_only=False)
+            for m in ("mu", "nu"):
+                lost["optimizer"][m] = {k: torch.zeros_like(v)
+                                        for k, v in lost["optimizer"][m].items()}
+            lost_path = os.path.join(root, "ckpt", "epoch_1_moments_lost" + tag.strip())
+            torch.save(lost, lost_path)
+            del lost
+            run_c = os.path.join(root, "runs", "c" + tag.strip())
+            out["c"], _ = run(f"C{tag} (resumed from A's epoch_1 with the moments zeroed)",
+                              [FLAGSHIP_CONFIG, "--run-dir", run_c, "--resume-from", lost_path,
+                               *common, *extra], per_step)
+            gaps_c, equal_c, _ = checkpoint_gaps(os.path.join(run_a, "epoch_2"),
+                                                 os.path.join(run_c, "epoch_2"))
+            out["resume"].update(gaps_a2=gaps_a2, bit_equal_a2=len(equal_a2), gaps_c=gaps_c,
+                                 bit_equal_c=len(equal_c))
+            if name_ops:
+                cfg = load_config(FLAGSHIP_CONFIG, overrides={"dataset_root": root + "/"})
+                model = build_model(cfg.model, DEVICE)
+                restore_checkpoint(os.path.join(run_a, "epoch_2"), model)
+                np_batch = next(iter(DataLoader(build_dataset(cfg.data.train), TRAIN_CLI_BATCH,
+                                                num_workers=2)))
+                np_batch.pop("metas", None)
+                ops, grads_differ = nondeterministic_ops(model, np_batch, bp)
+                del model
+                out["resume"].update(ops=ops, gradients_differ=grads_differ)
+                print(f"train-cli resume: on the same inputs twice: {grads_differ} gradients "
+                      f"differ; " + "; ".join(f"{op}: {'differs' if d else 'bit-equal'}"
+                                              for op, d in ops.items()))
+            print(f"train-cli{tag} resume, each part's gaps to A's final state (the largest "
+                  f"relative gap of a tensor and the tensor, the part's relative gap in norm, "
+                  f"the largest absolute gap and its tensor): B {gaps_text(gaps_b)}; "
+                  f"{len(equal_b)} of {n} tensors bit-equal")
+            print(f"train-cli{tag} resume: A' {gaps_text(gaps_a2)}; {len(equal_a2)} bit-equal")
+            print(f"train-cli{tag} resume: C (moments lost) {gaps_text(gaps_c)}; "
+                  f"{len(equal_c)} bit-equal")
+            check(resume_holds(gaps_b, equal_b, gaps_a2, equal_a2),
+                  f"train-cli{tag} resume: B {gaps_text(gaps_b)} against 2x A' "
+                  f"{gaps_text(gaps_a2)}; bit-equal in A' but not in B: "
+                  f"{sorted(equal_a2 - equal_b)[:5]}")
+            check(not resume_holds(gaps_c, equal_c, gaps_a2, equal_a2),
+                  f"train-cli{tag} resume: the gate passed C, a resume that lost the moments: "
+                  f"{gaps_text(gaps_c)}")
+
     per_step = {k: v * TRAIN_CLI_BATCH for k, v in _SPARSE_STEP.items()}
     per_step["bev_pool"] = POOL_LAUNCHES  # one pool a step: the batch's intervals together
-    run_a = os.path.join(root, "runs", "a")
-    res["a"], out_a = run("A (flagship, 2 epochs, load_from TransFusion-L)",
-                          [FLAGSHIP_CONFIG, "--run-dir", run_a, "--load-from", lidar, *common],
-                          per_step)
-    prefixes = {".".join(k.split(".")[:2]) for k in out_a["missing_keys"]}
-    check(prefixes == {"encoders.camera", "fuser.0", "fuser.1"} and not out_a["unexpected_keys"],
-          f"train-cli A: load_from left {sorted(prefixes)} missing, "
-          f"{out_a['unexpected_keys'][:3]} unexpected")
-    res["a"]["missing_keys"] = len(out_a["missing_keys"])
-    for epoch in (1, 2):
-        ckpt = torch.load(os.path.join(run_a, f"epoch_{epoch}"), map_location="cpu",
-                          weights_only=False)
-        check(ckpt["meta"] == {"epoch": epoch, "iter": epoch * out_a["steps_per_epoch"]}
-              and ckpt["optimizer"]["count"] == epoch * out_a["steps_per_epoch"],
-              f"train-cli A: epoch_{epoch} holds {ckpt['meta']}")
-        del ckpt
-    run_b = os.path.join(root, "runs", "b")
-    res["b"], _ = run("B (resumed from A's epoch_1)",
-                      [FLAGSHIP_CONFIG, "--run-dir", run_b, "--resume-from",
-                       os.path.join(run_a, "epoch_1"), *common], per_step)
-    check(res["b"]["start_epoch"] == 1, f"train-cli B: started at epoch {res['b']['start_epoch']}")
-    gaps_b, equal_b, n = checkpoint_gaps(os.path.join(run_a, "epoch_2"),
-                                         os.path.join(run_b, "epoch_2"))
-    res["resume"] = {"gaps_b": gaps_b, "bit_equal_b": len(equal_b), "tensors": n}
-    if len(equal_b) == n:
-        print(f"train-cli resume: B's final weights, buffers and optimizer moments equal A's bit "
-              f"for bit ({n} tensors)")
-    else:
-        run_a2 = os.path.join(root, "runs", "a2")
-        res["a2"], _ = run("A' (A again)", [FLAGSHIP_CONFIG, "--run-dir", run_a2, "--load-from",
-                                            lidar, *common], per_step)
-        gaps_a2, equal_a2, _ = checkpoint_gaps(os.path.join(run_a, "epoch_2"),
-                                               os.path.join(run_a2, "epoch_2"))
-        # the gate's control: a resume that keeps the weights and the step count but
-        # loses AdamW's moments must be refused
-        lost = torch.load(os.path.join(run_a, "epoch_1"), map_location="cpu", weights_only=False)
-        for m in ("mu", "nu"):
-            lost["optimizer"][m] = {k: torch.zeros_like(v) for k, v in lost["optimizer"][m].items()}
-        lost_path = os.path.join(root, "ckpt", "epoch_1_moments_lost")
-        torch.save(lost, lost_path)
-        del lost
-        run_c = os.path.join(root, "runs", "c")
-        res["c"], _ = run("C (resumed from A's epoch_1 with the moments zeroed)",
-                          [FLAGSHIP_CONFIG, "--run-dir", run_c, "--resume-from", lost_path,
-                           *common], per_step)
-        gaps_c, equal_c, _ = checkpoint_gaps(os.path.join(run_a, "epoch_2"),
-                                             os.path.join(run_c, "epoch_2"))
-        cfg = load_config(FLAGSHIP_CONFIG, overrides={"dataset_root": root + "/"})
-        model = build_model(cfg.model, DEVICE)
-        restore_checkpoint(os.path.join(run_a, "epoch_2"), model)
-        np_batch = next(iter(DataLoader(build_dataset(cfg.data.train), TRAIN_CLI_BATCH,
-                                        num_workers=2)))
-        np_batch.pop("metas", None)
-        ops, grads_differ = nondeterministic_ops(model, np_batch, bp)
-        del model
-        res["resume"].update(gaps_a2=gaps_a2, bit_equal_a2=len(equal_a2), gaps_c=gaps_c,
-                             bit_equal_c=len(equal_c), ops=ops, gradients_differ=grads_differ)
-        print(f"train-cli resume, each part's gaps to A's final state (the largest relative "
-              f"gap of a tensor and the tensor, the part's relative gap in norm, the largest "
-              f"absolute gap and its tensor): B {gaps_text(gaps_b)}; {len(equal_b)} of {n} "
-              f"tensors bit-equal")
-        print(f"train-cli resume: A' {gaps_text(gaps_a2)}; {len(equal_a2)} bit-equal")
-        print(f"train-cli resume: C (moments lost) {gaps_text(gaps_c)}; {len(equal_c)} bit-equal")
-        print(f"train-cli resume: on the same inputs twice: {grads_differ} gradients differ; "
-              + "; ".join(f"{op}: {'differs' if d else 'bit-equal'}" for op, d in ops.items()))
-        check(resume_holds(gaps_b, equal_b, gaps_a2, equal_a2),
-              f"train-cli resume: B {gaps_text(gaps_b)} against 2x A' {gaps_text(gaps_a2)}; "
-              f"bit-equal in A' but not in B: {sorted(equal_a2 - equal_b)[:5]}")
-        check(not resume_holds(gaps_c, equal_c, gaps_a2, equal_a2),
-              f"train-cli resume: the gate passed C, a resume that lost the moments: "
-              f"{gaps_text(gaps_c)}")
+    fp32 = ["precision.compute_dtype=float32"]  # the config's own is bf16
+    flagship_runs(res, "", fp32, per_step, True)
+    torch.cuda.empty_cache()
+    # again at the config's own precision, bf16: the bf16 kernels' launches
+    res["bf16"] = {}
+    per_step_bf16 = {k: v * TRAIN_CLI_BATCH for k, v in BF16_TRAIN_LAUNCHES.items()}
+    per_step_bf16["bev_pool"] = POOL_LAUNCHES
+    flagship_runs(res["bf16"], " bf16", [], per_step_bf16, False)
     torch.cuda.empty_cache()
 
     # the fused seg config: 1 epoch and its per-epoch map eval, inside the loop
@@ -1621,7 +1710,7 @@ def train_cli_phase(counters, smi, bp):
     res["seg"], out_seg = run(
         "seg fusion-bev256d2-lss (1 epoch + map eval)",
         [path, "--run-dir", os.path.join(root, "runs", "seg"), "--device", DEVICE,
-         f"dataset_root={root}/", "max_epochs=1"], per_step,
+         f"dataset_root={root}/", "max_epochs=1", *fp32], per_step,
         {"sparse_conv": SPARSE_LAUNCHES, "bev_pool": POOL_LAUNCHES})
     want_keys = {f"map/{c}/iou@max" for c in load_config(path).data.val.map_classes} | {
         "map/mean/iou@max"}
@@ -1898,6 +1987,334 @@ def train_configs_phase(sp, bp, counters):
     return res
 
 
+def bf16_kernel_phase(sp, cases, fwd32, dw32):
+    """Phase 5b: the bf16 forms of K1/K2 and K3 at the six shapes of phases
+    3-5 (the same operands rounded to bf16, the residual too; scale and
+    shift fp32). K1/K2 with and without the epilogue against the bf16 plain
+    version (fp32 product and epilogue, one rounding): every valid element
+    within one bf16 rounding (2^-7 of |plain|) plus the fp32 order gate
+    (1e-4 of the scale); the count of elements that differ. K3 against its
+    plain version (fp32 dW of bf16 rows: the products exact in fp32) within
+    1e-4 * max(|plain|, 1), equal bits across two calls. Times (median of
+    20), bounds (the bytes at bf16 rows; one bf16 product a useful
+    multiply-add at 989 TFLOP/s) and shares, beside the fp32 kernels' times
+    of phases 3-4. Returns two lists of per-shape records."""
+    fwd, dw = [], []
+    for (label, (feats, nbr, w), kw, valid, _, step_launches), f32, d32 in zip(cases, fwd32, dw32):
+        K, Cin, Cout = w.shape
+        hits = int((nbr >= 0).sum())
+        x, w16 = feats.bfloat16(), w.bfloat16()
+        epi16 = dict(kw, **({"residual": kw["residual"].bfloat16()} if "residual" in kw else {}))
+        row = {"shape": label, "hits": hits, "valid_out": int(valid.sum()),
+               "fp32_ms": f32["ms"], "fp32_ms_no_epilogue": f32["ms_no_epilogue"]}
+        for tag, epi in (("", epi16), ("_no_epilogue", {})):
+            got = sp.sparse_conv(x, nbr, w16, **epi)
+            want = sp.sparse_conv_plain(x, nbr, w16, **epi)
+            torch.cuda.synchronize()
+            d = (got.float() - want.float())[valid]
+            ref = want.float()[valid]
+            scale = max(ref.abs().max().item(), 1.0)
+            bad = int((d.abs() > BF16_REL * ref.abs() + FP32_RTOL_KERNEL * scale).sum())
+            check(got.dtype == torch.bfloat16 and bad == 0,
+                  f"bf16 {label}{tag}: {bad} elements past one bf16 rounding of plain")
+            moved = nbytes(x, nbr, w16, got, *(v for v in epi.values() if torch.is_tensor(v)))
+            b_ms, b_by = bound(2 * hits * Cin * Cout, moved, BF16_FLOPS)
+            ms = kernel_ms(lambda: sp.sparse_conv(x, nbr, w16, **epi))
+            plain_ms = kernel_ms(lambda: sp.sparse_conv_plain(x, nbr, w16, **epi))
+            row.update({f"max_abs_err{tag}": d.abs().max().item(),
+                        f"elements_differ{tag}": int((d != 0).sum()), f"elements{tag}": d.numel(),
+                        f"ms{tag}": ms, f"plain_ms{tag}": plain_ms, f"bound_ms{tag}": b_ms,
+                        f"bound_by{tag}": b_by, f"share{tag}": b_ms / ms})
+        fwd.append(row)
+        print(f"kernel sparse_conv_bf16 {label}: {row['elements_differ']} of {row['elements']} "
+              f"elements differ from plain (max|d| {row['max_abs_err']:.3e}; without epilogue "
+              f"{row['elements_differ_no_epilogue']}, {row['max_abs_err_no_epilogue']:.3e}), "
+              f"kernel {row['ms']:.4f} ms (fp32 {f32['ms']:.4f}), plain {row['plain_ms']:.4f} "
+              f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), {row['share']:.3f} of "
+              f"bound; without epilogue {row['ms_no_epilogue']:.4f} ms (fp32 "
+              f"{f32['ms_no_epilogue']:.4f}), {row['share_no_epilogue']:.3f} of bound")
+
+        dout = torch.randn(nbr.shape[1], Cout, device=DEVICE,
+                           generator=torch.Generator(device=DEVICE).manual_seed(hits))
+        dout = (dout * valid[:, None]).bfloat16()
+        got = sp.sparse_conv_dw(x, nbr, dout)
+        want = sp.sparse_conv_dw_plain(x, nbr, dout)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        scale = max(want.abs().max().item(), 1.0)
+        check(got.dtype == torch.float32 and err <= FP32_RTOL_KERNEL * scale,
+              f"bf16 {label} dW: max|d| {err} vs plain, scale {scale}")
+        check(torch.equal(sp.sparse_conv_dw(x, nbr, dout), got),
+              f"bf16 {label} dW: not repeatable")
+        moved = nbytes(x, nbr, dout, got)
+        b_ms, b_by = bound(2 * hits * Cin * Cout, moved, BF16_FLOPS)
+        ms = kernel_ms(lambda: sp.sparse_conv_dw(x, nbr, dout))
+        plain_ms = kernel_ms(lambda: sp.sparse_conv_dw_plain(x, nbr, dout))
+        dw.append({"shape": label, "hits": hits, "max_abs_err": err, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "share": b_ms / ms, "fp32_ms": d32["ms"], "step_launches": step_launches})
+        print(f"kernel sparse_conv_dw_bf16 {label}: max|d| {err:.3e} (scale {scale:.3e}), "
+              f"kernel {ms:.4f} ms (fp32 {d32['ms']:.4f}), plain {plain_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}), {b_ms / ms:.3f} of bound")
+    return fwd, dw
+
+
+def rel_gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    """||a - b|| / ||b||, in float64."""
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def bf16_eval_phase(model, batch, counters):
+    """Phase 10b: the flagship's eval frame at bf16 (the same weights,
+    ``compute_dtype`` set on the phase-10 model), every launch count set to
+    0 just before and read just after: 15 bf16 sparse convs, no fp32 one, 1
+    pool, no NMS; every box field finite; the head's BEV input and the
+    dense heatmap logits against the fp32 frame (TF32 off) within
+    ``BF16_EVAL_GAP`` relative in norm; then ms a frame (median of 20) and
+    the peak at fp32 and bf16 in turns (fp32, bf16, bf16, fp32) with the
+    fp32 runs' TF32 switches (``runtime/precision.py``), the bf16 stages,
+    and one frame of each dtype traced (``traced``). Returns the results;
+    the model is fp32 again after."""
+    from bevfusion_tpu_torch.runtime import precision
+    from bevfusion_tpu_torch.tools import profile_stages
+
+    seen = {}
+    hooks = [model.decoder["neck"].register_forward_hook(
+                 lambda mod, args, out: seen.__setitem__("bev", out)),
+             model.heads["object"].register_forward_hook(
+                 lambda mod, args, out: seen.__setitem__("preds", out))]
+
+    def forward(dtype):
+        model.compute_dtype = dtype
+        with torch.no_grad():
+            boxes = model(batch)["boxes"]
+        bev = seen["bev"][0] if isinstance(seen["bev"], (list, tuple)) else seen["bev"]
+        return boxes, bev.float(), seen["preds"]["dense_heatmap"].float()
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    _, bev32, heat32 = forward(torch.float32)
+    want = dict(dict.fromkeys(counters, 0), sparse_conv_bf16=SPARSE_LAUNCHES,
+                bev_pool=POOL_LAUNCHES)
+    torch.cuda.synchronize()
+    zero_counts(counters)
+    boxes, bev16, heat16 = forward(torch.bfloat16)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    for h in hooks:
+        h.remove()
+    check(launches == want, f"bf16 flagship: launches {launches}, want {want}")
+    for key, v in boxes.items():
+        check(bool(torch.isfinite(v.float()).all()), f"bf16 flagship: non-finite {key}")
+    check(boxes["bboxes"].dtype == torch.float32, f"bf16 flagship: boxes {boxes['bboxes'].dtype}")
+    gaps = {"bev_into_head": rel_gap(bev16, bev32), "heatmap_logits": rel_gap(heat16, heat32)}
+    print(f"bf16 flagship: launches {launches}; relative gaps in norm to the fp32 frame (TF32 "
+          f"off): BEV into the head {gaps['bev_into_head']:.3e}, dense heatmap logits "
+          f"{gaps['heatmap_logits']:.3e} (gate {BF16_EVAL_GAP:g})")
+    check(all(BF16_MIN_GAP < g <= BF16_EVAL_GAP for g in gaps.values()),
+          f"bf16 flagship: gaps {gaps}")
+    precision.apply_tf32_defaults()
+    ms, peak = {"float32": [], "bfloat16": []}, {}
+    for dtype in (torch.float32, torch.bfloat16, torch.bfloat16, torch.float32):
+        model.compute_dtype = dtype
+        with torch.no_grad():
+            frames, p = frame_ms(lambda: model(batch))
+        ms[precision.dtype_name(dtype)].append(statistics.median(frames))
+        peak[precision.dtype_name(dtype)] = p
+    model.compute_dtype = torch.bfloat16
+    stages = {r["stage"]: r["ms"]
+              for r in profile_stages.profile_stages(model, batch, DEVICE, iters=10)[0]}
+    traces = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model.compute_dtype = dtype
+        traces[precision.dtype_name(dtype)] = t = traced(lambda: model(batch))
+        print(f"{precision.dtype_name(dtype)} flagship frame traced: {t['wall_ms']:.2f} ms wall, "
+              f"{t['device_activities']} kernels and copies on the card, "
+              f"{t['device_busy_ms']:.2f} ms busy, idle {100 * t['idle_share']:.1f}% of the "
+              f"wall; most device time: " + "; ".join(
+                  f"{k['name']} x{k['count']} {k['ms']:.3f} ms" for k in t["top"]))
+    model.compute_dtype = torch.float32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    r = {"launches": launches, "gaps": gaps, "frame_ms_median": ms, "peak_mem_bytes": peak,
+         "stage_ms": stages, "frame_trace": traces}
+    print(f"bf16 flagship (cuDNN TF32 on, matmul TF32 off): ms/frame medians fp32 "
+          f"{ms['float32']}, bf16 {ms['bfloat16']} in turns; peak fp32 "
+          f"{peak['float32'] / 2**20:.1f} MiB, bf16 {peak['bfloat16'] / 2**20:.1f} MiB; bf16 "
+          f"stages " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
+    return r
+
+
+def bf16_configs_phase(counters):
+    """Phase 11f: one bf16 eval frame of each of the ten other served
+    configs (TransFusion-L at 0.075 and 0.1 m, the three seg configs, the
+    three camera CenterHead configs, PointPillars, camera + radar), each
+    built at bf16 on the card (seeded random weights, CenterHead heads
+    moderated): the launch counts of the config's fp32 frame with the sparse
+    convs on the bf16 kernel, every output finite (the kept boxes, the
+    masks within [0, 1]); ms a frame (median of 5 after 2) and the peak,
+    with the fp32 runs' TF32 switches. Returns {config: results}."""
+    from bevfusion_tpu_torch.runtime import precision
+    from bevfusion_tpu_torch.runtime.flagship import (DET_CAMERA_CONFIGS, LIDAR_SLICE_CONFIG,
+                                                      PILLAR_CONFIGS, REPO_ROOT, SEG_CONFIGS,
+                                                      build_flagship)
+
+    lidar = {"sparse_conv": SPARSE_LAUNCHES}
+    configs = {"transfusion-l": (LIDAR_SLICE_CONFIG, lidar),
+               "transfusion-l-0p1": (os.path.join(REPO_ROOT, VOXELNET_0P1), lidar),
+               **{f"seg-{k}": (SEG_CONFIGS[k], v) for k, v in SEG_LAUNCHES.items()},
+               **{f"det-{k}": (p, DET_LAUNCHES) for k, p in DET_CAMERA_CONFIGS.items()},
+               "pointpillars": (PILLAR_CONFIGS["pointpillars"], {}),
+               "camera+radar": (PILLAR_CONFIGS["camera+radar"], DET_LAUNCHES)}
+    precision.apply_tf32_defaults()
+    res = {}
+    for name, (path, fp32_want) in configs.items():
+        t0 = time.perf_counter()
+        _, model, batch = build_flagship(DEVICE, num_points=120000, seed=0, config_path=path,
+                                         dtype=torch.bfloat16)
+        if hasattr(model.heads["object"] if "object" in model.heads else None, "task_heads"):
+            moderate_head(model, batch)
+        want = dict.fromkeys(counters, 0)
+        want.update({"sparse_conv_bf16" if k == "sparse_conv" else k: v
+                     for k, v in fp32_want.items()})
+        torch.cuda.synchronize()
+        zero_counts(counters)
+        with torch.no_grad():
+            out = model(batch)
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        check(launches == want, f"bf16 {name}: launches {launches}, want {want}")
+        if "boxes" in out:
+            b = out["boxes"]
+            kept = b["mask"]
+            check(bool(torch.isfinite(b["scores"]).all()) and
+                  bool(torch.isfinite(b["bboxes"][kept]).all()) and int(kept.sum()) > 0,
+                  f"bf16 {name}: no box kept, or a kept box not finite")
+        if "masks_bev" in out:
+            m = out["masks_bev"]
+            check(bool(torch.isfinite(m).all()) and m.min() >= 0 and m.max() <= 1,
+                  f"bf16 {name}: masks_bev not finite in [0, 1]")
+        with torch.no_grad():
+            frames, peak = frame_ms(lambda: model(batch), warmup=2, iters=5)
+        res[name] = {"launches": launches, "frame_ms_median": statistics.median(frames),
+                     "frames_ms": frames, "peak_mem_bytes": peak,
+                     "seconds": time.perf_counter() - t0}
+        print(f"bf16 {name}: launches {launches}; {res[name]['frame_ms_median']:.2f} ms/frame "
+              f"median of 5, peak {peak / 2**20:.1f} MiB; {res[name]['seconds']:.1f} s")
+        del model, batch, out
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    return res
+
+
+def bf16_train_phase(cfg, model, batch, counters, sp, bp):
+    """Phase 13b: the flagship's train step at bf16 on the phase-13 model
+    (``compute_dtype`` set; deterministic algorithms on, TF32 off). Passes
+    of one forward + backward, a freshly seeded dropout generator each: the
+    first, fp32, records its proposals and Hungarian targets
+    (``recorded_proposals``, ``recorded_targets``) and every later one
+    replays them. T: fp32 with both TF32 switches on, the control; A: bf16
+    through the kernels, every launch count set to 0 just before it and
+    read just after (29 bf16 K1/K2, 15 bf16 K3, 1 pool, no fp32 sparse
+    conv); C: A's forward, the backward through the plain versions (the
+    bf16 kernels' backward alone). Held: A's losses finite and every
+    parameter's gradient fp32 and finite; A vs C within
+    ``BF16_TRAIN_KERNEL_GAP`` relative in norm over all gradients; A vs the
+    fp32 pass within ``BF16_TRAIN_VS_TF32`` times T vs the fp32 pass (at
+    random init a rounding-level change of the forward moves the gradients
+    far, phase 12's B' shows it at fp32; T measures it at TF32's 11
+    significant bits, bf16 keeps 8), cosines printed. Then 5 timed bf16
+    steps after 2 with the fp32 runs' TF32 switches
+    (``tools/bench_train_step.py``). Returns the results; the model is
+    fp32 again after."""
+    from bevfusion_tpu_torch.models.layers import set_dropout_generator
+    from bevfusion_tpu_torch.runtime import precision
+    from bevfusion_tpu_torch.tools.bench_train_step import train_steps
+
+    head = model.heads["object"]
+    params = dict(model.named_parameters())
+    store, tops = {}, {}
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+
+    def fwd_bwd(dtype, plain_backward=False):
+        model.compute_dtype = dtype
+        set_dropout_generator(model, torch.Generator(device=DEVICE).manual_seed(0))
+        model.zero_grad(set_to_none=True)
+        with recorded_targets(head, store), recorded_proposals(head, tops) as own:
+            losses = model(batch)
+        total = sum(v for k, v in losses.items() if k.startswith("loss/"))
+        with plain_kernels(sp, bp) if plain_backward else contextlib.nullcontext():
+            total.backward()
+        torch.cuda.synchronize()
+        return ({k: v.item() for k, v in losses.items()}, total.item(),
+                {n: p.grad.clone() for n, p in params.items() if p.grad is not None}, own)
+
+    def gap_and_cosine(grads, ref):
+        norm = math.sqrt(sum(float(g.double().square().sum()) for g in ref.values()))
+        other = math.sqrt(sum(float(g.double().square().sum()) for g in grads.values()))
+        dot = sum(float((grads[n].double() * g.double()).sum()) for n, g in ref.items())
+        gap = math.sqrt(sum(float((grads[n].double() - g.double()).square().sum())
+                            for n, g in ref.items())) / norm
+        return gap, dot / (norm * other)
+
+    model.train()
+    losses32, _, grads32, _ = fwd_bwd(torch.float32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    _, _, grads_t, _ = fwd_bwd(torch.float32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    zero_counts(counters)
+    losses16, total16, grads16, own = fwd_bwd(torch.bfloat16)
+    launches = {k: c.launches for k, c in counters.items()}
+    want = dict(dict.fromkeys(counters, 0), **BF16_TRAIN_LAUNCHES)
+    check(launches == want, f"bf16 train step: launches {launches}, want {want}")
+    check(math.isfinite(total16), f"bf16 train step: loss {total16}")
+    check(set(grads16) == set(params) and all(
+        g.dtype == torch.float32 and bool(torch.isfinite(g).all()) for g in grads16.values()),
+        "bf16 train step: a parameter without an fp32, finite gradient")
+    _, _, grads16_c, _ = fwd_bwd(torch.bfloat16, plain_backward=True)
+    kernel_gap, _ = gap_and_cosine(grads16, grads16_c)
+    gap, cosine = gap_and_cosine(grads16, grads32)
+    tf32_gap, tf32_cosine = gap_and_cosine(grads_t, grads32)
+    n32 = math.sqrt(sum(float(g.double().square().sum()) for g in grads32.values()))
+    worst = sorted(((rel_gap(grads16[n], g), n) for n, g in grads32.items()
+                    if float(g.norm()) > ZERO_GRAD * n32), reverse=True)[:5]
+    worst_c = sorted(((rel_gap(grads16[n], g), n) for n, g in grads16_c.items()
+                      if float(g.norm()) > ZERO_GRAD * n32), reverse=True)[:3]
+    same_top = bool(own) and torch.equal(own[0], tops["top"])
+    print(f"bf16 train step: launches {launches}; losses {losses16} (fp32 {losses32}); "
+          f"gradients, relative gap in norm over all of them: A vs C (the bf16 kernels' "
+          f"backward against the plain versions') {kernel_gap:.3e} (gate "
+          f"{BF16_TRAIN_KERNEL_GAP:g}; largest per parameter "
+          + "; ".join(f"{n} {g:.3e}" for g, n in worst_c)
+          + f"); A vs fp32 {gap:.3e}, cosine {cosine:.6f}; T (TF32 on) vs fp32 {tf32_gap:.3e}, "
+          f"cosine {tf32_cosine:.6f} (gate A vs fp32 <= {BF16_TRAIN_VS_TF32:g} x T's); the "
+          f"largest per parameter of A vs fp32: " + "; ".join(f"{n} {g:.3e}" for g, n in worst)
+          + f"; the bf16 pass's own proposals equal fp32's: {same_top}")
+    check(kernel_gap <= BF16_TRAIN_KERNEL_GAP, f"bf16 train step: kernel gap {kernel_gap}")
+    check(gap <= BF16_TRAIN_VS_TF32 * tf32_gap,
+          f"bf16 train step: gradient gap {gap} against TF32's {tf32_gap}")
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+    precision.apply_tf32_defaults()
+    model.compute_dtype = torch.bfloat16
+    steps = train_steps(cfg, model, batch, DEVICE, steps=5, warmup=2)
+    model.compute_dtype = torch.float32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    check(not steps.pop("unchanged"), "bf16 timed steps: parameters unchanged")
+    med = steps["ms_median"]
+    print(f"bf16 train steps (cuDNN TF32 on, matmul TF32 off): losses "
+          f"{[round(v, 4) for v in steps['losses']]}; median ms/step {med['step']:.2f} (forward "
+          f"{med['forward']:.2f}, backward {med['backward']:.2f}, optimizer "
+          f"{med['optimizer']:.2f}); peak {steps['peak_mem_bytes'] / 2**20:.1f} MiB; the "
+          f"matcher {statistics.median(steps['auction_ms']):.2f} ms median a call")
+    return {"launches": launches, "losses": losses16, "losses_fp32": losses32,
+            "grad_rel_gap_kernels": kernel_gap, "grad_rel_gap": gap, "grad_cosine": cosine,
+            "grad_rel_gap_tf32": tf32_gap, "grad_cosine_tf32": tf32_cosine,
+            "grad_worst": [[n, g] for g, n in worst], "own_proposals_equal": same_top,
+            "steps": steps}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1941,9 +2358,14 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {lib}: {line.strip()}")
     for lib in ("sparse_conv", "sparse_conv_dw", "sparse_conv_variants"):
-        hmma = sum("HMMA" in line for line in native.sass(lib).splitlines())
-        print(f"build: {hmma} tensor-core (HMMA) instructions in the {lib} library's SASS")
+        lines = native.sass(lib).splitlines()
+        hmma = sum("HMMA" in line for line in lines)
+        bf16 = sum("HMMA.16816.F32.BF16" in line for line in lines)
+        print(f"build: {hmma} tensor-core (HMMA) instructions in the {lib} library's SASS, "
+              f"{bf16} of them bf16 m16n8k16 (HMMA.16816.F32.BF16)")
         check(hmma > 0, f"the {lib} kernel has no tensor-core (HMMA) instruction")
+        check(bf16 > 0 or lib == "sparse_conv_variants",
+              f"the {lib} library's bf16 form has no bf16 mma (HMMA.16816.F32.BF16)")
     bulk = sum("UBLKCP" in line for line in native.sass("tile_micro").splitlines())
     print(f"build: {bulk} TMA bulk copies (UBLKCP) in the tile_micro library's SASS")
     check(bulk > 0, "the TMA gather has no bulk copy (UBLKCP) in its SASS")
@@ -1955,6 +2377,8 @@ def main() -> int:
     enc = cpu_model.encoders["lidar"]["backbone"]
     cases = kernel_cases(enc, vox.feats[0], vox.coords[0], vox.mask[0], sp)
     shapes, dw_shapes, bwd_shapes = sparse_kernel_phases(sp, kv, cases)
+    # 5b. the bf16 forms of K1/K2 and K3 at the same shapes
+    bf16_shapes, bf16_dw_shapes = bf16_kernel_phase(sp, cases, shapes, dw_shapes)
     del cases
     step_dw = {k: sum(s[k] * s["step_launches"] for s in dw_shapes)
                for k in ("ms", "plain_ms", "bound_ms")}
@@ -2036,12 +2460,17 @@ def main() -> int:
     print(f"flagship, TF32 on: {statistics.median(frames_tf32):.2f} ms/frame median, "
           f"peak device memory {peak_tf32 / 2**20:.1f} MiB; stages "
           + ", ".join(f"{k} {v:.2f} ms" for k, v in stages_tf32.items()))
+
+    # 10b. the flagship's frame at bf16: launches, its gap to the fp32 frame, ms a frame
+    bf16_eval = bf16_eval_phase(model, batch, dict(counters, sparse_conv_bf16=sp.sparse_conv_bf16))
     del model, cpu_model, cpu_batch, batch, depth, ctx, got, gout
     torch.cuda.empty_cache()
 
     # 11. the three map-segmentation configs, eval forward at B=1, and the pool at the seg grid
     all_counters = {"sparse_conv": sp.sparse_conv, "sparse_conv_dw": sp.sparse_conv_dw,
-                    "bev_pool": bp.bev_pool, "tile_copy": tm.copy_add_one,
+                    "sparse_conv_bf16": sp.sparse_conv_bf16,
+                    "sparse_conv_dw_bf16": sp.sparse_conv_dw_bf16, "bev_pool": bp.bev_pool,
+                    "tile_copy": tm.copy_add_one,
                     "tile_gather": tm.gather_tiles, "sparse_conv_variants": kv.sparse_conv_variant,
                     "greedy_nms": nms.greedy_suppress}
     t0 = time.perf_counter()
@@ -2078,6 +2507,12 @@ def main() -> int:
     print(f"train-cli: the synthesized set and its GT database ({train_cli['write_s']:.1f} s), "
           f"runs {runs} of the flagship and the seg config's epoch in {train_cli_s:.1f} s")
 
+    # 11f. one bf16 eval frame of each of the ten other served configs
+    t0 = time.perf_counter()
+    bf16_cfgs = bf16_configs_phase(all_counters)
+    bf16_cfgs_s = time.perf_counter() - t0
+    print(f"bf16 configs: {len(bf16_cfgs)} configs' bf16 frames in {bf16_cfgs_s:.1f} s")
+
     # 12. the flagship's training step, B=1, host LUT, TF32 off: kernels vs plain
     cfg, model, batch = build_flagship("cuda", num_points=120000, seed=0, training=True)
     prepare_train_model(model, batch)
@@ -2106,6 +2541,9 @@ def main() -> int:
           f"{[f'{a} of {v}' for a, v in steps['auction_assigned']]} ground truths assigned")
     print(f"pool LUT build on the host: {lut_s * 1e3:.1f} ms = {lut_s * 1e3 / step_ms:.3f} "
           f"train steps; on the card {lut_card_ms:.3f} ms = {lut_card_ms / step_ms:.4f} steps")
+
+    # 13b. the flagship's train step at bf16: launches, gradients vs fp32, ms a step
+    bf16_train = bf16_train_phase(cfg, model, batch, all_counters, sp, bp)
 
     # 14. the measurement tools: this path's entry points
     tools, tool_launches, tool_parts = tools_phase(cfg, model, batch, k7_cases, all_counters)
@@ -2164,6 +2602,22 @@ def main() -> int:
                         pallas=False, launches_eval=launches["greedy_nms"],
                         launches_lidar=lidar_launches["greedy_nms"],
                         launches_tools=tool_launches["greedy_nms"]))
+    # the bf16 forms of K1/K2 and K3: launches in the bf16 train step (phase 13b)
+    kernels += [
+        dict(summary("sparse_conv_bf16", "bevfusion_tpu_torch/csrc/sparse_conv.cu",
+                     "bevfusion_tpu/ops/sparse_conv_windowed.py:285",
+                     bf16_train["launches"]["sparse_conv_bf16"], bf16_shapes),
+             also_replaces=["bevfusion_tpu/ops/sparse_conv_windowed.py:180"],
+             launches_eval=bf16_eval["launches"]["sparse_conv_bf16"],
+             ms_no_epilogue=sum(s["ms_no_epilogue"] for s in bf16_shapes),
+             plain_ms_no_epilogue=sum(s["plain_ms_no_epilogue"] for s in bf16_shapes),
+             bound_ms_no_epilogue=sum(s["bound_ms_no_epilogue"] for s in bf16_shapes),
+             fp32_ms=sum(s["fp32_ms"] for s in bf16_shapes)),
+        dict(summary("sparse_conv_dw_bf16", "bevfusion_tpu_torch/csrc/sparse_conv_dw.cu",
+                     "bevfusion_tpu/ops/sparse_conv_windowed.py:501",
+                     bf16_train["launches"]["sparse_conv_dw_bf16"], bf16_dw_shapes),
+             fp32_ms=sum(s["fp32_ms"] for s in bf16_dw_shapes)),
+    ]
     for k in kernels[:3]:
         k["launches_tools"] = tool_launches[k["name"]]
     for k in kernels:
@@ -2176,6 +2630,12 @@ def main() -> int:
                                    for name in ("a", "b", "a2", "c", "seg") if name in train_cli}
         k["launches_train"] = {"flagship": parity["launches"][k["name"]],
                                **{name: r["launches"][k["name"]] for name, r in train_cfgs.items()}}
+        k["launches_train_cli_bf16"] = {name: train_cli["bf16"][name]["launches"][k["name"]]
+                                        for name in ("a", "b", "a2", "c")
+                                        if name in train_cli["bf16"]}
+        k["launches_bf16_configs"] = {name: r["launches"][k["name"]]
+                                      for name, r in bf16_cfgs.items()}
+        k["launches_bf16_train"] = bf16_train["launches"][k["name"]]
     print(json.dumps({
         "kernels": kernels, "build_s": build_s, "total_s": time.perf_counter() - t_start,
         "flagship": {"frame_ms_median": statistics.median(frames), "peak_mem_bytes": peak,
@@ -2189,6 +2649,8 @@ def main() -> int:
         "train_cli": dict(train_cli, seconds=train_cli_s),
         "train": {"parity_tf32_off": parity, "steps_tf32_on": steps},
         "train_configs": dict(train_cfgs, seconds=train_cfgs_s),
+        "bf16": {"flagship_eval": bf16_eval, "configs": dict(bf16_cfgs, seconds=bf16_cfgs_s),
+                 "train": bf16_train},
         "tools": {k: v for k, v in tools.items() if k not in ("copy", "gathers")},
         "lidar_slice": {"launches": lidar_launches,
                         "frame_ms_median": statistics.median(lidar_frames),

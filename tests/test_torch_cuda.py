@@ -808,3 +808,151 @@ def test_pillar_config_frame_launches(cuda, name, want):
     torch.cuda.synchronize()
     assert tuple(k.launches - b for k, b in zip(kernels, before)) == want
     assert name != "pointpillars" or all(torch.isfinite(v.float()).all() for v in boxes.values())
+
+
+# ----------------------------------------------------------------------
+# the bf16 forms: bf16 rows, one bf16 tensor-core product a step, fp32 sums
+# ----------------------------------------------------------------------
+
+BF16_EPS = 2.0 ** -7  # one bf16 rounding, relative (8 significant bits)
+
+
+def _close_bf16(got, want, fp32_tol=1e-4):
+    """Each element of a bf16 result within one bf16 rounding of its plain
+    version, plus the fp32 summation-order gate on the scale (the two fp32
+    sums differ in order, then each rounds once)."""
+    got, want = got.float(), want.float()
+    scale = max(want.abs().max().item(), 1.0)
+    bad = (got - want).abs() > BF16_EPS * want.abs() + fp32_tol * scale
+    assert not bad.any(), (int(bad.sum()), (got - want).abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,strided", [
+    (5, 16, False), (8, 16, False), (16, 16, False), (16, 32, True), (32, 32, False),
+    (32, 64, True), (64, 64, False), (64, 128, True), (128, 128, False), (5, 7, False),
+    (12, 20, False),
+])
+@pytest.mark.parametrize("epilogue", [False, True])
+def test_sparse_conv_bf16_kernel_matches_plain(cuda, cin, cout, strided, epilogue):
+    """The bf16 form at every channel padding (Cin 5 and 12: synchronous
+    2-byte row loads; odd Cout: unpaired columns) with and without the
+    fp32 epilogue, against the bf16 plain version (fp32 product and
+    epilogue, one rounding); counted on its own; equal bits across two
+    calls; the fp32 kernel is not launched."""
+    feats, nbr, _, w, _ = _conv_operands(cin, cout, strided, seed=2)
+    g = torch.Generator().manual_seed(cin + cout)
+    kw = _to(_epilogue_kw(cout, nbr.shape[1], g), cuda) if epilogue else {}
+    if "residual" in kw:
+        kw["residual"] = kw["residual"].bfloat16()
+    args = (feats.to(cuda).bfloat16(), nbr.to(cuda), w.to(cuda).bfloat16())
+    before = sp.sparse_conv.launches, sp.sparse_conv_bf16.launches
+    got = sp.sparse_conv(*args, **kw)
+    torch.cuda.synchronize()
+    assert (sp.sparse_conv.launches, sp.sparse_conv_bf16.launches) == (before[0], before[1] + 1)
+    assert got.dtype == torch.bfloat16 and got.shape == (nbr.shape[1], cout)
+    _close_bf16(got, sp.sparse_conv_plain(*args, **kw))
+    assert torch.equal(sp.sparse_conv(*args, **kw), got)
+
+
+@pytest.mark.cuda
+def test_sparse_conv_bf16_kernel_misses(cuda):
+    """Entries >= cap_in are misses; a tile every offset misses writes
+    epilogue(0) rounded to bf16."""
+    grid = sp.SparseGrid(30, 30, 10)
+    ids = _sites(5, grid, 2000, 2100)
+    nbr = sp.build_subm_rulebook(ids, grid)
+    nbr[:, 128:192] = torch.where(torch.arange(27)[:, None] % 2 == 0, -1, 10 ** 6).int()
+    want_nbr = torch.where(nbr >= nbr.shape[1], -1, nbr).int()
+    g = torch.Generator().manual_seed(0)
+    feats = torch.randn(ids.shape[0], 16, generator=g).bfloat16().to(cuda)
+    w = (torch.randn(27, 16, 16, generator=g) / 20).bfloat16().to(cuda)
+    kw = _to(_epilogue_kw(16, nbr.shape[1], g), cuda)
+    kw["residual"] = kw["residual"].bfloat16()
+    got = sp.sparse_conv(feats, nbr.to(cuda), w, **kw)
+    torch.cuda.synchronize()
+    _close_bf16(got, sp.sparse_conv_plain(feats, want_nbr.to(cuda), w, **kw))
+    empty = torch.relu(kw["shift"] + kw["residual"][128:192].float()).bfloat16()
+    assert torch.equal(got[128:192], empty)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,strided", [
+    (5, 16, False), (16, 16, False), (16, 32, True), (32, 32, False), (32, 64, True),
+    (64, 64, False), (64, 128, True), (128, 128, False), (3, 70, False), (12, 8, False),
+])
+def test_weight_gradient_bf16_kernel_matches_plain(cuda, cin, cout, strided):
+    """The bf16 form of the weight gradient: bf16 feats and dout, fp32 dW
+    within the fp32 summation-order gate of the plain version (the bf16
+    products are exact in fp32); counted on its own; equal bits across two
+    calls."""
+    feats, nbr, _, _, dout = _conv_operands(cin, cout, strided, seed=3)
+    feats, nbr, dout = feats.to(cuda).bfloat16(), nbr.to(cuda), dout.to(cuda).bfloat16()
+    before = sp.sparse_conv_dw.launches, sp.sparse_conv_dw_bf16.launches
+    got = sp.sparse_conv_dw(feats, nbr, dout)
+    torch.cuda.synchronize()
+    assert (sp.sparse_conv_dw.launches, sp.sparse_conv_dw_bf16.launches) == (before[0],
+                                                                              before[1] + 1)
+    assert got.dtype == torch.float32 and got.shape == (27, cin, cout)
+    _close(got, sp.sparse_conv_dw_plain(feats, nbr, dout), tol=1e-4)
+    assert torch.equal(sp.sparse_conv_dw(feats, nbr, dout), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(5, 16), (32, 64), (128, 128)])
+def test_weight_gradient_bf16_kernel_misses(cuda, cin, cout):
+    cap_in, cap_out = 3000, 3 * sp.DW_CHUNK + 100
+    nbr, clean = (t.to(cuda) for t in _dw_table(cap_in, cap_out, seed=cin + cout))
+    g = torch.Generator(device=cuda).manual_seed(cin * cout)
+    feats = torch.randn(cap_in, cin, generator=g, device=cuda).bfloat16()
+    dout = torch.randn(cap_out, cout, generator=g, device=cuda).bfloat16()
+    got = sp.sparse_conv_dw(feats, nbr, dout)
+    torch.cuda.synchronize()
+    _close(got, sp.sparse_conv_dw_plain(feats, clean, dout), tol=1e-4)
+    assert not got[3].any()
+    assert got[5].abs().max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,strided", [(16, 16, False), (16, 32, True), (64, 64, False)])
+def test_sparse_conv_function_bf16_on_card(cuda, cin, cout, strided):
+    """bf16 features, the fp32 weight parameter: the forward and backward-data
+    through the bf16 kernel, the weight gradient the bf16 K3's fp32 dW (not
+    rounded to bf16), against autograd of the bf16 plain version."""
+    feats, nbr, nbr_t, w, dout = (t if t is None else t.to(cuda)
+                                  for t in _conv_operands(cin, cout, strided, seed=4))
+    x = feats.bfloat16().requires_grad_()
+    wt = w.clone().requires_grad_()
+    before = sp.sparse_conv_bf16.launches, sp.sparse_conv_dw_bf16.launches
+    y = sp.SparseConvFunction.apply(x, wt, nbr, nbr_t)
+    y.backward(dout.bfloat16())
+    torch.cuda.synchronize()
+    assert (sp.sparse_conv_bf16.launches - before[0], sp.sparse_conv_dw_bf16.launches
+            - before[1]) == (2, 1)
+    assert y.dtype == torch.bfloat16 and x.grad.dtype == torch.bfloat16
+    assert wt.grad.dtype == torch.float32
+    want_dw = sp.sparse_conv_dw_plain(x.detach(), nbr, dout.bfloat16())
+    _close(wt.grad, want_dw, tol=1e-4)
+    assert not torch.equal(wt.grad, wt.grad.bfloat16().float())  # fp32, not rounded to bf16
+    x0 = feats.bfloat16().requires_grad_()
+    sp.sparse_conv_plain(x0, nbr, w.bfloat16()).backward(dout.bfloat16())
+    _close_bf16(x.grad, x0.grad)
+
+
+@pytest.mark.cuda
+def test_sparse_conv_bf16_rejects_mixed_dtypes(cuda):
+    feats = torch.randn(10, 16, device=cuda).bfloat16()
+    nbr = torch.zeros(27, 10, dtype=torch.int32, device=cuda)
+    w = torch.randn(27, 16, 16, device=cuda)
+    with pytest.raises(TypeError):
+        sp.sparse_conv(feats, nbr, w)  # fp32 weight with bf16 rows
+    with pytest.raises(TypeError):
+        sp.sparse_conv(feats, nbr, w.bfloat16(), scale=torch.ones(16, device=cuda).bfloat16())
+    with pytest.raises(TypeError):
+        sp.sparse_conv(feats, nbr, w.bfloat16(), residual=torch.zeros(10, 16, device=cuda))
+    with pytest.raises(TypeError):
+        sp.sparse_conv(feats.float(), nbr, w.bfloat16())
+    with pytest.raises(TypeError):
+        sp.sparse_conv_dw(feats, nbr, torch.randn(10, 16, device=cuda))
+    with pytest.raises(ValueError):
+        sp.sparse_conv_bf16(feats.cpu(), nbr.cpu(), w.bfloat16().cpu())

@@ -23,6 +23,11 @@ pipeline with every augmentation of the nuScenes one: ``ObjectPaste`` (until
   optimizer state and ``{epoch, iter}``; the seg model's per-epoch eval is
   ``map`` (its metrics in the run's ``metrics.jsonl``); the load_from run
   prints the keys it left missing;
+- the compute dtype: a config with ``configs/default.yaml``'s ``precision``
+  trains in bf16, ``precision.compute_dtype=float32`` on the command line
+  in fp32; a bf16 run resumed from its ``epoch_1`` is bit-identical, as an
+  fp32 one; a bf16 run's checkpoint resumes strictly in fp32 and an fp32
+  run's in bf16 (the checkpoints hold fp32 weights and moments either way);
 - ``eval_metrics``: every config the port serves takes its metric from its
   heads (bbox for the detectors, map for the seg configs);
 - ``MetricLogger`` writes the JAX logger's records and text lines for the
@@ -426,3 +431,39 @@ def test_metric_logger_matches_jax(tmp_path, capsys, monkeypatch):
              for line in open(tmp_path / name / "metrics.jsonl")] for name in ("port", "jax")]
     assert recs[0] == recs[1] and len(recs[0]) == 4
     assert lines[0] == lines[1] and "[E1 0/5]" in lines[0] and "[E1 eval]" in lines[0]
+
+
+def test_compute_dtype_bf16_resume_and_across_dtypes(nusc_root, tmp_path):
+    """The tiny detector with the default config's ``precision`` (bf16):
+    run A, 2 epochs; B resumed from A's ``epoch_1`` is A bit for bit; C
+    resumes A's ``epoch_1`` in fp32 (``precision.compute_dtype=float32``);
+    D resumes C's fp32 ``epoch_2`` in bf16 for a third epoch."""
+    default = load_config(os.path.join(flagship.REPO_ROOT, "configs/default.yaml"))
+    assert default.precision.compute_dtype == "bfloat16"
+    path = config_file(nusc_root, "object", precision=dict(default.precision),
+                       evaluation={"interval": 1, "disable": True})
+    a = _run(path, tmp_path / "a")
+    assert a["compute_dtype"] == "bfloat16"
+    assert all(np.isfinite(r["loss"]) for r in a["history"])
+    ckpt = _ckpt(tmp_path / "a" / "epoch_2")
+    assert all(v.dtype in (torch.float32, torch.int64) for v in ckpt["state_dict"].values())
+    assert all(v.dtype == torch.float32 for key in ("mu", "nu")
+               for v in ckpt["optimizer"][key].values())
+    b = _run(path, tmp_path / "b", "--resume-from", str(tmp_path / "a" / "epoch_1"))
+    assert b["compute_dtype"] == "bfloat16" and b["start_epoch"] == 1
+    assert [r["loss"] for r in b["history"]] == [r["loss"] for r in a["history"]][
+        a["steps_per_epoch"]:]
+    got, want = _ckpt(tmp_path / "b" / "epoch_2"), _ckpt(tmp_path / "a" / "epoch_2")
+    assert not _states_equal(got["state_dict"], want["state_dict"])
+    for key in ("mu", "nu"):
+        assert not _states_equal(got["optimizer"][key], want["optimizer"][key])
+    c = _run(path, tmp_path / "c", "--resume-from", str(tmp_path / "a" / "epoch_1"),
+             "precision.compute_dtype=float32")
+    assert c["compute_dtype"] == "float32" and c["start_epoch"] == 1
+    assert all(np.isfinite(r["loss"]) for r in c["history"])
+    assert [r["loss"] for r in c["history"]] != [r["loss"] for r in b["history"]]
+    d = _run(path, tmp_path / "d", "--resume-from", str(tmp_path / "c" / "epoch_2"),
+             "max_epochs=3")
+    assert d["compute_dtype"] == "bfloat16" and d["start_epoch"] == 2
+    assert len(d["history"]) == d["steps_per_epoch"]
+    assert all(np.isfinite(r["loss"]) for r in d["history"])
