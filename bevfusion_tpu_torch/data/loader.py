@@ -13,7 +13,13 @@ Replaces the reference's torch DataLoader (mmdet build_dataloader with
 workers_per_gpu processes) with a thread-pool prefetcher producing
 fixed-shape numpy batches; ``runtime/eval.py:to_model_batch`` turns one
 into tensors on the device. For multi-process eval each process loads its
-shard (``num_shards``, ``shard_id``).
+round-robin shard (``num_shards``, ``shard_id``). For data-parallel
+training each of ``replicas`` ranks loads its rows of the one-process
+loader's batches at ``replicas * batch_size`` (``replica``): at step k,
+rank r takes rows ``[r*b, (r+1)*b)`` of global batch k, the JAX
+package's contiguous ``P("dp")`` split, and every rank runs the same
+number of steps (``drop_last`` is required: a short last global batch
+would give the ranks unequal steps and hang a collective).
 """
 from __future__ import annotations
 
@@ -54,7 +60,13 @@ def collate(samples: List[Dict[str, Any]]) -> Dict[str, Any]:
 class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  num_workers: int = 2, seed: int = 0, drop_last: bool = True,
-                 num_shards: int = 1, shard_id: int = 0):
+                 num_shards: int = 1, shard_id: int = 0, replicas: int = 1, replica: int = 0):
+        if replicas > 1 and not drop_last:
+            raise ValueError("DataLoader: a data-parallel training shard (replicas > 1) needs "
+                             "drop_last, so every rank runs the same number of steps")
+        if replicas > 1 and num_shards > 1:
+            raise ValueError("DataLoader: replicas (training) and num_shards (eval) exclude "
+                             "each other")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -63,6 +75,8 @@ class DataLoader:
         self.drop_last = drop_last
         self.num_shards = num_shards
         self.shard_id = shard_id
+        self.replicas = replicas
+        self.replica = replica
         self.epoch = 0
 
     def set_epoch(self, epoch: int):
@@ -71,10 +85,10 @@ class DataLoader:
             self.dataset.set_epoch(epoch)
 
     def __len__(self):
-        n = len(self._indices())
+        n, size = len(self._indices()), self.batch_size * self.replicas
         if self.drop_last:
-            return n // self.batch_size
-        return (n + self.batch_size - 1) // self.batch_size
+            return n // size
+        return (n + size - 1) // size
 
     def _indices(self) -> np.ndarray:
         idx = np.arange(len(self.dataset))
@@ -86,8 +100,9 @@ class DataLoader:
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         indices = self._indices()
         n_batches = len(self)
+        b, size = self.batch_size, self.batch_size * self.replicas
         batch_idx = [
-            indices[i * self.batch_size : (i + 1) * self.batch_size]
+            indices[i * size + self.replica * b : i * size + (self.replica + 1) * b]
             for i in range(n_batches)
         ]
 

@@ -39,6 +39,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .. import parallel
 from ..registry import VTRANSFORMS
 from ..utils.profiler import untimed
 from .layers import BasicBlock, BatchNorm1d, BatchNorm2d, at_least_fp32, conv_bn_relu
@@ -169,7 +170,9 @@ def bce_depth_loss(depth: torch.Tensor, gt_depths: torch.Tensor, factor: int,
     p = preds.clamp(1e-6, 1 - 1e-6)
     bce = -(labels * torch.log(p) + (1 - labels) * torch.log(1 - p))
     bce = torch.where(fg[:, None], bce, torch.zeros_like(bce))
-    return loss_factor * bce.sum() / torch.clamp(fg.sum().to(bce.dtype), min=1.0)
+    # the blocks of every rank's batch under data parallelism
+    return loss_factor * bce.sum() / torch.clamp(parallel.count_sum(fg.sum().to(bce.dtype)),
+                                                 min=1.0)
 
 
 @VTRANSFORMS.register

@@ -28,6 +28,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
+from ... import parallel
 from ...core.coders import CenterPointBBoxCoder
 from ...ops import nms
 from ...ops.gaussian import draw_heatmap_gaussians, gaussian_radius
@@ -163,9 +164,10 @@ class CenterHead(nn.Module):
                 empty = torch.zeros((len(self.tasks[t]), fX, fY), dtype=torch.float32, device=dev)
                 hm = torch.stack([draw_heatmap_gaussians(empty, centers[b], radius[b], gt_cls[b],
                                                          m_t[b]) for b in range(len(m_t))])
-                num_pos = torch.clamp((hm == 1.0).sum().float(), min=1.0)
+                # the global batch's counts under data parallelism
+                num_pos = torch.clamp(parallel.count_sum((hm == 1.0).sum().float()), min=1.0)
                 w = m_t[..., None].float() * code_weights
-                num = m_t.float().sum()
+                num = parallel.count_sum(m_t.float().sum())
             losses[f"heatmap/task{t}"] = gaussian_focal_loss(clip_sigmoid(pred["heatmap"]), hm,
                                                              avg_factor=num_pos)
             maps = torch.cat([pred[k] for k in ("reg", "height", "dim", "rot", "vel")], 1)

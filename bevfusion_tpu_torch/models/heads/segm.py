@@ -21,6 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ... import parallel
 from ...registry import HEADS
 from ..layers import at_least_fp32, conv_bn_relu, resize_bilinear
 
@@ -34,21 +35,21 @@ def _sigmoid_xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
 
 def sigmoid_xent_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Mean binary cross-entropy, in fp32."""
-    return _sigmoid_xent(logits.float(), targets.float()).mean()
+    """Mean binary cross-entropy, in fp32 (float64 where the logits are)."""
+    return parallel.mean(_sigmoid_xent(at_least_fp32(logits), at_least_fp32(targets)))
 
 
 def sigmoid_focal_loss(logits: torch.Tensor, targets: torch.Tensor, alpha: float = -1.0,
                        gamma: float = 2.0) -> torch.Tensor:
     """Mean sigmoid focal loss ``ce * (1 - p_t) ** gamma`` (times ``alpha_t``
     where ``alpha >= 0``), in fp32."""
-    logits, targets = logits.float(), targets.float()
+    logits, targets = at_least_fp32(logits), at_least_fp32(targets)
     p = torch.sigmoid(logits)
     p_t = p * targets + (1 - p) * (1 - targets)
     loss = _sigmoid_xent(logits, targets) * (1 - p_t) ** gamma
     if alpha >= 0:
         loss = (alpha * targets + (1 - alpha) * (1 - targets)) * loss
-    return loss.mean()
+    return parallel.mean(loss)
 
 
 _LOSSES = {"xent": sigmoid_xent_loss, "focal": sigmoid_focal_loss}

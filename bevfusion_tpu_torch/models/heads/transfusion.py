@@ -26,6 +26,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ... import parallel
 from ...core.coders import TransFusionBBoxCoder
 from ...core.matching import auction_assignment, hungarian_costs
 from ...ops.gaussian import draw_heatmap_gaussians, gaussian_radius
@@ -151,11 +152,12 @@ class TransFusionHead(nn.Module):
             targets = [self._targets(b, preds, gt_boxes[b], gt_labels[b], gt_valid[b], n_layers)
                        for b in range(heat.shape[0])]
         labels_t, bt_t, bw_t, npos, iou_t, hm_t = (torch.stack(t) for t in zip(*targets))
-        num_pos = torch.clamp(npos.sum().float(), min=1.0)
+        # the batch's normalisers are the global batch's under data parallelism
+        num_pos = torch.clamp(parallel.count_sum(npos.sum().float()), min=1.0)
 
         losses = {"loss_heatmap": gaussian_focal_loss(
             clip_sigmoid(preds["dense_heatmap"]), hm_t,
-            avg_factor=torch.clamp((hm_t == 1.0).sum().float(), min=1.0))}
+            avg_factor=torch.clamp(parallel.count_sum((hm_t == 1.0).sum().float()), min=1.0))}
         code_weights = torch.tensor(self.train_cfg["code_weights"], dtype=torch.float32,
                                     device=heat.device)
         branches = ["center", "height", "dim", "rot"] + (["vel"] if "vel" in preds else [])
@@ -167,7 +169,7 @@ class TransFusionHead(nn.Module):
             pred_cat = torch.cat([preds[k][:, sl] for k in branches], -1)
             losses[f"{prefix}_loss_bbox"] = l1_loss(
                 pred_cat, bt_t[:, sl], weight=bw_t[:, sl] * code_weights, avg_factor=num_pos)
-        losses["matched_ious"] = iou_t.sum() / num_pos
+        losses["matched_ious"] = parallel.count_sum(iou_t.sum()) / num_pos
         return losses
 
     def _targets(self, b: int, preds, boxes, labels, valid, n_layers: int):
@@ -210,9 +212,9 @@ class TransFusionHead(nn.Module):
             lbl = torch.full((P + 1,), ncls, dtype=torch.long, device=dev)
             lbl[pidx] = labels.long()
             bt = enc.new_zeros((P + 1, enc.shape[1]))
-            bt[pidx] = enc.float()
+            bt[pidx] = enc.to(bt.dtype)
             bw = enc.new_zeros((P + 1, enc.shape[1]))
-            bw[pidx] = ok[:, None].float().expand(-1, enc.shape[1])
+            bw[pidx] = ok[:, None].to(bw.dtype).expand(-1, enc.shape[1])
             iou_t = enc.new_zeros(P + 1)
             iou_t[pidx] = torch.where(ok, iou[pidx.clamp(max=P - 1), torch.arange(G, device=dev)],
                                       0.0)

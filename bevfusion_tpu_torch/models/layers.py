@@ -25,7 +25,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-__all__ = ["BatchNorm1d", "BatchNorm2d", "LayerNorm", "Dropout", "DropPath",
+from .. import parallel
+
+__all__ = ["BatchNorm1d", "BatchNorm2d", "batch_norm_train", "LayerNorm", "Dropout", "DropPath",
            "set_dropout_generator", "Norm", "ConvBNAct", "conv_bn_relu", "BasicBlock",
            "resize_bilinear", "at_least_fp32"]
 
@@ -35,12 +37,18 @@ class _FlaxStatsBatchNorm:
     flax's ``nn.BatchNorm`` (``bevfusion_tpu/models/layers.py:Norm``):
     ``ra = (1 - momentum) * ra + momentum * batch_stat`` with the biased
     batch variance (torch convention momentum). The output is torch's:
-    normalised by the batch mean and biased variance."""
+    normalised by the batch mean and biased variance. Under data
+    parallelism (``parallel.active()``) the moments are the global batch's,
+    taken in two passes over every rank (``parallel.masked_moments``: the
+    JAX package's GSPMD BatchNorm, the reference's NaiveSyncBatchNorm), in
+    fp32 or wider, and the running statistics move alike on every rank."""
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
         self._check_input_dim(x)
+        if parallel.active():
+            return self._global(x)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         with torch.no_grad():
             var, mean = torch.var_mean(at_least_fp32(x), [0, *range(2, x.dim())], correction=0)
@@ -48,6 +56,26 @@ class _FlaxStatsBatchNorm:
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked += 1
         return y
+
+    def _global(self, x):
+        return batch_norm_train(self, x, None, [0, *range(2, x.dim())]).to(x.dtype)
+
+
+def batch_norm_train(bn, x: torch.Tensor, m: Optional[torch.Tensor], dims) -> torch.Tensor:
+    """The training forward of BatchNorm ``bn`` on ``x``: its entries where
+    ``m`` is 1 (0/1, broadcastable; None: every entry) normalised by their
+    two-pass moments over ``dims`` (``parallel.masked_moments``: over every
+    rank's batch under data parallelism), in fp32 or wider; ``bn``'s running
+    statistics moved by its momentum. Returns the result in fp32 (or wider),
+    inactive entries not zeroed."""
+    xf = at_least_fp32(x)
+    mean, var = parallel.masked_moments(xf, None if m is None else m.to(xf.dtype), dims)
+    with torch.no_grad():
+        bn.running_mean.lerp_(mean.flatten().to(bn.running_mean.dtype), bn.momentum)
+        bn.running_var.lerp_(var.flatten().to(bn.running_var.dtype), bn.momentum)
+        bn.num_batches_tracked += 1
+    shape = mean.shape
+    return (xf - mean) * torch.rsqrt(var + bn.eps) * bn.weight.view(shape) + bn.bias.view(shape)
 
 
 class BatchNorm1d(_FlaxStatsBatchNorm, nn.BatchNorm1d):

@@ -11,6 +11,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from .. import parallel
 from .layers import at_least_fp32
 
 __all__ = ["clip_sigmoid", "sigmoid_focal_loss", "gaussian_focal_loss", "l1_loss"]
@@ -20,6 +21,8 @@ def _reduce(loss: torch.Tensor, avg_factor) -> torch.Tensor:
     total = loss.sum()
     if avg_factor is not None:
         return total / torch.clamp(torch.as_tensor(avg_factor, dtype=total.dtype), min=1.0)
+    if parallel.active():  # the mean over every rank's elements
+        return parallel.mean(loss)
     return total / max(loss.numel(), 1)
 
 

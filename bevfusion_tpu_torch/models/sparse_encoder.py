@@ -47,7 +47,7 @@ from ..ops import sparse_conv as sp
 from ..ops.sparse_conv import _triple
 from ..registry import BACKBONES
 from ..utils.profiler import untimed
-from .layers import at_least_fp32
+from .layers import at_least_fp32, batch_norm_train
 
 
 class MaskedBatchNorm(nn.BatchNorm1d):
@@ -65,20 +65,11 @@ class MaskedBatchNorm(nn.BatchNorm1d):
     def _train(self, x: torch.Tensor, m: torch.Tensor, dims) -> torch.Tensor:
         """x with its active entries ``m`` (0/1, broadcastable) normalised
         by their moments over ``dims``, in fp32 (or wider) and returned in
-        x's dtype; inactive entries 0."""
-        xf = at_least_fp32(x)
-        m = m.to(xf.dtype)
-        cnt = torch.clamp(m.sum(), min=1.0)
-        mean = (xf * m).sum(dims, keepdim=True) / cnt
-        var = ((xf - mean) ** 2 * m).sum(dims, keepdim=True) / cnt
-        with torch.no_grad():
-            self.running_mean.lerp_(mean.flatten().to(self.running_mean.dtype), self.momentum)
-            self.running_var.lerp_(var.flatten().to(self.running_var.dtype), self.momentum)
-            self.num_batches_tracked += 1
-        shape = mean.shape
-        y = (xf - mean) * torch.rsqrt(var + self.eps) * self.weight.view(shape) \
-            + self.bias.view(shape)
-        return (y * m).to(x.dtype)
+        x's dtype; inactive entries 0. Under data parallelism the moments
+        are over the active sites of every rank's batch, the counts summed
+        before their clamp (``parallel.masked_moments``)."""
+        y = batch_norm_train(self, x, m, dims)
+        return (y * m.to(y.dtype)).to(x.dtype)
 
     def sparse(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """Training: x [N, C] site rows (the batch's samples stacked), mask [N]."""

@@ -235,7 +235,10 @@ class DepthLSSTransform(_BaseLSS):
         d = timed("rasterize_depth", lambda: rasterize_depth(
             points, points_mask, mats["lidar2image"], mats["img_aug_matrix"],
             mats["lidar_aug_matrix"], self.image_size))
-        d = timed("dtransform", lambda: self.dtransform(d.view(B * N, 1, *self.image_size)))
+        # the depth image in the weights' dtype: fp32 at either compute dtype, float64 in
+        # a model made float64
+        d = d.view(B * N, 1, *self.image_size).to(self.dtransform[0].weight.dtype)
+        d = timed("dtransform", lambda: self.dtransform(d))
         x = timed("depthnet", lambda: self.depthnet(
             torch.cat([d, img_feats.reshape(B * N, Cin, fH, fW)], 1)))
         return self.to_bev(x, B, mats, timed)

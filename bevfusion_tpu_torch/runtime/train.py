@@ -17,12 +17,14 @@ count by parameter name, so a run resumes where it stopped.
 """
 from __future__ import annotations
 
+import hashlib
 import math
 from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
+from .. import parallel
 from ..devices import resolve_device
 from ..models.layers import set_dropout_generator
 
@@ -219,10 +221,16 @@ def build_optimizer(optimizer_cfg: dict, lr_schedule: Schedule, model: nn.Module
                  custom_keys=(cfg.get("paramwise_cfg") or {}).get("custom_keys"))
 
 
-def step_seed(seed: int, step: int) -> int:
+def step_seed(seed: int, step: int, rank: int = 0) -> int:
     """The dropout generator's seed at optimizer step ``step`` of a run
-    seeded with ``seed``."""
-    return seed * 2**32 + step
+    seeded with ``seed``, on data-parallel rank ``rank`` (each rank draws
+    its own masks for its own samples): ``seed * 2**32 + step`` on rank 0,
+    as in one process; on another rank a 64-bit BLAKE2b digest of the three,
+    which shares no field with rank 0's seeds."""
+    if rank == 0:
+        return seed * 2**32 + step
+    digest = hashlib.blake2b(f"{seed},{step},{rank}".encode(), digest_size=8).digest()
+    return int.from_bytes(digest, "little")
 
 
 def make_train_step(model: nn.Module, optimizer: AdamW, device="cuda", seed: int = 0):
@@ -236,6 +244,18 @@ def make_train_step(model: nn.Module, optimizer: AdamW, device="cuda", seed: int
     Returns ``step(batch, mark=None) -> logs``: forward (the loss dict),
     ``backward()`` of the sum of its ``loss/`` entries, the optimizer
     update; ``logs`` holds the detached loss dict and ``loss/total``.
+
+    Under data parallelism (``parallel.active()``: a process group of N
+    ranks, each stepping on its own b samples) the step computes the
+    one-process step of the global batch of N*b: the BatchNorm moments and
+    every loss normaliser are the global batch's, so each rank's loss is
+    its share of the global loss; after ``backward`` the gradients are
+    summed over the ranks (``parallel.sum_gradients``, one flat all-reduce
+    after backward: no collective runs inside the backward but those of
+    the BatchNorm sums, so every rank issues them in the same order), and
+    clipping and AdamW see the global gradient. ``logs`` then holds the
+    global batch's losses on every rank. Dropout draws from
+    ``step_seed(seed, step, rank)``. At world size 1 no collective runs.
     ``mark(phase)``, if given, is called after "forward", "backward" and
     "optimizer" (a timer hook). The JAX step's ``diag/window_overflow`` has
     no counterpart: the port's rulebooks drop no neighbor pair. The forward
@@ -250,13 +270,14 @@ def make_train_step(model: nn.Module, optimizer: AdamW, device="cuda", seed: int
     set_dropout_generator(model, generator)
 
     def step(batch: Dict[str, torch.Tensor], mark: Optional[Callable[[str], None]] = None):
-        generator.manual_seed(step_seed(seed, optimizer.count))
+        generator.manual_seed(step_seed(seed, optimizer.count, parallel.rank()))
         losses = model(batch)
         total = sum(v for k, v in losses.items() if k.startswith("loss/"))
         if mark:
             mark("forward")
         optimizer.zero_grad()
         total.backward()
+        parallel.sum_gradients(optimizer.params)
         if mark:
             mark("backward")
         optimizer.step()
@@ -264,6 +285,10 @@ def make_train_step(model: nn.Module, optimizer: AdamW, device="cuda", seed: int
             mark("optimizer")
         logs = {k: v.detach() for k, v in losses.items()}
         logs["loss/total"] = total.detach()
+        if parallel.active():  # each rank's losses are shares of the global ones
+            keys = [k for k in logs if k.startswith("loss/")]
+            summed = parallel.all_sum(torch.stack([logs[k].double() for k in keys]))
+            logs.update({k: v.to(logs[k].dtype) for k, v in zip(keys, summed)})
         return logs
 
     return step

@@ -12,9 +12,13 @@ or a reference ``.pth``. The dotted overrides are applied to the config
 (``dataset_root=/data/nuscenes/`` moves every path under it), as the JAX
 package's train CLI applies them; its test CLI parses them and drops
 them. ``--eval bbox`` writes ``results_nusc.json`` under the output
-directory and then needs the nuScenes devkit. With ``WORLD_SIZE`` > 1
-(``torchrun``) each process evaluates its shard and rank 0 merges the
-parts through ``<out-dir>/parts`` and reports.
+directory and then needs the nuScenes devkit. Under ``torchrun`` (``WORLD_SIZE``
+> 1) each process evaluates its round-robin shard on ``cuda:LOCAL_RANK``
+and rank 0 merges the parts through ``<out-dir>/parts`` and reports; the
+group's backend is NCCL on the card and gloo on the CPU
+(``parallel.join``)::
+
+    torchrun --nproc_per_node N -m bevfusion_tpu_torch.tools.test CONFIG CKPT --eval map
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import yaml
 from ..config import load_config
 from ..data import DataLoader, build_dataset
 from ..devices import resolve_device
+from .. import parallel
 from ..models import build_model
 from ..runtime import precision
 from ..runtime.checkpoint import restore_checkpoint
@@ -45,19 +50,14 @@ def parse_overrides(opts: List[str]) -> Dict[str, object]:
     return out
 
 
-def _process_group(device: torch.device):
-    """(rank, world, joined) of this process: from ``torch.distributed``,
-    joined here through torchrun's environment (``joined``) unless the
-    caller has a group already, where ``WORLD_SIZE`` > 1; else (0, 1, False)."""
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if world <= 1:
-        return 0, 1, False
-    import torch.distributed as dist
-
-    joined = not dist.is_initialized()
-    if joined:
-        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
-    return dist.get_rank(), dist.get_world_size(), joined
+def local_device(device) -> torch.device:
+    """``device``, or under torchrun on the card ``cuda:LOCAL_RANK`` (made
+    the current device)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and "LOCAL_RANK" in os.environ:
+        dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(dev)
+    return dev
 
 
 def main(argv: Optional[List[str]] = None) -> Optional[Dict[str, float]]:
@@ -73,11 +73,8 @@ def main(argv: Optional[List[str]] = None) -> Optional[Dict[str, float]]:
     # and refuses the overrides)
     args = ap.parse_intermixed_args(argv)
 
-    device = resolve_device(args.device)
-    if device.type == "cuda" and "LOCAL_RANK" in os.environ:
-        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
-        torch.cuda.set_device(device)
-    rank, world, joined = _process_group(device)
+    device = local_device(args.device)
+    rank, world, joined = parallel.join(device)
     tmpdir = os.path.join(args.out_dir, "parts")
     if world > 1:
         if rank == 0:  # no part of an earlier run may stand in for this one's

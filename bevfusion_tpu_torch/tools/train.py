@@ -6,7 +6,9 @@ tools/train.py + mmdet3d/apis/train.py, epoch-based, CheckpointHook and
 DistEvalHook)::
 
     python -m bevfusion_tpu_torch.tools.train CONFIG [--run-dir D] [--seed S] \\
-        [--load-from F] [--resume-from F] [--device cuda] [k.e.y=v ...]
+        [--load-from F] [--resume-from F] [--device cuda] [--dist-backend nccl|gloo] \\
+        [k.e.y=v ...]
+    torchrun --nproc_per_node N -m bevfusion_tpu_torch.tools.train CONFIG ...
 
 The loop is the JAX CLI's: the config with its dotted overrides, dumped as
 ``configs.yaml`` in the run directory; the train dataset and
@@ -32,21 +34,39 @@ when it names a key. The model computes in the config's
 fp32; ``runtime/precision.py``): the parameters, gradients, AdamW's
 moments and so the checkpoints are fp32 at either dtype, and a checkpoint
 of one dtype resumes at the other. The TF32 switches are the fp32 runs'
-defaults (``precision.apply_tf32_defaults``). One process; ``WORLD_SIZE``
-> 1 raises (data parallelism is ROADMAP Queue 1 #7).
+defaults (``precision.apply_tf32_defaults``).
+
+Under ``torchrun`` (``WORLD_SIZE`` N > 1) the run is data-parallel
+(``parallel``): each rank joins the group (``--dist-backend``: NCCL by
+default on the card, gloo on the CPU; gloo on the card where several ranks
+share one card, which NCCL refuses), steps on ``cuda:LOCAL_RANK`` with
+``samples_per_gpu`` samples of its own, its rows of each global batch of
+N x ``samples_per_gpu`` (``DataLoader(replicas=N)``, the JAX CLI's global
+batch ``samples_per_gpu * jax.device_count()``), and every rank runs
+``len(loader)`` steps an epoch, over which the schedules run. Each step
+computes the one-process step of the global batch
+(``runtime/train.py:make_train_step``). Rank 0's initial state (weights,
+and the optimizer's after a resume) is broadcast to every rank
+(``--resume-from`` and ``--load-from`` are read on every rank); before
+each checkpoint every rank's weights are checked bit-equal to rank 0's;
+rank 0 alone writes the checkpoints, ``configs.yaml`` and the log, and a
+barrier follows. The per-epoch eval is sharded round-robin and rank 0
+merges the parts through ``runtime/eval.py:evaluate_dataset``. A
+checkpoint of any world size resumes at any other.
 """
 from __future__ import annotations
 
 import argparse
 import os
+import shutil
 import time
 from typing import Any, Dict, List, Optional
 
 import torch
 
+from .. import parallel
 from ..config import load_config
 from ..data import DataLoader, build_dataset
-from ..devices import resolve_device
 from ..models import build_model
 from ..runtime.checkpoint import load_weights, restore_checkpoint, save_checkpoint
 from ..runtime import precision
@@ -55,7 +75,7 @@ from ..runtime.train import (build_lr_schedule, build_momentum_schedule, build_o
                              make_train_step)
 from ..utils.logging import MetricLogger
 from ..utils.profiler import synchronize
-from .test import parse_overrides
+from .test import local_device, parse_overrides
 
 HEAD_METRICS = (("object", "bbox"), ("map", "map"))
 
@@ -70,12 +90,19 @@ def eval_metrics(cfg) -> List[str]:
     return [metric for head, metric in HEAD_METRICS if head in heads]
 
 
+def _barrier(world: int) -> None:
+    if world > 1:
+        torch.distributed.barrier()
+
+
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     """Run the training; returns what it did: ``run_dir``, ``compute_dtype``,
-    ``start_epoch``, ``steps_per_epoch``, ``missing_keys`` / ``unexpected_keys`` of
-    ``--load-from``, ``checkpoints`` written, ``eval`` ({epoch: metrics}) and
-    ``history``, one record a step (epoch, iter, ``loss``, ``wait_ms`` spent
-    waiting on the loader, ``step_ms`` of the step up to a synchronise)."""
+    ``start_epoch``, ``steps_per_epoch``, ``rank`` and ``world``, ``missing_keys`` /
+    ``unexpected_keys`` of ``--load-from``, ``replicated`` (the tensors rank 0's
+    broadcast changed on this rank), ``checkpoints`` written (by rank 0), ``eval``
+    ({epoch: metrics}, on rank 0) and ``history``, one record a step (epoch,
+    iter, ``loss`` of the global batch, ``wait_ms`` spent waiting on the loader,
+    ``step_ms`` of the step up to a synchronise)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("config")
     ap.add_argument("--run-dir", default=None)
@@ -83,13 +110,14 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     ap.add_argument("--load-from", default=None)
     ap.add_argument("--resume-from", default=None)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dist-backend", default=None, choices=parallel.BACKENDS,
+                    help="the process group's backend under torchrun (default: nccl on the "
+                         "card, gloo on the CPU)")
     ap.add_argument("opts", nargs="*", help="config overrides k.e.y=value")
     args = ap.parse_intermixed_args(argv)  # overrides may follow the options (tools/test.py)
 
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError("tools/train.py runs one process; data parallelism on "
-                                  "torch.distributed is not ported yet (ROADMAP Queue 1 #7)")
-    device = resolve_device(args.device)
+    device = local_device(args.device)
+    rank, world, joined = parallel.join(device, args.dist_backend)
     cfg = load_config(args.config, overrides=parse_overrides(args.opts))
     if args.seed is not None:
         cfg["seed"] = args.seed
@@ -97,7 +125,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     run_dir = args.run_dir or os.path.join(
         "runs", os.path.splitext(os.path.basename(args.config))[0])
     os.makedirs(run_dir, exist_ok=True)
-    cfg.dump(os.path.join(run_dir, "configs.yaml"))
+    if rank == 0:
+        cfg.dump(os.path.join(run_dir, "configs.yaml"))
 
     precision.apply_tf32_defaults()
     dtype = precision.config_dtype(cfg)
@@ -105,7 +134,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     torch.manual_seed(seed)
     model = build_model(cfg.model, "cpu", dtype).to(device)
     loader = DataLoader(build_dataset(cfg.data.train), batch_size=cfg.data.samples_per_gpu,
-                        shuffle=True, num_workers=cfg.data.workers_per_gpu, seed=seed)
+                        shuffle=True, num_workers=cfg.data.workers_per_gpu, seed=seed,
+                        replicas=world, replica=rank)
     max_epochs, steps_per_epoch = int(cfg.max_epochs), len(loader)
     total_steps = max_epochs * steps_per_epoch
     optimizer = build_optimizer(
@@ -114,7 +144,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         momentum_schedule=build_momentum_schedule(cfg.get("momentum_config"), 0.9, total_steps))
 
     out: Dict[str, Any] = {"run_dir": run_dir, "compute_dtype": precision.dtype_name(dtype),
-                           "steps_per_epoch": steps_per_epoch,
+                           "steps_per_epoch": steps_per_epoch, "rank": rank, "world": world,
                            "missing_keys": [], "unexpected_keys": [], "checkpoints": [],
                            "eval": {}, "history": []}
     resume, load_from = args.resume_from or cfg.get("resume_from"), \
@@ -132,18 +162,27 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             if out[name]:
                 print(f"  {name.split('_')[0]}: {', '.join(out[name])}")
     out["start_epoch"] = start_epoch
+    if world > 1:  # rank 0's state on every rank, then held bit-equal
+        state = dict(model.state_dict())
+        if resume:
+            state.update({f"optimizer.{k}.{n}": t for k in ("mu", "nu")
+                          for n, t in optimizer.state_dict()[k].items()})
+        out["replicated"] = parallel.replicate_state(state)
+        parallel.assert_replicated(state, "the initial state")
+        print(f"rank {rank} of {world}: {len(out['replicated'])} tensors took rank 0's values")
 
     step = make_train_step(model, optimizer, device, seed=seed)
     log_cfg = cfg.get("logging") or {}
     logger = MetricLogger(run_dir, interval=int(log_cfg.get("interval", 50)),
-                          tensorboard=bool(log_cfg.get("tensorboard", True)))
+                          tensorboard=bool(log_cfg.get("tensorboard", True))) \
+        if rank == 0 else None
     eval_cfg = cfg.get("evaluation") or {}
     eval_interval = int(eval_cfg.get("interval", 1))
     val_dataset = None
     if cfg.get("data", {}).get("val") and not eval_cfg.get("disable", False):
         val_dataset = build_dataset(cfg.data.val)
         val_loader = DataLoader(val_dataset, batch_size=1, shuffle=False, num_workers=2,
-                                drop_last=False)
+                                drop_last=False, num_shards=world, shard_id=rank)
     best_score, best_key = None, eval_cfg.get("save_best", "mAP")
     keep = int((cfg.get("checkpoint") or {}).get("max_keep", 1))
 
@@ -159,30 +198,45 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             logs = step(to_model_batch(np_batch, device))
             synchronize(device)
             t2 = time.perf_counter()
-            logger.log(epoch, it, steps_per_epoch, logs)
+            if logger:
+                logger.log(epoch, it, steps_per_epoch, logs)
             losses.append(logs["loss/total"])
             out["history"].append({"epoch": epoch, "iter": it, "wait_ms": (t1 - t0) * 1e3,
                                    "step_ms": (t2 - t1) * 1e3})
         path = os.path.join(run_dir, f"epoch_{epoch + 1}")
-        save_checkpoint(path, model, keep=keep, meta={"epoch": epoch + 1, "iter": optimizer.count},
-                        optimizer=optimizer)
-        out["checkpoints"].append(path)
+        parallel.assert_replicated(dict(model.state_dict()), f"epoch {epoch + 1}'s weights")
+        if rank == 0:
+            save_checkpoint(path, model, keep=keep,
+                            meta={"epoch": epoch + 1, "iter": optimizer.count},
+                            optimizer=optimizer)
+            out["checkpoints"].append(path)
+        _barrier(world)
         if val_dataset is not None and (epoch + 1) % eval_interval == 0:
-            metrics: Dict[str, float] = {}
+            metrics: Optional[Dict[str, float]] = {}
+            eval_dir = os.path.join(run_dir, f"eval_epoch_{epoch + 1}")
             for metric in eval_metrics(cfg):
-                eval_dir = os.path.join(run_dir, f"eval_epoch_{epoch + 1}")
-                metrics.update(evaluate_dataset(model, val_dataset, val_loader, metric=metric,
-                                                out_dir=eval_dir))
+                parts = os.path.join(eval_dir, f"parts_{metric}")
+                if rank == 0:  # no part of an earlier run may stand in for this one's
+                    shutil.rmtree(parts, ignore_errors=True)
+                _barrier(world)
+                got = evaluate_dataset(model, val_dataset, val_loader, metric=metric,
+                                       out_dir=eval_dir, rank=rank, world=world, tmpdir=parts)
+                metrics = None if got is None else dict(metrics, **got)
             model.train()
-            logger.log_eval(epoch, metrics)
-            out["eval"][epoch + 1] = metrics
-            score = metrics.get(best_key)
-            if score is not None and (best_score is None or score > best_score):
-                best_score = score
-                save_checkpoint(os.path.join(run_dir, "best"), model, keep=keep,
-                                meta={"epoch": epoch + 1, "iter": optimizer.count},
-                                optimizer=optimizer)
-    logger.close()
+            if rank == 0:
+                logger.log_eval(epoch, metrics)
+                out["eval"][epoch + 1] = metrics
+                score = metrics.get(best_key)
+                if score is not None and (best_score is None or score > best_score):
+                    best_score = score
+                    save_checkpoint(os.path.join(run_dir, "best"), model, keep=keep,
+                                    meta={"epoch": epoch + 1, "iter": optimizer.count},
+                                    optimizer=optimizer)
+            _barrier(world)
+    if logger:
+        logger.close()
+    if joined:
+        torch.distributed.destroy_process_group()
     for rec, loss in zip(out["history"], losses):
         rec["loss"] = float(loss)
     print("training complete:", run_dir)

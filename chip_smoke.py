@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's main paths on one NVIDIA GPU.
 
-Run from the repository root: ``python3 chip_smoke.py``. Phases:
+Run from the repository root: ``python3 chip_smoke.py``
+(``python3 chip_smoke.py --gate-probe``: only the runs that measure the
+gates of phases 11e, 11e-dp and 13c, ``gate_probe``). Phases:
 
 1. device: the card's name and power limit; TF32 off for fp32 parity;
 2. build: compile the six kernel sources of bevfusion_tpu_torch/csrc (one
@@ -168,11 +170,20 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
    fuser's), eval off (no devkit), both checkpoints kept, each holding
    the optimizer state and {epoch, iter}; run B: resumed from A's
    ``epoch_1``; A and B's final weights and optimizer moments compared and,
-   where they differ, run A' (A again): B's max|d| within 2x A''s and B
-   bit-equal wherever A' is; then the forward, the backward, the voxel
-   means' ``index_add_``, the pool's backward and a cuDNN conv's backward
-   each run twice on the same inputs, to name what is not deterministic;
-   then the same runs A, B, A' and C at the config's own precision, bf16
+   where they differ, runs A' and A'' (A again, twice): B's gaps within 2x
+   the mean of theirs, B bit-equal wherever both are and its ``nu`` gap
+   in norm within ``RESUME_NU_GAP`` (the factor, the two reruns, the mean
+   and the cap set from ``--gate-probe``'s readings); then the
+   forward, the backward, the voxel means' ``index_add_``, the pool's
+   backward and a cuDNN conv's backward each run twice on the same inputs,
+   to name what is not deterministic; then (11e-dp) the flagship for 1
+   epoch as two processes (gloo, samples_per_gpu 2 each, every dropout
+   rate 0) against one process at 4 run twice: the same steps on both
+   ranks, rank 0 alone writes ``epoch_1``, each rank launches K1/K2 58, K3
+   30 and K4 1 a step, the first step's loss within 2x the one-process
+   run-to-run gap, theirs or the largest measured (``TRAIN_CLI_DP_RTOL``);
+   then the same runs A, B, A', A''
+   and C at the config's own precision, bf16
    (the resume gate must hold B and refuse C again); these runs at fp32
    (``precision.compute_dtype=float32``); last the fused seg config
    (fusion-bev256d2-lss, fp32) for 1 epoch with the loop's per-epoch
@@ -240,6 +251,22 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
    (at random init a rounding-level change of the forward moves the
    gradients far: phase 12's B'), cosines printed; then 5 timed bf16
    steps: ms a step and the peak;
+13c. data parallelism on one card (``dp_phase``): the flagship's step at
+   full width on 2 ranks x 1 sample, two processes over gloo on CUDA
+   tensors (NCCL refuses two ranks on one card), against one process at
+   B = 2 on the same weights and batch, fp32 with TF32 off and bf16, every
+   dropout rate 0, the one-process step's proposals and Hungarian targets
+   replayed: each rank launches K1/K2 29, K3 15 and K4 once (the bf16 forms
+   at bf16); the losses within 1e-4, the gradients by phase 12's rule with
+   B' from R' and R_b (float64 BatchNorm moments), ``dp_gates``, which
+   must refuse two controls (the loss normalisers' and the BatchNorm sums
+   over the ranks patched out), the BatchNorm statistics and the
+   parameters after AdamW as ``dp_gates`` says, the ranks' weights
+   bit-equal; at bf16 13b's gate; ms a step and each rank's peak;
+13d. NCCL at world size 1: the step through a group of one against the
+   step without a group (no collective runs; within the run-to-run gap,
+   bit-equal where that is 0), and an NCCL all-reduce and broadcast that
+   leave the gradients unchanged;
 14. the measurement tools (``bevfusion_tpu_torch/tools/``, this path's
    entry points), TF32 on, every launch count set to 0 just before and read
    just after: the memory probes (torch's ``x + 1``, K5, K6 at its five
@@ -252,7 +279,10 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
    launched; then ``python -m bevfusion_tpu_torch.tools.benchmark --iters
    5`` (at the CLI's default bf16), and the same on
    configs/nuscenes/seg/fusion-bev256d2-lss.yaml, each in a subprocess:
-   exit 0 and its latency line;
+   exit 0 and its latency line; then ``python -m
+   bevfusion_tpu_torch.tools.dryrun_flagship_sharded --ranks 2
+   --dist-backend gloo --steps 0``: both ranks build the flagship and
+   hold rank 0's weights (13c runs and holds their steps);
 15. a JSON line with the kernel table (the BEV pool's second shape the seg
    grid, its third the ResNet det configs'; K6's two engines and K7's two
    families each with their ms, plain ms, bound, share and launches; every
@@ -261,7 +291,8 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases:
    launches those of the bf16 train step (13b); every kernel's launches in
    each train step of
    phases 12 and 12b; their launches in each run of phase 11d and of phase
-   11e), the seg, det-camera, pillar, cli, train-cli and train-config results
+   11e; ``launches_train_dp``, each rank's in 13c at fp32 and bf16), the seg,
+   det-camera, pillar, cli, train-cli, train-config and data-parallel results
    and the script's total time, a line with the card's name and
    power limit as nvidia-smi prints them, then the last line
    ``{"ok": true, "device": {...}}``.
@@ -346,6 +377,33 @@ CLI_SAMPLES = 4  # samples of the synthesized nuScenes-format set of phase 11d
 TRAIN_CLI_SAMPLES = 3  # phase 11e's train split: CBGS makes 9 of them, 2 steps an epoch at B = 4
 TRAIN_CLI_VAL_SAMPLES = 2  # phase 11e's val split (the seg config's per-epoch eval)
 TRAIN_CLI_BATCH = 4  # the flagship's and the seg config's samples_per_gpu
+DP_WORLD = 2  # ranks of phases 11e-dp and 13c: processes on the one card, over gloo
+# 13c: the ranks' BatchNorm running statistics against one process's, relative in norm, plus
+# TRAIN_GRAD_SENSITIVITY x how far R' moves them (the moments' summation order: two passes
+# over the ranks in fp32 against cuDNN's batch norm)
+DP_STATS_RTOL = 1e-4
+# 13c at bf16: each loss of the ranks' step against one process's bf16 step (their BatchNorms
+# round their bf16 outputs apart: the ranks normalise in fp32 and cast, one process in cuDNN)
+BF16_DP_LOSS_GAP = 5e-2
+# 13c: the parameters whose gradient may pass phase 12's rule (a share of them), each within
+# this relative gap: a ReLU that only the ranks' rounding flips (dp_gates). Measured on one
+# H100 (--gate-probe): two such tensors, 1.24e-2 and 1.83e-2 off, of 400; each control (a sync
+# patched out) moves the whole gradient by 1.0-1.3 and is refused
+DP_FLIP_SHARE = 0.01
+DP_FLIP_RTOL = 5e-2
+# 11e-dp: the first step's loss of the train CLI at two ranks against one process at twice the
+# batch, relative: within 2x the one-process run's run-to-run gap, this run's (O1-O2) or the
+# largest measured on one H100 (2.81e-4 between two runs; 1.06e-5-1.52e-4 over ten pairs of
+# five, --gate-probe; the ranks 2.0e-5-3.06e-4 from one process, the control without the
+# normalisers' sum 1.01)
+TRAIN_CLI_DP_RTOL = 6e-4
+# 11e-dp: every dropout and drop-path rate of the flagship to 0 (each rank draws its own masks)
+NO_DROPOUT = ["model.heads.object.dropout=0.0", "model.encoders.camera.backbone.drop_path_rate=0.0"]
+# ``python3 chip_smoke.py --gate-probe``: the runs that measure the gates of 11e and 11e-dp
+PROBE_RESUMES = 3  # runs B (resumed from A's epoch_1), at fp32 and at bf16
+PROBE_RERUNS = 5  # reruns of A
+PROBE_ONE_PROCESS = 5  # 11e-dp's one-process runs
+PROBE_RANKS_RUNS = 2  # 11e-dp's two-rank runs (and one control)
 
 
 def check(ok: bool, what: str) -> None:
@@ -821,6 +879,25 @@ def tools_phase(cfg, model, batch, cases, counters):
         check(proc.returncode == 0 and out and out[-1].startswith("latency:"),
               f"benchmark CLI {args}: exit {proc.returncode}, {proc.stderr[-2000:]}")
         res["benchmark_cli" if config is None else "benchmark_cli_seg"] = out[-1]
+
+    # the data-parallel dry run at full width, two ranks on the card over gloo: the group, the
+    # build and the broadcast only (13c runs and holds the ranks' steps)
+    t0 = time.perf_counter()
+    args = ["--ranks", str(DP_WORLD), "--dist-backend", "gloo", "--steps", "0"]
+    proc = subprocess.run([sys.executable, "-m", "bevfusion_tpu_torch.tools.dryrun_flagship_sharded",
+                           *args], capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    check(proc.returncode == 0 and len(rows) == DP_WORLD,
+          f"dryrun_flagship_sharded {args}: exit {proc.returncode}, {proc.stderr[-2000:]}")
+    for r in rows:
+        print(f"tools: dryrun_flagship_sharded rank {r['rank']} of {r['world']} ({r['backend']}, "
+              f"{r['dtype']}): built and replicated, peak {r['peak_mem_bytes'] / 2**20:.1f} MiB")
+        check(r["world"] == DP_WORLD and not r["losses"]
+              and not any(r["launches_per_step"].values()),
+              f"dryrun_flagship_sharded rank {r['rank']}: {r}")
+    print(f"tools: dryrun_flagship_sharded {' '.join(args)} in {time.perf_counter() - t0:.1f} s")
+    res["dryrun_sharded"] = rows
     return res, launches, parts
 
 
@@ -1396,6 +1473,11 @@ def cli_phase(counters, smi):
 
 
 RESUME_PARTS = ("parameters", "buffers", "mu", "nu")
+# 11e: the largest relative gap in norm of AdamW's ``nu`` to A's that a resume may show. On one
+# H100 (``--gate-probe``, two runs at fp32 and bf16) a correct resume's reached 0.206 and a rerun
+# of A's 0.306, while C's (the moments lost: nu holds only the second epoch) was 0.433-0.518 and
+# reached 1.69x the reruns' when A itself was far from them: a cap between the two sets it apart
+RESUME_NU_GAP = 0.37
 
 
 def checkpoint_gaps(path_a: str, path_b: str):
@@ -1439,12 +1521,66 @@ def checkpoint_gaps(path_a: str, path_b: str):
     return gaps, equal, len(pairs)
 
 
+def run_to_run(controls, pool=statistics.fmean):
+    """The card's run-to-run gap from the (gaps, bit-equal names) of several
+    uninterrupted runs against A: in each part the mean of their gaps
+    (``pool``; the tensor named is the larger gap's), and the tensors
+    bit-equal in all of them (on one H100 every rerun holds the same 69
+    bit-equal)."""
+    gaps = {p: {k: pool([g[p][k] for g, _ in controls]) for k in ("max", "norm", "abs")}
+            for p in RESUME_PARTS}
+    for p in RESUME_PARTS:
+        for k, t in (("max", "tensor"), ("abs", "abs_tensor")):
+            gaps[p][t] = max((g for g, _ in controls), key=lambda g: g[p][k])[p][t]
+    return gaps, set.intersection(*(e for _, e in controls))
+
+
 def resume_holds(gaps_b, equal_b, gaps_a2, equal_a2) -> bool:
     """The resume gate: in every part, B's gaps to A (the largest of a
-    tensor and the part's norm) within 2x those of a second uninterrupted
-    run A', and B bit-equal wherever A' is."""
+    tensor and the part's norm) within 2x the run-to-run gap of the
+    uninterrupted runs A' and A'' (``run_to_run``: the mean of their gaps),
+    B bit-equal wherever both are, and ``nu``'s gap in norm within
+    ``RESUME_NU_GAP``. The factor, the two reruns, their mean and the cap
+    are the probe's (``gate_readings``; one H100, 3 resumes and 5 reruns at
+    fp32 and bf16, twice; PERF.md §6): a correct resume's largest ratio to
+    the mean of two reruns 1.75x (one rerun: 2.08x once), C's least 1.91x."""
     return (all(gaps_b[p][k] <= 2 * gaps_a2[p][k] for p in RESUME_PARTS
-                for k in ("max", "norm")) and equal_a2 <= equal_b)
+                for k in ("max", "norm")) and equal_a2 <= equal_b
+            and gaps_b["nu"]["norm"] <= RESUME_NU_GAP)
+
+
+def gate_readings(bs, reruns, c):
+    """The probe's readings behind the resume gate (``python3 chip_smoke.py
+    --gate-probe``), from the (gaps, bit-equal names) of several resumes B,
+    several reruns of A and the control C: for the gate on one rerun, on the
+    larger of two and on their mean (``run_to_run``), the largest ratio of a
+    correct run's
+    gap to the gate's base (each B, and each rerun against the others) over
+    every part and gap, the least such largest ratio of C (what refuses it),
+    the bases whose bit-equal tensors a B missed, and each run's gaps in
+    norm. A gate of F x the base holds every correct run and refuses C where
+    the first ratio stays below F and the second above."""
+    def worst(gaps, base):
+        return max((gaps[p][k] / base[p][k], f"{p} {k}") for p in RESUME_PARTS
+                   for k in ("max", "norm") if base[p][k] > 0)
+
+    idx = range(len(reruns))
+    pairs = [(j, k) for j in idx for k in idx if j < k]
+    out = {}
+    for design, bases, pool in (("one", [(j,) for j in idx], max), ("two", pairs, max),
+                                ("mean_of_two", pairs, statistics.fmean)):
+        base = {js: run_to_run([reruns[j] for j in js], pool) for js in bases}
+        b = [worst(g, base[js][0]) + (i, js) for i, (g, _) in enumerate(bs) for js in bases]
+        a = [worst(reruns[i][0], base[js][0]) + (i, js) for i in idx for js in bases
+             if i not in js]
+        cs = [worst(c[0], base[js][0]) + (js,) for js in bases]
+        out[design] = {"b_worst": max(b), "reruns_as_b_worst": max(a) if a else None,
+                       "c_least": min(cs),
+                       "b_bit_equal_missed": sum(not base[js][1] <= e for g, e in bs
+                                                 for js in bases)}
+    out["norms"] = {name: [{p: g[p]["norm"] for p in RESUME_PARTS} for g, _ in runs]
+                    for name, runs in (("b", bs), ("reruns", reruns), ("c", [c]))}
+    return out
 
 
 def gaps_text(gaps) -> str:
@@ -1509,7 +1645,131 @@ def nondeterministic_ops(model, np_batch, bp):
     return out, differ
 
 
-def train_cli_phase(counters, smi, bp):
+def train_cli_dp(run, root, lidar, fp32, per_step, smi, probe=False):
+    """Phase 11e-dp: the flagship through ``tools/train.py`` as two processes
+    on the card (``--dist-backend gloo``, ``samples_per_gpu`` 2 each, the
+    group from torchrun's environment variables) for one epoch of phase
+    11e's set, ``--load-from`` the TransFusion-L checkpoint, fp32, every
+    dropout rate 0, against one process at samples_per_gpu 4 run twice (O1,
+    O2; ``run``: the train CLI in this process, its launches checked): both
+    ranks take O1's steps and log the same losses, each launches K1/K2 29 x 2
+    and K3 15 x 2 a step and K4 once, rank 0 alone writes ``epoch_1``, no
+    tensor differed from rank 0's at the start, and the first step's loss is
+    within the one-process runs' run-to-run gap of O1's: 2x O1-O2's, or
+    ``TRAIN_CLI_DP_RTOL``, the largest measured. With ``probe`` (``python3
+    chip_smoke.py --gate-probe``) ``PROBE_ONE_PROCESS`` one-process runs,
+    ``PROBE_RANKS_RUNS`` two-rank runs and a control with the loss
+    normalisers' sum over the ranks patched out (``without_sync``), no gate
+    raised: the readings behind ``TRAIN_CLI_DP_RTOL``. Returns the results."""
+    from bevfusion_tpu_torch.runtime.flagship import FLAGSHIP_CONFIG
+
+    t0 = time.perf_counter()
+    one = ["--load-from", lidar, "--device", DEVICE, f"dataset_root={root}/", "max_epochs=1",
+           "evaluation.disable=true", *fp32, *NO_DROPOUT]
+    dp = {}
+    names = [f"o{i + 1}" for i in range(PROBE_ONE_PROCESS if probe else 2)]
+    for name in names:
+        dp[name], _ = run(f"{name} (one process, 1 epoch, no dropout)",
+                          [FLAGSHIP_CONFIG, "--run-dir", os.path.join(root, "runs", name), *one],
+                          per_step)
+        torch.cuda.empty_cache()
+    steps = dp["o1"]["steps"]
+    per_rank = {k: v * (TRAIN_CLI_BATCH // DP_WORLD) * steps for k, v in _SPARSE_STEP.items()}
+    per_rank["bev_pool"] = POOL_LAUNCHES * steps
+
+    def ranks_run(name, sync=None):
+        """The two ranks' run ``name`` (``sync`` patched out on both), its
+        checks; returns each rank's line."""
+        run_dp = os.path.join(root, "runs", name)
+        argv = [FLAGSHIP_CONFIG, "--run-dir", run_dp, "--dist-backend", "gloo", *one,
+                f"data.samples_per_gpu={TRAIN_CLI_BATCH // DP_WORLD}"]
+        port = free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", DP_CLI_CODE, os.path.dirname(os.path.abspath(__file__)),
+             json.dumps(argv), sync or ""], stdout=subprocess.PIPE, text=True,
+            env=dict(os.environ, WORLD_SIZE=str(DP_WORLD), RANK=str(r), LOCAL_RANK="0",
+                     MASTER_ADDR="localhost", MASTER_PORT=str(port))) for r in range(DP_WORLD)]
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+        check(all(p.returncode == 0 for p in procs),
+              f"train-cli {name}: ranks exited {[p.returncode for p in procs]}")
+        ranks = [json.loads(next(line[7:] for line in o.splitlines()
+                                 if line.startswith("DP_CLI "))) for o in outs]
+        for r in ranks:
+            print(f"train-cli {name} rank {r['rank']} of {r['world']}"
+                  + (f" (without the sum of {sync})" if sync else "")
+                  + f": {r['steps']} steps at samples_per_gpu {TRAIN_CLI_BATCH // DP_WORLD}; "
+                  f"losses {[round(v, 4) for v in r['losses']]}; ms a step "
+                  f"{[round(v, 1) for v in r['step_ms']]} (gloo on CUDA tensors, both ranks on "
+                  f"the card); peak {r['peak_mem_bytes'] / 2**20:.1f} MiB; launches "
+                  f"{r['launches']}; checkpoints {[os.path.basename(c) for c in r['checkpoints']]}"
+                  f"; {smi}")
+            check(r["steps"] == steps and r["world"] == DP_WORLD,
+                  f"train-cli {name} rank {r['rank']}: {r['steps']} steps, want {steps}")
+            check(r["losses"] == ranks[0]["losses"]
+                  and all(math.isfinite(v) for v in r["losses"]),
+                  f"train-cli {name} rank {r['rank']}: losses {r['losses']} against rank 0's")
+            want = dict(dict.fromkeys(r["launches"], 0), **per_rank)
+            check(r["launches"] == want, f"train-cli {name} rank {r['rank']}: launches "
+                  f"{r['launches']}, want {want}")
+            check(r["checkpoints"] == ([os.path.join(run_dp, "epoch_1")] if r["rank"] == 0
+                                       else []) and r["replicated"] == 0,
+                  f"train-cli {name} rank {r['rank']}: checkpoints {r['checkpoints']}, "
+                  f"{r['replicated']} tensors took rank 0's values")
+        written = sorted(f for f in os.listdir(run_dp) if f.startswith("epoch_"))
+        check(written == ["epoch_1"], f"train-cli {name}: the run directory holds {written}")
+        return ranks
+
+    first = {n: dp[n]["loss_first"] for n in names}
+    a0, a2 = first["o1"], first["o2"]
+    limit = max(2 * abs(a2 - a0), TRAIN_CLI_DP_RTOL * abs(a0))
+    out = dict(dp, ranks=ranks_run("dp"))
+    d0 = out["ranks"][0]["losses"][0]
+    print(f"train-cli dp: the first step's loss {d0:.6f} against one process's {a0:.6f} "
+          f"(rel {abs(d0 - a0) / abs(a0):.3e}; its run-to-run gap {abs(a2 - a0) / abs(a0):.3e}, "
+          f"the gate {limit / abs(a0):.3e}); checkpoints in the run directory ['epoch_1']")
+    if probe:
+        losses = {"one_process": first}
+        for i in range(1, PROBE_RANKS_RUNS):
+            losses[f"dp{i + 1}"] = ranks_run(f"dp{i + 1}")[0]["losses"][0]
+        losses["dp"] = d0
+        losses["control_count_sum"] = ranks_run("dp_without", "count_sum")[0]["losses"][0]
+        vals = list(first.values())
+        rel = {"one_process_pairs": sorted(abs(x - y) / abs(a0) for i, x in enumerate(vals)
+                                           for y in vals[i + 1:]),
+               "ranks_vs_each": {k: [abs(v - x) / abs(a0) for x in vals]
+                                 for k, v in losses.items() if k != "one_process"}}
+        print(f"gate-probe train-cli dp: first-step losses {losses}; relative gaps {rel}")
+        out["probe"] = {"first_losses": losses, "rel_gaps": rel}
+    else:
+        check(abs(d0 - a0) <= limit, f"train-cli dp: the first step's loss {d0} against {a0} "
+              f"(run to run {a2})")
+    return dict(out, loss_rel_gap=abs(d0 - a0) / abs(a0),
+                run_to_run_rel_gap=abs(a2 - a0) / abs(a0), seconds=time.perf_counter() - t0)
+
+
+DP_CLI_CODE = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from bevfusion_tpu_torch import parallel
+from bevfusion_tpu_torch.ops import bev_pool as bp, sparse_conv as sp
+from bevfusion_tpu_torch.tools import train
+kernels = {"sparse_conv": sp.sparse_conv, "sparse_conv_dw": sp.sparse_conv_dw,
+           "sparse_conv_bf16": sp.sparse_conv_bf16, "sparse_conv_dw_bf16": sp.sparse_conv_dw_bf16,
+           "bev_pool": bp.bev_pool}
+if sys.argv[3] == "count_sum":  # the probe's control: each rank's own loss normalisers
+    parallel.count_sum = lambda t: t.detach()
+out = train.main(json.loads(sys.argv[2]))
+print("DP_CLI " + json.dumps({
+    "rank": out["rank"], "world": out["world"], "steps": len(out["history"]),
+    "losses": [h["loss"] for h in out["history"]], "step_ms": [h["step_ms"] for h in out["history"]],
+    "checkpoints": out["checkpoints"], "replicated": len(out.get("replicated", [])),
+    "launches": {k: c.launches for k, c in kernels.items()},
+    "peak_mem_bytes": torch.cuda.max_memory_allocated()}))
+"""
+
+
+def train_cli_phase(counters, smi, bp, probe=False):
     """Phase 11e: the train entry point on files. A seeded nuScenes-format
     set under build/train_cli_smoke/ (``write_synthetic_nuscenes`` with a
     train split of ``TRAIN_CLI_SAMPLES``, boxes around keyframe points) and
@@ -1520,10 +1780,13 @@ def train_cli_phase(counters, smi, bp):
     off (no devkit), both epochs' checkpoints kept; run B: resumed from A's
     ``epoch_1``; A and B's final state compared (``checkpoint_gaps``: the
     parameters, the buffers, ``mu`` and ``nu`` apart), and where they differ
-    run A' (A again) and C (resumed from ``epoch_1`` with the moments
-    zeroed): in every part B's gap within 2x A''s and B bit-equal wherever
-    A' is, C refused by the same gate, and the ops that give other bits on
-    the same inputs named (``nondeterministic_ops``). Then the fused seg
+    runs A' and A'' (A again, twice) and C (resumed from ``epoch_1`` with
+    the moments zeroed): in every part B's gap within 2x the mean of A''s
+    and A'''s (``run_to_run``), B bit-equal wherever both are and its
+    ``nu`` gap within ``RESUME_NU_GAP`` (``resume_holds``), C refused
+    by the same gate, and the ops that give other bits on
+    the same inputs named (``nondeterministic_ops``); the fp32 runs are
+    followed by ``train_cli_dp`` (11e-dp). Then the fused seg
     config for 1 epoch with its per-epoch ``map`` eval. Each run's launches
     against ``_SPARSE_STEP`` x the batch + one pool a step (+ ``POOL_LAUNCHES``
     / 15 sparse convs a val sample for the seg eval), and the matcher's calls
@@ -1607,10 +1870,12 @@ def train_cli_phase(counters, smi, bp):
         return r, out
 
     def flagship_runs(out, tag, extra, per_step, name_ops):
-        """Runs A, B and, where they differ, A' and C of the flagship with the
+        """Runs A, B and, where they differ, A', A'' and C of the flagship with the
         extra arguments ``extra`` (the compute dtype), their results into
         ``out``; with ``name_ops`` the ops that are not deterministic are
-        named too."""
+        named too. With ``probe``, ``PROBE_RESUMES`` runs B and
+        ``PROBE_RERUNS`` reruns of A, the gate's readings (``gate_readings``)
+        recorded and no gate raised."""
         run_a = os.path.join(root, "runs", "a" + tag.strip())
         out["a"], out_a = run(f"A{tag} (flagship, 2 epochs, load_from TransFusion-L)",
                               [FLAGSHIP_CONFIG, "--run-dir", run_a, "--load-from", lidar,
@@ -1628,82 +1893,93 @@ def train_cli_phase(counters, smi, bp):
                   and ckpt["optimizer"]["count"] == epoch * out_a["steps_per_epoch"],
                   f"train-cli A{tag}: epoch_{epoch} holds {ckpt['meta']}")
             del ckpt
-        run_b = os.path.join(root, "runs", "b" + tag.strip())
-        out["b"], _ = run(f"B{tag} (resumed from A's epoch_1)",
-                          [FLAGSHIP_CONFIG, "--run-dir", run_b, "--resume-from",
-                           os.path.join(run_a, "epoch_1"), *common, *extra], per_step)
+
+        def gaps_to_a(name, label, argv):
+            run_x = os.path.join(root, "runs", name + tag.strip())
+            out[name], _ = run(f"{label}{tag}", [FLAGSHIP_CONFIG, "--run-dir", run_x, *argv,
+                                                 *common, *extra], per_step)
+            return checkpoint_gaps(os.path.join(run_a, "epoch_2"), os.path.join(run_x, "epoch_2"))
+
+        resume = ["--resume-from", os.path.join(run_a, "epoch_1")]
+        bs = [gaps_to_a("b" if i == 0 else f"b{i + 1}", f"B{i + 1 if i else ''} (resumed from "
+                        "A's epoch_1)", resume) for i in range(PROBE_RESUMES if probe else 1)]
         check(out["b"]["start_epoch"] == 1,
               f"train-cli B{tag}: started at epoch {out['b']['start_epoch']}")
-        gaps_b, equal_b, n = checkpoint_gaps(os.path.join(run_a, "epoch_2"),
-                                             os.path.join(run_b, "epoch_2"))
+        gaps_b, equal_b, n = bs[0]
         out["resume"] = {"gaps_b": gaps_b, "bit_equal_b": len(equal_b), "tensors": n}
         if len(equal_b) == n:
             print(f"train-cli{tag} resume: B's final weights, buffers and optimizer moments "
                   f"equal A's bit for bit ({n} tensors)")
-        else:
-            run_a2 = os.path.join(root, "runs", "a2" + tag.strip())
-            out["a2"], _ = run(f"A'{tag} (A again)",
-                               [FLAGSHIP_CONFIG, "--run-dir", run_a2, "--load-from", lidar,
-                                *common, *extra], per_step)
-            gaps_a2, equal_a2, _ = checkpoint_gaps(os.path.join(run_a, "epoch_2"),
-                                                   os.path.join(run_a2, "epoch_2"))
-            # the gate's control: a resume that keeps the weights and the step count but
-            # loses AdamW's moments must be refused
-            lost = torch.load(os.path.join(run_a, "epoch_1"), map_location="cpu",
-                              weights_only=False)
-            for m in ("mu", "nu"):
-                lost["optimizer"][m] = {k: torch.zeros_like(v)
-                                        for k, v in lost["optimizer"][m].items()}
-            lost_path = os.path.join(root, "ckpt", "epoch_1_moments_lost" + tag.strip())
-            torch.save(lost, lost_path)
-            del lost
-            run_c = os.path.join(root, "runs", "c" + tag.strip())
-            out["c"], _ = run(f"C{tag} (resumed from A's epoch_1 with the moments zeroed)",
-                              [FLAGSHIP_CONFIG, "--run-dir", run_c, "--resume-from", lost_path,
-                               *common, *extra], per_step)
-            gaps_c, equal_c, _ = checkpoint_gaps(os.path.join(run_a, "epoch_2"),
-                                                 os.path.join(run_c, "epoch_2"))
-            out["resume"].update(gaps_a2=gaps_a2, bit_equal_a2=len(equal_a2), gaps_c=gaps_c,
-                                 bit_equal_c=len(equal_c))
-            if name_ops:
-                cfg = load_config(FLAGSHIP_CONFIG, overrides={"dataset_root": root + "/"})
-                model = build_model(cfg.model, DEVICE)
-                restore_checkpoint(os.path.join(run_a, "epoch_2"), model)
-                np_batch = next(iter(DataLoader(build_dataset(cfg.data.train), TRAIN_CLI_BATCH,
-                                                num_workers=2)))
-                np_batch.pop("metas", None)
-                ops, grads_differ = nondeterministic_ops(model, np_batch, bp)
-                del model
-                out["resume"].update(ops=ops, gradients_differ=grads_differ)
-                print(f"train-cli resume: on the same inputs twice: {grads_differ} gradients "
-                      f"differ; " + "; ".join(f"{op}: {'differs' if d else 'bit-equal'}"
-                                              for op, d in ops.items()))
-            print(f"train-cli{tag} resume, each part's gaps to A's final state (the largest "
-                  f"relative gap of a tensor and the tensor, the part's relative gap in norm, "
-                  f"the largest absolute gap and its tensor): B {gaps_text(gaps_b)}; "
-                  f"{len(equal_b)} of {n} tensors bit-equal")
-            print(f"train-cli{tag} resume: A' {gaps_text(gaps_a2)}; {len(equal_a2)} bit-equal")
-            print(f"train-cli{tag} resume: C (moments lost) {gaps_text(gaps_c)}; "
-                  f"{len(equal_c)} bit-equal")
-            check(resume_holds(gaps_b, equal_b, gaps_a2, equal_a2),
-                  f"train-cli{tag} resume: B {gaps_text(gaps_b)} against 2x A' "
-                  f"{gaps_text(gaps_a2)}; bit-equal in A' but not in B: "
-                  f"{sorted(equal_a2 - equal_b)[:5]}")
-            check(not resume_holds(gaps_c, equal_c, gaps_a2, equal_a2),
-                  f"train-cli{tag} resume: the gate passed C, a resume that lost the moments: "
-                  f"{gaps_text(gaps_c)}")
+            return
+        # A again: A' and A'' (the gate's), more with probe
+        reruns = [gaps_to_a(f"a{i + 2}", "A" + "'" * (i + 1) + " (A again)",
+                            ["--load-from", lidar])[:2]
+                  for i in range(PROBE_RERUNS if probe else 2)]
+        gaps_a2, equal_a2 = run_to_run(reruns[:2])
+        # the gate's control: a resume that keeps the weights and the step count but
+        # loses AdamW's moments must be refused
+        lost = torch.load(os.path.join(run_a, "epoch_1"), map_location="cpu",
+                          weights_only=False)
+        for m in ("mu", "nu"):
+            lost["optimizer"][m] = {k: torch.zeros_like(v)
+                                    for k, v in lost["optimizer"][m].items()}
+        lost_path = os.path.join(root, "ckpt", "epoch_1_moments_lost" + tag.strip())
+        torch.save(lost, lost_path)
+        del lost
+        gaps_c, equal_c, _ = gaps_to_a("c", "C (resumed from A's epoch_1 with the moments "
+                                       "zeroed)", ["--resume-from", lost_path])
+        out["resume"].update(gaps_a2=gaps_a2, bit_equal_a2=len(equal_a2), gaps_c=gaps_c,
+                             bit_equal_c=len(equal_c))
+        if name_ops and not probe:
+            cfg = load_config(FLAGSHIP_CONFIG, overrides={"dataset_root": root + "/"})
+            model = build_model(cfg.model, DEVICE)
+            restore_checkpoint(os.path.join(run_a, "epoch_2"), model)
+            np_batch = next(iter(DataLoader(build_dataset(cfg.data.train), TRAIN_CLI_BATCH,
+                                            num_workers=2)))
+            np_batch.pop("metas", None)
+            ops, grads_differ = nondeterministic_ops(model, np_batch, bp)
+            del model
+            out["resume"].update(ops=ops, gradients_differ=grads_differ)
+            print(f"train-cli resume: on the same inputs twice: {grads_differ} gradients "
+                  f"differ; " + "; ".join(f"{op}: {'differs' if d else 'bit-equal'}"
+                                          for op, d in ops.items()))
+        print(f"train-cli{tag} resume, each part's gaps to A's final state (the largest "
+              f"relative gap of a tensor and the tensor, the part's relative gap in norm, "
+              f"the largest absolute gap and its tensor): B {gaps_text(gaps_b)}; "
+              f"{len(equal_b)} of {n} tensors bit-equal")
+        print(f"train-cli{tag} resume: A' and A'', the mean of each part's gaps "
+              f"{gaps_text(gaps_a2)}; {len(equal_a2)} bit-equal in both")
+        print(f"train-cli{tag} resume: C (moments lost) {gaps_text(gaps_c)}; "
+              f"{len(equal_c)} bit-equal")
+        if probe:
+            out["probe"] = gate_readings([b[:2] for b in bs], reruns, (gaps_c, equal_c))
+            print(f"gate-probe train-cli{tag}: {json.dumps(out['probe'])}")
+            return
+        check(resume_holds(gaps_b, equal_b, gaps_a2, equal_a2),
+              f"train-cli{tag} resume: B {gaps_text(gaps_b)} against 2x the mean of A' and A'' "
+              f"and nu's cap {RESUME_NU_GAP:g}: "
+              f"{gaps_text(gaps_a2)}; bit-equal in A' and A'' but not in B: "
+              f"{sorted(equal_a2 - equal_b)[:5]}")
+        check(not resume_holds(gaps_c, equal_c, gaps_a2, equal_a2),
+              f"train-cli{tag} resume: the gate passed C, a resume that lost the moments: "
+              f"{gaps_text(gaps_c)}")
 
     per_step = {k: v * TRAIN_CLI_BATCH for k, v in _SPARSE_STEP.items()}
     per_step["bev_pool"] = POOL_LAUNCHES  # one pool a step: the batch's intervals together
     fp32 = ["precision.compute_dtype=float32"]  # the config's own is bf16
     flagship_runs(res, "", fp32, per_step, True)
     torch.cuda.empty_cache()
+
+    res["dp"] = train_cli_dp(run, root, lidar, fp32, per_step, smi, probe)
     # again at the config's own precision, bf16: the bf16 kernels' launches
     res["bf16"] = {}
     per_step_bf16 = {k: v * TRAIN_CLI_BATCH for k, v in BF16_TRAIN_LAUNCHES.items()}
     per_step_bf16["bev_pool"] = POOL_LAUNCHES
     flagship_runs(res["bf16"], " bf16", [], per_step_bf16, False)
     torch.cuda.empty_cache()
+    if probe:
+        shutil.rmtree(root, ignore_errors=True)
+        return res
 
     # the fused seg config: 1 epoch and its per-epoch map eval, inside the loop
     path = SEG_CONFIGS["fusion-bev256d2-lss"]
@@ -2315,10 +2591,596 @@ def bf16_train_phase(cfg, model, batch, counters, sp, bp):
             "steps": steps}
 
 
+def kernel_counters():
+    """Every kernel wrapper of the JSON line, by its name there."""
+    from bevfusion_tpu_torch.ops import bev_pool as bp
+    from bevfusion_tpu_torch.ops import nms
+    from bevfusion_tpu_torch.ops import sparse_conv as sp
+    from bevfusion_tpu_torch.tools import bench_kernel_variants as kv
+    from bevfusion_tpu_torch.tools import bench_tile_micro as tm
+
+    return {"sparse_conv": sp.sparse_conv, "sparse_conv_dw": sp.sparse_conv_dw,
+            "sparse_conv_bf16": sp.sparse_conv_bf16,
+            "sparse_conv_dw_bf16": sp.sparse_conv_dw_bf16, "bev_pool": bp.bev_pool,
+            "tile_copy": tm.copy_add_one, "tile_gather": tm.gather_tiles,
+            "sparse_conv_variants": kv.sparse_conv_variant, "greedy_nms": nms.greedy_suppress}
+
+
+def no_dropout(model) -> None:
+    """Every dropout and drop-path rate of ``model`` to 0: each rank draws its
+    own masks (``runtime/train.py:step_seed``), so a parity run draws none."""
+    from bevfusion_tpu_torch.models.layers import Dropout, DropPath
+
+    for m in model.modules():
+        if isinstance(m, (Dropout, DropPath)):
+            m.rate = 0.0
+
+
+def dp_pass(cfg, model, batch, state0, dtype, store, tops, counters, plain=False):
+    """One train step (``runtime/train.py:make_train_step``: forward, backward,
+    the sum over the ranks where a group of several runs it, AdamW with the
+    config's clip and schedules) from ``state0`` (the weights and buffers
+    restored first) at ``dtype``, the proposals and Hungarian targets
+    replayed from ``tops`` / ``store`` (recorded by the first pass), through
+    the plain versions with ``plain``. Every launch count set to 0 just
+    before and read just after. Returns the logs, every gradient as AdamW
+    sees it, the state after, the launches, ms (host clock around the
+    synchronised step) and the peak memory."""
+    from bevfusion_tpu_torch.ops import bev_pool as bp
+    from bevfusion_tpu_torch.ops import sparse_conv as sp
+    from bevfusion_tpu_torch.runtime import train
+    from bevfusion_tpu_torch.tools.bench_train_step import HORIZON
+
+    model.load_state_dict(state0)
+    model.compute_dtype = dtype
+    opt = train.build_optimizer(
+        cfg.optimizer, train.build_lr_schedule(cfg.lr_config, cfg.optimizer.lr, HORIZON), model,
+        cfg.optimizer_config.grad_clip,
+        train.build_momentum_schedule(cfg.get("momentum_config"), 0.9, HORIZON))
+    step = train.make_train_step(model, opt, DEVICE, seed=0)
+    params, grads = dict(model.named_parameters()), {}
+
+    def mark(phase):
+        if phase == "backward":
+            grads.update({n: p.grad.detach().clone() for n, p in params.items()
+                          if p.grad is not None})
+
+    head = model.heads["object"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as replay:
+        replay.enter_context(recorded_targets(head, store))
+        replay.enter_context(recorded_proposals(head, tops))
+        if plain:
+            replay.enter_context(plain_kernels(sp, bp))
+        logs = step(batch, mark)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    model.compute_dtype = torch.float32
+    return {"logs": {k: float(v) for k, v in logs.items()}, "grads": grads,
+            "lr0": opt.lr_schedule(0) * max(opt.lr_mult),  # the step's largest learning rate
+            "state": {k: v.detach().clone() for k, v in model.state_dict().items()},
+            "launches": {k: c.launches for k, c in counters.items()}, "ms": ms,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+
+def norm_gap(a, b) -> float:
+    """|a - b| in norm (float64)."""
+    return float((a.double() - b.double()).norm())
+
+
+def pass_moves(p, ref):
+    """How far pass ``p`` moved from pass ``ref``: each gradient's gap in
+    norm, each BatchNorm running statistic's, and the parameter elements
+    apart after AdamW by more than 1e-3 of the step's largest learning rate
+    (``dp_gates`` reads them)."""
+    lr0 = ref["lr0"]
+    return {"grads": {n: norm_gap(p["grads"][n], g) for n, g in ref["grads"].items()},
+            "stats": {k: norm_gap(p["state"][k], v) for k, v in ref["state"].items()
+                      if "running" in k and v.is_floating_point()},
+            "apart": sum(int(((p["state"][k] - v).abs() > 1e-3 * lr0).sum())
+                         for k, v in ref["state"].items() if k in ref["grads"])}
+
+
+def dp_gates(got, ref, moved):
+    """The fp32 step of the ranks (``got``, the global gradient) against the
+    one-process step R at the global batch (``ref``), phase 12's rules with
+    its B' taken as the larger move of two rounding-level changes of R's
+    forward (``moved``, ``pass_moves`` of R' through the plain versions and
+    of R_b with float64 BatchNorm moments): every loss within
+    ``TRAIN_LOSS_RTOL``; the whole gradient within ``TRAIN_GRAD_RTOL`` of R's
+    in norm plus ``TRAIN_GRAD_SENSITIVITY`` x how far those passes move it,
+    and each parameter's likewise (those zero but for rounding within
+    ``ZERO_GRAD`` of the global norm) but for at most ``DP_FLIP_SHARE`` of
+    them, each within ``DP_FLIP_RTOL``: a ReLU near zero that only the ranks'
+    rounding flips (their decoder runs at B = 1) moves a small head gradient
+    by 1e-3-4e-2 where neither pass flips it (measured on one H100: the dim
+    branch's BatchNorm bias 3.9e-3 off, R' and the ranks' arithmetic in one
+    process bit-equal or 6e-8 there); each BatchNorm running statistic
+    within ``DP_STATS_RTOL`` plus the same multiple of their move. The parameters
+    after AdamW's first step: it moves each element by lr * g / (|g| + eps)
+    (+ the weight decay, the same on both sides), about lr times the
+    gradient's sign, so the two sides agree but where a gradient element
+    near zero took the other sign: every element within 2 lr (+ rounding)
+    of R's, and the elements apart by more than 1e-3 lr at most
+    ``TRAIN_GRAD_SENSITIVITY`` x the passes' count + 1e-4 of all. Returns
+    the gaps and what is past a gate."""
+    out, bad = {}, []
+    loss_err = max(abs(got["logs"][k] - v) / max(abs(v), 1e-6)
+                   for k, v in ref["logs"].items() if k.startswith("loss/"))
+    out["loss_rel_err"] = loss_err
+    if loss_err > TRAIN_LOSS_RTOL:
+        bad.append(f"loss rel err {loss_err:.3e}")
+    missing = sorted(set(ref["grads"]) - set(got["grads"]))
+    if missing:
+        return out, [f"gradients missing {missing[:3]}"]
+    global_norm = math.sqrt(sum(float(g.double().square().sum()) for g in ref["grads"].values()))
+    used, flips, gap_sq, move_sq = {}, {}, 0.0, [0.0] * len(moved)
+    for n, g in ref["grads"].items():
+        norm, gap = float(g.double().norm()), norm_gap(got["grads"][n], g)
+        moves = [m["grads"][n] for m in moved]
+        gap_sq += gap ** 2
+        move_sq = [s + v ** 2 for s, v in zip(move_sq, moves)]
+        zero = norm <= ZERO_GRAD * global_norm
+        alone = ZERO_GRAD * global_norm if zero else TRAIN_GRAD_RTOL * norm
+        u = gap / (alone + TRAIN_GRAD_SENSITIVITY * max(moves))
+        if u > 1.0 and not zero and gap <= DP_FLIP_RTOL * norm:
+            flips[n] = gap / norm
+        else:
+            used[f"grad {n}"] = u
+    whole, whole_move = math.sqrt(gap_sq) / global_norm, math.sqrt(max(move_sq)) / global_norm
+    out.update(grad_rel_gap=whole, grad_rel_move=whole_move, flips=flips)
+    if whole > TRAIN_GRAD_RTOL + TRAIN_GRAD_SENSITIVITY * whole_move:
+        bad.append(f"the whole gradient {whole:.3e} from R's in norm (the passes move it "
+                   f"{whole_move:.3e})")
+    if len(flips) > DP_FLIP_SHARE * len(ref["grads"]):
+        bad.append(f"{len(flips)} gradients past phase 12's rule: {sorted(flips)[:5]}")
+    lr0, apart, elements, worst = ref["lr0"], 0, 0, 0.0
+    apart_p = [m["apart"] for m in moved]
+    for k, v in ref["state"].items():
+        if not v.is_floating_point():
+            continue
+        if "running" in k:
+            move = TRAIN_GRAD_SENSITIVITY * max(m["stats"][k] for m in moved)
+            alone = DP_STATS_RTOL * float(v.double().norm())
+            used[f"bn {k}"] = norm_gap(got["state"][k], v) / max(alone + move, 1e-30)
+        elif k in ref["grads"]:
+            d = (got["state"][k] - v).abs()
+            # 2 lr, and the fp32 rounding of the update and of the parameter
+            worst = max(worst, float(((d - 1e-6 * v.abs()) / (2 * lr0 * (1 + 1e-5))).max()))
+            apart += int((d > 1e-3 * lr0).sum())
+            elements += v.numel()
+    out.update(param_worst_of_2lr=worst, params_apart=apart, params_apart_r_prime=apart_p,
+               param_elements=elements)
+    if worst > 1.0:
+        bad.append(f"a parameter {worst:.3f} x 2 lr from R's")
+    if apart > TRAIN_GRAD_SENSITIVITY * max(apart_p) + 1e-4 * elements:
+        bad.append(f"{apart} parameter elements apart from R's (R', R_b: {apart_p})")
+    order = sorted(used, key=used.get, reverse=True)
+    bad += [f"{n} at {used[n]:.3f} of its gate" for n in order if used[n] > 1.0]
+    for kind in ("grad", "bn"):
+        top = next((n for n in order if n.startswith(kind)), None)
+        out[f"{kind}_worst"] = [top, used[top]] if top else None
+    out["gate_most_used"] = [[n, used[n]] for n in order[:5]]
+    return out, bad
+
+
+def dp_rank(rank: int, world: int, port: int, root: str) -> int:
+    """A rank of phase 13c (``python3 chip_smoke.py --dp-rank R WORLD PORT DIR``):
+    gloo on CUDA tensors (two ranks share the card; NCCL refuses that), the
+    flagship from ``DIR/spec.pt`` (weights, the global batch, the one-process
+    step's proposals and Hungarian targets), its rows of the batch
+    (``parallel.shard_batch``) with their own pooling LUT, rank 0's state
+    broadcast and checked; then the steps (``dp_pass``): the control with
+    the loss normalisers' sum patched out (untimed, it also warms cuDNN), the
+    fp32 step, the control with the BatchNorm sums patched out
+    (``without_sync``), an untimed bf16 step and the bf16 step, each real
+    step followed by the check that every rank holds rank 0's weights. Rank
+    0 holds them to the one-process steps (``DIR/ref.pt``): ``dp_gates`` at
+    fp32, which must refuse both controls; at bf16 the losses within
+    ``BF16_DP_LOSS_GAP`` and the gradients within ``BF16_TRAIN_VS_TF32`` x a
+    TF32 pass's gap, 13b's gate. Prints one JSON line: launches, ms and peak
+    of each step, the gaps."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    from bevfusion_tpu_torch import parallel
+    from bevfusion_tpu_torch.config import load_config
+    from bevfusion_tpu_torch.models import build_model
+    from bevfusion_tpu_torch.runtime.flagship import FLAGSHIP_CONFIG, add_pool_lut, batch_to
+
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    parallel.init("cuda", "gloo", f"tcp://localhost:{port}", rank, world, timeout_s=600)
+    counters = kernel_counters()
+    spec = torch.load(os.path.join(root, "spec.pt"), weights_only=False)
+    cfg = load_config(FLAGSHIP_CONFIG)
+    model = build_model(cfg.model, "cpu")
+    model.load_state_dict(spec["state"])
+    model.to(DEVICE)
+    no_dropout(model)
+    batch = batch_to(add_pool_lut(cfg, parallel.shard_batch(spec["batch"], rank, world)), DEVICE)
+    state0 = {k: v.to(DEVICE) for k, v in spec["state"].items()}
+    differed = parallel.replicate_state(state0)
+    store = {0: tuple(t.to(DEVICE) for t in spec["targets"][rank])}
+    tops = {"top": spec["top"][rank:rank + 1].to(DEVICE)}
+    ref = (torch.load(os.path.join(root, "ref.pt"), map_location=DEVICE, weights_only=False)
+           if rank == 0 else None)
+    res = {"rank": rank, "world": world, "replicated": len(differed), "controls": {}}
+
+    def step(dtype, sync=None):
+        with without_sync(sync):
+            return dp_pass(cfg, model, batch, state0, dtype, store, tops, counters)
+
+    def control(sync):
+        r = step(torch.float32, sync)
+        if ref is not None:
+            gaps, past = dp_gates(r, ref["R"], ref["moves"])
+            res["controls"][sync] = {"gaps": gaps, "past_gate": past}
+
+    def kept(name, r):
+        parallel.assert_replicated(dict(model.state_dict()), f"13c {name}: the weights after")
+        res[name] = {"launches": r["launches"], "ms": r["ms"], "peak_mem_bytes": r["peak_mem_bytes"],
+                     "loss_total": r["logs"]["loss/total"]}
+
+    control("count_sum")  # also the untimed first step: cuDNN's search
+    fp32 = step(torch.float32)
+    kept("fp32", fp32)
+    if ref is not None:
+        res["fp32"]["gaps"], res["fp32"]["past_gate"] = dp_gates(fp32, ref["R"], ref["moves"])
+    del fp32
+    control("moments")
+    step(torch.bfloat16)  # warm: cuDNN's search at bf16
+    got = step(torch.bfloat16)
+    kept("bf16", got)
+    if ref is not None:
+        want = ref["R16"]
+        loss_gap = max(abs(got["logs"][k] - v) / max(abs(v), 1e-6)
+                       for k, v in want["logs"].items() if k.startswith("loss/"))
+        norm = math.sqrt(sum(float(g.double().square().sum()) for g in want["grads"].values()))
+        grad_gap = math.sqrt(sum(norm_gap(got["grads"][n], g) ** 2
+                                 for n, g in want["grads"].items())) / norm
+        ok = all(g.dtype == torch.float32 and bool(torch.isfinite(g).all())
+                 for g in got["grads"].values()) and set(got["grads"]) == set(want["grads"])
+        past = [] if ok else ["a gradient missing, not fp32 or not finite"]
+        if not loss_gap <= BF16_DP_LOSS_GAP:
+            past.append(f"loss gap {loss_gap:.3e}")
+        if not grad_gap <= BF16_TRAIN_VS_TF32 * ref["tf32_gap"]:
+            past.append(f"gradient gap {grad_gap:.3e} past {BF16_TRAIN_VS_TF32:g} x TF32's "
+                        f"{ref['tf32_gap']:.3e}")
+        res["bf16"].update(loss_rel_gap=loss_gap, grad_rel_gap=grad_gap,
+                           tf32_gap=ref["tf32_gap"], past_gate=past)
+    torch.distributed.destroy_process_group()
+    print("DP_RANK " + json.dumps(res))
+    return 0
+
+
+@contextlib.contextmanager
+def without_sync(sync):
+    """13c's controls, on every rank alike: ``count_sum``, each loss
+    normaliser and mean count this rank's own (the sum over the ranks
+    patched out of ``parallel.count_sum``); ``moments``, each BatchNorm's
+    moments this rank's own (``parallel.masked_moments`` run as at world
+    size 1). None: as it is."""
+    from bevfusion_tpu_torch import parallel
+
+    if sync is None:
+        yield
+        return
+    saved = parallel.count_sum, parallel.masked_moments
+    if sync == "count_sum":
+        parallel.count_sum = lambda t: t.detach()
+    else:
+        check(sync == "moments", f"13c: no control {sync!r}")
+
+        def own(x, m, dims):
+            active = parallel.active
+            parallel.active = lambda: False
+            try:
+                return saved[1](x, m, dims)
+            finally:
+                parallel.active = active
+        parallel.masked_moments = own
+    try:
+        yield
+    finally:
+        parallel.count_sum, parallel.masked_moments = saved
+
+
+def dp_phase(counters):
+    """Phases 13c and 13d: data parallelism on one card.
+
+    13c. The flagship's full-width train step at 2 ranks x 1 sample (two
+    processes, gloo on CUDA tensors: NCCL refuses two ranks on one card)
+    against one process at B = 2 on the same weights and batch, fp32 with
+    TF32 off and deterministic algorithms, every dropout rate 0: the
+    one-process passes R (kernels; its proposals and Hungarian targets
+    recorded and replayed to every later pass, as phase 12), N2 (R again,
+    warm, timed), R' (the plain versions), R_b (float64 BatchNorm moments,
+    ``float64_moments``), T (TF32 on) and R16 (bf16 kernels; again warm,
+    timed) run here, then the ranks (``dp_rank``): each launches K1/K2 29, K3
+    15 and K4 once at fp32 and the bf16 forms as many at bf16; rank 0 holds
+    its step to R (``dp_gates``, B' from R' and R_b) and R16, and the gate
+    must refuse both controls (a sync patched out, ``without_sync``).
+
+    13d. NCCL at world size 1: a group of one joined on the card, the step
+    through it (no collective runs at world size 1) against R and N2: its
+    gap to R within 2x N2's (bit-equal where that is 0); then one NCCL
+    all-reduce and broadcast of the gradients, which must come back
+    unchanged. Returns the results."""
+    from bevfusion_tpu_torch import parallel
+    from bevfusion_tpu_torch.config import load_config
+    from bevfusion_tpu_torch.models import build_model
+    from bevfusion_tpu_torch.runtime.flagship import (FLAGSHIP_CONFIG, add_pool_lut,
+                                                      add_train_targets, batch_to, init_weights,
+                                                      synthetic_batch)
+
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "dp_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    cfg = load_config(FLAGSHIP_CONFIG)
+    model = init_weights(build_model(cfg.model, "cpu"), seed=0).to(DEVICE).train()
+    batch = add_train_targets(cfg, synthetic_batch(cfg, B=DP_WORLD, num_points=120000, seed=0,
+                                                   training=True), 0)
+    one = batch_to(add_pool_lut(cfg, batch), DEVICE)
+    prepare_train_model(model, one)
+    no_dropout(model)
+    state0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    store, tops, passes = {}, {}, {}
+    for name, dtype, plain, tf32 in (("R", torch.float32, False, False),
+                                     ("N2", torch.float32, False, False),
+                                     ("R'", torch.float32, True, False),
+                                     ("R_b", torch.float32, False, False),
+                                     ("T", torch.float32, False, True),
+                                     ("R16", torch.bfloat16, False, False),
+                                     ("R16w", torch.bfloat16, False, False)):
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+        with float64_moments() if name == "R_b" else contextlib.nullcontext():
+            passes[name] = dp_pass(cfg, model, one, state0, dtype, store, tops, counters, plain)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    # a rank's launches a step (B = 1), and one process's at B = 2: the sparse convs run
+    # sample by sample, the pool once on the batch's intervals together
+    per_rank = {"fp32": dict(dict.fromkeys(counters, 0), **TRAIN_LAUNCHES),
+                "bf16": dict(dict.fromkeys(counters, 0), **BF16_TRAIN_LAUNCHES)}
+    want = {key: {k: DP_WORLD * v if k.startswith("sparse") else v for k, v in w.items()}
+            for key, w in per_rank.items()}
+    for name, key in (("R", "fp32"), ("R16", "bf16")):
+        check(passes[name]["launches"] == want[key],
+              f"13c one process {name}: launches {passes[name]['launches']}, want {want[key]}")
+    grads_r = passes["R"]["grads"]
+    norm_r = math.sqrt(sum(float(g.double().square().sum()) for g in grads_r.values()))
+
+    def global_gap(p):
+        return math.sqrt(sum(norm_gap(p["grads"][n], g) ** 2 for n, g in grads_r.items())) / norm_r
+
+    tf32_gap = global_gap(passes["T"])
+    r16 = {k: passes["R16"][k] for k in ("logs", "grads")}
+    torch.save(to_cpu({"R": passes["R"], "R16": r16, "tf32_gap": tf32_gap,
+                       "moves": [pass_moves(passes[n], passes["R"]) for n in ("R'", "R_b")]}),
+               os.path.join(root, "ref.pt"))
+    torch.save({"state": {k: v.cpu() for k, v in state0.items()}, "batch": batch,
+                "top": tops["top"].cpu(),
+                "targets": [tuple(t.cpu() for t in store[b]) for b in range(DP_WORLD)]},
+               os.path.join(root, "spec.pt"))
+    plain = passes["R'"]
+    print(f"13c one process at B = {DP_WORLD}: R {passes['R']['ms']:.1f} ms (loss "
+          f"{passes['R']['logs']['loss/total']:.4f}), R' (plain) {plain['ms']:.1f} ms, gradient gap "
+          f"to R {global_gap(plain):.3e}, R_b (float64 BatchNorm moments) gradient gap to R "
+          f"{global_gap(passes['R_b']):.3e}, "
+          f"T (TF32 on) {passes['T']['ms']:.1f} ms, gradient gap to R {tf32_gap:.3e}; R16 "
+          f"(loss {passes['R16']['logs']['loss/total']:.4f}); ms a warm step (TF32 off) fp32 "
+          f"{passes['N2']['ms']:.1f}, bf16 {passes['R16w']['ms']:.1f}; peak "
+          f"{passes['R']['peak_mem_bytes'] / 2**20:.1f} MiB (fp32), "
+          f"{passes['R16w']['peak_mem_bytes'] / 2**20:.1f} MiB (bf16)")
+    one_process = {"fp32_ms": passes["N2"]["ms"], "bf16_ms": passes["R16w"]["ms"],
+                   "fp32_peak_mem_bytes": passes["R"]["peak_mem_bytes"],
+                   "bf16_peak_mem_bytes": passes["R16w"]["peak_mem_bytes"],
+                   "grad_rel_move_plain": global_gap(plain),
+                   "grad_rel_move_float64_moments": global_gap(passes["R_b"]),
+                   "grad_rel_move_tf32": tf32_gap}
+
+    # 13d. the step through a group of one on NCCL against the step without a group
+    rr = global_gap(passes["N2"])
+    parallel.init(DEVICE, "nccl", f"tcp://localhost:{free_port()}", 0, 1, timeout_s=300)
+    try:
+        check(parallel.world() == 1 and not parallel.active(), "13d: a group of one")
+        grp = dp_pass(cfg, model, one, state0, torch.float32, store, tops, counters)
+        flat = torch.cat([g.flatten() for g in grp["grads"].values()])
+        before = flat.clone()
+        torch.distributed.all_reduce(flat)
+        torch.distributed.broadcast(flat, src=0)
+        torch.cuda.synchronize()
+        nccl_same = torch.equal(flat, before)
+    finally:
+        torch.distributed.destroy_process_group()
+    gap = global_gap(grp)
+    loss_gap = abs(grp["logs"]["loss/total"] - passes["R"]["logs"]["loss/total"])
+    rr_loss = abs(passes["N2"]["logs"]["loss/total"] - passes["R"]["logs"]["loss/total"])
+    print(f"13d NCCL, a group of one: gradient gap to R {gap:.3e} in norm (the run-to-run gap "
+          f"{rr:.3e}, N2's: R again without a group), loss gap {loss_gap:.3e} "
+          f"(run to run {rr_loss:.3e}); launches {grp['launches']}; an NCCL all-reduce and "
+          f"broadcast of the gradients left them unchanged: {nccl_same}")
+    check(grp["launches"] == want["fp32"], f"13d: launches {grp['launches']}")
+    check(nccl_same, "13d: NCCL changed the gradients at world size 1")
+    check(gap <= 2 * rr and loss_gap <= 2 * rr_loss,
+          f"13d: the step through the group is {gap:.3e} ({loss_gap:.3e} in the loss) from R, "
+          f"past 2x the run-to-run gap {rr:.3e} ({rr_loss:.3e})")
+    nccl = {"grad_gap": gap, "run_to_run_gap": rr, "loss_gap": loss_gap,
+            "run_to_run_loss_gap": rr_loss, "nccl_unchanged": nccl_same,
+            "launches": grp["launches"]}
+    del passes, grp, flat, before, model, one
+    torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+
+    # 13c. the ranks
+    t0 = time.perf_counter()
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+                               str(DP_WORLD), str(port), root], stdout=subprocess.PIPE,
+                              text=True) for r in range(DP_WORLD)]
+    outs = [p.communicate(timeout=600)[0] for p in procs]
+    ranks_s = time.perf_counter() - t0
+    check(all(p.returncode == 0 for p in procs),
+          f"13c: ranks exited {[p.returncode for p in procs]}")
+    ranks = [json.loads(next(line[8:] for line in o.splitlines() if line.startswith("DP_RANK ")))
+             for o in outs]
+    for r in ranks:
+        for key in ("fp32", "bf16"):
+            launches = r[key]["launches"]
+            print(f"13c rank {r['rank']} {key}: launches {launches}; {r[key]['ms']:.1f} ms a step "
+                  f"(gloo on CUDA tensors, two ranks on one card); peak "
+                  f"{r[key]['peak_mem_bytes'] / 2**20:.1f} MiB; loss {r[key]['loss_total']:.4f}")
+            check(launches == per_rank[key], f"13c rank {r['rank']} {key}: launches "
+                  f"{launches}, want {per_rank[key]}")
+        check(r["replicated"] == 0, f"13c rank {r['rank']}: {r['replicated']} tensors differed "
+              "from rank 0's before the broadcast")
+    g32, g16 = ranks[0]["fp32"], ranks[0]["bf16"]
+    gaps = g32["gaps"]
+    print(f"13c fp32, the ranks' step against R: loss rel err {gaps['loss_rel_err']:.3e}; the "
+          f"whole gradient {gaps['grad_rel_gap']:.3e} in norm (R' and R_b move it up to "
+          f"{gaps['grad_rel_move']:.3e}); past phase 12's rule per parameter (at most "
+          f"{DP_FLIP_SHARE:g} of them, each within {DP_FLIP_RTOL:g}): "
+          + (", ".join(f"{n} {v:.3e}" for n, v in gaps["flips"].items()) or "none")
+          + "; the gates most used: " + "; ".join(f"{n} {u:.3f}" for n, u in gaps["gate_most_used"])
+          + f"; parameters after AdamW: the largest gap {gaps['param_worst_of_2lr']:.3f} x 2 lr, "
+          f"{gaps['params_apart']} of {gaps['param_elements']} elements apart (R', R_b "
+          f"{gaps['params_apart_r_prime']})")
+    for sync, c in ranks[0]["controls"].items():
+        print(f"13c control, the sum over the ranks patched out of {sync}: the whole gradient "
+              f"{c['gaps'].get('grad_rel_gap', float('nan')):.3e} from R's in norm, loss rel err "
+              f"{c['gaps']['loss_rel_err']:.3e}, {len(c['past_gate'])} gates refuse it: "
+              f"{c['past_gate'][:3]}")
+        check(bool(c["past_gate"]), f"13c: the gate passed the control without {sync}")
+    print(f"13c bf16, the ranks' step against R16: loss rel gap {g16['loss_rel_gap']:.3e} (gate "
+          f"{BF16_DP_LOSS_GAP:g}), gradient gap {g16['grad_rel_gap']:.3e} in norm (gate "
+          f"{BF16_TRAIN_VS_TF32:g} x T's {g16['tf32_gap']:.3e}); the ranks in {ranks_s:.1f} s")
+    check(not g32["past_gate"], f"13c fp32: {g32['past_gate'][:5]}")
+    check(not g16["past_gate"], f"13c bf16: {g16['past_gate'][:5]}")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"one_process": one_process, "ranks": ranks, "ranks_s": ranks_s, "nccl_world_1": nccl,
+            "seconds": time.perf_counter() - t_phase}
+
+
+@contextlib.contextmanager
+def float64_moments():
+    """Pass R_b: every training BatchNorm (``models/layers.py``'s and the
+    sparse encoder's masked one) normalised by moments this script takes
+    itself, in float64 (two passes) and cast back to fp32, the running
+    statistics moved alike: a rounding-level change of R's forward where the
+    ranks' arithmetic differs from one process's, which runs nothing of
+    ``parallel`` (``dp_gates`` takes B' from its move)."""
+    from bevfusion_tpu_torch.models import layers
+    from bevfusion_tpu_torch.models.sparse_encoder import MaskedBatchNorm
+
+    def norm(bn, x, m, dims):
+        xd = x.double()
+        if m is None:
+            mean = xd.mean(dims, keepdim=True)
+            var = (xd - mean).square().mean(dims, keepdim=True)
+        else:
+            md = m.double()
+            cnt = md.sum().clamp(min=1.0)
+            mean = (xd * md).sum(dims, keepdim=True) / cnt
+            var = ((xd - mean).square() * md).sum(dims, keepdim=True) / cnt
+        mean, var = mean.float(), var.float()
+        with torch.no_grad():
+            bn.running_mean.lerp_(mean.flatten(), bn.momentum)
+            bn.running_var.lerp_(var.flatten(), bn.momentum)
+            bn.num_batches_tracked += 1
+        shape = mean.shape
+        return ((x.float() - mean) * torch.rsqrt(var + bn.eps) * bn.weight.view(shape)
+                + bn.bias.view(shape))
+
+    flax_forward, masked_train = layers._FlaxStatsBatchNorm.forward, MaskedBatchNorm._train
+
+    def forward(self, x):
+        if not self.training:
+            return flax_forward(self, x)
+        return norm(self, x, None, [0, *range(2, x.dim())]).to(x.dtype)
+
+    layers._FlaxStatsBatchNorm.forward = forward
+    MaskedBatchNorm._train = lambda self, x, m, dims: (norm(self, x, m, dims)
+                                                    * m.float()).to(x.dtype)
+    try:
+        yield
+    finally:
+        layers._FlaxStatsBatchNorm.forward, MaskedBatchNorm._train = flax_forward, masked_train
+
+
+def free_port() -> int:
+    """A free localhost port (bound, then released for a group to take)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def to_cpu(obj):
+    """``obj`` (nested dicts of tensors) with every tensor on the CPU."""
+    if torch.is_tensor(obj):
+        return obj.cpu()
+    return {k: to_cpu(v) for k, v in obj.items()} if isinstance(obj, dict) else obj
+
+
+def gate_probe() -> int:
+    """``python3 chip_smoke.py --gate-probe``: the readings behind the gates
+    that hold runs on the card to their run-to-run gap (one card): phase
+    11e's resume gate at fp32 and bf16 (``PROBE_RESUMES`` resumes B,
+    ``PROBE_RERUNS`` reruns of A, the control C; ``gate_readings``), 11e-dp's
+    first-step loss (``PROBE_ONE_PROCESS`` one-process runs,
+    ``PROBE_RANKS_RUNS`` two-rank runs, a control without the loss
+    normalisers' sum), then phases 13c-13d as the smoke runs them
+    (``dp_gates`` and its two controls). Prints the readings as one JSON
+    line and writes them to build/gate_probe.json."""
+    t_start = time.perf_counter()
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    from bevfusion_tpu_torch.ops import bev_pool as bp
+    from bevfusion_tpu_torch.ops import sparse_conv as sp
+
+    smi = card_line()
+    print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    with ThreadPoolExecutor(3) as ex:
+        list(ex.map(lambda build: build(), (sp.build_kernels, sp.build_dw_kernels,
+                                            bp.build_kernels)))
+    counters = kernel_counters()
+    cli = train_cli_phase(counters, smi, bp, probe=True)
+    out = {"card": smi, "train_cli": {"fp32": cli.get("probe"), "bf16": cli["bf16"].get("probe")},
+           "train_cli_dp": cli["dp"]["probe"]}
+    path = os.path.join(here, "build", "gate_probe.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(out, f)
+    dp = dp_phase(counters)
+    r0 = dp["ranks"][0]
+    out["dp"] = {"fp32": r0["fp32"]["gaps"], "controls": r0["controls"],
+                 "one_process": dp["one_process"]}
+    out["seconds"] = time.perf_counter() - t_start
+    with open(path, "w") as f:
+        json.dump(out, f)
+    print(json.dumps(out))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--dp-rank"]:  # a rank of phase 13c, started by the phase itself
+        return dp_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])
+    if sys.argv[1:2] == ["--gate-probe"]:
+        return gate_probe()
     t_start = time.perf_counter()
     # cuBLAS takes deterministic workspaces only if told before its first call
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -2467,12 +3329,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 11. the three map-segmentation configs, eval forward at B=1, and the pool at the seg grid
-    all_counters = {"sparse_conv": sp.sparse_conv, "sparse_conv_dw": sp.sparse_conv_dw,
-                    "sparse_conv_bf16": sp.sparse_conv_bf16,
-                    "sparse_conv_dw_bf16": sp.sparse_conv_dw_bf16, "bev_pool": bp.bev_pool,
-                    "tile_copy": tm.copy_add_one,
-                    "tile_gather": tm.gather_tiles, "sparse_conv_variants": kv.sparse_conv_variant,
-                    "greedy_nms": nms.greedy_suppress}
+    all_counters = kernel_counters()
     t0 = time.perf_counter()
     seg, seg_pool = seg_phase(all_counters, bp)
     seg_s = time.perf_counter() - t0
@@ -2503,7 +3360,7 @@ def main() -> int:
     t0 = time.perf_counter()
     train_cli = train_cli_phase(all_counters, smi, bp)
     train_cli_s = time.perf_counter() - t0
-    runs = "A, B, A', C" if "a2" in train_cli else "A, B"
+    runs = "A, B, A', A'', C" if "a2" in train_cli else "A, B"
     print(f"train-cli: the synthesized set and its GT database ({train_cli['write_s']:.1f} s), "
           f"runs {runs} of the flagship and the seg config's epoch in {train_cli_s:.1f} s")
 
@@ -2544,6 +3401,12 @@ def main() -> int:
 
     # 13b. the flagship's train step at bf16: launches, gradients vs fp32, ms a step
     bf16_train = bf16_train_phase(cfg, model, batch, all_counters, sp, bp)
+
+    # 13c-13d. data parallelism: two ranks on the card over gloo against one process at B=2;
+    # NCCL at world size 1
+    dp = dp_phase(all_counters)
+    print(f"data parallel: one process, the group of one on NCCL and the two ranks in "
+          f"{dp['seconds']:.1f} s")
 
     # 14. the measurement tools: this path's entry points
     tools, tool_launches, tool_parts = tools_phase(cfg, model, batch, k7_cases, all_counters)
@@ -2627,15 +3490,18 @@ def main() -> int:
                                 for name in ("pointpillars", "camera+radar")}
         k["launches_cli"] = {name: cli[name]["launches"][k["name"]] for name in ("flagship", "seg")}
         k["launches_train_cli"] = {name: train_cli[name]["launches"][k["name"]]
-                                   for name in ("a", "b", "a2", "c", "seg") if name in train_cli}
+                                   for name in ("a", "b", "a2", "a3", "c", "seg")
+                                   if name in train_cli}
         k["launches_train"] = {"flagship": parity["launches"][k["name"]],
                                **{name: r["launches"][k["name"]] for name, r in train_cfgs.items()}}
         k["launches_train_cli_bf16"] = {name: train_cli["bf16"][name]["launches"][k["name"]]
-                                        for name in ("a", "b", "a2", "c")
+                                        for name in ("a", "b", "a2", "a3", "c")
                                         if name in train_cli["bf16"]}
         k["launches_bf16_configs"] = {name: r["launches"][k["name"]]
                                       for name, r in bf16_cfgs.items()}
         k["launches_bf16_train"] = bf16_train["launches"][k["name"]]
+        k["launches_train_dp"] = {key: [r[key]["launches"][k["name"]] for r in dp["ranks"]]
+                                  for key in ("fp32", "bf16")}
     print(json.dumps({
         "kernels": kernels, "build_s": build_s, "total_s": time.perf_counter() - t_start,
         "flagship": {"frame_ms_median": statistics.median(frames), "peak_mem_bytes": peak,
@@ -2651,6 +3517,7 @@ def main() -> int:
         "train_configs": dict(train_cfgs, seconds=train_cfgs_s),
         "bf16": {"flagship_eval": bf16_eval, "configs": dict(bf16_cfgs, seconds=bf16_cfgs_s),
                  "train": bf16_train},
+        "data_parallel": dp,
         "tools": {k: v for k, v in tools.items() if k not in ("copy", "gathers")},
         "lidar_slice": {"launches": lidar_launches,
                         "frame_ms_median": statistics.median(lidar_frames),

@@ -44,6 +44,7 @@ MAIN_PATH = [
     "bevfusion_tpu_torch.data.transforms",
     "bevfusion_tpu_torch.runtime.flagship",
     "bevfusion_tpu_torch.runtime.train",
+    "bevfusion_tpu_torch.parallel",
 ]
 
 # every module of the port, found by walking the package in the subprocess
@@ -97,7 +98,8 @@ def test_every_port_module_imports_no_jax():
                  "tools.profile_encoder", "tools.profile_vtransform", "tools.profile_stages",
                  "tools.bench_train_step", "tools.benchmark", "core.box_np", "data.points",
                  "data.loading", "data.loader", "data.nuscenes", "data.synthetic",
-                 "runtime.checkpoint", "runtime.eval", "tools.test"):
+                 "runtime.checkpoint", "runtime.eval", "tools.test", "tools.train", "parallel",
+                 "parallel.dryrun", "tools.dryrun_flagship_sharded"):
         assert f"bevfusion_tpu_torch.{name}" in walked, name
     assert len(walked) >= 40
     _assert_no_jax(mods)

@@ -397,9 +397,11 @@ def test_cli_refuses_the_card_without_one_and_several_processes(nusc_root, monke
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             train_cli.main([path, "--run-dir", os.path.join(nusc_root, "unused")])
+    # several processes train data-parallel (tests/test_torch_parallel.py); a backend that
+    # cannot hold the device's tensors is refused before any group is joined
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="one process"):
-        train_cli.main([path, "--device", "cpu"])
+    with pytest.raises(ValueError, match="nccl needs CUDA"):
+        train_cli.main([path, "--device", "cpu", "--dist-backend", "nccl"])
 
 
 # ---------------------------------------------------------------- the logger
