@@ -209,10 +209,14 @@ class BasicBlock(nn.Module):
 def resize_bilinear(x: torch.Tensor, size, align_corners: bool = False) -> torch.Tensor:
     """Bilinear resize of NCHW ``x`` to ``size`` (H', W'). The JAX
     package's ``resize_bilinear`` reproduces torch's ``F.interpolate``
-    sampling grid for both ``align_corners`` values, so this is that call."""
+    sampling grid for both ``align_corners`` values, so this is that call.
+    A bf16 ``x`` is resized in fp32 and rounded once, as the JAX package
+    computes it (its fp32 weights promote) and as CUDA's autocast runs
+    ``upsample_bilinear2d``; explicit, so the CPU computes the same and a
+    ``torch.export`` trace records the dtypes that run."""
     if tuple(size) == tuple(x.shape[-2:]):
         return x
-    return F.interpolate(x, size=tuple(size), mode="bilinear",
+    return F.interpolate(at_least_fp32(x), size=tuple(size), mode="bilinear",
                          align_corners=align_corners).to(x.dtype)
 
 

@@ -64,8 +64,17 @@ def _shift_attn_mask(H: int, W: int, ws: int, shift: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
-def _mask_on(H: int, W: int, ws: int, shift: int, device: torch.device) -> torch.Tensor:
+def _cached_mask(H: int, W: int, ws: int, shift: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_shift_attn_mask(H, W, ws, shift)).to(device)
+
+
+def _mask_on(H: int, W: int, ws: int, shift: int, device: torch.device) -> torch.Tensor:
+    """The shifted windows' mask on ``device``, cached; under ``torch.export``
+    made afresh (a constant of that trace: a cached one would be the fake
+    tensor of another trace)."""
+    if torch.compiler.is_exporting():
+        return torch.from_numpy(_shift_attn_mask(H, W, ws, shift)).to(device)
+    return _cached_mask(H, W, ws, shift, device)
 
 
 def _layer_norm(dim: int) -> nn.LayerNorm:

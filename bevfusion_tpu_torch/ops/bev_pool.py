@@ -14,8 +14,9 @@ calibration, per frame (the in-graph route) or once (the LUT route).
 The batch is folded into the flat indices (sample ``b``'s cells are
 ``b * Z*X*Y + cell``), so one launch pools the whole batch.
 
-``BEVPoolFunction`` trains through the pool: the kernel (or the plain
-version on the CPU) forward, and ``bev_pool_backward``, torch ops over
+``bev_pool`` calls the kernel as the custom op ``bevfusion::bev_pool``
+(``ops/library.py``). ``BEVPoolFunction`` trains through the pool: the
+kernel (or the plain version on the CPU) forward, and ``bev_pool_backward``, torch ops over
 chunks of points, backward (the counterpart of the JAX package's XLA
 ``pool_backward``, shared by its LUT and in-graph routes).
 """
@@ -30,7 +31,7 @@ import torch
 from .. import native
 
 __all__ = ["PoolIntervals", "cell_ids_from_geometry", "build_intervals", "bev_pool",
-           "bev_pool_plain", "bev_pool_backward", "BEVPoolFunction"]
+           "bev_pool_plain", "bev_pool_flat_plain", "bev_pool_backward", "BEVPoolFunction"]
 
 
 class PoolIntervals(NamedTuple):
@@ -79,17 +80,24 @@ def _to_nchw(out: torch.Tensor, B: int, Z: int, X: int, Y: int) -> torch.Tensor:
     return out.view(B, Z, X, Y, C).permute(0, 1, 4, 2, 3).reshape(B, Z * C, X, Y)
 
 
-def bev_pool_plain(depth: torch.Tensor, ctx: torch.Tensor, iv: PoolIntervals,
-                   Z: int, X: int, Y: int) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: ``depth[ranks_depth] *
-    ctx[ranks_feat]``, summed per interval with ``index_add_`` into a zeroed
-    grid. depth [B, N, D, fH, fW], ctx [B, N, fH, fW, C] -> [B, Z*C, X, Y]."""
-    B, C = depth.shape[0], ctx.shape[-1]
+def bev_pool_flat_plain(depth: torch.Tensor, ctx: torch.Tensor, iv: PoolIntervals,
+                        num_cells: int) -> torch.Tensor:
+    """Plain PyTorch version of the kernel in its own layout:
+    ``depth[ranks_depth] * ctx[ranks_feat]``, summed per interval with
+    ``index_add_`` into a zeroed flat grid [num_cells, C]."""
+    C = ctx.shape[-1]
     vals = (depth.reshape(-1)[iv.ranks_depth.long(), None]
             * ctx.reshape(-1, C)[iv.ranks_feat.long()])
     cell_of_point = torch.repeat_interleave(iv.interval_cells.long(), iv.interval_lengths.long())
-    out = vals.new_zeros((B * Z * X * Y, C)).index_add_(0, cell_of_point, vals)
-    return _to_nchw(out, B, Z, X, Y)
+    return vals.new_zeros((num_cells, C)).index_add_(0, cell_of_point, vals)
+
+
+def bev_pool_plain(depth: torch.Tensor, ctx: torch.Tensor, iv: PoolIntervals,
+                   Z: int, X: int, Y: int) -> torch.Tensor:
+    """Plain PyTorch version of ``bev_pool``: depth [B, N, D, fH, fW],
+    ctx [B, N, fH, fW, C] -> [B, Z*C, X, Y]."""
+    B = depth.shape[0]
+    return _to_nchw(bev_pool_flat_plain(depth, ctx, iv, B * Z * X * Y), B, Z, X, Y)
 
 
 @functools.lru_cache(maxsize=None)
@@ -127,38 +135,41 @@ def _check_cuda_args(depth, ctx, iv: PoolIntervals):
         raise ValueError("bev_pool: interval_starts, _lengths and _cells must be [R]")
 
 
+def _launch_pool(depth, ctx, iv: PoolIntervals, num_cells: int):
+    """Check the operands, allocate the zeroed flat grid and launch the
+    kernel on the current stream; returns (out [num_cells, C], whether it
+    launched: no interval, no launch)."""
+    _check_cuda_args(depth, ctx, iv)
+    C = ctx.shape[-1]
+    out = torch.zeros((num_cells, C), dtype=torch.float32, device=depth.device)
+    R = iv.interval_cells.shape[0]
+    if R == 0:
+        return out, False
+    ptrs = [t.data_ptr() for t in (depth, ctx, *iv)]
+    with torch.cuda.device(depth.device):
+        rc = _kernel_fn()(*ptrs, out.data_ptr(), R, C, depth.numel(), ctx.numel() // C, num_cells,
+                          torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"bev_pool: kernel launch failed with cudaError {rc}")
+    return out, True
+
+
 def bev_pool(depth: torch.Tensor, ctx: torch.Tensor, intervals: PoolIntervals,
              Z: int, X: int, Y: int) -> torch.Tensor:
     """``out[b, z*C + c, x, y] = sum over the points of cell (z, x, y) of
     depth[ranks_depth] * ctx[ranks_feat, c]``; 0 where no interval lands.
     depth [B, N, D, fH, fW], ctx [B, N, fH, fW, C] -> [B, Z*C, X, Y].
 
-    CUDA tensors launch the hand-written kernel (fp32, contiguous, int32
-    intervals) on the current stream; CPU tensors take ``bev_pool_plain``.
-    An index outside its array raises on the CPU and trips a device-side
-    assert in the kernel, as PyTorch's own CUDA index kernels do.
-    ``bev_pool.launches`` counts kernel launches.
+    The op ``bevfusion::bev_pool`` (``ops/library.py``): CUDA tensors
+    launch the hand-written kernel (fp32, contiguous, int32 intervals) on
+    the current stream; CPU tensors take ``bev_pool_plain``. An index
+    outside its array raises on the CPU and trips a device-side assert in
+    the kernel, as PyTorch's own CUDA index kernels do.
+    ``bev_pool.launches`` counts kernel launches. The op returns the flat
+    [B*Z*X*Y, C] grid; this returns its NCHW view (channels-last strides).
     """
-    if depth.device.type == "cpu":
-        return bev_pool_plain(depth, ctx, intervals, Z, X, Y)
-    if depth.device.type != "cuda":
-        raise ValueError(f"bev_pool: unsupported device {depth.device}")
-    _check_cuda_args(depth, ctx, intervals)
-    B, C = depth.shape[0], ctx.shape[-1]
-    num_cells = B * Z * X * Y
-    out = torch.zeros((num_cells, C), dtype=torch.float32, device=depth.device)
-    R = intervals.interval_cells.shape[0]
-    if R == 0:
-        return _to_nchw(out, B, Z, X, Y)
-    fn = _kernel_fn()
-    ptrs = [t.data_ptr() for t in (depth, ctx, *intervals)]
-    with torch.cuda.device(depth.device):
-        rc = fn(*ptrs, out.data_ptr(), R, C, depth.numel(), ctx.numel() // C, num_cells,
-                torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"bev_pool: kernel launch failed with cudaError {rc}")
-    bev_pool.launches += 1
-    return _to_nchw(out, B, Z, X, Y)
+    out = torch.ops.bevfusion.bev_pool(depth, ctx, *intervals, Z, X, Y)
+    return _to_nchw(out, depth.shape[0], Z, X, Y)
 
 
 bev_pool.launches = 0

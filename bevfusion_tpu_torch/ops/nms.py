@@ -1,5 +1,6 @@
 """Greedy NMS as keep masks: circle NMS and rotated BEV NMS, with the
-greedy pass as a hand-written kernel (``csrc/nms.cu``) and its plain
+greedy pass as a hand-written kernel (``csrc/nms.cu``, the custom op
+``bevfusion::greedy_suppress`` of ``ops/library.py``) and its plain
 version.
 
 Counterpart of ``bevfusion_tpu/ops/nms.py`` (``_greedy_suppress``,
@@ -80,31 +81,34 @@ def _check_cuda_args(sup: torch.Tensor, order: torch.Tensor) -> None:
         raise ValueError(f"greedy_suppress: N {order.shape[1]} > {MAX_N}")
 
 
-def greedy_suppress(sup: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
-    """The greedy pass: keep ``[P, N]`` bool in the original index order from
-    ``sup [P, N, N]`` (bool, score order; row i suppresses column j > i) and
-    the score ``order [P, N]`` (int64, a permutation per problem).
-
-    CUDA tensors launch the hand-written kernel (one block per problem) on
-    the current stream; CPU tensors take ``greedy_suppress_plain``. Boolean
-    in and out, so both give the same bits. ``greedy_suppress.launches``
-    counts kernel launches."""
-    if sup.device.type == "cpu":
-        return greedy_suppress_plain(sup, order)
-    if sup.device.type != "cuda":
-        raise ValueError(f"greedy_suppress: unsupported device {sup.device}")
+def _launch_suppress(sup: torch.Tensor, order: torch.Tensor):
+    """Check the operands, allocate keep and launch the kernel on the
+    current stream; returns (keep, whether it launched: an empty problem
+    launches nothing)."""
     _check_cuda_args(sup, order)
     P, N = order.shape
     keep = torch.zeros((P, N), dtype=torch.bool, device=sup.device)
     if P == 0 or N == 0:
-        return keep
+        return keep, False
     with torch.cuda.device(sup.device):
         rc = _kernel_fn()(sup.data_ptr(), order.data_ptr(), keep.data_ptr(), P, N,
                           torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"greedy_suppress: kernel launch failed with cudaError {rc}")
-    greedy_suppress.launches += 1
-    return keep
+    return keep, True
+
+
+def greedy_suppress(sup: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """The greedy pass: keep ``[P, N]`` bool in the original index order from
+    ``sup [P, N, N]`` (bool, score order; row i suppresses column j > i) and
+    the score ``order [P, N]`` (int64, a permutation per problem).
+
+    The op ``bevfusion::greedy_suppress`` (``ops/library.py``): CUDA tensors
+    launch the hand-written kernel (one block per problem) on the current
+    stream; CPU tensors take ``greedy_suppress_plain``. Boolean in and out,
+    so both give the same bits. ``greedy_suppress.launches`` counts kernel
+    launches."""
+    return torch.ops.bevfusion.greedy_suppress(sup, order)
 
 
 greedy_suppress.launches = 0

@@ -4,7 +4,8 @@ tensor-core tiles), the weight-gradient kernel
 (``csrc/sparse_conv_dw.cu``), each with its plain version and a bf16 form
 (bf16 rows and one bf16 tensor-core product a step, fp32 sums: the TPU
 kernels' own precision), and the autograd Function that trains through
-both.
+both. The wrappers call the kernels as the ``bevfusion::`` custom ops of
+``ops/library.py``, which launch them and count the launches.
 
 Counterpart of ``bevfusion_tpu/ops/sparse_conv.py`` (the rulebook
 subset the encoder runs) and of the windowed Pallas kernels of
@@ -323,23 +324,17 @@ def sparse_conv(feats: torch.Tensor, nbr: torch.Tensor, weight: torch.Tensor,
     """``out [cap_out, Cout] = relu(sum_k feats[nbr[k]] @ weight[k] * scale
     + shift + residual)`` (each epilogue part optional; nbr -1 = miss).
 
-    CUDA tensors launch the hand-written kernel on the current stream:
-    fp32 operands the 3xTF32 kernel, bf16 ones (``scale``, ``shift`` fp32)
-    its bf16 form (``sparse_conv_bf16``); contiguous inputs, Cin, Cout <=
-    128. CPU tensors take ``sparse_conv_plain``. ``sparse_conv.launches``
-    counts the fp32 kernel's launches.
+    The op ``bevfusion::sparse_conv`` (``ops/library.py``), or
+    ``bevfusion::sparse_conv_bf16`` for bf16 rows: CUDA tensors launch the
+    hand-written kernel on the current stream, fp32 operands the 3xTF32
+    kernel, bf16 ones (``scale``, ``shift`` fp32) its bf16 form; contiguous
+    inputs, Cin, Cout <= 128. CPU tensors take ``sparse_conv_plain``.
+    ``sparse_conv.launches`` counts the fp32 kernel's launches,
+    ``sparse_conv_bf16.launches`` the bf16 one's.
     """
-    if feats.device.type == "cpu":
-        return sparse_conv_plain(feats, nbr, weight, scale, shift, residual, relu)
-    if feats.device.type != "cuda":
-        raise ValueError(f"sparse_conv: unsupported device {feats.device}")
-    if feats.dtype == torch.bfloat16:
-        return sparse_conv_bf16(feats, nbr, weight, scale, shift, residual, relu)
-    out = _launch_conv("sparse_conv", _kernel_fn, torch.float32, feats, nbr, weight, scale, shift,
-                       residual, relu)
-    if out.shape[0]:
-        sparse_conv.launches += 1
-    return out
+    op = torch.ops.bevfusion.sparse_conv_bf16 if feats.dtype == torch.bfloat16 \
+        else torch.ops.bevfusion.sparse_conv
+    return op(feats, nbr, weight, scale, shift, residual, relu)
 
 
 @functools.lru_cache(maxsize=None)
@@ -353,18 +348,15 @@ def _bf16_kernel_fn():
 
 def sparse_conv_bf16(feats: torch.Tensor, nbr: torch.Tensor, weight: torch.Tensor,
                      scale=None, shift=None, residual=None, relu: bool = False) -> torch.Tensor:
-    """The bf16 form of ``sparse_conv`` on CUDA tensors: ``feats``,
-    ``weight``, ``residual`` and ``out`` bf16, ``scale`` / ``shift`` fp32;
-    one bf16 tensor-core product a 16-deep step with fp32 sums, the epilogue
-    in fp32, one rounding to bf16 (``sparse_conv_plain``'s bf16 contract).
+    """The bf16 form of ``sparse_conv`` on CUDA tensors (the op
+    ``bevfusion::sparse_conv_bf16``): ``feats``, ``weight``, ``residual``
+    and ``out`` bf16, ``scale`` / ``shift`` fp32; one bf16 tensor-core
+    product a 16-deep step with fp32 sums, the epilogue in fp32, one
+    rounding to bf16 (``sparse_conv_plain``'s bf16 contract).
     ``sparse_conv_bf16.launches`` counts its launches."""
     if feats.device.type != "cuda":
         raise ValueError(f"sparse_conv_bf16: feats on {feats.device}, not a CUDA device")
-    out = _launch_conv("sparse_conv_bf16", _bf16_kernel_fn, torch.bfloat16, feats, nbr, weight,
-                       scale, shift, residual, relu)
-    if out.shape[0]:
-        sparse_conv_bf16.launches += 1
-    return out
+    return torch.ops.bevfusion.sparse_conv_bf16(feats, nbr, weight, scale, shift, residual, relu)
 
 
 sparse_conv_bf16.launches = 0
@@ -439,25 +431,19 @@ def sparse_conv_dw(feats: torch.Tensor, nbr: torch.Tensor, dout: torch.Tensor) -
     over the output sites o that hit (nbr -1 = miss): the weight gradient
     of ``sparse_conv``.
 
-    CUDA tensors launch the hand-written kernel (fp32; contiguous inputs;
-    Cin, Cout <= 128; the hit pairs compacted per offset and chunk and
-    multiplied on the tensor cores in the 3xTF32 split) on the current
-    stream, with a fixed-order reduction over its warps and site chunks,
-    so the result is the same from run to run; bf16 ``feats`` and ``dout``
-    its bf16 form (``sparse_conv_dw_bf16``, fp32 dW). CPU tensors take
-    ``sparse_conv_dw_plain``. ``sparse_conv_dw.launches`` counts the fp32
-    kernel's launches.
+    The op ``bevfusion::sparse_conv_dw``, or ``bevfusion::sparse_conv_dw_bf16``
+    for bf16 ``feats`` and ``dout`` (fp32 dW): CUDA tensors launch the
+    hand-written kernel (contiguous inputs; Cin, Cout <= 128; the hit pairs
+    compacted per offset and chunk and multiplied on the tensor cores, in
+    the 3xTF32 split at fp32) on the current stream, with a fixed-order
+    reduction over its warps and site chunks, so the result is the same
+    from run to run. CPU tensors take ``sparse_conv_dw_plain``.
+    ``sparse_conv_dw.launches`` counts the fp32 kernel's launches,
+    ``sparse_conv_dw_bf16.launches`` the bf16 one's.
     """
-    if feats.device.type == "cpu":
-        return sparse_conv_dw_plain(feats, nbr, dout)
-    if feats.device.type != "cuda":
-        raise ValueError(f"sparse_conv_dw: unsupported device {feats.device}")
-    if feats.dtype == torch.bfloat16:
-        return sparse_conv_dw_bf16(feats, nbr, dout)
-    dw = _launch_dw("sparse_conv_dw", _dw_kernel_fn, torch.float32, feats, nbr, dout)
-    if nbr.shape[-1]:
-        sparse_conv_dw.launches += 1
-    return dw
+    op = torch.ops.bevfusion.sparse_conv_dw_bf16 if feats.dtype == torch.bfloat16 \
+        else torch.ops.bevfusion.sparse_conv_dw
+    return op(feats, nbr, dout)
 
 
 @functools.lru_cache(maxsize=None)
@@ -471,16 +457,14 @@ def _dw_bf16_kernel_fn():
 
 def sparse_conv_dw_bf16(feats: torch.Tensor, nbr: torch.Tensor,
                         dout: torch.Tensor) -> torch.Tensor:
-    """The bf16 form of ``sparse_conv_dw`` on CUDA tensors: bf16 ``feats``
-    and ``dout``, fp32 dW; one bf16 tensor-core product (exact in fp32) a
-    16-site step, fp32 sums in the fp32 form's fixed order.
-    ``sparse_conv_dw_bf16.launches`` counts its launches."""
+    """The bf16 form of ``sparse_conv_dw`` on CUDA tensors (the op
+    ``bevfusion::sparse_conv_dw_bf16``): bf16 ``feats`` and ``dout``, fp32
+    dW; one bf16 tensor-core product (exact in fp32) a 16-site step, fp32
+    sums in the fp32 form's fixed order. ``sparse_conv_dw_bf16.launches``
+    counts its launches."""
     if feats.device.type != "cuda":
         raise ValueError(f"sparse_conv_dw_bf16: feats on {feats.device}, not a CUDA device")
-    dw = _launch_dw("sparse_conv_dw_bf16", _dw_bf16_kernel_fn, torch.bfloat16, feats, nbr, dout)
-    if nbr.shape[-1]:
-        sparse_conv_dw_bf16.launches += 1
-    return dw
+    return torch.ops.bevfusion.sparse_conv_dw_bf16(feats, nbr, dout)
 
 
 sparse_conv_dw_bf16.launches = 0

@@ -42,6 +42,8 @@ HEADS = Registry("heads")
 VTRANSFORMS = Registry("vtransforms")
 FUSERS = Registry("fusers")
 FUSIONMODELS = Registry("fusion_models")
+BBOX_CODERS = Registry("bbox_coders")
+BBOX_ASSIGNERS = Registry("bbox_assigners")
 # the host data layer (``data/``)
 DATASETS = Registry("datasets")
 PIPELINES = Registry("pipelines")

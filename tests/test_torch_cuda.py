@@ -956,3 +956,41 @@ def test_sparse_conv_bf16_rejects_mixed_dtypes(cuda):
         sp.sparse_conv_dw(feats, nbr, torch.randn(10, 16, device=cuda))
     with pytest.raises(ValueError):
         sp.sparse_conv_bf16(feats.cpu(), nbr.cpu(), w.bfloat16().cpu())
+
+
+@pytest.mark.cuda
+def test_custom_ops_fake_is_the_cuda_implementations_meta_and_counts_its_launches(cuda):
+    """Each ``bevfusion::`` op on CUDA tensors: its fake (shape-only) form
+    gives the CUDA implementation's shape, dtype and strides, and the call
+    adds one to its wrapper's launch count (``ops/library.py``)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from bevfusion_tpu_torch.ops import library, nms
+
+    grid = sp.SparseGrid(12, 10, 6)
+    ids = _sites(0, grid, 80, 96).to(cuda)
+    nbr = sp.build_subm_rulebook(ids, grid)
+    feats, w = torch.randn(96, 8, device=cuda), torch.randn(27, 8, 16, device=cuda) * 0.2
+    dout = torch.randn(96, 16, device=cuda)
+    depth, ctx = torch.rand(1, 2, 4, 3, 5, device=cuda), torch.randn(1, 2, 3, 5, 6, device=cuda)
+    cells = torch.randint(0, 20, (1, 2, 4, 3, 5), device=cuda)
+    iv = bp.build_intervals(cells, torch.ones_like(cells, dtype=torch.bool), 20)
+    sup = torch.rand(3, 40, 40, device=cuda) > 0.7
+    order = torch.stack([torch.randperm(40, device=cuda) for _ in range(3)])
+    cases = {"sparse_conv": (feats, nbr, w, None, None, None, False),
+             "sparse_conv_bf16": (feats.bfloat16(), nbr, w.bfloat16(), None, None, None, True),
+             "sparse_conv_dw": (feats, nbr, dout),
+             "sparse_conv_dw_bf16": (feats.bfloat16(), nbr, dout.bfloat16()),
+             "bev_pool": (depth, ctx, *iv, 1, 4, 5), "greedy_suppress": (sup, order)}
+    assert set(cases) == set(library.OPS)
+    for name, args in cases.items():
+        op = getattr(torch.ops.bevfusion, name)
+        before = library.COUNTERS[name].launches
+        real = op(*args)
+        torch.cuda.synchronize()
+        assert library.COUNTERS[name].launches == before + 1, name
+        with FakeTensorMode() as mode:
+            fake = op(*(mode.from_tensor(a) if isinstance(a, torch.Tensor) else a for a in args))
+        assert (fake.shape, fake.dtype, fake.stride(), fake.device.type) == (
+            real.shape, real.dtype, real.stride(), real.device.type), name
+    assert library.COUNTERS["greedy_suppress"] is nms.greedy_suppress

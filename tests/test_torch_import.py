@@ -19,6 +19,7 @@ MAIN_PATH = [
     "bevfusion_tpu_torch.native",
     "bevfusion_tpu_torch.ops.voxelize",
     "bevfusion_tpu_torch.ops.sparse_conv",
+    "bevfusion_tpu_torch.ops.library",
     "bevfusion_tpu_torch.ops.grid",
     "bevfusion_tpu_torch.ops.bev_pool",
     "bevfusion_tpu_torch.ops.iou3d",
@@ -79,7 +80,8 @@ def _assert_no_jax(mods):
 
 def test_main_path_imports_neither_jax_nor_the_jax_package():
     mods, _ = _imported_after(MAIN_PATH)
-    assert {"bevfusion_tpu_torch.ops.sparse_conv", "bevfusion_tpu_torch.ops.bev_pool"} <= mods
+    assert {"bevfusion_tpu_torch.ops.sparse_conv", "bevfusion_tpu_torch.ops.bev_pool",
+            "bevfusion_tpu_torch.ops.library"} <= mods
     _assert_no_jax(mods)
 
 
@@ -99,7 +101,9 @@ def test_every_port_module_imports_no_jax():
                  "tools.bench_train_step", "tools.benchmark", "core.box_np", "data.points",
                  "data.loading", "data.loader", "data.nuscenes", "data.synthetic",
                  "runtime.checkpoint", "runtime.eval", "tools.test", "tools.train", "parallel",
-                 "parallel.dryrun", "tools.dryrun_flagship_sharded"):
+                 "parallel.dryrun", "tools.dryrun_flagship_sharded", "ops.library",
+                 "tools.export", "tools.train_longevity", "tools.visualize", "utils.visualize",
+                 "core.box_np_ops", "core.box_modes", "core.anchors", "core.assign_sample"):
         assert f"bevfusion_tpu_torch.{name}" in walked, name
     assert len(walked) >= 40
     _assert_no_jax(mods)
