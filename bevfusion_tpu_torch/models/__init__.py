@@ -1,14 +1,17 @@
 """Model zoo of the port: importing this package registers every component."""
 from . import bevdepth  # noqa: F401
 from . import bevfusion  # noqa: F401
+from . import dla  # noqa: F401
 from . import fusers  # noqa: F401
 from . import necks  # noqa: F401
+from . import pointnet_modules  # noqa: F401
 from . import pillar_encoder  # noqa: F401
 from . import radar_encoder  # noqa: F401
 from . import resnet  # noqa: F401
 from . import second  # noqa: F401
 from . import sparse_encoder  # noqa: F401
 from . import swin  # noqa: F401
+from . import vovnet  # noqa: F401
 from . import vtransforms  # noqa: F401
 from .heads import centerpoint  # noqa: F401
 from .heads import segm  # noqa: F401

@@ -18,8 +18,13 @@ gathered there.
 Module names follow the reference checkpoint: ``shared_conv.{conv,bn}``,
 ``task_heads.{t}.{branch}.{i}.{conv,bn}`` and ``task_heads.{t}.{branch}.{n}``
 for the final conv. Every sort is stable (``jnp.argsort`` and
-``jax.lax.top_k`` keep equal scores in index order). ``DCNSeparateHead``
-is not ported yet (ROADMAP Queue 1 #9, the long tail); no config uses it.
+``jax.lax.top_k`` keep equal scores in index order). With
+``separate_head.type: DCNSeparateHead`` each task's branches are a
+``DCNSeparateHead`` (reference centerpoint.py:130-246): two deformable 3x3
+feature adapters (``feature_adapt_cls``, ``feature_adapt_reg``; the D1
+kernel on the card), the heatmap from ``cls_head`` (a 3x3 conv-BN-ReLU and a
+3x3 conv with bias -2.19) and the other branches from ``task_head``, a
+``SeparateHead`` without the heatmap.
 """
 from __future__ import annotations
 
@@ -31,12 +36,13 @@ import torch.nn as nn
 from ... import parallel
 from ...core.coders import CenterPointBBoxCoder
 from ...ops import nms
+from ...ops.deform_conv import DeformConv2dPack
 from ...ops.gaussian import draw_heatmap_gaussians, gaussian_radius
 from ...registry import HEADS
 from ..layers import ConvBNAct, at_least_fp32
 from ..losses import clip_sigmoid, gaussian_focal_loss, l1_loss
 
-__all__ = ["SeparateHead", "CenterHead"]
+__all__ = ["SeparateHead", "DCNSeparateHead", "CenterHead"]
 
 
 class SeparateHead(nn.Module):
@@ -61,6 +67,29 @@ class SeparateHead(nn.Module):
         return {name: getattr(self, name)(x) for name in self.names}
 
 
+class DCNSeparateHead(nn.Module):
+    """One task group's branches behind two deformable feature adapters:
+    ``heads`` as ``SeparateHead``'s (its "heatmap" entry is replaced by
+    ``cls_head``, ``num_cls`` channels)."""
+
+    def __init__(self, in_channels: int, heads: Dict[str, Tuple[int, int]], num_cls: int,
+                 head_conv: int = 64, final_kernel: int = 3, init_bias: float = -2.19):
+        super().__init__()
+        self.feature_adapt_cls = DeformConv2dPack(in_channels, in_channels, 3)
+        self.feature_adapt_reg = DeformConv2dPack(in_channels, in_channels, 3)
+        last = nn.Conv2d(head_conv, num_cls, 3, 1, 1)
+        nn.init.constant_(last.bias, init_bias)
+        self.cls_head = nn.Sequential(ConvBNAct(in_channels, head_conv, 3, 1, 1), last)
+        self.task_head = SeparateHead(in_channels, {k: v for k, v in heads.items()
+                                                    if k != "heatmap"},
+                                      head_conv, final_kernel)
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        out = self.task_head(self.feature_adapt_reg(x))
+        out["heatmap"] = self.cls_head(self.feature_adapt_cls(x))
+        return out
+
+
 def _rank(keep: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
     """Each detection's rank [P, N] among the kept ones by descending score
     (the dropped ones after them), equal scores in index order."""
@@ -82,9 +111,7 @@ class CenterHead(nn.Module):
         ``loss_weight`` is not read there either)."""
         super().__init__()
         sep = dict(separate_head or {})
-        if sep.pop("type", None) == "DCNSeparateHead":
-            raise NotImplementedError("CenterHead: DCNSeparateHead (DeformConv2dPack) is not "
-                                      "ported yet (ROADMAP Queue 1 #9); no config uses it")
+        dcn = sep.pop("type", None) == "DCNSeparateHead"
         sep_kw = {k: v for k, v in sep.items() if k in ("head_conv", "final_kernel", "init_bias")}
         self.tasks = [list(t) for t in tasks]
         self.train_cfg = dict(train_cfg or {})
@@ -100,7 +127,9 @@ class CenterHead(nn.Module):
         for names in self.tasks:
             heads = {k: tuple(v) for k, v in (common_heads or {}).items()}
             heads["heatmap"] = (len(names), num_heatmap_convs)
-            self.task_heads.append(SeparateHead(share_conv_channel, heads, **sep_kw))
+            self.task_heads.append(
+                DCNSeparateHead(share_conv_channel, heads, len(names), **sep_kw) if dcn
+                else SeparateHead(share_conv_channel, heads, **sep_kw))
 
     def forward(self, feats: torch.Tensor) -> List[Dict[str, torch.Tensor]]:
         """feats [B, Cin, H, W] -> per task a dict of maps [B, c, H, W]."""

@@ -10,8 +10,10 @@ training, Hungarian targets per decoder layer (auction matcher), the
 dense gaussian heatmap target and the focal / L1 losses.
 
 The top-k is a stable descending sort, so equal scores are taken in
-index order as ``jax.lax.top_k`` takes them. NMS (``nms_type`` set) is
-not ported yet.
+index order as ``jax.lax.top_k`` takes them. With ``test_cfg.nms_type``
+set, ``get_bboxes`` suppresses per class group (the dataset's task table,
+reference transfusion.py:751-834) through the greedy-pass kernel
+(``ops/nms.py``, one launch a group with a positive radius).
 
 At any compute dtype the heatmap sigmoid, the proposals' scores, the
 query and BEV positions and the centers (the positions added) are fp32
@@ -29,6 +31,7 @@ import torch.nn.functional as F
 from ... import parallel
 from ...core.coders import TransFusionBBoxCoder
 from ...core.matching import auction_assignment, hungarian_costs
+from ...ops import nms
 from ...ops.gaussian import draw_heatmap_gaussians, gaussian_radius
 from ...ops.iou3d import iou_3d
 from ...registry import HEADS
@@ -240,11 +243,15 @@ class TransFusionHead(nn.Module):
         return (torch.cat(labels_l), torch.cat(bt_l), torch.cat(bw_l), npos, torch.cat(iou_l),
                 hm)
 
+    # per dataset, the class groups NMS runs over and each one's radius: circle NMS's
+    # threshold on the squared center distance, or rotated NMS's IoU; <= 0 keeps the group
+    NMS_TASKS = {"nuScenes": [((0, 1, 2, 3, 4, 5, 6, 7), -1.0), ((8,), 0.175), ((9,), 0.175)],
+                 "Waymo": [((0,), 0.7), ((1,), 0.7), ((2,), 0.7)]}
+
     def get_bboxes(self, preds: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Decoded boxes of the last decoder layer: {"bboxes" [B, P, 9],
-        "scores", "labels", "mask"}."""
-        if self.test_cfg.get("nms_type") is not None:
-            raise NotImplementedError("TransFusion NMS (ROADMAP: remaining heads and NMS)")
+        "scores", "labels", "mask"}; with ``test_cfg.nms_type`` the mask
+        keeps each group's NMS survivors (``suppress``)."""
         P = self.num_proposals
         heat = preds["heatmap"][:, -P:].sigmoid()
         onehot = F.one_hot(preds["query_labels"], self.num_classes).to(heat.dtype)
@@ -253,6 +260,36 @@ class TransFusionHead(nn.Module):
         def tx(a):
             return a[:, -P:].transpose(1, 2)
 
-        return self.coder.decode(score.transpose(1, 2), tx(preds["rot"]), tx(preds["dim"]),
-                                 tx(preds["center"]), tx(preds["height"]),
-                                 tx(preds["vel"]) if "vel" in preds else None)
+        dec = self.coder.decode(score.transpose(1, 2), tx(preds["rot"]), tx(preds["dim"]),
+                                tx(preds["center"]), tx(preds["height"]),
+                                tx(preds["vel"]) if "vel" in preds else None)
+        if self.test_cfg.get("nms_type") is not None:
+            dec["mask"] = self.suppress(dec)
+        return dec
+
+    def suppress(self, dec: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The keep mask [B, P] of ``test_cfg``'s per-group NMS (the JAX
+        ``get_bboxes``, transfusion.py:317-350): each group of the dataset's
+        task table (``NMS_TASKS``) with a radius above 0 runs circle NMS
+        (``nms_type`` "circle": the radius compared with the *squared*
+        center distance, as the reference's circle_nms; an inherited
+        divergence, ROADMAP Queue 3) or rotated BEV NMS on (x, y, w, l,
+        yaw) with the radius as the IoU threshold; a group with radius <= 0
+        keeps every decoded box of it."""
+        nms_type = self.test_cfg["nms_type"]
+        dataset = self.test_cfg.get("dataset", "nuScenes")
+        if dataset not in self.NMS_TASKS:
+            raise ValueError(f"unknown test_cfg dataset {dataset!r}")
+        boxes, scores, labels, mask = dec["bboxes"], dec["scores"], dec["labels"], dec["mask"]
+        keep = torch.zeros_like(mask)
+        for indices, radius in self.NMS_TASKS[dataset]:
+            tmask = torch.isin(labels, torch.tensor(indices, device=labels.device)) & mask
+            if radius <= 0:
+                k = tmask
+            elif nms_type == "circle":
+                k = nms.circle_nms_mask(boxes[..., :2].contiguous(), scores, tmask, radius)
+            else:
+                k = nms.nms_bev_mask(boxes[..., [0, 1, 3, 4, 6]].contiguous(), scores, tmask,
+                                     radius)
+            keep = torch.where(tmask, k, keep)
+        return keep

@@ -4,7 +4,9 @@ Counterpart of ``bevfusion_tpu/models/layers.py`` for what the port's
 models use. PyTorch has the JAX package's ``Conv`` (torch-style integer
 padding), ``max_pool2d_same`` and ``resize_bilinear`` natively as
 ``nn.Conv2d``, ``F.max_pool2d`` and ``F.interpolate``; ``Norm``,
-``ConvBNAct``, ``conv_bn_relu`` and ``BasicBlock`` remain.
+``ConvBNAct``, ``conv_bn_relu`` and ``BasicBlock`` remain. ``Norm`` builds
+BatchNorm, or flax's ``LayerNorm`` / ``GroupNorm`` over the channel axis
+(``ChannelLayerNorm``, ``GroupNorm``).
 
 Every BatchNorm of the port is ``BatchNorm1d`` / ``BatchNorm2d`` below:
 torch's normalisation, with running statistics that move like flax's
@@ -27,7 +29,8 @@ import torch.nn.functional as F
 
 from .. import parallel
 
-__all__ = ["BatchNorm1d", "BatchNorm2d", "batch_norm_train", "LayerNorm", "Dropout", "DropPath",
+__all__ = ["BatchNorm1d", "BatchNorm2d", "batch_norm_train", "LayerNorm", "ChannelLayerNorm",
+           "GroupNorm", "Dropout", "DropPath",
            "set_dropout_generator", "Norm", "ConvBNAct", "conv_bn_relu", "BasicBlock",
            "resize_bilinear", "at_least_fp32"]
 
@@ -96,6 +99,29 @@ class LayerNorm(nn.LayerNorm):
                             self.eps).to(x.dtype)
 
 
+class ChannelLayerNorm(LayerNorm):
+    """flax's ``LayerNorm`` over the channel axis (dim 1) of ``[N, C, ...]``:
+    each position normalised over its C values (the JAX package's ``Norm``
+    "LN" on channels-last maps)."""
+
+    def forward(self, x):
+        return super().forward(x.movedim(1, -1)).movedim(-1, 1)
+
+
+class GroupNorm(nn.GroupNorm):
+    """flax's ``GroupNorm`` (32 groups by default) over ``[N, C, ...]``: each
+    sample's group of C / 32 consecutive channels normalised over those
+    channels and every position; statistics and affine in fp32 (or wider),
+    the result in the input's dtype."""
+
+    def __init__(self, num_channels: int, eps: float = 1e-5, num_groups: int = 32):
+        super().__init__(num_groups, num_channels, eps)
+
+    def forward(self, x):
+        return F.group_norm(at_least_fp32(x), self.num_groups, self.weight, self.bias,
+                            self.eps).to(x.dtype)
+
+
 class _Random(nn.Module):
     """A module that draws random masks in training from ``self.generator``
     (a ``torch.Generator`` on the input's device, set by
@@ -149,29 +175,41 @@ def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]
 
 
 def Norm(norm_type: str, num_features: int, eps: float = 1e-5,
-         momentum: float = 0.1, dims: int = 2) -> nn.modules.batchnorm._BatchNorm:
-    """BatchNorm2d (``dims=1``: BatchNorm1d) selected by a reference-style
-    norm type (momentum in the torch convention)."""
-    if not (norm_type.startswith("BN") or norm_type.startswith("SyncBN")
-            or norm_type == "naiveSyncBN"):
-        raise NotImplementedError(f"norm type {norm_type!r} (ROADMAP: LN/GN norms)")
-    return (BatchNorm1d if dims == 1 else BatchNorm2d)(num_features, eps=eps, momentum=momentum)
+         momentum: float = 0.1, dims: int = 2) -> nn.Module:
+    """The norm a reference-style norm type names (momentum in the torch
+    convention), over the channel axis (dim 1): BatchNorm2d (``dims=1``:
+    BatchNorm1d) for BN / SyncBN / naiveSyncBN, ``ChannelLayerNorm`` for LN,
+    ``GroupNorm`` (32 groups, flax's default) for GN, as the JAX ``Norm``.
+    flax computes a LayerNorm's and a GroupNorm's variance as E[x^2] -
+    E[x]^2 in fp32 ("fast variance"), torch as E[(x - mean)^2]: the two
+    agree to rounding unless the mean dwarfs the spread."""
+    if norm_type.startswith("BN") or norm_type.startswith("SyncBN") \
+            or norm_type == "naiveSyncBN":
+        return (BatchNorm1d if dims == 1 else BatchNorm2d)(num_features, eps=eps,
+                                                           momentum=momentum)
+    if norm_type == "LN":
+        return ChannelLayerNorm(num_features, eps=eps)
+    if norm_type == "GN":
+        return GroupNorm(num_features, eps=eps)
+    raise ValueError(f"unsupported norm type {norm_type}")
 
 
 class ConvBNAct(nn.Module):
-    """conv (no bias: a norm follows) -> BN -> ReLU, the mmcv ConvModule
-    contract; children are named ``conv`` and ``bn`` like the reference
-    checkpoint's."""
+    """conv (no bias: a norm follows) -> BN -> ReLU (``relu=False``: no
+    activation), the mmcv ConvModule contract; children are named ``conv``
+    and ``bn`` like the reference checkpoint's."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, padding: int = 0):
+                 stride: int = 1, padding: int = 0, relu: bool = True):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride, padding,
                               bias=False)
         self.bn = BatchNorm2d(out_channels)
+        self.relu = relu
 
     def forward(self, x):
-        return self.bn(self.conv(x)).relu()
+        y = self.bn(self.conv(x))
+        return y.relu() if self.relu else y
 
 
 def conv_bn_relu(in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,

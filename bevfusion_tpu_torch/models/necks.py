@@ -3,8 +3,9 @@
 Counterparts of ``bevfusion_tpu/models/necks.py``: ``GeneralizedLSSFPN``
 (reference mmdet3d/models/necks/generalized_lss.py:13-103, module names
 ``lateral_convs.i`` / ``fpn_convs.i``) and ``LSSFPN`` (reference
-necks/lss.py:13-65, the ``fuse`` and ``upsample`` Sequentials).
-``DetectronFPN`` is not ported yet (ROADMAP Queue 1 #9).
+necks/lss.py:13-65, the ``fuse`` and ``upsample`` Sequentials) and
+``DetectronFPN`` (reference necks/detectron_fpn.py:18-137; ``lateral_convs.k``
+/ ``output_convs.k``, each a ConvModule without activation).
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..registry import NECKS
 from .layers import ConvBNAct, conv_bn_relu, resize_bilinear
@@ -46,6 +48,43 @@ class GeneralizedLSSFPN(nn.Module):
             x = self.lateral_convs[i](torch.cat([laterals[i], up], 1))
             laterals[i] = self.fpn_convs[i](x)
         return tuple(laterals[:-1])
+
+
+@NECKS.register
+class DetectronFPN(nn.Module):
+    """Detectron2's FPN: the maps ``inputs[i]`` for ``i in in_indices``, a
+    1x1 conv-BN lateral each (no activation), top-down from the coarsest:
+    each coarser sum resized to the finer map (nearest, half-pixel centres
+    as ``jax.image.resize``) and added to its lateral (halved where
+    ``fuse_type == "avg"``), then a 3x3 conv-BN output each. Returns the
+    outputs at ``sorted(out_indices)``. ``start_level`` is read nowhere, as
+    in the JAX package."""
+
+    def __init__(self, in_indices: Sequence[int], out_indices: Sequence[int],
+                 in_channels: Sequence[int], out_channels: int, start_level: int = 0,
+                 fuse_type: str = "sum"):
+        super().__init__()
+        if fuse_type not in ("sum", "avg"):
+            raise ValueError(f"DetectronFPN: fuse_type {fuse_type!r} (sum or avg)")
+        self.in_indices, self.out_indices = list(in_indices), sorted(out_indices)
+        self.fuse_type = fuse_type
+        self.lateral_convs = nn.ModuleList(ConvBNAct(c, out_channels, 1, relu=False)
+                                           for c in in_channels)
+        self.output_convs = nn.ModuleList(ConvBNAct(out_channels, out_channels, 3, 1, 1,
+                                                    relu=False) for _ in in_channels)
+
+    def forward(self, inputs):
+        feats = [inputs[i] for i in self.in_indices]
+        n = len(self.lateral_convs)
+        prev = self.lateral_convs[n - 1](feats[n - 1])
+        results = [self.output_convs[n - 1](prev)]
+        for k in range(n - 2, -1, -1):
+            up = F.interpolate(prev, size=feats[k].shape[-2:], mode="nearest-exact")
+            prev = self.lateral_convs[k](feats[k]) + up
+            if self.fuse_type == "avg":
+                prev = prev / 2
+            results.insert(0, self.output_convs[k](prev))
+        return [results[i] for i in self.out_indices]
 
 
 @NECKS.register

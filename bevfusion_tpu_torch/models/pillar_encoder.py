@@ -22,7 +22,7 @@ import torch
 import torch.nn as nn
 
 from ..registry import BACKBONES
-from .layers import Norm
+from .layers import GroupNorm, Norm
 
 __all__ = ["PointLayer", "point_mask", "pillar_centre_offsets", "masked_max", "PFNLayer",
            "PillarFeatureNet", "PointPillarsScatter", "PillarBranch", "PointPillarsEncoder"]
@@ -54,7 +54,8 @@ def masked_max(y: torch.Tensor, pm: torch.Tensor) -> torch.Tensor:
 class PointLayer(nn.Module):
     """Linear without bias -> BN1d over every (pillar, point) row, padded
     rows included, as the JAX ``Norm`` takes them -> ReLU: [M, P, Cin] ->
-    [M, P, Cout]."""
+    [M, P, Cout]. A LayerNorm (``norm_cfg`` LN) normalises each row, a
+    GroupNorm (GN) each pillar's rows together, as flax's on [M, P, C]."""
 
     def __init__(self, in_channels: int, out_channels: int, norm_cfg: Optional[dict] = None):
         super().__init__()
@@ -65,6 +66,8 @@ class PointLayer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.linear(x)
+        if isinstance(self.norm, GroupNorm):  # flax's GroupNorm on [M, P, C]: per pillar
+            return self.norm(y.transpose(1, 2)).transpose(1, 2).relu()
         return self.norm(y.reshape(-1, y.shape[-1])).view(y.shape).relu()
 
 

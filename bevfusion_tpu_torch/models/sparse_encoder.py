@@ -2,11 +2,16 @@
 
 Counterpart of ``bevfusion_tpu/models/sparse_encoder.py`` with the stage
 structure of its windowed engine (reference
-mmdet3d/models/backbones/sparse_encoder.py:11-218, basicblock variant):
-a submanifold input conv, stages of two residual submanifold blocks with
-a stride-2 sparse conv between stages, and a (1, 1, 3)/(1, 1, 2)
-``conv_out``, reshaped to a BEV map whose channel ``c*Z + z`` matches
-the reference's permute+view.
+mmdet3d/models/backbones/sparse_encoder.py:11-218): a submanifold input
+conv, stages of blocks, and a (1, 1, 3)/(1, 1, 2) ``conv_out``, reshaped
+to a BEV map whose channel ``c*Z + z`` matches the reference's
+permute+view. Two block types, as the JAX package has them:
+
+- ``basicblock``: residual submanifold blocks (two convs), a stride-2
+  sparse conv as each stage's last block but the last stage's;
+- ``conv_module`` (the JAX default): every block one conv-BN-ReLU, no
+  residual; the first block of every stage but the first is the stride-2
+  conv, the rest submanifold convs (which may change the width).
 
 Stages before ``dense_from_stage`` are sparse: at eval every conv is one
 launch of the gather-GEMM kernel per sample over a rulebook shared by
@@ -24,9 +29,11 @@ exact:
     strided  = conv3d(x, stride 2) * maxpool(active)
 
 Module and parameter names follow the reference checkpoint
-(``conv_input``, ``encoder_layers.encoder_layerN.M.conv1`` ...; spconv
-weights ``[kx, ky, kz, Cin, Cout]``), so a released state dict loads
-as is.
+(``conv_input``, ``encoder_layers.encoder_layerN.M.conv1`` for a basic block,
+``encoder_layers.encoder_layerN.M.{0,1}`` for a conv-BN(-ReLU) block;
+spconv weights ``[kx, ky, kz, Cin, Cout]``), so a released state dict
+loads as is. The JAX ``order`` field is read nowhere in the JAX module;
+the port takes conv/norm/act only.
 
 The features run in the voxel features' dtype (the model's compute
 dtype): at bf16 every sparse conv is the bf16 kernel (the fp32 weight
@@ -152,9 +159,10 @@ def _dilate(active: torch.Tensor, kernel_size, stride, padding) -> torch.Tensor:
 
 @BACKBONES.register
 class SparseEncoder(nn.Module):
-    # the strided conv between stages (its padding is per stage,
+    # the strided conv between stages (its padding is per block,
     # ``encoder_paddings``)
     DOWN_KERNEL, DOWN_STRIDE = 3, 2
+    BLOCK_TYPES = ("conv_module", "basicblock")
 
     def __init__(self, in_channels: int, sparse_shape: Sequence[int],
                  order: Sequence[str] = ("conv", "norm", "act"),
@@ -165,12 +173,13 @@ class SparseEncoder(nn.Module):
                  block_type: str = "conv_module", site_cap_multiplier: float = 1.0,
                  site_caps: Optional[Sequence[int]] = None, dense_from_stage: int = 3):
         super().__init__()
-        if block_type != "basicblock" or tuple(order) != ("conv", "norm", "act"):
+        if block_type not in self.BLOCK_TYPES or tuple(order) != ("conv", "norm", "act"):
             raise NotImplementedError(
-                "the port runs block_type='basicblock' with order conv/norm/act "
-                "(ROADMAP: remaining SparseEncoder variants)")
+                f"SparseEncoder: block_type {block_type!r}, order {tuple(order)}: the port "
+                f"runs {' or '.join(self.BLOCK_TYPES)} with order conv/norm/act")
         cfg = norm_cfg or {"type": "BN1d", "eps": 1e-3, "momentum": 0.01}
         eps, momentum = cfg.get("eps", 1e-3), cfg.get("momentum", 0.01)
+        self.block_type = block_type
         self.sparse_shape = tuple(int(s) for s in sparse_shape)
         self.encoder_paddings = [list(p) for p in encoder_paddings]
         self.site_cap_multiplier = site_cap_multiplier
@@ -179,49 +188,61 @@ class SparseEncoder(nn.Module):
 
         self.conv_input = _conv_bn(in_channels, base_channels, 3, eps, momentum)
         self.encoder_layers = nn.Module()
+        # the strided convs in order, as (stage, block, the stage they lead into), and the
+        # width of the features at each site level (level k: after k strided convs)
+        self.downs, self.level_channels = [], [base_channels]
         cin = base_channels
         n = len(encoder_channels)
         for i, blocks in enumerate(encoder_channels):
             layer = nn.Sequential()
             for j, cout in enumerate(blocks):
-                if j == len(blocks) - 1 and i != n - 1:  # stride-2 transition
-                    layer.add_module(str(j), _conv_bn(cin, cout, 3, eps, momentum))
-                else:
+                if block_type == "conv_module" and i != 0 and j == 0:
+                    self.downs.append((i, j, i))
+                elif block_type == "basicblock" and j == len(blocks) - 1 and i != n - 1:
+                    self.downs.append((i, j, i + 1))
+                elif block_type == "basicblock":
                     if cout != cin:
                         raise ValueError(f"basic block {i}.{j}: {cin} -> {cout} channels")
                     layer.add_module(str(j), SparseBasicBlock(cout, eps, momentum))
+                    continue
+                layer.add_module(str(j), _conv_bn(cin, cout, 3, eps, momentum))
+                if self.downs and self.downs[-1][:2] == (i, j):
+                    self.level_channels.append(cout)
                 cin = cout
             self.encoder_layers.add_module(f"encoder_layer{i + 1}", layer)
         self.conv_out = _conv_bn(cin, output_channels, (1, 1, 3), eps, momentum)
 
+    def _runs_sparse(self, target: int) -> bool:
+        """Whether a strided conv into stage ``target`` runs sparse (the
+        dense stages start at ``dense_from_stage``; -1: none)."""
+        return not 0 <= self.dense_from_stage <= target
+
     def sparse_sites(self, coords: torch.Tensor, mask: torch.Tensor, timed=untimed):
-        """The sites of each stage that runs sparse, for one sample (coords
-        [M, 3] int, x-major; mask [M]): [{"ids", "mask", "grid",
-        "channels", "down"}], "channels" the stage's width and "down"
-        (padding, cap_out) of the strided conv that leaves the stage
-        sparse, else None. Stage 0 is always there (the input conv runs
-        sparse). The caps are ``site_caps`` in order, then
-        ``site_cap_multiplier`` times the last cap. ``timed(name, fn)``
+        """The sites of each level that runs sparse (level k: after k
+        strided convs), for one sample (coords [M, 3] int, x-major; mask
+        [M]): [{"ids", "mask", "grid", "channels", "down"}], "channels" the
+        features' width there and "down" (padding, cap_out) of the strided
+        conv that leaves the level sparse, else None. Level 0 is always there
+        (the input conv runs sparse). The caps are ``site_caps`` in order,
+        then ``site_cap_multiplier`` times the last cap. ``timed(name, fn)``
         runs each downsampling."""
         grid = sp.SparseGrid(*self.sparse_shape)
         ids = sp.lin_ids(coords, grid, mask)
         cap, stages = ids.shape[0], []
-        for i, layer in enumerate(self.encoder_layers.children()):
-            first = layer[0]
-            width = (first.conv1 if isinstance(first, SparseBasicBlock) else first[0]).weight
-            stage = {"ids": ids, "mask": mask, "grid": grid, "channels": width.shape[-2],
-                     "down": None}
+        for k in range(len(self.downs) + 1):
+            stage = {"ids": ids, "mask": mask, "grid": grid,
+                     "channels": self.level_channels[k], "down": None}
             stages.append(stage)
-            j = next((j for j, b in enumerate(layer) if not isinstance(b, SparseBasicBlock)), None)
-            if j is None or 0 <= self.dense_from_stage <= i + 1:
+            if k == len(self.downs) or not self._runs_sparse(self.downs[k][2]):
                 break
-            if self.site_caps is not None and i < len(self.site_caps):
-                cap = self.site_caps[i]
+            i, j, _ = self.downs[k]
+            if self.site_caps is not None and k < len(self.site_caps):
+                cap = self.site_caps[k]
             else:
                 cap = max(1, int(cap * self.site_cap_multiplier))
             padding = self.encoder_paddings[i][j]
             stage["down"] = (padding, cap)
-            ids, mask = timed(f"s{i} meta: downsample_sites -> {cap}",
+            ids, mask = timed(f"s{k} meta: downsample_sites -> {cap}",
                               lambda: sp.downsample_sites(ids, grid, self.DOWN_KERNEL,
                                                           self.DOWN_STRIDE, padding, cap))
             grid = sp.conv_out_shape(grid, self.DOWN_KERNEL, self.DOWN_STRIDE, padding)
@@ -232,7 +253,7 @@ class SparseEncoder(nn.Module):
         x-major per sample; mask [B, M]. Returns the BEV map
         [B, output_channels * Z_out, X_out, Y_out] (NCHW).
 
-        The sites of every sparse stage come first (``sparse_sites``: they
+        The sites of every sparse level come first (``sparse_sites``: they
         depend on the coordinates only). Then the samples go through the
         sparse stages in lockstep, layer by layer, each on its own
         rulebooks (training BN takes its moments over all of them); the
@@ -241,7 +262,8 @@ class SparseEncoder(nn.Module):
         timer)."""
         B = voxel_feats.shape[0]
         sites = [self.sparse_sites(coords[b], mask[b], timed) for b in range(B)]
-        stage = [s[0] for s in sites]  # each sample's sites at the current sparse stage
+        level = 0
+        stage = [s[0] for s in sites]  # each sample's sites at the current sparse level
         xs = [torch.where(mask[b][:, None], voxel_feats[b], 0.0).contiguous() for b in range(B)]
         nbrs = timed("s0 meta: build_subm_rulebook", lambda: _subm_rulebooks(stage))
         conv, bn = self.conv_input
@@ -256,6 +278,7 @@ class SparseEncoder(nn.Module):
                                for s in stage])
             return d.contiguous(), occ[:, None].to(d.dtype)
 
+        downs = {(i, j): target for i, j, target in self.downs}
         for i, layer in enumerate(self.encoder_layers.children()):
             if dense is None and self.dense_from_stage == i:
                 dense, active = timed(f"s{i} densify", densify)
@@ -275,22 +298,31 @@ class SparseEncoder(nn.Module):
                 conv, bn = block
                 cin, cout = conv.weight.shape[-2:]
                 padding = self.encoder_paddings[i][j]
-                if dense is None and 0 <= self.dense_from_stage <= i + 1:
+                if (i, j) not in downs:  # a conv_module block: submanifold conv-BN-ReLU
+                    if dense is None:
+                        xs = timed(f"s{i}.{j} subm conv {cin}->{cout}", lambda: conv(
+                            xs, nbrs, bn, [s["mask"] for s in stage]))
+                    else:  # padding 1 keeps the sites (the JAX dense path pads by the
+                        # config's padding, which the configs set to 1 for these blocks)
+                        dense = timed(f"s{i}.{j} dense conv3d {cin}->{cout}", lambda: F.relu(
+                            bn.dense(conv.dense(dense, 1, 1), active)))
+                    continue
+                if dense is None and not self._runs_sparse(downs[(i, j)]):
                     dense, active = timed(f"s{i} densify", densify)
                 if dense is not None:
                     active = _dilate(active, self.DOWN_KERNEL, self.DOWN_STRIDE, padding)
                     dense = timed(f"s{i} strided dense conv3d {cin}->{cout}", lambda: F.relu(
                         bn.dense(conv.dense(dense, self.DOWN_STRIDE, padding), active)))
                 else:
-                    nxt = [s[i + 1] for s in sites]
+                    nxt = [s[level + 1] for s in sites]
                     cnbrs, cnbrs_t = timed(f"s{i} meta: build_conv_rulebook",
                                            lambda: _conv_rulebooks(stage, nxt, padding, xs,
                                                                    self.DOWN_KERNEL,
                                                                    self.DOWN_STRIDE))
                     xs = timed(f"s{i} strided conv {cin}->{cout}", lambda: conv(
                         xs, cnbrs, bn, [s["mask"] for s in nxt], nbrs_t=cnbrs_t))
-                    stage = nxt
-                    nbrs = timed(f"s{i + 1} meta: build_subm_rulebook",
+                    stage, level = nxt, level + 1
+                    nbrs = timed(f"s{level} meta: build_subm_rulebook",
                                  lambda: _subm_rulebooks(stage))
 
         conv, bn = self.conv_out

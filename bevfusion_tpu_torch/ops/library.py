@@ -20,12 +20,17 @@ op                       entry point (wrapper)                  kernel
 ``sparse_conv_dw_bf16``  ``sparse_conv_dw`` on bf16 rows        K3 bf16
 ``bev_pool``             ``ops/bev_pool.py:bev_pool``           K4
 ``greedy_suppress``      ``ops/nms.py:greedy_suppress``         the NMS pass
+``deform_im2col``        ``ops/deform_conv.py:deform_im2col``   D1
+``furthest_point_        ``ops/pointnet.py:furthest_point_      D2
+sample``                 sample``
 =======================  =====================================  ===============
 
 The wrappers call these ops and nothing else, so eager runs, training
 (``SparseConvFunction`` and ``BEVPoolFunction`` call the wrappers in
 their forward and backward; the ops carry no autograd formula of their
-own) and an exported program go through the same dispatch. Importing
+own) and an exported program go through the same dispatch. The one
+exception is ``deform_im2col``, whose gradient (autograd of its plain
+version, as the JAX gradient is XLA's) the op registers itself. Importing
 ``bevfusion_tpu_torch.ops`` registers them, which ``torch.export.load``
 of a program that holds them needs first.
 """
@@ -37,19 +42,22 @@ import torch
 from torch import Tensor
 
 from . import bev_pool as bp
+from . import deform_conv as dc
 from . import nms
+from . import pointnet as pn
 from . import sparse_conv as sp
 
 __all__ = ["NAMESPACE", "OPS", "COUNTERS", "op_counts"]
 
 NAMESPACE = "bevfusion"
 OPS = ("sparse_conv", "sparse_conv_bf16", "sparse_conv_dw", "sparse_conv_dw_bf16", "bev_pool",
-       "greedy_suppress")
+       "greedy_suppress", "deform_im2col", "furthest_point_sample")
 
 # the wrappers whose ``.launches`` each op's CUDA implementation counts, by op
 COUNTERS = {"sparse_conv": sp.sparse_conv, "sparse_conv_bf16": sp.sparse_conv_bf16,
             "sparse_conv_dw": sp.sparse_conv_dw, "sparse_conv_dw_bf16": sp.sparse_conv_dw_bf16,
-            "bev_pool": bp.bev_pool, "greedy_suppress": nms.greedy_suppress}
+            "bev_pool": bp.bev_pool, "greedy_suppress": nms.greedy_suppress,
+            "deform_im2col": dc.deform_im2col, "furthest_point_sample": pn.furthest_point_sample}
 
 
 def _launched(name: str) -> None:
@@ -191,6 +199,75 @@ def _(sup, order):
 @greedy_suppress.register_fake
 def _(sup, order):
     return order.new_empty(order.shape, dtype=torch.bool)
+
+
+# ----------------------------------------------------------------------
+# D1: the deformable im2col (its gradient: autograd of the plain version)
+# ----------------------------------------------------------------------
+
+@torch.library.custom_op(f"{NAMESPACE}::deform_im2col", mutates_args=(), device_types="cpu")
+def deform_im2col(x: Tensor, offset: Tensor, mask: Optional[Tensor], kernel_size: int,
+                  stride: int, padding: int) -> Tensor:
+    return dc.deform_im2col_plain(x, offset, mask, kernel_size, stride, padding)
+
+
+@deform_im2col.register_kernel("cuda")
+def _(x, offset, mask, kernel_size, stride, padding):
+    col, launched = dc._launch_im2col(x, offset, mask, kernel_size, stride, padding)
+    if launched:
+        _launched("deform_im2col")
+    return col
+
+
+@deform_im2col.register_fake
+def _(x, offset, mask, kernel_size, stride, padding):
+    B, H, W, C = x.shape
+    Ho, Wo = (dc._out_size(n, kernel_size, stride, padding) for n in (H, W))
+    return x.new_empty((B * Ho * Wo, kernel_size * kernel_size * C))
+
+
+def _im2col_setup(ctx, inputs, output):
+    x, offset, mask, kernel_size, stride, padding = inputs
+    ctx.save_for_backward(x, offset, mask)
+    ctx.geometry = (kernel_size, stride, padding)
+
+
+def _im2col_backward(ctx, grad):
+    x, offset, mask = ctx.saved_tensors
+    wanted = [t.detach().requires_grad_(need) if t is not None else None
+              for t, need in zip((x, offset, mask), ctx.needs_input_grad[:3])]
+    with torch.enable_grad():
+        col = dc.deform_im2col_plain(*wanted, *ctx.geometry)
+        leaves = [t for t in wanted if t is not None and t.requires_grad]
+        grads = iter(torch.autograd.grad(col, leaves, grad) if leaves else ())
+    return (*(next(grads) if t is not None and t.requires_grad else None for t in wanted),
+            None, None, None)
+
+
+deform_im2col.register_autograd(_im2col_backward, setup_context=_im2col_setup)
+
+
+# ----------------------------------------------------------------------
+# D2: furthest point sampling (indices: no gradient)
+# ----------------------------------------------------------------------
+
+@torch.library.custom_op(f"{NAMESPACE}::furthest_point_sample", mutates_args=(),
+                         device_types="cpu")
+def furthest_point_sample(xyz: Tensor, npoint: int, mask: Optional[Tensor]) -> Tensor:
+    return pn.furthest_point_sample_plain(xyz, npoint, mask)
+
+
+@furthest_point_sample.register_kernel("cuda")
+def _(xyz, npoint, mask):
+    out, launched = pn._launch_fps(xyz, npoint, mask)
+    if launched:
+        _launched("furthest_point_sample")
+    return out
+
+
+@furthest_point_sample.register_fake
+def _(xyz, npoint, mask):
+    return xyz.new_empty((xyz.shape[0], npoint), dtype=torch.int32)
 
 
 def op_counts(graph_module: torch.nn.Module) -> dict:

@@ -4,17 +4,19 @@ greedy pass as a hand-written kernel (``csrc/nms.cu``, the custom op
 version.
 
 Counterpart of ``bevfusion_tpu/ops/nms.py`` (``_greedy_suppress``,
-``circle_nms_mask``, ``nms_bev_mask``; reference circle_nms,
-mmdet3d/core/post_processing/box3d_nms.py:181-219, and nms_gpu,
-mmdet3d/ops/iou3d/iou3d_utils.py:23-49). Detections are sorted by score
+``circle_nms_mask``, ``nms_bev_mask``, ``box3d_multiclass_nms_mask``,
+``aligned_3d_nms_mask``; reference circle_nms,
+mmdet3d/core/post_processing/box3d_nms.py:181-219, box3d_multiclass_nms
+:8, aligned_3d_nms :129, and nms_gpu, mmdet3d/ops/iou3d/iou3d_utils.py:23-49). Detections are sorted by score
 (invalid ones last, ties in index order: a stable sort, as ``jnp.argsort``
 is), the suppression matrix is built with tensor ops in that order, and
 the greedy pass clears every later detection that a kept one suppresses.
 The result is a keep mask over the original indices (fixed shapes), and
 an invalid detection is never kept. Every function takes a batch of
-problems, ``[P, N, ...]``, so one kernel launch serves a frame's batch.
-``box3d_multiclass_nms_mask`` and ``aligned_3d_nms_mask`` are not ported
-yet: no config reaches them (ROADMAP Queue 1 #9).
+problems, ``[P, N, ...]``, so one kernel launch serves a frame's batch;
+``box3d_multiclass_nms_mask`` and ``aligned_3d_nms_mask`` take one problem
+as the JAX functions do (the multi-class one runs its classes as the
+problems of one launch).
 """
 from __future__ import annotations
 
@@ -27,7 +29,8 @@ from .. import native
 from .iou3d import iou_bev
 
 __all__ = ["score_order", "greedy_suppress", "greedy_suppress_plain", "circle_suppression",
-           "bev_suppression", "circle_nms_mask", "nms_bev_mask"]
+           "bev_suppression", "circle_nms_mask", "nms_bev_mask", "box3d_multiclass_nms_mask",
+           "aligned_3d_nms_mask"]
 
 MAX_N = 49152  # the kernel keeps one flag byte per detection in shared memory
 
@@ -147,3 +150,42 @@ def nms_bev_mask(boxes_bev: torch.Tensor, scores: torch.Tensor, valid: torch.Ten
     """A detection is suppressed by a higher-scoring kept one whose BEV IoU
     with it exceeds ``iou_threshold``. Returns keep ``[P, N]``."""
     return greedy_suppress(*bev_suppression(boxes_bev, scores, valid, iou_threshold)) & valid
+
+
+def box3d_multiclass_nms_mask(boxes_bev: torch.Tensor, scores: torch.Tensor,
+                              valid: torch.Tensor, score_thr: float, iou_threshold: float,
+                              max_num=None) -> torch.Tensor:
+    """Rotated BEV NMS per class: boxes_bev ``[N, 5]``, scores ``[N, classes]``
+    (no background column), valid ``[N]``. A (box, class) pair takes part
+    where the box is valid and its class score is above ``score_thr``.
+    Returns keep ``[N, classes]``; with ``max_num`` only the ``max_num``
+    highest-scoring kept pairs stay (equal scores in the flat
+    ``[N * classes]`` order, as the JAX double ``argsort``)."""
+    N, C = scores.shape
+    m = (valid[:, None] & (scores > score_thr)).t().contiguous()
+    keep = nms_bev_mask(boxes_bev[None].expand(C, N, 5).contiguous(),
+                        scores.t().contiguous(), m, iou_threshold).t()
+    if max_num is not None:
+        flat = torch.where(keep, scores, float("-inf")).reshape(-1)
+        order = torch.sort(-flat, stable=True).indices
+        rank = torch.empty_like(order).scatter_(0, order, torch.arange(order.numel(),
+                                                                       device=order.device))
+        keep = keep & (rank.view(N, C) < max_num)
+    return keep
+
+
+def aligned_3d_nms_mask(boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor,
+                        valid: torch.Tensor, thresh: float) -> torch.Tensor:
+    """Axis-aligned 3D IoU NMS within each class: boxes ``[N, 6]`` = (x1, y1,
+    z1, x2, y2, z2), scores, classes, valid ``[N]``; a detection is
+    suppressed by a higher-scoring kept one of its class whose 3D IoU with
+    it exceeds ``thresh``. Returns keep ``[N]``."""
+    order = score_order(scores[None], valid[None])[0]
+    b, cls = boxes[order], classes[order]
+    mins = torch.maximum(b[:, None, :3], b[None, :, :3])
+    maxs = torch.minimum(b[:, None, 3:], b[None, :, 3:])
+    inter = (maxs - mins).clamp(min=0.0).prod(-1)
+    vol = (b[:, 3:] - b[:, :3]).clamp(min=0.0).prod(-1)
+    iou = inter / (vol[:, None] + vol[None] - inter).clamp(min=1e-6)
+    sup = (iou > thresh) & (cls[:, None] == cls[None])
+    return greedy_suppress(sup[None].contiguous(), order[None])[0] & valid

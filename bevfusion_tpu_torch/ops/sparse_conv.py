@@ -36,6 +36,7 @@ __all__ = [
     "build_subm_rulebook", "downsample_sites", "build_conv_rulebook",
     "to_dense", "to_dense_zmajor", "occupancy_zmajor",
     "build_conv_transpose_rulebook", "sparse_conv", "sparse_conv_bf16", "sparse_conv_plain",
+    "sparse_inverse_conv_gemm", "sparse_maxpool",
     "sparse_conv_dw", "sparse_conv_dw_bf16", "sparse_conv_dw_plain", "SparseConvFunction",
 ]
 
@@ -335,6 +336,36 @@ def sparse_conv(feats: torch.Tensor, nbr: torch.Tensor, weight: torch.Tensor,
     op = torch.ops.bevfusion.sparse_conv_bf16 if feats.dtype == torch.bfloat16 \
         else torch.ops.bevfusion.sparse_conv
     return op(feats, nbr, weight, scale, shift, residual, relu)
+
+
+def sparse_inverse_conv_gemm(feats: torch.Tensor, nbr_t: torch.Tensor,
+                             weight: torch.Tensor) -> torch.Tensor:
+    """Inverse ("deconv") sparse conv (reference SparseInverseConv3d,
+    ops/spconv/conv.py:181-223): the output sites are the paired strided
+    conv's *input* sites, and each (input i, output o, offset k) pair of
+    its rulebook adds ``feats[o] @ weight[k]`` to ``out[i]``. ``nbr_t [K,
+    cap_in]`` is that conv's transposed table
+    (``build_conv_transpose_rulebook``: the same pairs, the same k, as the
+    reference replays its indice pairs with gather and scatter swapped),
+    so this is the gather-GEMM ``sparse_conv(feats, nbr_t, weight)``: on
+    CUDA tensors the hand kernel (K1/K2), counted in
+    ``sparse_conv.launches``. Counterpart of the JAX
+    ``sparse_inverse_conv_gemm`` (its table ``[cap_in, K]``, here the
+    port's offset-major ``[K, cap_in]``)."""
+    return sparse_conv(feats, nbr_t, weight)
+
+
+def sparse_maxpool(feats: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
+    """indice_maxpool (reference ops/spconv/pool.py:21): ``out[o]`` is the
+    elementwise max of ``feats[i]`` over the present neighbours ``i =
+    nbr[k, o]`` (misses, -1, ignored; a row with none is 0). feats
+    ``[cap_in, C]``, nbr ``[K, cap_out]`` (offset-major) -> ``[cap_out, C]``.
+    Plain PyTorch (one gather and a max): the JAX package has no kernel
+    for it either."""
+    hit = nbr >= 0
+    g = feats.index_select(0, nbr.clamp(min=0).reshape(-1)).view(*nbr.shape, -1)
+    out = torch.where(hit[..., None], g, float("-inf")).amax(0)
+    return torch.where(hit.any(0)[:, None], out, 0.0).to(feats.dtype)
 
 
 @functools.lru_cache(maxsize=None)

@@ -38,6 +38,7 @@ on CUDA tensors.
 from __future__ import annotations
 
 import datetime
+import itertools
 import os
 from typing import Dict, Iterable, List, Optional, Tuple
 
@@ -68,18 +69,43 @@ def backend_for(device, backend: Optional[str] = None) -> str:
     return backend
 
 
+# One rendezvous store a process for each (init_method, rank, world), kept for the
+# process's life; every group joined through it reads and writes under a prefix of
+# its own (``join/<n>``). A group's store dies with the group otherwise, and a rank
+# that joins again before rank 0 has closed the old store's server on the same port
+# rendezvouses on the old store: the ranks then wait on two stores for good.
+_STORES: Dict[tuple, Tuple[dist.Store, int, int]] = {}
+_JOIN_IDS = itertools.count(1)
+
+
+def _rendezvous(init_method: str, rank_: Optional[int], world_: Optional[int],
+                timeout: datetime.timedelta) -> Tuple[dist.Store, int, int]:
+    """(store, rank, world) of ``init_method``, made at the first call for the
+    address (``env://``: the environment's ``MASTER_ADDR`` / ``MASTER_PORT``)."""
+    rank_, world_ = -1 if rank_ is None else rank_, -1 if world_ is None else world_
+    where = ((os.environ.get("MASTER_ADDR"), os.environ.get("MASTER_PORT"))
+             if init_method == "env://" else ())
+    key = (init_method, *where, rank_, world_)
+    if key not in _STORES:
+        _STORES[key] = next(dist.rendezvous(init_method, rank_, world_, timeout=timeout))
+    return _STORES[key]
+
+
 def init(device, backend: Optional[str] = None, init_method: str = "env://",
          rank_: Optional[int] = None, world_: Optional[int] = None,
          timeout_s: Optional[float] = None) -> str:
     """Join a process group on ``device``'s backend (``backend_for``) by
     ``init_method`` (``env://``: torchrun's ``MASTER_*``, ``RANK``,
     ``WORLD_SIZE``; or ``tcp://host:port`` with ``rank_`` and ``world_``).
+    A process may join, destroy and join again on the same address: each
+    group rendezvouses under its own prefix of one store (``_STORES``).
     Returns the backend."""
     name = backend_for(device, backend)
     kw = {} if timeout_s is None else {"timeout": datetime.timedelta(seconds=timeout_s)}
-    if rank_ is not None:
-        kw.update(rank=rank_, world_size=world_)
-    dist.init_process_group(name, init_method=init_method, **kw)
+    store, r, w = _rendezvous(init_method, rank_, world_,
+                              kw.get("timeout", dist.constants.default_pg_timeout))
+    dist.init_process_group(name, store=dist.PrefixStore(f"join/{next(_JOIN_IDS)}", store),
+                            rank=r, world_size=w, **kw)
     return name
 
 

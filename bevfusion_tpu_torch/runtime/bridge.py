@@ -10,14 +10,20 @@ to the torch layout:
   flax ConvTranspose HWIO      -> ConvTranspose2d IOHW, flipped in space
   Dense [I, O]                 -> Linear [O, I] / Conv1d [O, I, 1]
   sparse conv [K, I, O]        -> spconv [kx, ky, kz, I, O]
+  deformable conv [K, I, O]    -> mmcv DeformConv2d [O, I, k, k]
   q/k/v Dense                  -> packed MultiheadAttention in_proj
 
 The copied table covers the five BASELINE trees, as the JAX adapter
 does; the rules for the trees it lacks (the ResNet camera backbone, the
 SECONDFPN camera neck, BEVDepth's DepthNet, the pillar and radar feature
 nets, a SECOND as the radar branch's ``pts_bev_encoder``,
-AwareDBEVDepth's ``fuse_depth``) are the port's own, in
-``PORT_RULES`` below, in the same form, tried after the copied table.
+AwareDBEVDepth's ``fuse_depth``; the long tail no config reaches:
+``AddFuser``, ``DetectronFPN``'s outputs, ``VoVNet``, ``DLA``,
+``DCNSeparateHead``, the PointNet++ modules as a LiDAR backbone) are the
+port's own, in ``PORT_RULES`` below, in the same form, tried after the
+copied table; a ``/`` a rule's group carries becomes a ``.`` of the key.
+A LayerNorm or GroupNorm (``Norm`` "LN" / "GN": ``.../ln/`` or ``.../gn/``)
+takes the keys of the BatchNorm in its place.
 The feature nets' follow mmdet3d's module names (``pts_voxel_encoder.
 pfn_layers.{i}``, ``pts_voxel_encoder.rfn_layers.{i}``, each ``.linear``
 and ``.norm``); ``fuse_depth.{0,1}`` is a name of the port's own. The
@@ -74,9 +80,23 @@ def _bn(flax: str, torch_: str):
         ("scale", "weight"), ("bias", "bias"), ("mean", "running_mean"), ("var", "running_var"))]
 
 
+def _dcn(w):  # mmcv DeformConv2d [O, I, k, k] -> the JAX package's [K, I, O]
+    a = adapter._np(w)
+    return a.transpose(2, 3, 1, 0).reshape(-1, a.shape[1], a.shape[0])
+
+
+def _cba(flax: str, torch_: str):
+    """A flax ``ConvBNAct`` (``Conv_0/conv``, ``Norm_0/bn``) -> a
+    ``conv`` / ``bn`` pair (the port's ``ConvBNAct``)."""
+    return [(rf"{flax}/Conv_0/conv/kernel", f"{torch_}.conv.weight", adapter._conv),
+            (rf"{flax}/Conv_0/conv/bias", f"{torch_}.conv.bias", adapter._id),
+            *_bn(rf"{flax}/Norm_0/bn", f"{torch_}.bn")]
+
+
 def _port_rules():
     cb, tb = "camera_backbone", "encoders.camera.backbone"
     cn, tn = "camera_neck", "encoders.camera.neck"
+    ho, th = "head_modules_object", "heads.object"
     dn, td = "camera_vtransform/depthnet", "encoders.camera.vtransform.depthnet"
     aspp = f"{td}.depth_conv.3"
     R = [  # ResNet camera backbone (bevfusion_tpu/models/resnet_full.py), torchvision names
@@ -132,6 +152,41 @@ def _port_rules():
               (rf"{dn}/{flax}/conv/bias", f"{td}.depth_conv.{i}.bias", adapter._id)]
     R += _bn(rf"{dn}/post_bn/bn", f"{td}.depth_conv.5") + _bn(rf"{dn}/depth_out_bn/bn",
                                                               f"{td}.depth_conv.7")
+    # AddFuser (fusers/add.py): transforms.{k} = Sequential(conv, BN, ReLU)
+    R += [(r"fuser_module/transform(\d+)/Conv_0/conv/kernel", "fuser.transforms.{1}.0.weight",
+           adapter._conv), *_bn(r"fuser_module/transform(\d+)/Norm_0/bn", "fuser.transforms.{1}.1")]
+    # DetectronFPN as the camera neck: its laterals are GeneralizedLSSFPN's keys (copied table)
+    R += _cba(rf"{cn}/output(\d+)", tn + ".output_convs.{1}")
+    # VoVNet and DLA as the camera backbone (the JAX module names)
+    R += _cba(rf"{cb}/(stem\d|base_layer|level[01]_\d+)", tb + ".{1}")
+    R += _cba(rf"{cb}/(OSA\d+_\d+)/(conv\d+|concat)", tb + ".{1}.{2}")
+    R += [(rf"{cb}/(OSA\d+_\d+)/ese/fc/conv/kernel", tb + ".{1}.ese.fc.weight", adapter._conv),
+          (rf"{cb}/(OSA\d+_\d+)/ese/fc/conv/bias", tb + ".{1}.ese.fc.bias", adapter._id)]
+    tree = r"(level\d(?:/tree[12])*)"
+    R += [(rf"{cb}/{tree}/(conv[12]|root/conv|project_conv)/conv/kernel", tb + ".{1}.{2}.weight",
+           adapter._conv),
+          *_bn(rf"{cb}/{tree}/(bn[12]|root/bn|project_bn)/bn", tb + ".{1}.{2}")]
+    # DCNSeparateHead in CenterHead's task {t} (centerpoint.py:130-246)
+    dt = th + ".task_heads.{1}"
+    R += [(rf"{ho}/task(\d+)/(feature_adapt_cls|feature_adapt_reg)/weight", dt + ".{2}.weight",
+           _dcn),
+          (rf"{ho}/task(\d+)/(feature_adapt_cls|feature_adapt_reg)/conv_offset/kernel",
+           dt + ".{2}.conv_offset.weight", adapter._conv),
+          (rf"{ho}/task(\d+)/(feature_adapt_cls|feature_adapt_reg)/conv_offset/bias",
+           dt + ".{2}.conv_offset.bias", adapter._id),
+          *_cba(rf"{ho}/task(\d+)/cls_head0", dt + ".cls_head.0"),
+          (rf"{ho}/task(\d+)/cls_head1/kernel", dt + ".cls_head.1.weight", adapter._conv),
+          (rf"{ho}/task(\d+)/cls_head1/bias", dt + ".cls_head.1.bias", adapter._id),
+          *_cba(rf"{ho}/task(\d+)/task_head/(\w+)_conv(\d+)", dt + ".task_head.{2}.{3}"),
+          (rf"{ho}/task(\d+)/task_head/(\w+)_out/kernel", dt + ".task_head.{2}.last.weight",
+           adapter._conv),
+          (rf"{ho}/task(\d+)/task_head/(\w+)_out/bias", dt + ".task_head.{2}.last.bias",
+           adapter._id)]
+    # the PointNet++ modules (models/pointnet_modules.py) as the LiDAR backbone:
+    # PointFPModule's mlp, PointSAModule(MSG)'s mlp{r}
+    lp, tlp = "lidar_backbone", "encoders.lidar.backbone"
+    R += [(rf"{lp}/(mlp\d*)/fc(\d+)/kernel", tlp + ".{1}.fc{2}.weight", adapter._lin),
+          *_bn(rf"{lp}/(mlp\d*)/bn(\d+)/bn", tlp + ".{1}.bn{2}")]
     return R
 
 
@@ -147,7 +202,10 @@ def flax_to_torch_key(path: str):
     for rx, tmpl, cv in PORT_RULES:
         m = rx.match(path)
         if m:
-            return adapter._fill(tmpl, m), cv
+            return adapter._fill(tmpl, m).replace("/", "."), cv
+    norm = re.match(r"^(.*)/(ln|gn)/(scale|bias)$", path)
+    if norm:  # a LayerNorm / GroupNorm in a BatchNorm's place: its keys
+        return flax_to_torch_key(f"{norm.group(1)}/bn/{norm.group(3)}")
     return None
 
 
@@ -158,6 +216,7 @@ _INVERSE = {
     adapter._conv1d: lambda a, key: a.T[:, :, None],
     adapter._spconv: lambda a, key: a.reshape(_spconv_shape(key, a)),
     adapter._id: lambda a, key: a,
+    _dcn: lambda a, key: a.reshape(round(a.shape[0] ** 0.5), -1, *a.shape[1:]).transpose(3, 2, 0, 1),
 }
 
 

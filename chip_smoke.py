@@ -6,7 +6,7 @@ Run from the repository root: ``python3 chip_smoke.py``
 gates of phases 11e, 11e-dp and 13c, ``gate_probe``). Phases:
 
 1. device: the card's name and power limit; TF32 off for fp32 parity;
-2. build: compile the six kernel sources of bevfusion_tpu_torch/csrc (one
+2. build: compile the eight kernel sources of bevfusion_tpu_torch/csrc (one
    nvcc per source, started together); the ptxas register and spill lines;
    the count of tensor-core instructions (``HMMA``) in the SASS
    (``cuobjdump -sass``) of the sparse-conv, weight-gradient and cost
@@ -63,7 +63,7 @@ gates of phases 11e, 11e-dp and 13c, ``gate_probe``). Phases:
    seeded random weights, eval forward at batch 1 on the scan; 15 kernel
    launches per forward, every box field finite, heatmap logits within
    2e-3 relative of the same model on the CPU (plain path); ms/frame
-   (median of 10, ``FRAMES``) and peak device memory;
+   (median of 5, ``FRAMES``) and peak device memory;
 9. BEV-pool kernel vs plain at the flagship's shape: depth [1, 6, 118, 32,
    88] (softmax of seeded noise), ctx [1, 6, 80, 32, 88] (held
    channels-last), the intervals of the flagship batch's own pooling LUT
@@ -201,6 +201,29 @@ gates of phases 11e, 11e-dp and 13c, ``gate_probe``). Phases:
    on the card, CenterHead heads moderated: the launches of the config's
    fp32 frame with the sparse convs on the bf16 kernel, every output
    finite; ms a frame (median of 5) and the peak;
+11g. the long tail no served config reaches (``long_tail_phase``, TF32 off;
+   each part's launches counted from 0 just before it): the swint camera
+   CenterHead config with ``DCNSeparateHead``, one eval frame (K4 1, the
+   deformable im2col D1 twice a task, the greedy pass once a task), every
+   task's maps within 2e-3 of the same head on the CPU from the card's head
+   input, then D1 against its plain version at that input with random
+   offsets (some on integers, some outside the image; bit for bit), its
+   time, bound (bytes) and share; furthest point sampling D2 against its
+   plain version at the four sampling levels of VoteNet's PointNet2SASSG
+   (20,000 points of the flagship scan -> 2048 -> 1024 -> 512 -> 256; indices
+   bit for bit), and that SA/FP stack on the card (D2 4 launches) against the
+   same weights on the CPU (the sampled points equal, the FP output within
+   2e-3); the flagship with ``test_cfg.nms_type`` circle and rotate, one
+   frame each (15 + 1 and the greedy pass 2), the keep masks of the kernel
+   and of the plain pass equal, on the frame's boxes and on the same boxes
+   clustered into the two NMS groups; the flagship's encoder in
+   ``block_type: conv_module`` on the flagship scan (K1/K2 10 launches)
+   against the plain versions, the inverse sparse conv (one K1/K2 launch)
+   and the sparse max pool at its level-1 -> 2 strided conv; VoVNet-19-slim-
+   eSE and DLA-34, each with a DetectronFPN, on the six images against the
+   CPU; the flagship with ``AddFuser`` (15 + 1), its dense heatmap against
+   the CPU's fuser, decoder and head on the card's fuser inputs; the phase's
+   seconds (``--long-tail`` runs the build and this phase alone);
 12. the flagship's training step at full width, B = 1, host LUT, TF32 off,
    PyTorch's deterministic algorithms on (the card's own run-to-run noise
    would swamp the comparison), the heatmap head's last conv scaled by 0.2
@@ -237,9 +260,9 @@ gates of phases 11e, 11e-dp and 13c, ``gate_probe``). Phases:
    held again with B'', the pool's fp32 sums in reverse order, and past
    that too passes only if ``CAMERA_TIES`` names it, within 1e-2 of B's),
    the matcher's targets replayed
-   where TransFusion's head runs; then 2 timed steps after 1 warmup with
+   where TransFusion's head runs; then 1 timed step after 1 warmup with
    TF32 on: ms a step (forward, backward, optimizer) and the peak memory;
-13. three timed train steps with TF32 on (``tools/bench_train_step.py`` on
+13. two timed train steps with TF32 on (``tools/bench_train_step.py`` on
    ``runtime/train.py``: AdamW, clip 35, the config's cosine lr with linear
    warmup and cyclic momentum): losses finite, parameters changed; median
    ms/step split into forward, backward and optimizer (host clock around
@@ -253,7 +276,7 @@ gates of phases 11e, 11e-dp and 13c, ``gate_probe``). Phases:
    with the plain versions' backward (the bf16 kernels' backward alone), and
    within 8x of the fp32 pass's as far as a TF32 pass moves them from it
    (at random init a rounding-level change of the forward moves the
-   gradients far: phase 12's B'), cosines printed; then 3 timed bf16
+   gradients far: phase 12's B'), cosines printed; then 2 timed bf16
    steps: ms a step and the peak;
 13c. data parallelism on one card (``dp_phase``): the flagship's step at
    full width on 2 ranks x 1 sample, two processes over gloo on CUDA
@@ -298,8 +321,8 @@ gates of phases 11e, 11e-dp and 13c, ``gate_probe``). Phases:
    bit for bit (else the fields named and the head's predictions before
    the top-k held at 1e-5); the export's seconds, the file's bytes, the
    load's seconds, each frame's ms;
-14b. longevity: ``tools/train_longevity.py --steps 24 --resume-probe 3
-   --scenes 8``, the flagship at bf16 over one whole schedule of 24 steps,
+14b. longevity: ``tools/train_longevity.py --steps 12 --resume-probe 3
+   --scenes 8``, the flagship at bf16 over one whole schedule of 12 steps,
    the resume probe at step 12 (under deterministic algorithms, bit for
    bit, or the rule the tool states): every loss finite, a step's launches
    29 bf16 K1/K2, 15 bf16 K3 and 1 K4, no fp32 sparse conv;
@@ -311,7 +334,9 @@ gates of phases 11e, 11e-dp and 13c, ``gate_probe``). Phases:
    families each with their ms, plain ms, bound, share and launches; every
    kernel's launches on the seg, det-camera and pillar paths; the NMS
    kernel's row after K1-K7, then the bf16 forms of K1/K2 and K3, their
-   launches those of the bf16 train step (13b); every kernel's launches in
+   launches those of the bf16 train step (13b), then D1 and D2 (11g's DCN
+   frame and VoteNet stack; ``launches_long_tail`` each kernel's in every
+   run of 11g); every kernel's launches in
    each train step of
    phases 12 and 12b; their launches in each run of phase 11d and of phase
    11e; ``launches_train_dp``, each rank's in 13c at fp32 and bf16;
@@ -395,11 +420,12 @@ BF16_TRAIN_LAUNCHES = {"sparse_conv_bf16": 15 + 14, "sparse_conv_dw_bf16": 15, "
 VOXELNET_0P1 = "configs/nuscenes/det/transfusion/secfpn/lidar/voxelnet.yaml"  # TransFusion-L 0.1 m
 K7_SHAPES = 3  # the cost breakdown runs at the stage-0, 1 and 2 submanifold convs
 TOOL_ITERS = 5  # timed calls per op in the tools phase
-FRAMES = (3, 10)  # a frame time's warmup and timed frames (median of 10)
-STAGE_ITERS = 5  # frames profile_stages times each stage over
+FRAMES = (2, 5)  # a frame time's warmup and timed frames (median of 5)
+STAGE_ITERS = 2  # frames profile_stages times each stage over
 # the tools drive the TransFusion flagship, which has no NMS, at fp32 in this process (their
 # CLIs' bf16 default runs in the benchmark subprocesses)
-TOOLS_ABSENT = {"greedy_nms", "sparse_conv_bf16", "sparse_conv_dw_bf16"}
+TOOLS_ABSENT = {"greedy_nms", "sparse_conv_bf16", "sparse_conv_dw_bf16", "deform_im2col",
+                "furthest_point_sample"}
 SEG_BENCHMARK = "configs/nuscenes/seg/fusion-bev256d2-lss.yaml"  # the tools phase's second CLI run
 CLI_SAMPLES = 4  # samples of the synthesized nuScenes-format set of phase 11d
 TRAIN_CLI_SAMPLES = 3  # phase 11e's train split: CBGS makes 9 of them, 2 steps an epoch at B = 4
@@ -446,7 +472,18 @@ EXPORT_LAUNCHES = {"bfloat16": {"sparse_conv_bf16": SPARSE_LAUNCHES, "bev_pool":
 # before the top-k against eager's, relative (ROADMAP Queue 3, decode ties)
 EXPORT_PRED_RTOL = 1e-5
 # 14b: tools/train_longevity.py's short form, one whole schedule, the probe at mid-run
-LONGEVITY_ARGS = ["--steps", "24", "--resume-probe", "3", "--scenes", "8"]
+LONGEVITY_ARGS = ["--steps", "12", "--resume-probe", "3", "--scenes", "8"]
+# 11g: VoteNet's PointNet2SASSG (mmdet3d configs/_base_/models/votenet.py): per SA level the
+# points sampled, the radius, the samples a group and the MLP; the FP levels' MLPs; the points
+# (SUN RGB-D's count in VoteNet), taken from the flagship scan
+VOTENET_SA = ((2048, 0.2, 64, (64, 64, 128)), (1024, 0.4, 32, (128, 128, 256)),
+              (512, 0.8, 16, (128, 128, 256)), (256, 1.2, 16, (128, 128, 256)))
+VOTENET_FP = ((256, 256), (256, 256))
+VOTENET_POINTS = 20000
+TRANSFUSION_NMS_GROUPS = 2  # nuScenes' class groups with a radius > 0 (TransFusionHead.NMS_TASKS)
+# the flagship's encoder in conv_module: the input conv and stages 0-2's three blocks each
+# sparse (stage 3 dense), a launch each at B = 1
+CONV_MODULE_LAUNCHES = 10
 
 
 def check(ok: bool, what: str) -> None:
@@ -634,7 +671,7 @@ def run_model(label, model, batch, cpu_model, cpu_batch, counters, want_launches
         check(heat_err <= HEATMAP_RTOL, f"{label}: heatmap rel err {heat_err} > {HEATMAP_RTOL}")
         frames, peak = frame_ms(lambda: model(batch), *FRAMES)
     print(f"{label}: {statistics.median(frames):.2f} ms/frame median, "
-          f"{statistics.mean(frames):.2f} mean, {min(frames):.2f} min over 20 frames; "
+          f"{statistics.mean(frames):.2f} mean, {min(frames):.2f} min over {len(frames)} frames; "
           f"peak device memory {peak / 2**20:.1f} MiB")
     return launches, heat_err, frames, peak
 
@@ -1028,7 +1065,7 @@ def pool_case(label, bp, vt, lut):
 
 
 def frame_profile(model, batch):
-    """ms/frame (median of 10), peak memory and the stages
+    """ms/frame (median of 5), peak memory and the stages
     (``tools/profile_stages.py``, median of 5) with TF32 off, then on; TF32
     off again after."""
     from bevfusion_tpu_torch.tools import profile_stages
@@ -2063,6 +2100,366 @@ def train_cli_phase(counters, smi, bp, probe=False):
     return res
 
 
+def counted(counters, fn):
+    """``fn()`` with every launch count set to 0 just before and read just
+    after: (its result, {kernel: launches})."""
+    torch.cuda.synchronize()
+    zero_counts(counters)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: c.launches for k, c in counters.items()}
+
+
+def dcn_frame(counters, none):
+    """11g (i): the swint camera CenterHead config with ``separate_head.type:
+    DCNSeparateHead``, one eval frame on the card (launches: the pool once, D1
+    twice a task, the greedy pass once a task); every task's maps against the
+    same head on the CPU from the card's head input; then D1 alone against
+    its plain version at that head's input with random offsets. Returns
+    (results, D1's shape entry)."""
+    from bevfusion_tpu_torch.config import load_config
+    from bevfusion_tpu_torch.models import build_model
+    from bevfusion_tpu_torch.ops import deform_conv as dc
+    from bevfusion_tpu_torch.runtime.flagship import (DET_CAMERA_CONFIGS, add_pool_lut, batch_to,
+                                                      init_weights, synthetic_batch)
+
+    cfg = load_config(DET_CAMERA_CONFIGS["swint"],
+                      overrides={"model.heads.object.separate_head.type": "DCNSeparateHead"})
+    model = init_weights(build_model(cfg.model, "cpu"), 0).to(DEVICE)
+    batch = batch_to(add_pool_lut(cfg, synthetic_batch(cfg, B=1, num_points=1000, seed=0)),
+                     DEVICE)
+    head = model.heads["object"]
+    seen = {}
+    hooks = [head.register_forward_pre_hook(lambda m, a: seen.setdefault("x", a[0])),
+             head.register_forward_hook(lambda m, a, out: seen.setdefault("maps", out))]
+    with torch.no_grad():
+        _, launches = counted(counters, lambda: model(batch)["boxes"])
+    for h in hooks:
+        h.remove()
+    want = dict(none, bev_pool=POOL_LAUNCHES, greedy_nms=6, deform_im2col=2 * 6)
+    check(launches == want, f"11g dcn: launches {launches}, want {want}")
+    t0 = time.perf_counter()
+    cpu_head = copy.deepcopy(head).cpu()
+    with torch.no_grad():
+        cpu_maps = cpu_head(seen["x"].cpu())
+        x = head.shared_conv(seen["x"]).permute(0, 2, 3, 1).contiguous()  # D1's input, NHWC
+    cpu_s = time.perf_counter() - t0
+    map_err = max(rel_err(m[k].cpu(), c[k]) for m, c in zip(seen["maps"], cpu_maps) for k in c)
+    check(map_err <= HEATMAP_RTOL, f"11g dcn: head maps rel err {map_err} > {HEATMAP_RTOL}")
+    # D1 alone: offsets of a few pixels, some taps on integers, some wholly outside
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+    off = torch.rand(*x.shape[:3], 18, generator=g, device=DEVICE) * 6 - 3
+    off = torch.where(torch.rand(off.shape, generator=g, device=DEVICE) < 0.3, off.round(), off)
+    off = torch.where(torch.rand(off.shape, generator=g, device=DEVICE) < 0.05, 40.0, off)
+    got = dc.deform_im2col(x, off, None, 3, 1, 1)
+    plain = dc.deform_im2col_plain(x, off, None, 3, 1, 1)
+    torch.cuda.synchronize()
+    err = (got - plain).abs().max().item()
+    check(err <= FP32_RTOL_KERNEL * max(plain.abs().max().item(), 1.0),
+          f"11g D1: max|d| {err} against its plain version")
+    ms = kernel_ms(lambda: dc.deform_im2col(x, off, None, 3, 1, 1))
+    plain_ms = kernel_ms(lambda: dc.deform_im2col_plain(x, off, None, 3, 1, 1))
+    # per column element 4 products and 3 sums of the corners; bytes: x, offsets, columns
+    bound_ms, bound_by = bound(7 * got.numel(), nbytes(x, off, got))
+    shape = {"shape": f"x {tuple(x.shape)} NHWC, K 9, col {tuple(got.shape)}", "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+             "share": bound_ms / ms, "max_abs_err": err, "bit_equal": bits_equal(got, plain)}
+    print(f"11g dcn: swint CenterHead with DCNSeparateHead, launches {launches}; head maps vs "
+          f"the CPU head on the card's head input: rel err {map_err:.3e} (CPU {cpu_s:.1f} s)")
+    print(f"kernel deform_im2col (D1) at {shape['shape']}: {ms:.4f} ms (plain {plain_ms:.4f} "
+          f"ms), bound {bound_ms:.4f} ms ({bound_by}), share {shape['share']:.3f}, max|d| "
+          f"{err:.3e}, bit-equal {shape['bit_equal']}")
+    return {"launches": launches, "head_maps_rel_err": map_err, "cpu_head_s": cpu_s}, shape
+
+
+def votenet_stack(in_channels):
+    """VoteNet's PointNet2SASSG (mmdet3d configs/_base_/models/votenet.py) from
+    the ported modules: four SA modules, two FP modules, seeded weights."""
+    from bevfusion_tpu_torch.models.pointnet_modules import PointFPModule, PointSAModuleMSG
+    from bevfusion_tpu_torch.runtime.flagship import init_weights
+
+    sa, c = [], in_channels
+    for num, radius, samples, mlp in VOTENET_SA:
+        sa.append(PointSAModuleMSG(num, (radius,), (samples,), (mlp,), in_channels=c))
+        c = mlp[-1]
+    fp = [PointFPModule(VOTENET_FP[0], in_channels=256 + 256),
+          PointFPModule(VOTENET_FP[1], in_channels=VOTENET_FP[0][-1] + 256)]
+    return init_weights(torch.nn.ModuleList(sa + fp), 4).eval()
+
+
+def votenet_forward(stack, xyz, feats):
+    """The SA levels then the FP levels (PointNet2SASSG.forward): the last FP
+    output [num_points of SA2, 256] and every SA level's sampled points."""
+    xyzs, fs = [xyz], [feats]
+    for sa in stack[:4]:
+        x, f = sa(xyzs[-1], fs[-1])
+        xyzs.append(x)
+        fs.append(f)
+    f = stack[4](xyzs[3], xyzs[4], fs[3], fs[4])
+    f = stack[5](xyzs[2], xyzs[3], fs[2], f)
+    return f, xyzs[1:]
+
+
+def pointnet_part(counters, none, cpu_batch):
+    """11g (ii): D2 against its plain version (bit-equal indices) at the four
+    SA levels' sampling, then the VoteNet stack on 20,000 points of the
+    flagship scan on the card (launches: D2 once a level) against the same
+    weights on the CPU. Returns (results, D2's shape entries)."""
+    from bevfusion_tpu_torch.ops import pointnet as pn
+
+    pts = cpu_batch["points"][0][cpu_batch["points_mask"][0]]
+    pick = torch.randperm(pts.shape[0], generator=torch.Generator().manual_seed(5))
+    pts = pts[pick[:VOTENET_POINTS]]
+    xyz_cpu, feats_cpu = pts[:, :3].contiguous(), pts[:, 3:4].contiguous()  # xyz, intensity
+    stack = votenet_stack(1)
+    card = copy.deepcopy(stack).to(DEVICE)
+    xyz, feats = xyz_cpu.to(DEVICE), feats_cpu.to(DEVICE)
+    with torch.no_grad():
+        (out, xyzs), launches = counted(counters, lambda: votenet_forward(card, xyz, feats))
+    want = dict(none, furthest_point_sample=len(VOTENET_SA))
+    check(launches == want, f"11g votenet: launches {launches}, want {want}")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cpu_out, cpu_xyzs = votenet_forward(stack, xyz_cpu, feats_cpu)
+    cpu_s = time.perf_counter() - t0
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(xyzs, cpu_xyzs)),
+          "11g votenet: the sampled points differ from the CPU's")
+    out_err = rel_err(out.cpu(), cpu_out)
+    check(tuple(out.shape) == (VOTENET_SA[1][0], VOTENET_FP[1][-1]) and out_err <= HEATMAP_RTOL
+          and bool(torch.isfinite(out).all()), f"11g votenet: {tuple(out.shape)}, rel err {out_err}")
+    shapes, src = [], xyz
+    for (num, *_), nxt in zip(VOTENET_SA, xyzs):
+        got = pn.furthest_point_sample(src, num)
+        plain = pn.furthest_point_sample_plain(src[None], num)[0]
+        torch.cuda.synchronize()
+        check(torch.equal(got, plain), f"11g D2: indices at N {src.shape[0]} differ from plain")
+        ms = kernel_ms(lambda: pn.furthest_point_sample(src, num))
+        plain_ms = time_fn(lambda: pn.furthest_point_sample_plain(src[None], num), iters=3,
+                           warmup=1, device=DEVICE, queue_ahead=True)["median_ms"]
+        # a round: 3 differences, 3 products, 2 sums, a min and a compare per point
+        bound_ms, bound_by = bound(10 * src.shape[0] * (num - 1), nbytes(src, got))
+        shapes.append({"shape": f"N {src.shape[0]} -> {num}", "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by, "share": bound_ms / ms,
+                       "max_abs_err": 0.0, "rounds": num - 1})
+        print(f"kernel furthest_point_sample (D2) at {shapes[-1]['shape']}: {ms:.4f} ms (plain "
+              f"{plain_ms:.4f} ms), bound {bound_ms:.5f} ms ({bound_by}), {ms * 1e3 / (num - 1):.2f}"
+              f" us a round; indices bit-equal")
+        src = nxt
+    print(f"11g votenet: PointNet2SASSG on {VOTENET_POINTS} points, launches {launches}; the FP "
+          f"output {tuple(out.shape)} vs the CPU: rel err {out_err:.3e}, sampled points equal "
+          f"(CPU {cpu_s:.1f} s)")
+    return {"launches": launches, "fp_rel_err": out_err, "cpu_s": cpu_s}, shapes
+
+
+def flagship_nms_part(counters, none, model, batch):
+    """11g (iii): the flagship with ``test_cfg.nms_type`` circle, then rotate:
+    one frame each (launches: 15 + 1 and the greedy pass once a class group
+    with a radius), and the keep masks of the kernel against the plain greedy
+    pass on the same predictions."""
+    from bevfusion_tpu_torch.ops import nms
+
+    head = model.heads["object"]
+    saved = head.test_cfg.get("nms_type")
+    res = {}
+    with torch.no_grad():
+        preds = model.predict(batch)
+        for nms_type in ("circle", "rotate"):
+            head.test_cfg["nms_type"] = nms_type
+            boxes, launches = counted(counters, lambda: model(batch)["boxes"])
+            want = dict(none, sparse_conv=SPARSE_LAUNCHES, bev_pool=POOL_LAUNCHES,
+                        greedy_nms=TRANSFUSION_NMS_GROUPS)
+            check(launches == want, f"11g nms {nms_type}: launches {launches}, want {want}")
+            keep = head.get_bboxes(preds)["mask"]
+            kernel = nms.greedy_suppress
+            nms.greedy_suppress = nms.greedy_suppress_plain
+            try:
+                plain = head.get_bboxes(preds)["mask"]
+            finally:
+                nms.greedy_suppress = kernel
+            check(torch.equal(keep, plain), f"11g nms {nms_type}: keep masks differ from plain")
+            check(bool(torch.isfinite(boxes["bboxes"]).all()), f"11g nms {nms_type}: boxes")
+            # at random init the proposals lie apart, few or none in the groups NMS runs on,
+            # and it keeps them all: the same decode with every box moved into a 0.5 m
+            # cluster and labelled by turns 8 and 9 (the two groups), where they suppress
+            dec = head.get_bboxes(preds)
+            g = torch.Generator(device=DEVICE).manual_seed(9)
+            dec["bboxes"][..., :2] = dec["bboxes"][:, :1, :2] + 0.5 * torch.rand(
+                dec["bboxes"][..., :2].shape, generator=g, device=DEVICE)
+            dec["labels"] = 8 + torch.arange(dec["labels"].shape[1],
+                                             device=DEVICE).expand_as(dec["labels"]) % 2
+            packed = head.suppress(dec)
+            nms.greedy_suppress = nms.greedy_suppress_plain
+            try:
+                packed_plain = head.suppress(dec)
+            finally:
+                nms.greedy_suppress = kernel
+            check(torch.equal(packed, packed_plain) and int(packed.sum()) < int(dec["mask"].sum()),
+                  f"11g nms {nms_type}: clustered boxes: keep {int(packed.sum())} of "
+                  f"{int(dec['mask'].sum())}, equal to plain {torch.equal(packed, packed_plain)}")
+            res[nms_type] = {"launches": launches, "kept": int(keep.sum()),
+                             "kept_clustered": int(packed.sum())}
+            print(f"11g nms {nms_type}: launches {launches}; {int(keep.sum())} of "
+                  f"{keep.numel()} kept, keep mask equal to the plain pass's; the boxes "
+                  f"clustered: {int(packed.sum())} kept, equal to the plain pass's")
+    head.test_cfg["nms_type"] = saved
+    return res
+
+
+def conv_module_part(counters, none, cfg, model, batch):
+    """11g (iv): the flagship's LiDAR encoder in ``block_type: conv_module`` at
+    full width (seeded weights), one eval forward on the flagship scan through
+    K1/K2 against the plain versions; the inverse sparse conv (K1/K2) and the
+    sparse max pool at the encoder's level-1 -> level-2 strided conv."""
+    from bevfusion_tpu_torch.models.sparse_encoder import SparseEncoder
+    from bevfusion_tpu_torch.ops import bev_pool as bp
+    from bevfusion_tpu_torch.ops import sparse_conv as sp
+    from bevfusion_tpu_torch.runtime.flagship import init_weights
+
+    enc_cfg = dict(cfg.model.encoders.lidar.backbone, block_type="conv_module")
+    enc_cfg.pop("type")
+    enc = init_weights(SparseEncoder(**enc_cfg), 1).to(DEVICE).eval()
+    with torch.no_grad():
+        vox = model.lidar_voxelize(batch["points"], batch["points_mask"])
+        out, launches = counted(counters, lambda: enc(vox.feats, vox.coords, vox.mask))
+        want = dict(none, sparse_conv=CONV_MODULE_LAUNCHES)
+        check(launches == want, f"11g conv_module: launches {launches}, want {want}")
+        with plain_kernels(sp, bp):
+            plain = enc(vox.feats, vox.coords, vox.mask)
+    err = rel_err(out, plain)
+    check(err <= HEATMAP_RTOL and bool(torch.isfinite(out).all()),
+          f"11g conv_module: rel err {err} against the plain versions")
+    stages = enc.sparse_sites(vox.coords[0], vox.mask[0])
+    a, b = stages[1], stages[2]
+    pad = a["down"][0]
+    nbr = sp.build_conv_rulebook(a["ids"], b["ids"], a["grid"], b["grid"], 3, 2, pad)
+    nbr_t = sp.build_conv_transpose_rulebook(a["ids"], b["ids"], a["grid"], b["grid"], 3, 2, pad)
+    g = torch.Generator(device=DEVICE).manual_seed(6)
+    f_b = torch.randn(b["ids"].shape[0], b["channels"], generator=g, device=DEVICE)
+    w = torch.randn(27, b["channels"], a["channels"], generator=g, device=DEVICE) * 0.05
+    inv, inv_launches = counted(counters, lambda: sp.sparse_inverse_conv_gemm(f_b, nbr_t, w))
+    check(inv_launches == dict(none, sparse_conv=1), f"11g inverse conv: {inv_launches}")
+    inv_err = rel_err(inv, sp.sparse_conv_plain(f_b, nbr_t, w))
+    check(inv_err <= FP32_RTOL_KERNEL, f"11g inverse conv: rel err {inv_err}")
+    f_a = torch.randn(a["ids"].shape[0], a["channels"], generator=g, device=DEVICE)
+    pooled = sp.sparse_maxpool(f_a, nbr)
+    check(torch.equal(pooled.cpu(), sp.sparse_maxpool(f_a.cpu(), nbr.cpu())),
+          "11g sparse max pool: the card's differs from the CPU's")
+    sites = [int(s["mask"].sum()) for s in stages]
+    print(f"11g conv_module: the flagship encoder (conv_module) on the flagship scan, sites per "
+          f"level {sites}, launches {launches}, output {tuple(out.shape)} vs the plain versions: "
+          f"rel err {err:.3e}; inverse conv (level 2 -> 1, {inv_launches['sparse_conv']} K1/K2 "
+          f"launch) rel err {inv_err:.3e}; max pool (level 1 -> 2) equal to the CPU's")
+    return {"launches": launches, "rel_err": err, "sites": sites,
+            "inverse_conv_launches": inv_launches, "inverse_conv_rel_err": inv_err}
+
+
+def camera_backbones_part(counters, none, batch):
+    """11g (v): VoVNet-19-slim-eSE and DLA-34, each with a DetectronFPN, one
+    fp32 frame of the six images on the card against the same weights on the
+    CPU (no hand kernel on this path)."""
+    from bevfusion_tpu_torch.models.dla import DLA
+    from bevfusion_tpu_torch.models.necks import DetectronFPN
+    from bevfusion_tpu_torch.models.vovnet import VoVNet
+    from bevfusion_tpu_torch.runtime.flagship import init_weights
+
+    img = batch["img"][0]
+    res = {}
+    for name, backbone, widths in (
+            ("vovnet-19-slim-ese", VoVNet("V-19-slim-eSE"), (112, 256, 384, 512)),
+            ("dla-34", DLA(out_features=("level2", "level3", "level4", "level5")),
+             (64, 128, 256, 512))):
+        net = init_weights(torch.nn.Sequential(
+            backbone, DetectronFPN((0, 1, 2, 3), (0, 1, 2, 3), widths, 256)), 7).eval()
+        card = copy.deepcopy(net).to(DEVICE)
+        with torch.no_grad():
+            outs, launches = counted(counters, lambda: card(img))
+            t0 = time.perf_counter()
+            cpu_outs = net(img.cpu())
+        cpu_s = time.perf_counter() - t0
+        check(launches == none, f"11g {name}: launches {launches}")
+        err = max(rel_err(o.cpu(), c) for o, c in zip(outs, cpu_outs))
+        check(err <= HEATMAP_RTOL and all(bool(torch.isfinite(o).all()) for o in outs),
+              f"11g {name}: rel err {err}")
+        res[name] = {"launches": launches, "rel_err": err, "cpu_s": cpu_s,
+                     "shapes": [list(o.shape) for o in outs]}
+        print(f"11g {name} + DetectronFPN: {[tuple(o.shape) for o in outs]} vs the CPU: rel err "
+              f"{err:.3e} (CPU {cpu_s:.1f} s)")
+    return res
+
+
+def add_fuser_part(counters, none, cfg, model, batch, cpu_model):
+    """11g (vi): the fused flagship with AddFuser in place of ConvFuser, one fp32
+    frame on the card (15 + 1 launches); the dense heatmap against the CPU
+    model's fuser, decoder and head on the card's fuser inputs."""
+    from bevfusion_tpu_torch.models.fusers import AddFuser
+    from bevfusion_tpu_torch.runtime.flagship import init_weights
+
+    conv = model.fuser
+    add = init_weights(AddFuser(cfg.model.fuser.in_channels, cfg.model.fuser.out_channels,
+                                dropout=0.1), 8).eval()
+    model.fuser = copy.deepcopy(add).to(DEVICE)
+    seen = {}
+    hook = model.fuser.register_forward_pre_hook(lambda m, a: seen.setdefault("x", a[0]))
+    try:
+        with torch.no_grad():
+            preds, launches = counted(counters, lambda: model.predict(batch))
+            xs = [x.cpu() for x in seen["x"]]
+            x = add(xs)
+            x = cpu_model.decoder["neck"](cpu_model.decoder["backbone"](x))
+            heat = cpu_model.heads["object"](list(x)[0] if isinstance(x, (list, tuple))
+                                             else x)["dense_heatmap"]
+    finally:
+        hook.remove()
+        model.fuser = conv
+    want = dict(none, sparse_conv=SPARSE_LAUNCHES, bev_pool=POOL_LAUNCHES)
+    check(launches == want, f"11g add fuser: launches {launches}, want {want}")
+    err = rel_err(preds["dense_heatmap"].cpu(), heat)
+    check(err <= HEATMAP_RTOL, f"11g add fuser: heatmap rel err {err}")
+    print(f"11g add fuser: the flagship with AddFuser, launches {launches}; dense heatmap vs the "
+          f"CPU fuser, decoder and head on the card's fuser inputs: rel err {err:.3e}")
+    return {"launches": launches, "heatmap_rel_err": err}
+
+
+def long_tail_launches(res, name):
+    """A kernel's launches in each counted run of phase 11g."""
+    runs = {"dcn": res["dcn"], "votenet": res["votenet"], "add_fuser": res["add_fuser"],
+            "conv_module": res["conv_module"],
+            "inverse_conv": {"launches": res["conv_module"]["inverse_conv_launches"]},
+            **{f"nms_{k}": v for k, v in res["nms"].items()},
+            **res["camera_backbones"]}
+    return {run: r["launches"][name] for run, r in runs.items()}
+
+
+def long_tail_phase(cfg, model, batch, cpu_model, cpu_batch, counters):
+    """Phase 11g: the long tail no served config reaches, on the card (each
+    part's launches counted from 0 just before it and read just after).
+    Returns (results, D1's shape entries, D2's shape entries)."""
+    t0 = time.perf_counter()
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    none = dict.fromkeys(counters, 0)
+    res, parts = {}, {}
+    for name, fn in (("dcn", lambda: dcn_frame(counters, none)),
+                     ("votenet", lambda: pointnet_part(counters, none, cpu_batch)),
+                     ("nms", lambda: flagship_nms_part(counters, none, model, batch)),
+                     ("conv_module", lambda: conv_module_part(counters, none, cfg, model, batch)),
+                     ("camera_backbones", lambda: camera_backbones_part(counters, none, batch)),
+                     ("add_fuser", lambda: add_fuser_part(counters, none, cfg, model, batch,
+                                                          cpu_model))):
+        t = time.perf_counter()
+        res[name] = fn()
+        parts[name] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+    res["dcn"], d1 = res["dcn"]
+    res["votenet"], d2 = res["votenet"]
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    res["part_seconds"] = parts
+    res["seconds"] = time.perf_counter() - t0
+    print(f"11g long tail: {res['seconds']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in parts.items()) + ")")
+    return res, [d1], d2
+
+
 def summary(name, source, replaces, launches, shapes, extra_err=(), library_ms=None):
     """One kernel's entry of the JSON line: times and bounds summed over
     its shapes, the largest error, the limit of the largest bound."""
@@ -2317,7 +2714,7 @@ def train_configs_phase(sp, bp, counters):
     """Phase 12b: each config of ``TRAIN_CONFIG_LAUNCHES`` built for training at full
     width (B = 1, 64 random boxes or seeded map masks and the depth images of
     ``add_train_targets``), its head moderated, held to the plain path by
-    ``train_step_parity`` with TF32 off; then 2 timed steps after 1 warmup
+    ``train_step_parity`` with TF32 off; then 1 timed step after 1 warmup
     with TF32 on (``tools/bench_train_step.py``): ms a step split into
     forward, backward and optimizer, the peak memory less what was allocated
     before the config was built (the flagship's model). Returns {config:
@@ -2345,7 +2742,7 @@ def train_configs_phase(sp, bp, counters):
         r = train_step_parity(f"train {name}", model, batch, sp, bp, counters, want,
                               CAMERA_TIES.get(name, ()))
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
-        steps = train_steps(cfg, model, batch, DEVICE, steps=2, warmup=1)
+        steps = train_steps(cfg, model, batch, DEVICE, steps=1, warmup=1)
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
         check(not steps.pop("unchanged"), f"train {name}: timed steps left parameters unchanged")
         med, own = steps["ms_median"], steps["peak_mem_bytes"] - resident
@@ -2444,7 +2841,7 @@ def bf16_eval_phase(model, batch, counters):
     0 just before and read just after: 15 bf16 sparse convs, no fp32 one, 1
     pool, no NMS; every box field finite; the head's BEV input and the
     dense heatmap logits against the fp32 frame (TF32 off) within
-    ``BF16_EVAL_GAP`` relative in norm; then ms a frame (median of 10) and
+    ``BF16_EVAL_GAP`` relative in norm; then ms a frame (median of 5) and
     the peak at fp32 and bf16 in turns (fp32, bf16, bf16, fp32) with the
     fp32 runs' TF32 switches (``runtime/precision.py``), the bf16 stages,
     and one frame of each dtype traced (``traced``). Returns the results;
@@ -2595,7 +2992,7 @@ def bf16_train_phase(cfg, model, batch, counters, sp, bp):
     fp32 pass within ``BF16_TRAIN_VS_TF32`` times T vs the fp32 pass (at
     random init a rounding-level change of the forward moves the gradients
     far, phase 12's B' shows it at fp32; T measures it at TF32's 11
-    significant bits, bf16 keeps 8), cosines printed. Then 3 timed bf16
+    significant bits, bf16 keeps 8), cosines printed. Then 2 timed bf16
     steps after 2 with the fp32 runs' TF32 switches
     (``tools/bench_train_step.py``). Returns the results; the model is
     fp32 again after."""
@@ -2672,7 +3069,7 @@ def bf16_train_phase(cfg, model, batch, counters, sp, bp):
     torch.backends.cudnn.deterministic = False
     precision.apply_tf32_defaults()
     model.compute_dtype = torch.bfloat16
-    steps = train_steps(cfg, model, batch, DEVICE, steps=3, warmup=1)
+    steps = train_steps(cfg, model, batch, DEVICE, steps=2, warmup=1)
     model.compute_dtype = torch.float32
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     check(not steps.pop("unchanged"), "bf16 timed steps: parameters unchanged")
@@ -2717,7 +3114,7 @@ def export_phase(counters, eager_ms):
     launches of the eager frame and of the loaded program's frame, read
     from the counters, both ``EXPORT_LAUNCHES``. Also the export's, the
     save's and the load's seconds, the file's bytes and the loaded
-    program's ms a frame (median of 10) beside ``eager_ms``, the same
+    program's ms a frame (median of 5) beside ``eager_ms``, the same
     flagship's eager frame as phases 10 (fp32, TF32 off) and 10b (bf16,
     cuDNN TF32 on) timed it, under the same TF32 switches."""
     from bevfusion_tpu_torch.ops.library import OPS, op_counts
@@ -2814,8 +3211,8 @@ def export_phase(counters, eager_ms):
 
 def longevity_phase():
     """Phase 14b: ``tools/train_longevity.py`` (``main``) in its short form,
-    ``LONGEVITY_ARGS``: the flagship at bf16 over one whole schedule of 24
-    steps on 8 scenes, the resume probe at step 12. Gates: the tool's own
+    ``LONGEVITY_ARGS``: the flagship at bf16 over one whole schedule of 12
+    steps on 8 scenes, the resume probe at step 6. Gates: the tool's own
     (finite losses, the probe by the rule it states), every loss finite in
     its JSON, and a step's launches 29 bf16 K1/K2, 15 bf16 K3 and 1 K4, no
     fp32 sparse conv and no NMS."""
@@ -2850,7 +3247,9 @@ def longevity_phase():
 def kernel_counters():
     """Every kernel wrapper of the JSON line, by its name there."""
     from bevfusion_tpu_torch.ops import bev_pool as bp
+    from bevfusion_tpu_torch.ops import deform_conv as dc
     from bevfusion_tpu_torch.ops import nms
+    from bevfusion_tpu_torch.ops import pointnet as pn
     from bevfusion_tpu_torch.ops import sparse_conv as sp
     from bevfusion_tpu_torch.tools import bench_kernel_variants as kv
     from bevfusion_tpu_torch.tools import bench_tile_micro as tm
@@ -2859,7 +3258,8 @@ def kernel_counters():
             "sparse_conv_bf16": sp.sparse_conv_bf16,
             "sparse_conv_dw_bf16": sp.sparse_conv_dw_bf16, "bev_pool": bp.bev_pool,
             "tile_copy": tm.copy_add_one, "tile_gather": tm.gather_tiles,
-            "sparse_conv_variants": kv.sparse_conv_variant, "greedy_nms": nms.greedy_suppress}
+            "sparse_conv_variants": kv.sparse_conv_variant, "greedy_nms": nms.greedy_suppress,
+            "deform_im2col": dc.deform_im2col, "furthest_point_sample": pn.furthest_point_sample}
 
 
 def no_dropout(model) -> None:
@@ -3429,6 +3829,38 @@ def gate_probe() -> int:
     return 0
 
 
+def long_tail_only() -> int:
+    """``python3 chip_smoke.py --long-tail``: the kernels that path runs built
+    (one nvcc per source, started together), then phase 11g alone on the
+    flagship; its results as a JSON line. A quick check of the long tail."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from bevfusion_tpu_torch import native
+    from bevfusion_tpu_torch.ops import bev_pool as bp
+    from bevfusion_tpu_torch.ops import deform_conv as dc
+    from bevfusion_tpu_torch.ops import nms
+    from bevfusion_tpu_torch.ops import pointnet as pn
+    from bevfusion_tpu_torch.ops import sparse_conv as sp
+    from bevfusion_tpu_torch.runtime.flagship import batch_to, build_flagship
+
+    print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card_line()}")
+    t0 = time.perf_counter()
+    builds = (sp.build_kernels, bp.build_kernels, nms.build_kernels, dc.build_kernels,
+              pn.build_kernels)
+    with ThreadPoolExecutor(len(builds)) as ex:
+        list(ex.map(lambda build: build(), builds))
+    print(f"build: {time.perf_counter() - t0:.2f} s")
+    for lib in ("deform_conv", "pointnet"):
+        for line in native.build_log(lib).read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {lib}: {line.strip()}")
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, cpu_model, cpu_batch = build_flagship("cpu", num_points=120000, seed=0)
+    model, batch = copy.deepcopy(cpu_model).to(DEVICE), batch_to(cpu_batch, DEVICE)
+    res, d1, d2 = long_tail_phase(cfg, model, batch, cpu_model, cpu_batch, kernel_counters())
+    print(json.dumps({"long_tail": res, "deform_im2col": d1, "furthest_point_sample": d2}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -3437,6 +3869,8 @@ def main() -> int:
         return dp_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])
     if sys.argv[1:2] == ["--gate-probe"]:
         return gate_probe()
+    if sys.argv[1:2] == ["--long-tail"]:
+        return long_tail_only()
     t_start = time.perf_counter()
     # cuBLAS takes deterministic workspaces only if told before its first call
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -3444,7 +3878,9 @@ def main() -> int:
     from bevfusion_tpu_torch import native
     from bevfusion_tpu_torch.models.vtransforms import build_pool_lut
     from bevfusion_tpu_torch.ops import bev_pool as bp
+    from bevfusion_tpu_torch.ops import deform_conv as dc
     from bevfusion_tpu_torch.ops import nms
+    from bevfusion_tpu_torch.ops import pointnet as pn
     from bevfusion_tpu_torch.ops import sparse_conv as sp
     from bevfusion_tpu_torch.runtime.flagship import (add_pool_lut, batch_to, build_flagship,
                                                       build_lidar_slice)
@@ -3466,7 +3902,8 @@ def main() -> int:
     t0 = time.perf_counter()
     builds = {"sparse_conv": sp.build_kernels, "sparse_conv_dw": sp.build_dw_kernels,
               "bev_pool": bp.build_kernels, "tile_micro": tm.build_kernels,
-              "sparse_conv_variants": kv.build_kernels, "nms": nms.build_kernels}
+              "sparse_conv_variants": kv.build_kernels, "nms": nms.build_kernels,
+              "deform_conv": dc.build_kernels, "pointnet": pn.build_kernels}
     with ThreadPoolExecutor(len(builds)) as ex:  # one nvcc per source, started together
         list(ex.map(lambda build: build(), builds.values()))
     build_s = time.perf_counter() - t0
@@ -3581,7 +4018,15 @@ def main() -> int:
 
     # 10b. the flagship's frame at bf16: launches, its gap to the fp32 frame, ms a frame
     bf16_eval = bf16_eval_phase(model, batch, dict(counters, sparse_conv_bf16=sp.sparse_conv_bf16))
-    del model, cpu_model, cpu_batch, batch, depth, ctx, got, gout
+    del depth, ctx, got, gout
+    torch.cuda.empty_cache()
+
+    # 11g. the long tail: DCNSeparateHead (D1), PointNet++ (D2), TransFusion NMS, the
+    # conv_module encoder with the inverse conv and max pool, VoVNet / DLA + DetectronFPN,
+    # AddFuser
+    long_tail, d1_shapes, d2_shapes = long_tail_phase(cfg, model, batch, cpu_model, cpu_batch,
+                                                      kernel_counters())
+    del model, cpu_model, cpu_batch, batch
     torch.cuda.empty_cache()
 
     # 11. the three map-segmentation configs, eval forward at B=1, and the pool at the seg grid
@@ -3638,10 +4083,10 @@ def main() -> int:
     print(f"train configs: {len(train_cfgs)} configs' steps held and timed in "
           f"{train_cfgs_s:.1f} s")
 
-    # 13. three timed train steps, TF32 on
+    # 13. two timed train steps, TF32 on
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = True
-    steps = train_steps(cfg, model, batch, DEVICE, steps=3, warmup=1)
+    steps = train_steps(cfg, model, batch, DEVICE, steps=2, warmup=1)
     check(not steps.pop("unchanged"), "timed steps: parameters unchanged")
     med, step_ms = steps["ms_median"], steps["ms_median"]["step"]
     print(f"train steps (TF32 on): total loss {[round(v, 4) for v in steps['losses']]}; median "
@@ -3677,7 +4122,7 @@ def main() -> int:
         "bfloat16": statistics.fmean(bf16_eval["frame_ms_median"]["bfloat16"])})
     export_s = time.perf_counter() - t0
 
-    # 14b. the longevity entry point, short form: one whole schedule of 24 bf16 steps
+    # 14b. the longevity entry point, short form: one whole schedule of 12 bf16 steps
     longevity = longevity_phase()
 
     # 15. results
@@ -3750,6 +4195,16 @@ def main() -> int:
                      bf16_train["launches"]["sparse_conv_dw_bf16"], bf16_dw_shapes),
              fp32_ms=sum(s["fp32_ms"] for s in bf16_dw_shapes)),
     ]
+    # not TPU kernels either: the JAX package's deform_conv2d samples with XLA gathers, its
+    # furthest_point_sample is a lax.fori_loop; launches in 11g's DCN frame and VoteNet stack
+    kernels += [
+        dict(summary("deform_im2col", "bevfusion_tpu_torch/csrc/deform_conv.cu",
+                     "bevfusion_tpu/ops/deform_conv.py:52",
+                     long_tail["dcn"]["launches"]["deform_im2col"], d1_shapes), pallas=False),
+        dict(summary("furthest_point_sample", "bevfusion_tpu_torch/csrc/pointnet.cu",
+                     "bevfusion_tpu/ops/pointnet.py:64",
+                     long_tail["votenet"]["launches"]["furthest_point_sample"], d2_shapes),
+             pallas=False)]
     for k in kernels[:3]:
         k["launches_tools"] = tool_launches[k["name"]]
     for k in kernels:
@@ -3774,6 +4229,7 @@ def main() -> int:
         k["launches_export"] = {dt: r["launches_loaded"][k["name"]] for dt, r in exported.items()}
         k["launches_longevity"] = longevity["launches_per_step"].get(
             {"greedy_nms": "greedy_suppress"}.get(k["name"], k["name"]), 0)
+        k["launches_long_tail"] = long_tail_launches(long_tail, k["name"])
     print(json.dumps({
         "kernels": kernels, "build_s": build_s, "total_s": time.perf_counter() - t_start,
         "flagship": {"frame_ms_median": statistics.median(frames), "peak_mem_bytes": peak,
@@ -3792,6 +4248,7 @@ def main() -> int:
         "data_parallel": dp,
         "export": dict(exported, seconds=export_s),
         "longevity": {k: v for k, v in longevity.items() if k != "losses"},
+        "long_tail": long_tail,
         "tools": {k: v for k, v in tools.items() if k not in ("copy", "gathers")},
         "lidar_slice": {"launches": lidar_launches,
                         "frame_ms_median": statistics.median(lidar_frames),

@@ -148,3 +148,91 @@ def test_bridge_is_exhaustive_on_the_pillar_trees(name):
     first = f"encoders.{branch}.backbone.pts_voxel_encoder.{layers}.0.linear.weight"
     assert sd[first].shape[1] == width
     build_model(load_config(path).model, "cpu").load_state_dict(sd, strict=True)
+
+
+def _long_tail_cases():
+    """(JAX module, its inputs, the flax name it sits under, the port's
+    module, the torch prefix) of each module no served config reaches."""
+    from bevfusion_tpu.models import fusers as jf, necks as jn, second as js
+    from bevfusion_tpu.models import pointnet_modules as jpm
+    from bevfusion_tpu.models.dla import DLA as JDLA
+    from bevfusion_tpu.models.heads.centerpoint import CenterHead as JCenterHead
+    from bevfusion_tpu.models.pillar_encoder import PillarFeatureNet as JPFN
+    from bevfusion_tpu.models.sparse_encoder import SparseEncoder as JSparseEncoder
+    from bevfusion_tpu.models.vovnet import VoVNet as JVoVNet
+    from bevfusion_tpu_torch.models import dla, fusers, necks, pillar_encoder, pointnet_modules
+    from bevfusion_tpu_torch.models import second, sparse_encoder, vovnet
+    from bevfusion_tpu_torch.models.heads.centerpoint import CenterHead
+    from tests.test_torch_centerhead import _head_cfg
+    from tests.test_torch_long_tail import CONV_MODULE
+
+    img = np.zeros((1, 64, 64, 3), np.float32)
+    fpn_in = [np.zeros((1, 16 // 2 ** i, 16 // 2 ** i, c), np.float32)
+              for i, c in enumerate((6, 10, 12))]
+    head = dict(_head_cfg((("car",), ("truck", "bus")), "circle", None),
+                separate_head={"type": "DCNSeparateHead", "head_conv": 8})
+    pfn = dict(in_channels=5, feat_channels=[64, 64], voxel_size=[2.0, 2.0, 8.0],
+               point_cloud_range=[-16.0, -16.0, -4.0, 16.0, 16.0, 4.0],
+               norm_cfg={"type": "GN", "eps": 1e-3})
+    sa = dict(num_point=8, radii=(0.5, 1.0), sample_nums=(4, 8), mlp_channels=((8, 16), (8,)))
+    xyz, pts = jnp.zeros((32, 3)), jnp.zeros((32, 6))
+    vox = (np.zeros((1, 64, 5), np.float32), np.zeros((1, 64, 3), np.int32),
+           np.zeros((1, 64), bool))
+    return {
+        "vovnet": (JVoVNet("V-19-slim-eSE"), (img,), "camera_backbone",
+                   lambda: vovnet.VoVNet("V-19-slim-eSE"), "encoders.camera.backbone."),
+        "dla": (JDLA(channels=(4, 8, 16, 16, 24, 32)), (img,), "camera_backbone",
+                lambda: dla.DLA(channels=(4, 8, 16, 16, 24, 32)), "encoders.camera.backbone."),
+        "detectron_fpn": (jn.DetectronFPN((0, 1, 2), (0, 1), (6, 10, 12), 8), (fpn_in,),
+                          "camera_neck", lambda: necks.DetectronFPN((0, 1, 2), (0, 1),
+                                                                    (6, 10, 12), 8),
+                          "encoders.camera.neck."),
+        "add_fuser": (jf.AddFuser((6, 10), 12), ([np.zeros((1, 8, 8, 6), np.float32),
+                                                  np.zeros((1, 8, 8, 10), np.float32)],),
+                      "fuser_module", lambda: fusers.AddFuser((6, 10), 12), "fuser."),
+        "second_ln": (js.SECOND(8, (32, 64), (1, 1), (2, 2), {"type": "LN"}),
+                      (np.zeros((1, 8, 8, 8), np.float32),), "decoder_backbone",
+                      lambda: second.SECOND(8, (32, 64), (1, 1), (2, 2), {"type": "LN"}),
+                      "decoder.backbone."),
+        "second_gn": (js.SECOND(8, (32, 64), (1, 1), (2, 2), {"type": "GN"}),
+                      (np.zeros((1, 8, 8, 8), np.float32),), "decoder_backbone",
+                      lambda: second.SECOND(8, (32, 64), (1, 1), (2, 2), {"type": "GN"}),
+                      "decoder.backbone."),
+        "pfn_gn": (JPFN(**pfn), (np.zeros((4, 6, 5), np.float32), np.ones(4, np.int32),
+                                 np.zeros((4, 3), np.int32)),
+                   "lidar_backbone/PillarFeatureNet_0", lambda: pillar_encoder.PillarFeatureNet(
+                       **pfn), "encoders.lidar.backbone.pts_voxel_encoder."),
+        "conv_module": (JSparseEncoder(**CONV_MODULE, engine="gather"), vox, "lidar_backbone",
+                        lambda: sparse_encoder.SparseEncoder(**CONV_MODULE),
+                        "encoders.lidar.backbone."),
+        "dcn_head": (JCenterHead(**head), (np.zeros((1, 16, 16, 12), np.float32),),
+                     "head_modules_object", lambda: CenterHead(**head), "heads.object."),
+        "pointnet_sa": (jpm.PointSAModuleMSG(**sa), (xyz, pts), "lidar_backbone",
+                        lambda: pointnet_modules.PointSAModuleMSG(**sa, in_channels=6),
+                        "encoders.lidar.backbone."),
+        "pointnet_fp": (jpm.PointFPModule((12, 7)), (xyz, xyz[:8], pts, jnp.zeros((8, 24))),
+                        "lidar_backbone", lambda: pointnet_modules.PointFPModule(
+                            (12, 7), in_channels=30), "encoders.lidar.backbone."),
+    }
+
+
+@pytest.mark.parametrize("name", ["vovnet", "dla", "detectron_fpn", "add_fuser", "second_ln",
+                                  "second_gn", "pfn_gn", "conv_module", "dcn_head",
+                                  "pointnet_sa", "pointnet_fp"])
+def test_bridge_is_exhaustive_on_the_long_tail_trees(name):
+    """Every flax path of each module no served config reaches gets a torch
+    key (``PORT_RULES``; a LayerNorm / GroupNorm the keys of the BatchNorm
+    in its place), no key twice, and the result loads strictly into the
+    port's module (every key of it, none else)."""
+    jm, args, flax_name, build, prefix = _long_tail_cases()[name]
+    shapes = jax.eval_shape(lambda *a: jm.init(jax.random.PRNGKey(0), *a), *args)
+    variables = {col: {flax_name.split("/")[-1]: jax.tree_util.tree_map(
+        lambda s: np.zeros(s.shape, np.float32), shapes[col])} if col in shapes else {}
+        for col in ("params", "batch_stats")}
+    for part in reversed(flax_name.split("/")[:-1]):  # a nested name: its parents
+        variables = {col: {part: tree} if tree else {} for col, tree in variables.items()}
+    sd = jax_to_torch_state_dict(variables)  # raises on a flax path without a key
+    leaves = sum(len(jax.tree_util.tree_leaves(shapes[c])) for c in shapes)
+    assert len(sd) == leaves + sum(k.endswith("num_batches_tracked") for k in sd)
+    assert all(k.startswith(prefix) for k in sd)
+    build().load_state_dict({k[len(prefix):]: v for k, v in sd.items()}, strict=True)

@@ -981,7 +981,10 @@ def test_custom_ops_fake_is_the_cuda_implementations_meta_and_counts_its_launche
              "sparse_conv_bf16": (feats.bfloat16(), nbr, w.bfloat16(), None, None, None, True),
              "sparse_conv_dw": (feats, nbr, dout),
              "sparse_conv_dw_bf16": (feats.bfloat16(), nbr, dout.bfloat16()),
-             "bev_pool": (depth, ctx, *iv, 1, 4, 5), "greedy_suppress": (sup, order)}
+             "bev_pool": (depth, ctx, *iv, 1, 4, 5), "greedy_suppress": (sup, order),
+             "deform_im2col": (torch.randn(1, 5, 6, 4, device=cuda),
+                               torch.randn(1, 5, 6, 18, device=cuda), None, 3, 1, 1),
+             "furthest_point_sample": (torch.randn(2, 50, 3, device=cuda), 10, None)}
     assert set(cases) == set(library.OPS)
     for name, args in cases.items():
         op = getattr(torch.ops.bevfusion, name)
@@ -994,3 +997,55 @@ def test_custom_ops_fake_is_the_cuda_implementations_meta_and_counts_its_launche
         assert (fake.shape, fake.dtype, fake.stride(), fake.device.type) == (
             real.shape, real.dtype, real.stride(), real.device.type), name
     assert library.COUNTERS["greedy_suppress"] is nms.greedy_suppress
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("modulated", [False, True])
+@pytest.mark.parametrize("B,H,W,C,stride", [(1, 32, 40, 64, 1), (2, 9, 11, 5, 2), (1, 7, 7, 33, 1)])
+def test_deform_im2col_kernel_matches_plain(cuda, B, H, W, C, stride, modulated):
+    """D1 against its plain version on the same CUDA tensors: offsets of a few
+    pixels, some taps on integers, some wholly outside the image; the kernel
+    keeps the plain version's operations in its order, so the columns are
+    equal bit for bit."""
+    from bevfusion_tpu_torch.ops import deform_conv as dc
+
+    g = torch.Generator(device=cuda).manual_seed(B * H + C)
+    Ho, Wo = (H + 2 - 3) // stride + 1, (W + 2 - 3) // stride + 1
+    x = torch.randn(B, H, W, C, generator=g, device=cuda)
+    off = torch.rand(B, Ho, Wo, 18, generator=g, device=cuda) * 6 - 3
+    on_int = torch.rand(off.shape, generator=g, device=cuda) < 0.3
+    off = torch.where(on_int, off.round(), off)
+    off = torch.where(torch.rand(off.shape, generator=g, device=cuda) < 0.05, 40.0, off)
+    mask = torch.rand(B, Ho, Wo, 9, generator=g, device=cuda) if modulated else None
+    before = dc.deform_im2col.launches
+    got = dc.deform_im2col(x, off, mask, 3, stride, 1)
+    torch.cuda.synchronize()
+    assert dc.deform_im2col.launches == before + 1
+    want = dc.deform_im2col_plain(x, off, mask, 3, stride, 1)
+    assert got.shape == want.shape == (B * Ho * Wo, 9 * C)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError):
+        dc.deform_im2col(x.double(), off.double(), None, 3, stride, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,npoint,masked", [(20000, 2048, False), (2048, 1024, True),
+                                              (700, 256, False), (9000, 64, True),
+                                              (30000, 16, False)])
+def test_furthest_point_sample_kernel_matches_plain(cuda, N, npoint, masked):
+    """D2 against its plain version: the same indices bit for bit, at every
+    points-per-thread form (1 .. 32), with ties (points on a lattice) and
+    masked points; one launch a batch."""
+    from bevfusion_tpu_torch.ops import pointnet as pn
+
+    g = torch.Generator(device=cuda).manual_seed(N)
+    xyz = torch.randint(-20, 21, (2, N, 3), generator=g, device=cuda).float() * 0.25
+    mask = torch.rand(2, N, generator=g, device=cuda) > 0.3 if masked else None
+    before = pn.furthest_point_sample.launches
+    got = pn.furthest_point_sample(xyz, npoint, mask)
+    torch.cuda.synchronize()
+    assert pn.furthest_point_sample.launches == before + 1
+    want = pn.furthest_point_sample_plain(xyz, npoint, mask)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError):
+        pn.furthest_point_sample(torch.randn(1, 40000, 3, device=cuda), 4)

@@ -103,7 +103,9 @@ def test_every_port_module_imports_no_jax():
                  "runtime.checkpoint", "runtime.eval", "tools.test", "tools.train", "parallel",
                  "parallel.dryrun", "tools.dryrun_flagship_sharded", "ops.library",
                  "tools.export", "tools.train_longevity", "tools.visualize", "utils.visualize",
-                 "core.box_np_ops", "core.box_modes", "core.anchors", "core.assign_sample"):
+                 "core.box_np_ops", "core.box_modes", "core.anchors", "core.assign_sample",
+                 "ops.deform_conv", "ops.pointnet", "models.vovnet", "models.dla",
+                 "models.pointnet_modules"):
         assert f"bevfusion_tpu_torch.{name}" in walked, name
     assert len(walked) >= 40
     _assert_no_jax(mods)

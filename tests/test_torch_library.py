@@ -86,6 +86,25 @@ def test_sparse_conv_dw_op_is_the_plain_function(dtype):
         assert got.dtype == want.dtype and torch.equal(got, want)
 
 
+def test_deform_im2col_and_fps_ops_are_the_plain_functions():
+    """Bit for bit, and the im2col op's gradient is autograd of the plain
+    version (the op registers it)."""
+    from bevfusion_tpu_torch.ops import deform_conv as dc
+    from bevfusion_tpu_torch.ops import pointnet as pn
+
+    args = _im2col_args()
+    got = library.deform_im2col(*args)
+    want = dc.deform_im2col_plain(*args)
+    assert torch.equal(got, want)
+    g = torch.randn(want.shape)
+    assert all(torch.equal(a, b) for a, b in zip(torch.autograd.grad(got, args[:3], g),
+                                                 torch.autograd.grad(want, args[:3], g)))
+    xyz, npoint, mask = _fps_args()
+    want = pn.furthest_point_sample_plain(xyz, npoint, mask)
+    assert torch.equal(library.furthest_point_sample(xyz, npoint, mask), want)
+    assert torch.equal(pn.furthest_point_sample(xyz, npoint, mask), want)
+
+
 def test_bev_pool_and_suppress_ops_are_the_plain_functions():
     depth, ctx, iv, Z, X, Y = _pool_args()
     want = bp.bev_pool_plain(depth, ctx, iv, Z, X, Y)
@@ -100,6 +119,19 @@ def test_bev_pool_and_suppress_ops_are_the_plain_functions():
         assert torch.equal(got, want)
 
 
+def _im2col_args(seed=0, B=2, H=5, W=6, C=3):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, H, W, C, generator=g, requires_grad=True)
+    offset = (torch.rand(B, H, W, 18, generator=g) * 4 - 2).requires_grad_()
+    mask = torch.rand(B, H, W, 9, generator=g).requires_grad_()
+    return x, offset, mask, 3, 1, 1
+
+
+def _fps_args(seed=0, B=2, N=50):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(B, N, 3, generator=g), 12, torch.rand(B, N, generator=g) > 0.2
+
+
 def _all_cases():
     feats, nbr, weight, scale, shift, residual, relu = _conv_args()
     bf = _conv_args(torch.bfloat16)
@@ -112,6 +144,8 @@ def _all_cases():
         "sparse_conv_dw_bf16": (bf[0], bf[1], dout.bfloat16()),
         "bev_pool": (depth, ctx, *iv, Z, X, Y),
         "greedy_suppress": _suppress_args(),
+        "deform_im2col": _im2col_args(),
+        "furthest_point_sample": _fps_args(),
     }
 
 

@@ -358,6 +358,9 @@ CLI_CODE = ("import sys, json; sys.path.insert(0, {root!r})\n"
             "        | {{'losses': [r['loss'] for r in out['history']]}}))\n")
 
 
+CLI_TIMEOUT = 240  # s for both jobs of both ranks: ~8x an idle machine's ~30 s
+
+
 @pytest.fixture(scope="module")
 def cli_runs(tmp_path_factory):
     """The tiny seg model's train CLI (its per-epoch map eval on): W1, one
@@ -377,9 +380,9 @@ def cli_runs(tmp_path_factory):
     jobs = [argv("w2", "data.samples_per_gpu=1"),
             argv("w2_from_w1", "--resume-from", str(tmp / "w1" / "epoch_1"),
                  "data.samples_per_gpu=1")]
-    outs = spawn_ranks(
+    outs = spawn_ranks(  # ~30 s on an idle machine; a hang fails at CLI_TIMEOUT
         lambda r: [sys.executable, "-c", CLI_CODE.format(root=ROOT), json.dumps(jobs)],
-        env=lambda r: {"WORLD_SIZE": "2", "RANK": str(r), "LOCAL_RANK": str(r),
+        timeout=CLI_TIMEOUT, env=lambda r: {"WORLD_SIZE": "2", "RANK": str(r), "LOCAL_RANK": str(r),
                        "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)})
     w2 = [[json.loads(line[4:]) for line in o.splitlines() if line.startswith("OUT ")]
           for o in outs]
@@ -429,6 +432,39 @@ def test_checkpoints_resume_across_world_sizes(cli_runs):
         losses_close(run["losses"], want)
     assert w1_from_w2["start_epoch"] == 1
     losses_close([r["loss"] for r in w1_from_w2["history"]], w2[0][0]["losses"][n:])
+
+
+REJOIN_CODE = ("import sys; sys.path.insert(0, {root!r})\n"
+               "import torch, torch.distributed as dist\n"
+               "from bevfusion_tpu_torch import parallel\n"
+               "for i in range({n}):\n"
+               "    r, w, joined = parallel.join('cpu')\n"
+               "    assert joined and w == 2\n"
+               "    x = parallel.all_sum(torch.full((3,), float(r + 1 + i)))\n"
+               "    print('SUM', i, x.tolist(), flush=True)\n"
+               "    dist.destroy_process_group()\n")
+REJOINS = 12
+REJOIN_TIMEOUT = 60  # s: a working run takes ~5 s; a second join that meets the old
+# group's store waits on it for good (torch's 30-minute default) and is killed here
+
+
+def test_ranks_join_destroy_and_join_again_on_one_port():
+    """Two gloo processes join through torchrun's environment, take a
+    collective and destroy the group ``REJOINS`` times on one
+    ``MASTER_PORT``, as the train CLI's jobs do in one process: every group
+    is a new rendezvous (``parallel.init`` keeps one store a process and a
+    key prefix a group), so no rank meets the store of the group before.
+    Joining through ``env://`` afresh each time hung or broke in 1 of 3
+    six-join runs and in 5 of 7 CLI fixtures on an idle machine."""
+    port = free_port()
+    outs = spawn_ranks(
+        lambda r: [sys.executable, "-c", REJOIN_CODE.format(root=ROOT, n=REJOINS)],
+        timeout=REJOIN_TIMEOUT,
+        env=lambda r: {"WORLD_SIZE": "2", "RANK": str(r), "LOCAL_RANK": str(r),
+                       "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)})
+    for out in outs:
+        sums = [line.split(" ", 2)[1:] for line in out.splitlines() if line.startswith("SUM ")]
+        assert sums == [[str(i), str([2.0 * i + 3.0] * 3)] for i in range(REJOINS)], out
 
 
 def test_tiny_dryrun_is_the_tests_tiny_model_and_steps_at_two_ranks():

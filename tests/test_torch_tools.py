@@ -186,14 +186,14 @@ def test_benchmark_latency_on_the_cpu():
 @pytest.mark.parametrize("config,batch_size,error,match", [
     ("configs/nuscenes/det/centerhead/lssfpn/camera+radar/resnet50/dlss.yaml", 1, ValueError,
      r"depth branch gives 32 x 88 .* 16 x 44"),
-    ("addfuser", 1, NotImplementedError, "not ported: fuser: AddFuser"),
+    ("madefuser", 1, NotImplementedError, "not ported: fuser: MadeFuser"),
     (None, 2, NotImplementedError, "batch size 2"),
 ])
 def test_benchmark_raises_for_what_the_port_does_not_build(config, batch_size, error, match,
                                                            tmp_path):
-    if config == "addfuser":  # every config's modules are ported: a made one names a type
-        config = tmp_path / "addfuser.yaml"  # the port lacks
-        config.write_text("model:\n  type: BEVFusion\n  fuser:\n    type: AddFuser\n"
+    if config == "madefuser":  # the port registers every type the JAX package does (AddFuser
+        config = tmp_path / "madefuser.yaml"  # too): a made config names one neither has
+        config.write_text("model:\n  type: BEVFusion\n  fuser:\n    type: MadeFuser\n"
                           "    in_channels: [80, 256]\n    out_channels: 256\n")
     with pytest.raises(error, match=match):
         benchmark.build(None if config is None else str(config), "cpu", batch_size=batch_size)
