@@ -1,9 +1,10 @@
 // The loop of the sparse-conv gather-GEMM kernel (K1/K2; the design note is
-// in sparse_conv.cu): its shared-memory layout, the tile's prologue (which
-// the bf16 form in sparse_conv.cu shares), its 3xTF32 tile product and the
-// kernel, with a compile-time mode. sparse_conv.cu instantiates the
-// production mode (kTileConv) only; sparse_conv_variants.cu instantiates the
-// others, K7's tensor-core family, each of which runs the same prologue,
+// in sparse_conv.cu): its shared-memory layout, the tile's prologue, its
+// 3xTF32 tile product and the kernel, with a compile-time mode (the bf16
+// form's loop, sparse_conv_bf16_tile.cuh, takes the same modes).
+// sparse_conv.cu instantiates the production mode (kTileConv) only;
+// sparse_conv_variants.cu instantiates the others, K7's tensor-core
+// family, each of which runs the same prologue,
 // cp.async ring, 64-site blocks of 4 warps and mma.sync tiles with one part
 // changed, and no epilogue:
 //
@@ -132,10 +133,10 @@ __device__ __forceinline__ void mma_stage(const float* stage, float (&acc)[COUT_
   }
 }
 
-// The prologue of a 64-site tile, which every mode and the bf16 form in
-// sparse_conv.cu share: the tile's neighbor rows into nbr_s [K][kTile] (-1
-// for a miss or a row >= cap_in; kTileNoGather: a hit reads the site's own
-// row), one hit bit per (offset, site) into mask_s [K][kTile / 32], a
+// The prologue of a 64-site tile, which every mode shares: the tile's
+// neighbor rows into nbr_s [K][kTile] (-1 for a miss or a row >= cap_in;
+// kTileNoGather: a hit reads the site's own row), one hit bit per (offset,
+// site) into mask_s [K][kTile / 32], a
 // barrier, then this warp's list `act` of the offsets any site of the tile
 // hits, in order (every offset for kTileNoSkip); returns its length. A warp
 // covers 32 sites of one offset; kLoads loads in flight a thread.

@@ -1,5 +1,5 @@
-// K7: where the sparse-conv kernel's time goes, in two families of modes,
-// fp32, no epilogue.
+// K7: where the sparse-conv kernel's time goes, in three families of modes,
+// no epilogue: two fp32 ones and the bf16 family (below the others).
 //
 // The scalar family: the first form of csrc/sparse_conv.cu's loop (before
 // its tensor-core redesign), kept as the yardstick that chip_smoke.py times
@@ -26,12 +26,20 @@
 // product (tc - tc_1xtf32), which is also the most a bf16 form with one mma
 // a step could save.
 //
+// The bf16 family: K1/K2 bf16's loop itself (sparse_conv_bf16_tile.cuh,
+// shared with csrc/sparse_conv.cu) on bf16 rows and weights, bf16 out
+// rounded once from fp32 sums: bf16 (K1/K2 bf16 without its epilogue, bit
+// for bit), bf16_noskip, bf16_nogather and bf16_noproduct, the split of the
+// tensor-core family; the same loop at any depth of its ring (K7's sweep),
+// each depth's bits equal.
+//
 // Replaces the TPU kernel tools/bench_kernel_variants.py:_kernel (modes
 // current, roll, noalign, nohot), which split the windowed Pallas conv's
 // time into its lane alignment, its one-hot matmul and its DMAs. Neither
 // Hopper loop has those parts, so the modes split each into what it has.
 // fp32, because the kernel it breaks down is fp32 (the TPU tool was bf16
-// because its production kernel was).
+// because its production kernel was; the bf16 family runs at the TPU
+// tool's own precision).
 //
 // What bounds it on an H100. Per hit pair the product does 2 * Cin * Cout
 // flops: on the fp32 FMA units (67 TFLOP/s) for the scalar family, three
@@ -57,6 +65,7 @@
 
 #include <cuda_runtime.h>
 
+#include "sparse_conv_bf16_tile.cuh"
 #include "sparse_conv_tile.cuh"
 
 namespace {
@@ -257,6 +266,46 @@ extern "C" int bevf_sparse_conv_tc_variant_f32(const float* feats, const int* nb
     case 2: return static_cast<int>(launch_tc<kTileNoGather>(p, s));
     case 3: return static_cast<int>(launch_tc<kTileNoProduct>(p, s));
     case 4: return static_cast<int>(launch_tc<kTileOneTf32>(p, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+
+namespace {
+
+// the bf16 family runs the bf16 form's loop at the submanifold convs, Cin ==
+// Cout, padded as csrc/sparse_conv.cu pads them
+template <int MODE>
+cudaError_t launch_bf16_variant(const ParamsBf16& p, cudaStream_t s, int* info, int stages) {
+  if (p.cin <= 16) return run_bf16<MODE, 16, 16>(p, s, info, stages);
+  if (p.cin <= 32) return run_bf16<MODE, 32, 32>(p, s, info, stages);
+  return run_bf16<MODE, 64, 64>(p, s, info, stages);
+}
+
+}  // namespace
+
+// The bf16 family. feats [cap_in, c], weight [num_offsets, c, c] (not read by
+// bf16_noproduct) and out [cap_out, c] bf16, nbr [num_offsets, cap_out] int32
+// (-1 = miss); all contiguous device memory, 1 <= c <= 64. mode 0 bf16, 1
+// bf16_noskip, 2 bf16_nogather, 3 bf16_noproduct. stages >= 0 replaces the
+// launch's choice of the ring's depth. With info null: launches on `stream`
+// and does not synchronise; else writes what the launch would run into
+// info[kPlanInfo] (run_bf16 in sparse_conv_bf16_tile.cuh) and launches
+// nothing. Returns a cudaError_t (0 on success).
+extern "C" int bevf_sparse_conv_bf16_variant(const void* feats, const int* nbr,
+                                             const void* weight, void* out, int cap_in,
+                                             int cap_out, int num_offsets, int c, int mode,
+                                             int stages, void* stream, int* info) {
+  if (c < 1 || c > 64 || num_offsets < 1 || cap_in < 0 || cap_out < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const ParamsBf16 p = params_bf16(feats, nbr, weight, nullptr, nullptr, nullptr, out, cap_in,
+                                   cap_out, num_offsets, c, c, 0);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case 0: return static_cast<int>(launch_bf16_variant<kTileBare>(p, s, info, stages));
+    case 1: return static_cast<int>(launch_bf16_variant<kTileNoSkip>(p, s, info, stages));
+    case 2: return static_cast<int>(launch_bf16_variant<kTileNoGather>(p, s, info, stages));
+    case 3: return static_cast<int>(launch_bf16_variant<kTileNoProduct>(p, s, info, stages));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

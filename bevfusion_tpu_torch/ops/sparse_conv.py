@@ -393,6 +393,27 @@ def sparse_conv_bf16(feats: torch.Tensor, nbr: torch.Tensor, weight: torch.Tenso
 sparse_conv_bf16.launches = 0
 sparse_conv.launches = 0
 
+# the keys of the bf16 kernel's launch plan (csrc/sparse_conv_bf16_tile.cuh:run_bf16)
+BF16_PLAN_KEYS = ("blocks_per_sm", "registers", "spill_bytes", "smem_bytes", "stages", "ahead",
+                  "threads", "grid", "slabs")
+
+
+def sparse_conv_bf16_plan(cap_out: int, num_offsets: int, cin: int, cout: int) -> dict:
+    """What ``sparse_conv_bf16`` launches for these sizes on the current card
+    (``BF16_PLAN_KEYS``: resident blocks an SM from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, registers and spilled
+    bytes a thread from ``cudaFuncGetAttributes``, dynamic shared memory a
+    block, ring stages, offsets staged ahead of the one multiplied, threads a
+    block, blocks in the grid, 16-row slabs a warp); launches nothing."""
+    fn = native.load_library("sparse_conv").bevf_sparse_conv_bf16_info
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * len(BF16_PLAN_KEYS))()
+    rc = fn(cap_out, num_offsets, cin, cout, ctypes.cast(info, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"sparse_conv_bf16_plan: cudaError {rc}")
+    return dict(zip(BF16_PLAN_KEYS, info))
+
 
 # ----------------------------------------------------------------------
 # the weight gradient: CUDA kernel and plain version

@@ -3,7 +3,9 @@
 
 Run from the repository root: ``python3 chip_smoke.py``
 (``python3 chip_smoke.py --gate-probe``: only the runs that measure the
-gates of phases 11e, 11e-dp and 13c, ``gate_probe``). Phases:
+gates of phases 11e, 11e-dp and 13c, ``gate_probe``; ``--long-tail``: phase
+11g alone; ``--sparse-kernels``: phases 5b and 7 alone, the quick check of
+the sparse-conv kernels). Phases:
 
 1. device: the card's name and power limit; TF32 off for fp32 parity;
 2. build: compile the eight kernel sources of bevfusion_tpu_torch/csrc (one
@@ -39,10 +41,16 @@ gates of phases 11e, 11e-dp and 13c, ``gate_probe``). Phases:
    epilogue, every valid element within one bf16 rounding (2^-7 of |plain|)
    plus 1e-4 of the scale of its bf16 plain version (the product and the
    epilogue in fp32, one rounding), the count of elements that differ
-   printed; K3 (fp32 dW) within 1e-4 * max(|plain|, 1), equal bits across
-   two calls; each one's median time, bound (the bytes at bf16 rows; one
-   bf16 product a useful multiply-add at 989 TFLOP/s) and share, beside
-   the fp32 kernels' times of phases 3-4;
+   printed, equal bits across two calls; K3 (fp32 dW) within 1e-4 *
+   max(|plain|, 1), equal bits across two calls; each one's median time,
+   bound (the bytes at bf16 rows; one bf16 product a useful multiply-add at
+   989 TFLOP/s) and share, beside the fp32 kernels' times of phases 3-4 and
+   K1/K2 bf16's recorded times before its redesign (``BF16_MS_BEFORE``,
+   printed only), with the bf16 frame's 15 launches summed at the frame's
+   launches a shape (``BF16_FRAME_LAUNCHES``, printed only); K1/K2 bf16's
+   launch plan at each shape (registers, spills, resident blocks an SM,
+   stages, grid); K7's bf16 family is timed in phase 14, beside the
+   tensor-core family;
 6. the memory probes' kernels vs plain (``tools/bench_tile_micro.py``): K5,
    the copy ``x + 1``, at [65536, 1024] bf16, and K6, the tile gather, on
    both engines (TMA bulk copies, and its first form, ``cp.async``) at the
@@ -57,8 +65,10 @@ gates of phases 11e, 11e-dp and 13c, ``gate_probe``). Phases:
    kernel, so not bit for bit); the tensor-core family's five modes (K1/K2's
    own loop), ``tc`` equal to the sparse-conv kernel without epilogue and
    ``tc_noskip`` to ``tc``, bit for bit, and ``tc_1xtf32``'s max|d| from
-   the fp32 plain conv (one TF32 product: ~1e-3 relative); the plain
-   versions' times;
+   the fp32 plain conv (one TF32 product: ~1e-3 relative); the bf16
+   family's four modes (K1/K2 bf16's loop) within one bf16 rounding of
+   plain, ``bf16`` equal to the bf16 kernel without epilogue and
+   ``bf16_noskip`` to ``bf16``, bit for bit; the plain versions' times;
 8. the LiDAR slice: TransFusion-L (voxelnet_0p075) at full width with
    seeded random weights, eval forward at batch 1 on the scan; 15 kernel
    launches per forward, every box field finite, heatmap logits within
@@ -298,7 +308,9 @@ gates of phases 11e, 11e-dp and 13c, ``gate_probe``). Phases:
    entry points), TF32 on, every launch count set to 0 just before and read
    just after: the memory probes (torch's ``x + 1``, K5, K6 at its five
    settings, both engines, six bf16 matmuls), the cost breakdown (K7) of
-   both families at the three shapes with the slab fill, then on the
+   its three families at the three shapes with the slab fill (the bf16
+   family's row also with the tiles alone, every entry of the table a miss,
+   and its launch plan), then on the
    flagship held by phase 13 (in eval mode) the
    per-stage profile with FLOPs, the encoder, meta-chain and vtransform
    profiles and the latency benchmark's timing, and two train steps
@@ -417,6 +429,15 @@ BF16_MIN_GAP = 1e-4
 BF16_TRAIN_KERNEL_GAP = 1e-2
 BF16_TRAIN_VS_TF32 = 8.0
 BF16_TRAIN_LAUNCHES = {"sparse_conv_bf16": 15 + 14, "sparse_conv_dw_bf16": 15, "bev_pool": 1}
+# K1/K2 bf16 before its redesign, ms at the six shapes (phase 5b on an NVIDIA H100 80GB HBM3
+# at 700 W, PERF.md), and the launches of each shape in the flagship's bf16 frame (10b): 5b
+# prints both beside its own times; neither enters the results
+BF16_MS_BEFORE = {"conv_input 5->16": 0.0783, "stage0 subm 16->16": 0.0519,
+                "stage0 strided 16->32": 0.0570, "stage1 subm 32->32": 0.0863,
+                "stage1 strided 32->64": 0.0843, "stage2 subm 64->64": 0.1603}
+BF16_FRAME_LAUNCHES = {"conv_input 5->16": 1, "stage0 subm 16->16": 4, "stage0 strided 16->32": 1,
+                      "stage1 subm 32->32": 4, "stage1 strided 32->64": 1,
+                      "stage2 subm 64->64": 4}
 VOXELNET_0P1 = "configs/nuscenes/det/transfusion/secfpn/lidar/voxelnet.yaml"  # TransFusion-L 0.1 m
 K7_SHAPES = 3  # the cost breakdown runs at the stage-0, 1 and 2 submanifold convs
 TOOL_ITERS = 5  # timed calls per op in the tools phase
@@ -821,29 +842,43 @@ def tile_probe_checks(tm):
 
 
 def variant_checks(kv, sp, cases):
-    """Phase 7: K7's two families against their plain versions (max|d| <=
-    1e-4 * max(|plain|, 1)). The scalar family's four modes at both tiles,
-    ``noskip`` equal to ``current`` bit for bit, and ``current`` at tile 64
-    (the scalar loop) within the same 1e-4 of ``sparse_conv`` with no
-    epilogue (the tensor-core kernel). The tensor-core family's five modes
-    (K1/K2's loop), ``tc`` equal to ``sparse_conv`` with no epilogue and
-    ``tc_noskip`` to ``tc``, bit for bit; ``tc_1xtf32``'s max|d| from the
-    fp32 plain conv. Returns {(shape, mode): (max|d| over the tiles, plain
-    ms)} and {shape: tc_1xtf32's max|d| / max(|plain|, 1)}."""
+    """Phase 7: K7's three families against their plain versions (max|d| <=
+    1e-4 * max(|plain|, 1); the bf16 family within one bf16 rounding of it
+    plus that 1e-4, as phase 5b). The scalar family's four modes at both
+    tiles, ``noskip`` equal to ``current`` bit for bit, and ``current`` at
+    tile 64 (the scalar loop) within the same 1e-4 of ``sparse_conv`` with
+    no epilogue (the tensor-core kernel). The tensor-core family's five
+    modes (K1/K2's loop), ``tc`` equal to ``sparse_conv`` with no epilogue
+    and ``tc_noskip`` to ``tc``, bit for bit; ``tc_1xtf32``'s max|d| from
+    the fp32 plain conv. The bf16 family's four modes (K1/K2 bf16's loop) on
+    the operands rounded to bf16, ``bf16`` equal to ``sparse_conv`` on them
+    with no epilogue and ``bf16_noskip`` to ``bf16``, bit for bit. Returns
+    {(shape, mode): (max|d| over the tiles, plain ms)} and {shape:
+    tc_1xtf32's max|d| / max(|plain|, 1)}."""
     out, one_tf32 = {}, {}
     for label, feats, nbr, w in cases:
         new = sp.sparse_conv(feats, nbr, w)
-        for mode in kv.MODES + kv.TC_MODES:
-            want = kv.sparse_conv_variant_plain(feats, nbr, w, mode)
+        x16, w16 = feats.bfloat16(), w.bfloat16()
+        new16 = sp.sparse_conv(x16, nbr, w16)
+        for mode in kv.ALL_MODES:
+            bf16 = mode in kv.BF16_MODES
+            x, wm = (x16, w16) if bf16 else (feats, w)
+            want = kv.sparse_conv_variant_plain(x, nbr, wm, mode)
             scale = max(want.abs().max().item(), 1.0)
             tiles = kv.TILES if mode in kv.MODES else (kv.TC_TILE,)
             errs = []
             for tile in tiles:
-                got = kv.sparse_conv_variant(feats, nbr, w, mode, tile)
+                got = kv.sparse_conv_variant(x, nbr, wm, mode, tile)
                 torch.cuda.synchronize()
-                errs.append((got - want).abs().max().item())
-                check(errs[-1] <= FP32_RTOL_KERNEL * scale,
-                      f"K7 {label} {mode} tile {tile}: max|d| {errs[-1]} vs plain, scale {scale}")
+                d = (got.float() - want.float()).abs()
+                errs.append(d.max().item())
+                if bf16:
+                    bad = int((d > BF16_REL * want.float().abs() + FP32_RTOL_KERNEL * scale).sum())
+                    check(bad == 0, f"K7 {label} {mode}: {bad} elements past one bf16 rounding")
+                else:
+                    check(errs[-1] <= FP32_RTOL_KERNEL * scale,
+                          f"K7 {label} {mode} tile {tile}: max|d| {errs[-1]} vs plain, scale "
+                          f"{scale}")
                 if mode == "current" and tile == 64:
                     d = (got - new).abs().max().item()
                     check(d <= FP32_RTOL_KERNEL * scale,
@@ -856,18 +891,25 @@ def variant_checks(kv, sp, cases):
                 if mode == "tc_noskip":
                     check(torch.equal(got, kv.sparse_conv_variant(feats, nbr, w, "tc")),
                           f"K7 {label}: tc_noskip differs from tc")
+                if mode == "bf16":
+                    check(bits_equal(got, new16), f"K7 {label}: bf16 differs from sparse_conv")
+                if mode == "bf16_noskip":
+                    check(bits_equal(got, kv.sparse_conv_variant(x16, nbr, w16, "bf16")),
+                          f"K7 {label}: bf16_noskip differs from bf16")
                 if mode == "tc_1xtf32":
                     exact = kv.sparse_conv_variant_plain(feats, nbr, w, "tc")
                     one_tf32[label] = ((got - exact).abs().max().item()
                                        / max(exact.abs().max().item(), 1.0))
-            plain_ms = kernel_ms(lambda: kv.sparse_conv_variant_plain(feats, nbr, w, mode))
+            plain_ms = kernel_ms(lambda: kv.sparse_conv_variant_plain(x, nbr, wm, mode))
             out[(label, mode)] = (max(errs), plain_ms)
             print(f"kernel sparse_conv_variants (K7) {label} {mode}: max|d| {max(errs):.3e} at "
                   f"tiles {tiles}, plain {plain_ms:.4f} ms")
         print(f"kernel sparse_conv_variants (K7) {label}: current at tile 64 (the scalar loop) "
               f"within {FP32_RTOL_KERNEL:g} of sparse_conv without epilogue, noskip equal to "
               f"current bit for bit; tc equal to sparse_conv without epilogue and tc_noskip to "
-              f"tc bit for bit; tc_1xtf32 max|d| / max(|fp32 plain|, 1) {one_tf32[label]:.3e}")
+              f"tc bit for bit; bf16 equal to sparse_conv on bf16 operands without epilogue and "
+              f"bf16_noskip to bf16 bit for bit; tc_1xtf32 max|d| / max(|fp32 plain|, 1) "
+              f"{one_tf32[label]:.3e}")
     return out, one_tf32
 
 
@@ -2764,20 +2806,27 @@ def bf16_kernel_phase(sp, cases, fwd32, dw32):
     shift fp32). K1/K2 with and without the epilogue against the bf16 plain
     version (fp32 product and epilogue, one rounding): every valid element
     within one bf16 rounding (2^-7 of |plain|) plus the fp32 order gate
-    (1e-4 of the scale); the count of elements that differ. K3 against its
+    (1e-4 of the scale); the count of elements that differ; equal bits
+    across two calls; what the launch runs (``sp.sparse_conv_bf16_plan``:
+    registers, spills, resident blocks an SM, stages, grid). K3 against its
     plain version (fp32 dW of bf16 rows: the products exact in fp32) within
     1e-4 * max(|plain|, 1), equal bits across two calls. Times (median of
     20), bounds (the bytes at bf16 rows; one bf16 product a useful
     multiply-add at 989 TFLOP/s) and shares, beside the fp32 kernels' times
-    of phases 3-4. Returns two lists of per-shape records."""
+    of phases 3-4 (None: not run) and K1/K2 bf16's recorded times before
+    its redesign (``BF16_MS_BEFORE``, printed and not returned). Returns the
+    two lists of per-shape records."""
     fwd, dw = [], []
+    fwd32 = fwd32 or [None] * len(cases)
+    dw32 = dw32 or [None] * len(cases)
     for (label, (feats, nbr, w), kw, valid, _, step_launches), f32, d32 in zip(cases, fwd32, dw32):
         K, Cin, Cout = w.shape
         hits = int((nbr >= 0).sum())
         x, w16 = feats.bfloat16(), w.bfloat16()
         epi16 = dict(kw, **({"residual": kw["residual"].bfloat16()} if "residual" in kw else {}))
         row = {"shape": label, "hits": hits, "valid_out": int(valid.sum()),
-               "fp32_ms": f32["ms"], "fp32_ms_no_epilogue": f32["ms_no_epilogue"]}
+               "fp32_ms": f32 and f32["ms"], "fp32_ms_no_epilogue": f32 and f32["ms_no_epilogue"],
+               "plan": sp.sparse_conv_bf16_plan(nbr.shape[1], K, Cin, Cout)}
         for tag, epi in (("", epi16), ("_no_epilogue", {})):
             got = sp.sparse_conv(x, nbr, w16, **epi)
             want = sp.sparse_conv_plain(x, nbr, w16, **epi)
@@ -2788,6 +2837,8 @@ def bf16_kernel_phase(sp, cases, fwd32, dw32):
             bad = int((d.abs() > BF16_REL * ref.abs() + FP32_RTOL_KERNEL * scale).sum())
             check(got.dtype == torch.bfloat16 and bad == 0,
                   f"bf16 {label}{tag}: {bad} elements past one bf16 rounding of plain")
+            check(bits_equal(sp.sparse_conv(x, nbr, w16, **epi), got),
+                  f"bf16 {label}{tag}: not repeatable")
             moved = nbytes(x, nbr, w16, got, *(v for v in epi.values() if torch.is_tensor(v)))
             b_ms, b_by = bound(2 * hits * Cin * Cout, moved, BF16_FLOPS)
             ms = kernel_ms(lambda: sp.sparse_conv(x, nbr, w16, **epi))
@@ -2797,13 +2848,17 @@ def bf16_kernel_phase(sp, cases, fwd32, dw32):
                         f"ms{tag}": ms, f"plain_ms{tag}": plain_ms, f"bound_ms{tag}": b_ms,
                         f"bound_by{tag}": b_by, f"share{tag}": b_ms / ms})
         fwd.append(row)
+        fp32 = (f" (fp32 {f32['ms']:.4f})", f" (fp32 {f32['ms_no_epilogue']:.4f})") if f32 \
+            else ("", "")
         print(f"kernel sparse_conv_bf16 {label}: {row['elements_differ']} of {row['elements']} "
               f"elements differ from plain (max|d| {row['max_abs_err']:.3e}; without epilogue "
               f"{row['elements_differ_no_epilogue']}, {row['max_abs_err_no_epilogue']:.3e}), "
-              f"kernel {row['ms']:.4f} ms (fp32 {f32['ms']:.4f}), plain {row['plain_ms']:.4f} "
-              f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), {row['share']:.3f} of "
-              f"bound; without epilogue {row['ms_no_epilogue']:.4f} ms (fp32 "
-              f"{f32['ms_no_epilogue']:.4f}), {row['share_no_epilogue']:.3f} of bound")
+              f"kernel {row['ms']:.4f} ms{fp32[0]} against {BF16_MS_BEFORE[label]:.4f} ms recorded "
+              f"before its redesign: {BF16_MS_BEFORE[label] / row['ms']:.2f}x; plain "
+              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+              f"{row['share']:.3f} of bound; without epilogue {row['ms_no_epilogue']:.4f} "
+              f"ms{fp32[1]}, {row['share_no_epilogue']:.3f} of bound; plan "
+              + ", ".join(f"{k} {v}" for k, v in row["plan"].items()))
 
         dout = torch.randn(nbr.shape[1], Cout, device=DEVICE,
                            generator=torch.Generator(device=DEVICE).manual_seed(hits))
@@ -2823,10 +2878,18 @@ def bf16_kernel_phase(sp, cases, fwd32, dw32):
         plain_ms = kernel_ms(lambda: sp.sparse_conv_dw_plain(x, nbr, dout))
         dw.append({"shape": label, "hits": hits, "max_abs_err": err, "ms": ms,
                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                   "share": b_ms / ms, "fp32_ms": d32["ms"], "step_launches": step_launches})
+                   "share": b_ms / ms, "fp32_ms": d32 and d32["ms"],
+                   "step_launches": step_launches})
+        fp32 = f" (fp32 {d32['ms']:.4f})" if d32 else ""
         print(f"kernel sparse_conv_dw_bf16 {label}: max|d| {err:.3e} (scale {scale:.3e}), "
-              f"kernel {ms:.4f} ms (fp32 {d32['ms']:.4f}), plain {plain_ms:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by}), {b_ms / ms:.3f} of bound")
+              f"kernel {ms:.4f} ms{fp32}, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"{b_ms / ms:.3f} of bound")
+    frame = sum(BF16_FRAME_LAUNCHES[r["shape"]] * r["ms"] for r in fwd)
+    frame_before = sum(BF16_FRAME_LAUNCHES[r["shape"]] * BF16_MS_BEFORE[r["shape"]] for r in fwd)
+    frame_bound = sum(BF16_FRAME_LAUNCHES[r["shape"]] * r["bound_ms"] for r in fwd)
+    print(f"kernel sparse_conv_bf16: the bf16 frame's {sum(BF16_FRAME_LAUNCHES.values())} launches "
+          f"at these shapes (BF16_FRAME_LAUNCHES a shape) {frame:.4f} ms (recorded before the "
+          f"redesign {frame_before:.4f} ms, bound {frame_bound:.4f} ms)")
     return fwd, dw
 
 
@@ -3861,6 +3924,55 @@ def long_tail_only() -> int:
     return 0
 
 
+def sparse_kernels_only() -> int:
+    """``python3 chip_smoke.py --sparse-kernels``: the three sparse-conv
+    sources built (one nvcc each, started together) and their ptxas lines,
+    then phase 5b and phase 7 alone at the LiDAR branch's shapes: K1/K2 bf16
+    and K3 bf16 against their plain versions, K1/K2 bf16's plans and times
+    beside its times before the redesign, K7's three families against their
+    plain versions and the bf16 family's breakdown (phase 14's, here
+    alone); the results as a JSON
+    line. A quick check of the sparse-conv kernels."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from bevfusion_tpu_torch import native
+    from bevfusion_tpu_torch.ops import sparse_conv as sp
+    from bevfusion_tpu_torch.runtime.flagship import batch_to, build_lidar_slice
+    from bevfusion_tpu_torch.tools import bench_kernel_variants as kv
+
+    print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card_line()}")
+    t0 = time.perf_counter()
+    builds = {"sparse_conv": sp.build_kernels, "sparse_conv_dw": sp.build_dw_kernels,
+              "sparse_conv_variants": kv.build_kernels}
+    with ThreadPoolExecutor(len(builds)) as ex:
+        list(ex.map(lambda build: build(), builds.values()))
+    print(f"build: {time.perf_counter() - t0:.2f} s")
+    ptxas_lines(native, builds)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    _, cpu_model, cpu_batch = build_lidar_slice("cpu", num_points=120000, seed=0)
+    batch = batch_to(cpu_batch, DEVICE)
+    vox = cpu_model.lidar_voxelize(batch["points"], batch["points_mask"])
+    enc = cpu_model.encoders["lidar"]["backbone"]
+    cases = kernel_cases(enc, vox.feats[0], vox.coords[0], vox.mask[0], sp)
+    k7_cases = kv.stage_cases(enc, vox.coords[0], vox.mask[0])
+    fwd, dw = bf16_kernel_phase(sp, cases, None, None)
+    checks, _ = variant_checks(kv, sp, k7_cases)
+    rows = kv.breakdown(k7_cases, DEVICE, families=("bf16",))
+    kv.print_breakdown(rows)
+    finite_rows([m for r in rows for m in r["modes"].values()], "bf16 breakdown")
+    print(json.dumps({"sparse_conv_bf16": fwd, "sparse_conv_dw_bf16": dw, "bf16_breakdown": rows,
+                      "k7_max_abs_err": {f"{k[0]} {k[1]}": v[0] for k, v in checks.items()}}))
+    return 0
+
+
+def ptxas_lines(native, libs) -> None:
+    """Each library's ptxas lines: the kernel (demangled by c++filt where the
+    toolkit's cu++filt is there), its registers, shared memory and spills."""
+    for lib in libs:
+        for line in native.build_log(lib).read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"  ptxas {lib}: {line.strip()}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -3871,6 +3983,8 @@ def main() -> int:
         return gate_probe()
     if sys.argv[1:2] == ["--long-tail"]:
         return long_tail_only()
+    if sys.argv[1:2] == ["--sparse-kernels"]:
+        return sparse_kernels_only()
     t_start = time.perf_counter()
     # cuBLAS takes deterministic workspaces only if told before its first call
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -3908,10 +4022,7 @@ def main() -> int:
         list(ex.map(lambda build: build(), builds.values()))
     build_s = time.perf_counter() - t0
     print(f"build: {', '.join(builds)} in {build_s:.2f} s")
-    for lib in builds:
-        for line in native.build_log(lib).read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {lib}: {line.strip()}")
+    ptxas_lines(native, builds)
     for lib in ("sparse_conv", "sparse_conv_dw", "sparse_conv_variants"):
         lines = native.sass(lib).splitlines()
         hmma = sum("HMMA" in line for line in lines)

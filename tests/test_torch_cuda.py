@@ -856,24 +856,89 @@ def test_sparse_conv_bf16_kernel_matches_plain(cuda, cin, cout, strided, epilogu
 
 
 @pytest.mark.cuda
-def test_sparse_conv_bf16_kernel_misses(cuda):
+@pytest.mark.parametrize("c", [16, 64])
+def test_sparse_conv_bf16_kernel_misses(cuda, c):
     """Entries >= cap_in are misses; a tile every offset misses writes
-    epilogue(0) rounded to bf16."""
+    epilogue(0) rounded to bf16 (padded rows hold relu(shift + residual)),
+    with W resident (C = 16) and in the ring (C = 64)."""
     grid = sp.SparseGrid(30, 30, 10)
     ids = _sites(5, grid, 2000, 2100)
     nbr = sp.build_subm_rulebook(ids, grid)
     nbr[:, 128:192] = torch.where(torch.arange(27)[:, None] % 2 == 0, -1, 10 ** 6).int()
     want_nbr = torch.where(nbr >= nbr.shape[1], -1, nbr).int()
     g = torch.Generator().manual_seed(0)
-    feats = torch.randn(ids.shape[0], 16, generator=g).bfloat16().to(cuda)
-    w = (torch.randn(27, 16, 16, generator=g) / 20).bfloat16().to(cuda)
-    kw = _to(_epilogue_kw(16, nbr.shape[1], g), cuda)
+    feats = torch.randn(ids.shape[0], c, generator=g).bfloat16().to(cuda)
+    w = (torch.randn(27, c, c, generator=g) / (20 if c == 16 else 4 * c)).bfloat16().to(cuda)
+    kw = _to(_epilogue_kw(c, nbr.shape[1], g), cuda)
     kw["residual"] = kw["residual"].bfloat16()
     got = sp.sparse_conv(feats, nbr.to(cuda), w, **kw)
     torch.cuda.synchronize()
     _close_bf16(got, sp.sparse_conv_plain(feats, want_nbr.to(cuda), w, **kw))
     empty = torch.relu(kw["shift"] + kw["residual"][128:192].float()).bfloat16()
     assert torch.equal(got[128:192], empty)
+    no_shift = sp.sparse_conv(feats, nbr.to(cuda), w, shift=kw["shift"], relu=True)
+    assert torch.equal(no_shift[128:192], torch.relu(kw["shift"]).bfloat16().expand(64, c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,sites", [(16, 16, 40), (64, 64, 40), (32, 32, 2000),
+                                             (5, 16, 900)])
+def test_sparse_conv_bf16_kernel_small_grids(cuda, cin, cout, sites):
+    """A single tile (40 sites) and caps that are not a multiple of the
+    tile (64 sites a 16-row slab a warp): the kernel against its plain
+    version, equal bits across two calls, and its plan's grid one block a
+    tile."""
+    grid = sp.SparseGrid(20, 20, 10)
+    cap = sites + 23
+    ids = _sites(cin + sites, grid, sites, cap)
+    nbr = sp.build_subm_rulebook(ids, grid).to(cuda)
+    g = torch.Generator().manual_seed(sites)
+    feats = torch.randn(cap, cin, generator=g).bfloat16().to(cuda)
+    w = (torch.randn(27, cin, cout, generator=g) / (27 * cin) ** 0.5).bfloat16().to(cuda)
+    kw = _to(_epilogue_kw(cout, cap, g), cuda)
+    kw["residual"] = kw["residual"].bfloat16()
+    got = sp.sparse_conv(feats, nbr, w, **kw)
+    torch.cuda.synchronize()
+    _close_bf16(got, sp.sparse_conv_plain(feats, nbr, w, **kw))
+    assert torch.equal(sp.sparse_conv(feats, nbr, w, **kw), got)
+    plan = sp.sparse_conv_bf16_plan(cap, 27, cin, cout)
+    assert plan["grid"] == -(-cap // (64 * plan["slabs"]))
+    assert plan["blocks_per_sm"] >= 1 and plan["stages"] >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [5, 16, 32, 64])
+def test_bf16_variant_modes_match_plain_and_every_plan_the_same_bits(cuda, c):
+    """K7's bf16 family (K1/K2 bf16's loop): each mode within one bf16
+    rounding of its plain version, ``bf16`` equal to ``sparse_conv`` on the
+    bf16 operands without epilogue and ``bf16_noskip`` to ``bf16`` bit for
+    bit; and ``bf16`` at every depth of its ring (3-8 stages, 1-6 offsets
+    ahead) equal to ``sparse_conv`` bit for bit: the order of summation does
+    not depend on the plan."""
+    from bevfusion_tpu_torch.tools import bench_kernel_variants as kv
+
+    feats, nbr, _, w, _ = (t if t is None else t.to(cuda)
+                           for t in _conv_operands(c, c, False, seed=3))
+    x, w16 = feats.bfloat16(), w.bfloat16()
+    for mode in kv.BF16_MODES:
+        before = kv.sparse_conv_variant.launches_by_family["bf16"]
+        got = kv.sparse_conv_variant(x, nbr, w16, mode)
+        torch.cuda.synchronize()
+        assert kv.sparse_conv_variant.launches_by_family["bf16"] == before + 1
+        assert got.dtype == torch.bfloat16
+        _close_bf16(got, kv.sparse_conv_variant_plain(x, nbr, w16, mode))
+    want = sp.sparse_conv(x, nbr, w16)
+    assert torch.equal(kv.sparse_conv_variant(x, nbr, w16, "bf16"), want)
+    assert torch.equal(kv.sparse_conv_variant(x, nbr, w16, "bf16_noskip"), want)
+    plans = 0
+    for stages in range(3, 9):
+        try:
+            kv.bf16_plan(c, 27, nbr.shape[1], stages=stages)
+        except RuntimeError:
+            continue
+        plans += 1
+        assert torch.equal(kv.sparse_conv_variant(x, nbr, w16, "bf16", stages=stages), want), stages
+    assert plans >= 4
 
 
 @pytest.mark.cuda

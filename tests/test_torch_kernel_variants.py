@@ -11,7 +11,11 @@ at 1e-5 (fp32, only the summation order differs). The tensor-core
 family's plain versions are held to numpy in float64 at 1e-5 (fp32
 summation order), ``tc_1xtf32``'s with both operands rounded to TF32 first
 (its products are then exact in fp32), and ``tc``'s to the JAX
-``subm_gather_gemm``. The JAX tool's own
+``subm_gather_gemm``. The bf16 family's plain versions (bf16 operands, fp32
+sums, one rounding to bf16) are held to the same numpy sums within one bf16
+rounding (2^-7 relative) plus 1e-5 of the scale, and ``bf16``'s to the JAX
+``subm_gather_gemm`` on bf16 operands (fp32 sums, one rounding) within one
+bf16 rounding plus the fp32 order's 1e-4 of the scale. The JAX tool's own
 ``run_variant(mode="current")`` no longer computes the conv: it decodes
 the int16 window selectors as ``v // 256 - 1``, ``v % 256``, an encoding
 ``build_windowed_rulebook`` no longer emits (``(relp + 1) * 8 + slot``).
@@ -41,6 +45,7 @@ torch.set_num_threads(2)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CAP, SITES, BLK = 1024, 700, 256  # a 1024-site cap holding 700 sites, 256-site TPU blocks
+BF16_REL = 2.0 ** -7  # one bf16 rounding, relative
 
 
 @functools.lru_cache(maxsize=None)
@@ -123,22 +128,28 @@ def test_rejects_an_unknown_mode_or_tile():
         kv.sparse_conv_variant(feats, nbr, w, "current", 32)
 
 
-@pytest.mark.parametrize("bad", ["mode", "tile", "cin_ne_cout", "wide"])
-def test_tensor_core_modes_reject_what_they_do_not_take(bad):
-    """On the CPU too: an unknown mode, a tile other than K1/K2's 64, or
-    weights other than the submanifold convs' (Cin == Cout <= 64)."""
+@pytest.mark.parametrize("family", ["tc", "bf16"])
+@pytest.mark.parametrize("bad", ["mode", "tile", "cin_ne_cout", "wide", "dtype"])
+def test_tensor_core_modes_reject_what_they_do_not_take(bad, family):
+    """On the CPU too: an unknown mode, a tile other than K1/K2's 64, weights
+    other than the submanifold convs' (Cin == Cout <= 64), or operands of the
+    other family's dtype (fp32 for tc, bf16 for bf16)."""
     feats, nbr, w = _torch(*_scan(16))
-    mode, tile = "tc", 64
+    dtype = torch.bfloat16 if family == "bf16" else torch.float32
+    feats, w = feats.to(dtype), w.to(dtype)
+    mode, tile = family, 64
     if bad == "mode":
-        mode = "tc_bf16"
+        mode = f"{family}_bf8"
     elif bad == "tile":
         tile = 128
     elif bad == "cin_ne_cout":
         w = w[:, :, :8].contiguous()
+    elif bad == "wide":
+        feats, w = feats.repeat(1, 5), torch.zeros(27, 80, 80, dtype=dtype)
     else:
-        feats, w = feats.repeat(1, 5), torch.zeros(27, 80, 80)
+        feats, w = feats.to(torch.float16), w.to(torch.float16)
     launches = kv.sparse_conv_variant.launches
-    with pytest.raises(ValueError):
+    with pytest.raises(TypeError if bad == "dtype" else ValueError):
         kv.sparse_conv_variant(feats, nbr, w, mode, tile)
     assert kv.sparse_conv_variant.launches == launches
 
@@ -157,19 +168,23 @@ def _np_tf32(a):
     return ((bits + 0x1000) & ~0x1FFF).view(np.float32)
 
 
-@pytest.mark.parametrize("mode", kv.TC_MODES)
+@pytest.mark.parametrize("mode", kv.TC_MODES + kv.BF16_MODES)
 def test_tensor_core_modes_plain_match_numpy(mode):
-    """Each tensor-core mode's plain version against numpy in float64 at
-    1e-5 * max(|ref|, 1); the CPU wrapper takes it without a launch."""
+    """Each tensor-core and bf16 mode's plain version against numpy in
+    float64: at 1e-5 * max(|ref|, 1) in fp32, within one bf16 rounding plus
+    that for the bf16 family (its operands bf16-valued, so numpy sees the
+    same numbers); the CPU wrapper takes it without a launch."""
     feats, nbr, w = _scan(32, seed=2)
-    feats = feats + np.random.RandomState(3).randn(*feats.shape).astype(np.float32) * 1e-3
+    bf16 = mode in kv.BF16_MODES
+    if not bf16:
+        feats = feats + np.random.RandomState(3).randn(*feats.shape).astype(np.float32) * 1e-3
     hit = nbr >= 0
     K = nbr.shape[0]
-    if mode in ("tc", "tc_noskip"):
+    if mode in ("tc", "tc_noskip", "bf16", "bf16_noskip"):
         want = _np_conv(feats, nbr, w)
-    elif mode == "tc_nogather":
+    elif mode in ("tc_nogather", "bf16_nogather"):
         want = sum(hit[k][:, None] * (feats.astype(np.float64) @ w[k]) for k in range(K))
-    elif mode == "tc_noproduct":
+    elif mode in ("tc_noproduct", "bf16_noproduct"):
         want = sum(np.where(hit[k][:, None], feats[np.maximum(nbr[k], 0)], 0.0).astype(np.float64)
                    for k in range(K))
     else:
@@ -177,11 +192,18 @@ def test_tensor_core_modes_plain_match_numpy(mode):
         # the operands did change: one TF32 rounding each moves the conv
         assert np.abs(_np_conv(feats, nbr, w) - want).max() > 1e-5 * np.abs(want).max()
     args = _torch(feats, nbr, w)
-    got = kv.sparse_conv_variant_plain(*args, mode).numpy()
-    assert got.shape == want.shape and got.dtype == np.float32
-    assert np.abs(got - want).max() <= 1e-5 * max(np.abs(want).max(), 1.0)
+    if bf16:
+        args = [args[0].bfloat16(), args[1], args[2].bfloat16()]
+    got_t = kv.sparse_conv_variant_plain(*args, mode)
+    got = got_t.float().numpy()
+    assert got.shape == want.shape and got_t.dtype == (torch.bfloat16 if bf16 else torch.float32)
+    scale = max(np.abs(want).max(), 1.0)
+    limit = (BF16_REL * np.abs(want) if bf16 else 0.0) + 1e-5 * scale
+    assert (np.abs(got - want) <= limit).all()
+    if bf16:  # one rounding of the fp32 sum: not the float64 sum itself
+        assert (got != want).any()
     launches = kv.sparse_conv_variant.launches
-    assert torch.equal(kv.sparse_conv_variant(*args, mode), torch.from_numpy(got))
+    assert torch.equal(kv.sparse_conv_variant(*args, mode), got_t)
     assert kv.sparse_conv_variant.launches == launches
 
 
@@ -198,16 +220,27 @@ def test_tf32_rounding_is_the_kernels():
     assert np.array_equal(got.numpy().view(np.int32), _np_tf32(x.numpy()).view(np.int32))
 
 
+@pytest.mark.parametrize("mode", ["tc", "bf16"])
 @pytest.mark.parametrize("C", [16, 32])
-def test_tc_plain_matches_the_jax_gather_gemm(C):
+def test_tc_plain_matches_the_jax_gather_gemm(C, mode):
     """``tc``'s plain version (K1/K2 without epilogue) against the JAX
-    package's ``subm_gather_gemm`` on the same fp32 operands."""
+    package's ``subm_gather_gemm`` on the same fp32 operands at 1e-5;
+    ``bf16``'s (K1/K2 bf16 without epilogue) against it on the same bf16
+    operands (fp32 sums, one rounding to bf16 in both) within one bf16
+    rounding plus 1e-4 of the scale: the two fp32 sums differ in order,
+    then each rounds once."""
     feats, nbr, w = _scan(C, seed=4)
-    want = np.asarray(jsp.subm_gather_gemm(jnp.asarray(feats), jnp.asarray(nbr.T),
-                                           jnp.asarray(w)))
-    got = kv.sparse_conv_variant_plain(*_torch(feats, nbr, w), "tc").numpy()
+    dt = jnp.bfloat16 if mode == "bf16" else jnp.float32
+    want = np.asarray(jsp.subm_gather_gemm(jnp.asarray(feats, dt), jnp.asarray(nbr.T),
+                                           jnp.asarray(w, dt)), np.float32)
+    args = _torch(feats, nbr, w)
+    if mode == "bf16":
+        args = [args[0].bfloat16(), args[1], args[2].bfloat16()]
+    got = kv.sparse_conv_variant_plain(*args, mode).float().numpy()
     assert np.abs(want).max() > 0.5
-    assert np.abs(got - want).max() <= 1e-5 * max(np.abs(want).max(), 1.0)
+    scale = max(np.abs(want).max(), 1.0)
+    limit = BF16_REL * np.abs(want) + 1e-4 * scale if mode == "bf16" else 1e-5 * scale
+    assert (np.abs(got - want) <= limit).all()
 
 
 def test_slab_fill_counts_the_slabs_the_kernel_multiplies():
@@ -236,6 +269,8 @@ def test_slab_fill_counts_the_slabs_the_kernel_multiplies():
 def test_family_of_each_mode():
     assert {kv.family_of(m) for m in kv.MODES} == {"scalar"}
     assert {kv.family_of(m) for m in kv.TC_MODES} == {"tc"}
+    assert {kv.family_of(m) for m in kv.BF16_MODES} == {"bf16"}
+    assert kv.ALL_MODES == kv.MODES + kv.TC_MODES + kv.BF16_MODES
     with pytest.raises(ValueError):
         kv.family_of("nohot")
 
@@ -274,21 +309,26 @@ def test_the_jax_tools_current_mode_is_stale():
 
 def test_breakdown_on_the_cpu():
     """The tool's breakdown runs at a tiny size on the CPU (host times, not
-    the card's): every mode's time and bound in both families, the split,
-    noskip equal to current and tc_noskip to tc, and the slab fill."""
+    the card's): every mode's time and bound in the three families, the
+    split, noskip equal to current, tc_noskip to tc and bf16_noskip to bf16,
+    and the slab fill; a subset of the families on request."""
     feats, nbr, w = _torch(*_scan(16))
     rows = kv.breakdown([("tiny", feats, nbr, w)], "cpu", iters=1, warmup=0)
     assert [(r["family"], r["tile"]) for r in rows] == [("scalar", t) for t in kv.TILES] + [
-        ("tc", kv.TC_TILE)]
+        ("tc", kv.TC_TILE), ("bf16", kv.TC_TILE)]
     for r in rows:
         assert set(r["modes"]) == set(kv.FAMILIES[r["family"]])
         assert all(np.isfinite(m["ms"]) and m["bound_ms"] > 0 and m["bound_fp32_fma_ms"] > 0
                    for m in r["modes"].values())
         assert r["noskip_vs"] == 0.0
         assert np.isfinite(r["gather_ms"] + r["product_ms"] + r["skip_saves_ms"])
-    tc = rows[-1]
-    assert np.isfinite(tc["split_ms"])
-    assert tc["slab_fill"] == kv.slab_fill(nbr, CAP) and 0 < tc["slab_fill"]["fill"] <= 1
+    tc, b16 = rows[-2:]
+    assert np.isfinite(tc["split_ms"]) and "plan" not in b16  # no plan off the card
+    assert np.isfinite(b16["tiles_ms"]) and "tiles_ms" not in tc
+    for r in (tc, b16):
+        assert r["slab_fill"] == kv.slab_fill(nbr, CAP) and 0 < r["slab_fill"]["fill"] <= 1
+    only = kv.breakdown([("tiny", feats, nbr, w)], "cpu", iters=1, warmup=0, families=("bf16",))
+    assert [r["family"] for r in only] == ["bf16"]
     hits = int((nbr >= 0).sum())
     t_ops = 2 * hits * 16 * 16 / 67e12 * 1e3
     t_bytes = (2 * CAP * 16 * 4 + 27 * CAP * 4 + 27 * 256 * 4) / 3.35e12 * 1e3
@@ -304,3 +344,12 @@ def test_breakdown_on_the_cpu():
         t_tc = products * 2 * hits * 16 * 16 / 495e12 * 1e3
         assert kv.mode_bound(feats, nbr, w, feats, mode)[0] == pytest.approx(max(t_tc, t_bytes))
         assert kv.fma_bound(feats, nbr, w, feats, mode) == pytest.approx(max(t_ops, t_bytes))
+    # bf16: the bf16 operands' bytes, one bf16 product a useful multiply-add at 989 TFLOP/s
+    x16, w16 = feats.bfloat16(), w.bfloat16()
+    t_bytes16 = (2 * CAP * 16 * 2 + 27 * CAP * 4 + 27 * 256 * 2) / 3.35e12 * 1e3
+    for mode in ("bf16", "bf16_noskip", "bf16_nogather"):
+        t_tc = 2 * hits * 16 * 16 / 989e12 * 1e3
+        assert kv.mode_bound(x16, nbr, w16, x16, mode)[0] == pytest.approx(max(t_tc, t_bytes16))
+    b, _ = kv.mode_bound(x16, nbr, w16, x16, "bf16_noproduct")
+    assert b == pytest.approx(max(hits * 16 / 67e12 * 1e3,
+                                  (2 * CAP * 16 * 2 + 27 * CAP * 4) / 3.35e12 * 1e3))
