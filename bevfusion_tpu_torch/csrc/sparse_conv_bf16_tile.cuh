@@ -42,15 +42,6 @@ struct ParamsBf16 {
   int pair_out;  // out (and residual) rows in 4-byte pairs
 };
 
-// how a row of features or of W[k] reaches shared memory: 16-byte cp.async
-// copies (a multiple of 8 bf16, 16-byte aligned), the aligned 4-byte words
-// that cover a row of 1, 3 or 5 bf16 (feature rows only: the input conv's
-// 10-byte rows, 2-byte aligned, which cp.async cannot take; the words land
-// one column early for a row that starts mid-word, and the warp shifts
-// those rows into place once they have landed), or 2-byte loads stored as
-// they arrive (any other width; no path of the models runs it)
-enum RowCopy { kRows16 = 0, kRowsWords = 1, kRowsSync = 2 };
-
 constexpr int kWarpsBf16 = 4;
 constexpr int kThreadsBf16 = 32 * kWarpsBf16;
 constexpr int kMinStagesBf16 = 3;  // one offset ahead and a stage of slack between the warps
@@ -91,65 +82,6 @@ __host__ __device__ SmemBf16 smem_bf16(int num_offsets, int stages) {
   s.list = s.masks + static_cast<size_t>(kWarpsBf16) * num_offsets * 4;
   s.total = (s.list + static_cast<size_t>(kWarpsBf16) * num_offsets * 4 + 15) / 16 * 16;
   return s;
-}
-
-// copies `bytes` (0..4) of the 4-byte word at `src`, zeros for the rest
-__device__ __forceinline__ void cp_async4_bf16(uint16_t* dst, const void* src, int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-// one arrival (release: this thread's earlier shared-memory writes are seen
-// by whoever waits on the phase)
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("{\n .reg .b64 state;\n mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-// the arrival of this thread's cp.async copies: when they have all landed,
-// one arrival (noinc); or (inc) the phase also waits for them, and the
-// thread arrives apart
-__device__ __forceinline__ void mbar_arrive_copies(uint64_t* bar, bool noinc) {
-  if (noinc)
-    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
-                 : "memory");
-  else
-    asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
-                 : "memory");
-}
-
-// wait until the phase of `parity` has completed (acquire)
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
 }
 
 // acc[h][nt] += rows[slab h] @ W[:, 8 nt : 8 nt + 8] for each slab h whose
@@ -328,19 +260,8 @@ __global__ void __launch_bounds__(kThreadsBf16,
         }
       }
     } else if (p.rows == kRowsWords) {  // row r: lane r, the three words that cover it
-      for (int r = lane; r < R; r += 32) {
-        if (!hit(r)) continue;
-        const int src = src_rows[r];
-        const size_t b = static_cast<size_t>(src < 0 ? 0 : src) * p.cin * 2;
-        const size_t end = src < 0 ? 0 : b + p.cin * 2, w0 = b & ~static_cast<size_t>(3);
-        const unsigned char* feats = reinterpret_cast<const unsigned char*>(p.feats);
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {  // bytes past the row (all, for a miss): zeros
-          const size_t ws = w0 + 4 * i;
-          const int bytes = ws >= end ? 0 : end - ws >= 4 ? 4 : static_cast<int>(end - ws);
-          cp_async4_bf16(rows + r * L::kRowStride + 2 * i, feats + (bytes ? ws : 0), bytes);
-        }
-      }
+      for (int r = lane; r < R; r += 32)
+        if (hit(r)) cp_async_row_words(rows + r * L::kRowStride, p.feats, src_rows[r], p.cin);
     } else {
       for (int e = lane; e < R * p.cin; e += 32) {
         const int r = e / p.cin, c = e % p.cin, src = src_rows[r];
@@ -391,12 +312,8 @@ __global__ void __launch_bounds__(kThreadsBf16,
       if (!FAST && p.rows == kRowsWords) {  // rows that start mid-word: one column on
         for (int r = lane; r < R; r += 32) {
           const int src = nbr_w[(entry & 0xffff) * R + r];
-          if ((H == 1 || (slabs >> (r / 16) & 1)) && src >= 0 && (src * p.cin & 1)) {
-            uint4* q = reinterpret_cast<uint4*>(rows + r * L::kRowStride);
-            const uint4 v = *q;  // columns -1..6; 7 is zero
-            *q = make_uint4(__funnelshift_r(v.x, v.y, 16), __funnelshift_r(v.y, v.z, 16),
-                            __funnelshift_r(v.z, v.w, 16), v.w >> 16);
-          }
+          if ((H == 1 || (slabs >> (r / 16) & 1)) && src >= 0 && (src * p.cin & 1))
+            shift_row_words(rows + r * L::kRowStride);
         }
         __syncwarp();
       }

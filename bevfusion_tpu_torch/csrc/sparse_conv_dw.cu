@@ -1,5 +1,6 @@
-// Weight gradient of the sparse gather-GEMM conv, fp32 in and out (and a
-// bf16 form: bf16 in, fp32 out).
+// Weight gradient of the sparse gather-GEMM conv, fp32 in and out (and,
+// below, the C interface of its bf16 form, whose kernels and design note are
+// in sparse_conv_dw_bf16.cuh: bf16 in, fp32 out; its pass 2 is this form's).
 //
 //   dW[k, ci, co] = sum_o feats[nbr[k, o], ci] * dout[o, co],
 //   nbr = -1 or nbr >= cap_in skips
@@ -59,8 +60,9 @@
 //   against float64, and shows that one accumulator carried on the tensor
 //   cores through a chunk misses the same gate.
 // - The warps' sums go through shared memory and are added in warp-group
-//   order; each block stores its [Cin, Cout] partial once; pass 2 adds the
-//   partials of each dW element in chunk order. No atomics and a fixed
+//   order; each block stores its [Cin, Cout] partial once; pass 2
+//   (sparse_conv_dw_bf16.cuh:sum_parts_kernel, shared with the bf16 form)
+//   adds the partials of each dW element in chunk order. No atomics and a fixed
 //   order of summation: two calls give equal bits. The partial scratch,
 //   chunks x K x Cin x Cout fp32, is written once and read once.
 //
@@ -86,22 +88,12 @@
 // product (cuBLAS fp32: 3.9e-7 to 1.2e-6). What holds the C = 32 shapes
 // lowest is not measured here (no profiler runs on that machine).
 
-// The bf16 form (bevf_sparse_conv_dw_bf16) is the TPU kernel's contract:
-// bf16 feats and dout, fp32 dW. It is the same kernel over bf16 rows: the
-// same hit pairs, ring, warp split and fixed-order reductions, with one
-// mma.sync m16n8k16 bf16 product (fp32 sums, exact products) a 16-site step
-// in place of the three TF32 products, each step's product from a zero
-// accumulator added on the FP32 units, as above. A ring stage holds the P
-// and Q rows of 16 x max(warp groups, 4) hit pairs; rows of 16-byte
-// multiples come by 16-byte cp.async copies, other widths (Cin = 5) by
-// synchronous 2-byte loads. The bound is 2 * Cin * Cout operations a hit
-// pair at 989 TFLOP/s, or half the fp32 form's row bytes.
-
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
-#include "bf16_mma.cuh"
+#include "sparse_conv_dw_bf16.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -114,16 +106,14 @@ constexpr size_t kSmPerSm = 233472;  // shared memory an SM, 1 KB of it reserved
 constexpr size_t kMaxSmem = 232448;  // the most one block may take
 
 // a row stride >= width that is 8 or 24 mod 32 elements: the fragment loads
-// (lanes 4 apart in the row index, 1 apart in the column; for bf16, lanes 4
-// apart read rows two apart) hit 32 banks
+// (lanes 4 apart in the row index, 1 apart in the column) hit 32 banks
 constexpr int conflict_free_stride(int width) {
   return width % 32 == 8 || width % 32 == 24 ? width : conflict_free_stride(width + 4);
 }
 
-// T: float (the 3xTF32 form, 8-site mma steps) or uint16_t (bf16 bits, 16-site steps)
-template <typename T, int MP, int NQ>
+template <int MP, int NQ>
 struct Layout {
-  static constexpr int kDepth = sizeof(T) == 4 ? 8 : 16;  // sites an mma step
+  static constexpr int kDepth = 8;                        // sites an mma step
   static constexpr int kSlabs = MP / 16;                  // 16-row slabs of D
   static constexpr int kGroups = kWarps / kSlabs;         // warps that share a slab
   static constexpr int kSteps = kGroups > 4 ? kGroups : 4;  // mma steps a stage
@@ -132,22 +122,21 @@ struct Layout {
   static constexpr int kStrideQ = conflict_free_stride(NQ);
   static constexpr int kStageP = kSites * kStrideP;
   static constexpr int kStage = kStageP + kSites * kStrideQ;  // elements, 16-byte multiples
-  static constexpr size_t kStageBytes = static_cast<size_t>(kStage) * sizeof(T);
+  static constexpr size_t kStageBytes = static_cast<size_t>(kStage) * sizeof(float);
   static_assert(kSlabs * kGroups == kWarps && kSteps % kGroups == 0, "warp split");
   static_assert(kStageBytes % 16 == 0, "stage alignment");
   // the warps' fp32 sums [kGroups][MP][NQ] reuse two stages of the ring
   static_assert(kGroups * MP * NQ * sizeof(float) <= 2 * kStageBytes, "reduction scratch");
 };
 
-template <typename T>
 struct Params {
-  const T* feats;
+  const float* feats;
   const int* nbr;
-  const T* dout;
+  const float* dout;
   float* partial;
   int cap_in, cap_out, num_offsets, cin, cout, chunk, stages;
   int p_is_dout;  // P = dout (Cout >= Cin), else P = feats
-  int vec_feats;  // feats rows 16-byte aligned: 16-byte copies, else 4-byte (bf16: 2-byte loads)
+  int vec_feats;  // feats rows 16-byte aligned: 16-byte copies, else 4-byte
   int vec_dout;   // the same for dout
 };
 
@@ -178,32 +167,6 @@ __device__ __forceinline__ void fetch_rows(float* dst, const float* base, int wi
   }
 }
 
-// the bf16 form: 16-byte copies of 8 channels, else synchronous 2-byte loads
-template <int WIDTH, int STRIDE, int SITES>
-__device__ __forceinline__ void fetch_rows(uint16_t* dst, const uint16_t* base, int width,
-                                           bool vec, const int* list, int first, int n_hits,
-                                           int tid) {
-  if (vec) {
-    constexpr int kChunks = WIDTH / 8;
-    for (int e = tid; e < SITES * kChunks; e += kThreads) {
-      const int r = e / kChunks, c = (e % kChunks) * 8;
-      if (c < width) {
-        const bool hit = first + r < n_hits;
-        const int row = hit ? list[first + r] : 0;
-        cp_async16_bf16(dst + r * STRIDE + c, base + static_cast<size_t>(row) * width + c, hit);
-      }
-    }
-  } else {
-    for (int e = tid; e < SITES * WIDTH; e += kThreads) {
-      const int r = e / WIDTH, c = e % WIDTH;
-      if (c < width) {
-        const bool hit = first + r < n_hits;
-        dst[r * STRIDE + c] = hit ? base[static_cast<size_t>(list[first + r]) * width + c] : 0;
-      }
-    }
-  }
-}
-
 // acc + small += P[steps of this warp's group]^T Q on this warp's slab,
 // 3xTF32: big*big' of each 8-deep step comes from a zero accumulator and
 // is added into acc on the FP32 units; the small terms accumulate in small
@@ -212,7 +175,7 @@ template <int MP, int NQ>
 __device__ __forceinline__ void mma_stage(const float* stage, float (&acc)[NQ / 8][4],
                                           float (&small)[NQ / 8][4], int slab, int group,
                                           int lane) {
-  using L = Layout<float, MP, NQ>;
+  using L = Layout<MP, NQ>;
   const int g = lane >> 2, t = lane & 3;
   const float* pa = stage + t * L::kStrideP + slab * 16 + g;
   const float* qb = stage + L::kStageP + t * L::kStrideQ + g;
@@ -241,46 +204,13 @@ __device__ __forceinline__ void mma_stage(const float* stage, float (&acc)[NQ / 
   }
 }
 
-// the bf16 form: acc += P^T Q, one bf16 mma a 16-site step from a zero
-// accumulator, added into acc on the FP32 units (small stays 0). Lane
-// (g, t) packs A[g][2t], A[g][2t + 1] = P[s + 2t][g], P[s + 2t + 1][g].
 template <int MP, int NQ>
-__device__ __forceinline__ void mma_stage(const uint16_t* stage, float (&acc)[NQ / 8][4],
-                                          float (&)[NQ / 8][4], int slab, int group, int lane) {
-  using L = Layout<uint16_t, MP, NQ>;
-  const int g = lane >> 2, t = lane & 3;
-  const uint16_t* pa = stage + 2 * t * L::kStrideP + slab * 16 + g;
-  const uint16_t* qb = stage + L::kStageP + 2 * t * L::kStrideQ + g;
-  constexpr int SP = L::kStrideP, SQ = L::kStrideQ;
-#pragma unroll
-  for (int i = 0; i < L::kSteps / L::kGroups; ++i) {
-    const int step = group + i * L::kGroups;
-    const uint16_t* a = pa + step * 16 * SP;
-    const uint16_t* b = qb + step * 16 * SQ;
-    uint32_t af[4];
-    af[0] = pack_bf16(a[0], a[SP]);
-    af[1] = pack_bf16(a[8], a[SP + 8]);
-    af[2] = pack_bf16(a[8 * SP], a[9 * SP]);
-    af[3] = pack_bf16(a[8 * SP + 8], a[9 * SP + 8]);
-#pragma unroll
-    for (int nt = 0; nt < NQ / 8; ++nt) {
-      const uint32_t b0 = pack_bf16(b[nt * 8], b[SQ + nt * 8]);
-      const uint32_t b1 = pack_bf16(b[8 * SQ + nt * 8], b[9 * SQ + nt * 8]);
-      float d[4] = {0.f, 0.f, 0.f, 0.f};
-      mma_bf16(d, af, b0, b1);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[nt][j] += d[j];
-    }
-  }
-}
-
-template <typename T, int MP, int NQ>
-__global__ void __launch_bounds__(kThreads) sparse_conv_dw_tc_kernel(const Params<T> p) {
-  using L = Layout<T, MP, NQ>;
+__global__ void __launch_bounds__(kThreads) sparse_conv_dw_tc_kernel(const Params p) {
+  using L = Layout<MP, NQ>;
   constexpr int NT = NQ / 8;
   extern __shared__ __align__(16) float smem[];
   const int S = p.stages;
-  T* ring = reinterpret_cast<T*>(smem);                        // [S][kStage]
+  float* ring = smem;                                          // [S][kStage]
   int* src_s = reinterpret_cast<int*>(ring + S * L::kStage);  // [chunk] hit pairs: feats row
   int* out_s = src_s + p.chunk;                                // [chunk] and output site
   int* counts = out_s + p.chunk;                               // [2][kLoads * kWarps]
@@ -341,14 +271,14 @@ __global__ void __launch_bounds__(kThreads) sparse_conv_dw_tc_kernel(const Param
   }
   __syncthreads();  // the hit list, and the zeros before any copy lands
 
-  const T* p_base = p.p_is_dout ? p.dout : p.feats;
-  const T* q_base = p.p_is_dout ? p.feats : p.dout;
+  const float* p_base = p.p_is_dout ? p.dout : p.feats;
+  const float* q_base = p.p_is_dout ? p.feats : p.dout;
   const bool p_vec = p.p_is_dout ? p.vec_dout : p.vec_feats;
   const bool q_vec = p.p_is_dout ? p.vec_feats : p.vec_dout;
   const int* p_list = p.p_is_dout ? out_s : src_s;
   const int* q_list = p.p_is_dout ? src_s : out_s;
   auto fetch = [&](int i) {
-    T* stage = ring + (i % S) * L::kStage;
+    float* stage = ring + (i % S) * L::kStage;
     const int first = i * L::kSites;
     fetch_rows<MP, L::kStrideP, L::kSites>(stage, p_base, wp, p_vec, p_list, first, n_hits, tid);
     fetch_rows<NQ, L::kStrideQ, L::kSites>(stage + L::kStageP, q_base, wq, q_vec, q_list, first,
@@ -402,25 +332,14 @@ __global__ void __launch_bounds__(kThreads) sparse_conv_dw_tc_kernel(const Param
   }
 }
 
-// dw[i] = sum over chunks c, in order, of partial[c][i]; i < n = K*cin*cout
-__global__ void __launch_bounds__(kThreads)
-sparse_conv_dw_reduce_kernel(const float* __restrict__ partial, float* __restrict__ dw,
-                             int num_chunks, int n) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int c = 0; c < num_chunks; ++c) s += partial[static_cast<size_t>(c) * n + i];
-  dw[i] = s;
-}
-
 // (stages, blocks an SM) in the order they are tried: at least 3 stages
 // with the most blocks, then 2 stages, then one block
 constexpr int kPlans[][2] = {{4, 4}, {3, 4}, {4, 3}, {3, 3}, {4, 2}, {3, 2}, {2, 4},
                              {2, 3}, {2, 2}, {4, 1}, {3, 1}, {2, 1}};
 
-template <typename T, int MP, int NQ>
-cudaError_t launch(Params<T> p, cudaStream_t stream) {
-  using L = Layout<T, MP, NQ>;
+template <int MP, int NQ>
+cudaError_t launch(Params p, cudaStream_t stream) {
+  using L = Layout<MP, NQ>;
   const size_t fixed = (2 * static_cast<size_t>(p.chunk) + 2 * kLoads * kWarps) * sizeof(int);
   size_t smem = 0;
   p.stages = 0;
@@ -436,37 +355,35 @@ cudaError_t launch(Params<T> p, cudaStream_t stream) {
   if (!p.stages) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err =
-        cudaFuncSetAttribute(sparse_conv_dw_tc_kernel<T, MP, NQ>,
+        cudaFuncSetAttribute(sparse_conv_dw_tc_kernel<MP, NQ>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((p.cap_out + p.chunk - 1) / p.chunk, p.num_offsets);
-  sparse_conv_dw_tc_kernel<T, MP, NQ><<<grid, kThreads, smem, stream>>>(p);
+  sparse_conv_dw_tc_kernel<MP, NQ><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, int MP>
-cudaError_t launch_nq(const Params<T>& p, int nq, cudaStream_t s) {
-  if (nq <= 8) return launch<T, MP, 8>(p, s);
+template <int MP>
+cudaError_t launch_nq(const Params& p, int nq, cudaStream_t s) {
+  if (nq <= 8) return launch<MP, 8>(p, s);
   if constexpr (MP >= 16) {
-    if (nq <= 16) return launch<T, MP, 16>(p, s);
+    if (nq <= 16) return launch<MP, 16>(p, s);
   }
   if constexpr (MP >= 32) {
-    if (nq <= 32) return launch<T, MP, 32>(p, s);
+    if (nq <= 32) return launch<MP, 32>(p, s);
   }
   if constexpr (MP >= 64) {
-    if (nq <= 64) return launch<T, MP, 64>(p, s);
+    if (nq <= 64) return launch<MP, 64>(p, s);
   }
-  if constexpr (MP >= 128) return launch<T, MP, 128>(p, s);
+  if constexpr (MP >= 128) return launch<MP, 128>(p, s);
   return cudaErrorInvalidValue;
 }
 
 bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
 
-// both passes for element type T (float or bf16 bits); 16-byte copies need
-// rows of 16-byte multiples
-template <typename T>
-int run_passes(const T* feats, const int* nbr, const T* dout, float* partial, float* dw,
+// both passes; 16-byte copies need rows of 16-byte multiples
+int run_passes(const float* feats, const int* nbr, const float* dout, float* partial, float* dw,
                int cap_in, int cap_out, int num_offsets, int cin, int cout, int chunk,
                void* stream) {
   if (cin < 1 || cin > kMaxChannels || cout < 1 || cout > kMaxChannels || num_offsets < 1 ||
@@ -474,26 +391,25 @@ int run_passes(const T* feats, const int* nbr, const T* dout, float* partial, fl
     return static_cast<int>(cudaErrorInvalidValue);
   const long long n = static_cast<long long>(num_offsets) * cin * cout;
   if (n > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int kVec = 16 / sizeof(T);  // elements a 16-byte copy
-  Params<T> p{feats, nbr, dout, partial, cap_in, cap_out, num_offsets, cin, cout, chunk, 0};
+  Params p{feats, nbr, dout, partial, cap_in, cap_out, num_offsets, cin, cout, chunk, 0};
   p.p_is_dout = cout >= cin;
-  p.vec_feats = cin % kVec == 0 && aligned16(feats);
-  p.vec_dout = cout % kVec == 0 && aligned16(dout);
+  p.vec_feats = cin % 4 == 0 && aligned16(feats);
+  p.vec_dout = cout % 4 == 0 && aligned16(dout);
   const int mp = p.p_is_dout ? cout : cin, nq = p.p_is_dout ? cin : cout;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (mp <= 16)
-    err = launch_nq<T, 16>(p, nq, s);
+    err = launch_nq<16>(p, nq, s);
   else if (mp <= 32)
-    err = launch_nq<T, 32>(p, nq, s);
+    err = launch_nq<32>(p, nq, s);
   else if (mp <= 64)
-    err = launch_nq<T, 64>(p, nq, s);
+    err = launch_nq<64>(p, nq, s);
   else
-    err = launch_nq<T, 128>(p, nq, s);
+    err = launch_nq<128>(p, nq, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int num_chunks = (cap_out + chunk - 1) / chunk;
-  sparse_conv_dw_reduce_kernel<<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads,
-                                 0, s>>>(partial, dw, num_chunks, static_cast<int>(n));
+  dwb::sum_parts_kernel<<<static_cast<unsigned>((n + dwb::kSumThreads - 1) / dwb::kSumThreads),
+                          dwb::kSumThreads, 0, s>>>(partial, dw, num_chunks, static_cast<int>(n));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -513,12 +429,25 @@ extern "C" int bevf_sparse_conv_dw_f32(const float* feats, const int* nbr, const
                     chunk, stream);
 }
 
-// The bf16 form: feats and dout bf16, partial and dw fp32; the rest as above.
+// The bf16 form (its kernel in sparse_conv_dw_bf16.cuh): feats [cap_in,
+// cin] and dout [cap_out, cout] bf16, nbr [num_offsets, cap_out] int32 (-1 =
+// miss), partial [ceil(cap_out / chunk), num_offsets, cin, cout] scratch and
+// dw [num_offsets, cin, cout] fp32; all contiguous device memory. 1 <=
+// chunk <= 2048. Launches both passes on `stream`, does not synchronise, and
+// returns the first failed launch's cudaError_t (0 on success).
 extern "C" int bevf_sparse_conv_dw_bf16(const void* feats, const int* nbr, const void* dout,
                                         float* partial, float* dw, int cap_in, int cap_out,
                                         int num_offsets, int cin, int cout, int chunk,
                                         void* stream) {
-  return run_passes(static_cast<const uint16_t*>(feats), nbr,
-                    static_cast<const uint16_t*>(dout), partial, dw, cap_in, cap_out,
-                    num_offsets, cin, cout, chunk, stream);
+  return dwb::run<dwb::kDwConv>(feats, nbr, dout, dw, partial, cap_in, cap_out, num_offsets, cin,
+                                cout, chunk, stream, nullptr);
+}
+
+// What bevf_sparse_conv_dw_bf16's pass 1 would launch for these sizes
+// (pointers assumed 16-byte aligned), into info[dwb::kPlanInfo] as dwb::run
+// lays it out; launches nothing. Returns a cudaError_t.
+extern "C" int bevf_sparse_conv_dw_bf16_info(int cap_out, int num_offsets, int cin, int cout,
+                                             int chunk, int* info) {
+  return dwb::run<dwb::kDwConv>(nullptr, nullptr, nullptr, nullptr, nullptr, 0, cap_out,
+                                num_offsets, cin, cout, chunk, nullptr, info);
 }

@@ -66,6 +66,7 @@
 #include <cuda_runtime.h>
 
 #include "sparse_conv_bf16_tile.cuh"
+#include "sparse_conv_dw_bf16.cuh"
 #include "sparse_conv_tile.cuh"
 
 namespace {
@@ -306,6 +307,33 @@ extern "C" int bevf_sparse_conv_bf16_variant(const void* feats, const int* nbr,
     case 1: return static_cast<int>(launch_bf16_variant<kTileNoSkip>(p, s, info, stages));
     case 2: return static_cast<int>(launch_bf16_variant<kTileNoGather>(p, s, info, stages));
     case 3: return static_cast<int>(launch_bf16_variant<kTileNoProduct>(p, s, info, stages));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The dw_bf16 family (K3 bf16's kernel, sparse_conv_dw_bf16.cuh). feats
+// [cap_in, c] and dout [cap_out, c] bf16, nbr [num_offsets, cap_out] int32
+// (-1 = miss), partial and chunk as for bevf_sparse_conv_dw_bf16, dw
+// [num_offsets, c, c] fp32; all contiguous device memory, c 16, 32 or 64,
+// the rows 16-byte aligned. mode 0 dw_bf16, 1 dw_bf16_nogather, 2
+// dw_bf16_noproduct, 3 dw_bf16_compact. Launches both passes on `stream`
+// and does not synchronise. Returns a cudaError_t (0 on success).
+extern "C" int bevf_sparse_conv_dw_bf16_variant(const void* feats, const int* nbr,
+                                                const void* dout, float* partial, float* dw,
+                                                int cap_in, int cap_out, int num_offsets, int c,
+                                                int chunk, int mode, void* stream) {
+  switch (mode) {
+    case 0: return dwb::run<dwb::kDwConv, true>(feats, nbr, dout, dw, partial, cap_in, cap_out,
+                                                num_offsets, c, c, chunk, stream, nullptr);
+    case 1: return dwb::run<dwb::kDwNoGather, true>(feats, nbr, dout, dw, partial, cap_in,
+                                                    cap_out, num_offsets, c, c, chunk, stream,
+                                                    nullptr);
+    case 2: return dwb::run<dwb::kDwNoProduct, true>(feats, nbr, dout, dw, partial, cap_in,
+                                                     cap_out, num_offsets, c, c, chunk, stream,
+                                                     nullptr);
+    case 3: return dwb::run<dwb::kDwCompact, true>(feats, nbr, dout, dw, partial, cap_in,
+                                                   cap_out, num_offsets, c, c, chunk, stream,
+                                                   nullptr);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -37,7 +37,8 @@ __all__ = [
     "to_dense", "to_dense_zmajor", "occupancy_zmajor",
     "build_conv_transpose_rulebook", "sparse_conv", "sparse_conv_bf16", "sparse_conv_plain",
     "sparse_inverse_conv_gemm", "sparse_maxpool",
-    "sparse_conv_dw", "sparse_conv_dw_bf16", "sparse_conv_dw_plain", "SparseConvFunction",
+    "sparse_conv_dw", "sparse_conv_dw_bf16", "sparse_conv_dw_plain", "sparse_conv_dw_bf16_plan",
+    "SparseConvFunction",
 ]
 
 
@@ -460,19 +461,21 @@ def build_dw_kernels() -> None:
 
 
 def _launch_dw(what: str, fn, dtype, feats, nbr, dout) -> torch.Tensor:
-    """Check the operands of a weight-gradient kernel (``dtype``),
-    allocate dW and the partial scratch (fp32) and launch ``fn``'s two
+    """Check the operands of a weight-gradient kernel (``dtype``: fp32, or
+    bf16 for the bf16 form), allocate dW and the partial scratch (fp32: a
+    part of dW a chunk of ``DW_CHUNK`` output sites) and launch ``fn``'s two
     passes on the current stream; returns dW."""
     K, cap_out, Cin, Cout = nbr.shape[0], nbr.shape[-1], feats.shape[-1], dout.shape[-1]
     _check_cuda_args(what, feats, nbr, K, Cin, Cout, dtype, dout=(dout, (cap_out, Cout)))
     dw = torch.empty((K, Cin, Cout), dtype=torch.float32, device=feats.device)
     if cap_out == 0:
         return dw.zero_()
-    chunks = -(-cap_out // DW_CHUNK)
-    partial = torch.empty((chunks, K, Cin, Cout), dtype=torch.float32, device=feats.device)
     with torch.cuda.device(feats.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        chunks = -(-cap_out // DW_CHUNK)
+        partial = torch.empty((chunks, K, Cin, Cout), dtype=torch.float32, device=feats.device)
         rc = fn()(_ptr(feats), _ptr(nbr), _ptr(dout), _ptr(partial), _ptr(dw), feats.shape[0],
-                  cap_out, K, Cin, Cout, DW_CHUNK, torch.cuda.current_stream().cuda_stream)
+                  cap_out, K, Cin, Cout, DW_CHUNK, stream)
     if rc != 0:
         raise RuntimeError(f"{what}: kernel launch failed with cudaError {rc}")
     return dw
@@ -486,10 +489,10 @@ def sparse_conv_dw(feats: torch.Tensor, nbr: torch.Tensor, dout: torch.Tensor) -
     The op ``bevfusion::sparse_conv_dw``, or ``bevfusion::sparse_conv_dw_bf16``
     for bf16 ``feats`` and ``dout`` (fp32 dW): CUDA tensors launch the
     hand-written kernel (contiguous inputs; Cin, Cout <= 128; the hit pairs
-    compacted per offset and chunk and multiplied on the tensor cores, in
-    the 3xTF32 split at fp32) on the current stream, with a fixed-order
-    reduction over its warps and site chunks, so the result is the same
-    from run to run. CPU tensors take ``sparse_conv_dw_plain``.
+    compacted per offset and multiplied on the tensor cores, in the 3xTF32
+    split at fp32) on the current stream, with a fixed-order reduction over
+    its warps and site chunks (at bf16: teams, blocks), so the result is the
+    same from run to run. CPU tensors take ``sparse_conv_dw_plain``.
     ``sparse_conv_dw.launches`` counts the fp32 kernel's launches,
     ``sparse_conv_dw_bf16.launches`` the bf16 one's.
     """
@@ -510,9 +513,12 @@ def _dw_bf16_kernel_fn():
 def sparse_conv_dw_bf16(feats: torch.Tensor, nbr: torch.Tensor,
                         dout: torch.Tensor) -> torch.Tensor:
     """The bf16 form of ``sparse_conv_dw`` on CUDA tensors (the op
-    ``bevfusion::sparse_conv_dw_bf16``): bf16 ``feats`` and ``dout``, fp32
-    dW; one bf16 tensor-core product (exact in fp32) a 16-site step, fp32
-    sums in the fp32 form's fixed order. ``sparse_conv_dw_bf16.launches``
+    ``bevfusion::sparse_conv_dw_bf16``; its kernel
+    ``csrc/sparse_conv_dw_bf16.cuh``): bf16 ``feats`` and ``dout``, fp32 dW;
+    a block a chunk of ``DW_CHUNK`` output sites and offset, one bf16
+    tensor-core product (exact in fp32) a 16-site step, runs of 8 steps on
+    the tensor cores added into fp32 sums, the blocks' parts added in chunk
+    order by a second pass (the fp32 form's). ``sparse_conv_dw_bf16.launches``
     counts its launches."""
     if feats.device.type != "cuda":
         raise ValueError(f"sparse_conv_dw_bf16: feats on {feats.device}, not a CUDA device")
@@ -521,6 +527,26 @@ def sparse_conv_dw_bf16(feats: torch.Tensor, nbr: torch.Tensor,
 
 sparse_conv_dw_bf16.launches = 0
 sparse_conv_dw.launches = 0
+
+# the keys of the bf16 weight-gradient kernel's launch plan (csrc/sparse_conv_dw_bf16.cuh:run)
+DW_BF16_PLAN_KEYS = ("blocks_per_sm", "registers", "spill_bytes", "smem_bytes", "stages",
+                     "ahead", "threads", "grid", "team_warps", "teams")
+
+
+def sparse_conv_dw_bf16_plan(cap_out: int, num_offsets: int, cin: int, cout: int) -> dict:
+    """What ``sparse_conv_dw_bf16`` launches for these sizes on the current
+    card (``DW_BF16_PLAN_KEYS``: resident blocks an SM, registers and
+    spilled bytes a thread, dynamic shared memory a block, ring stages,
+    stages in flight ahead of the one multiplied, threads a block, blocks
+    in the grid, warps a team, teams a block); launches nothing."""
+    fn = native.load_library("sparse_conv_dw").bevf_sparse_conv_dw_bf16_info
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * len(DW_BF16_PLAN_KEYS))()
+    rc = fn(cap_out, num_offsets, cin, cout, DW_CHUNK, ctypes.cast(info, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"sparse_conv_dw_bf16_plan: cudaError {rc}")
+    return dict(zip(DW_BF16_PLAN_KEYS, info))
 
 
 class SparseConvFunction(torch.autograd.Function):

@@ -1,10 +1,10 @@
-"""Where the sparse-conv kernel's time goes: its loops in three families of modes.
+"""Where the sparse-conv kernels' time goes: their loops in four families of modes.
 
 Counterpart of ``tools/bench_kernel_variants.py``, with the hand-written
 kernel of ``csrc/sparse_conv_variants.cu`` (K7) in place of its Pallas
 kernel. The JAX tool split the windowed Pallas conv into its lane
 alignment, one-hot matmul and DMAs (in bf16, its production precision);
-this one splits the port's sparse-conv loops, no epilogue:
+this one splits the port's sparse-conv loops, no epilogue, and K3 bf16's:
 
 - the scalar family (``MODES``, tiles of 64 and 128 output sites): the
   first, scalar-FMA form of ``csrc/sparse_conv.cu`` (before its tensor-core
@@ -21,7 +21,16 @@ this one splits the port's sparse-conv loops, no epilogue:
   ``ops.sparse_conv.sparse_conv`` on bf16 operands without epilogue bit for
   bit.
 
-Each family's split: the gather (``current - nogather``, ``tc -
+- the dw_bf16 family (``DW_BF16_MODES``, ``sparse_conv_dw_variant``, Cin
+  == Cout in 16, 32, 64): K3 bf16's kernel (``csrc/sparse_conv_dw_bf16.cuh``),
+  the weight gradient of bf16 rows; ``dw_bf16`` equals
+  ``ops.sparse_conv.sparse_conv_dw`` on bf16 operands bit for bit, and its
+  split is the gather (``dw_bf16 - dw_bf16_nogather``), the product
+  (``dw_bf16 - dw_bf16_noproduct``), the ring (``dw_bf16_noproduct -
+  dw_bf16_compact``) and ``dw_bf16_compact`` (the table scan, the parts'
+  stores and pass 2).
+
+Each conv family's split: the gather (``current - nogather``, ``tc -
 tc_nogather``, ``bf16 - bf16_nogather``), the product (``current -
 noproduct``, ``tc - tc_noproduct``, ``bf16 - bf16_noproduct``), what the
 skip saves (``noskip - current``, ``tc_noskip - tc``, ``bf16_noskip -
@@ -54,8 +63,15 @@ TILES = (64, 128)
 TC_MODES = ("tc", "tc_noskip", "tc_nogather", "tc_noproduct", "tc_1xtf32")  # K1/K2's loop
 TC_TILE = 64  # K1/K2's only tile
 BF16_MODES = ("bf16", "bf16_noskip", "bf16_nogather", "bf16_noproduct")  # K1/K2 bf16's loop
+# K3 bf16's loop: the weight gradient dW [K, C, C] of bf16 rows, fp32 sums
+DW_BF16_MODES = ("dw_bf16", "dw_bf16_nogather", "dw_bf16_noproduct", "dw_bf16_compact")
+DW_WIDTHS = (16, 32, 64)  # the dw_bf16 family's widths: the submanifold convs' paddings
+# the conv families, launched by sparse_conv_variant; the dw_bf16 family (DW_FAMILY)
+# by sparse_conv_dw_variant
 FAMILIES = {"scalar": MODES, "tc": TC_MODES, "bf16": BF16_MODES}
-ALL_MODES = MODES + TC_MODES + BF16_MODES
+DW_FAMILY = "dw_bf16"
+CONV_MODES = MODES + TC_MODES + BF16_MODES  # the families that compute a conv's out
+ALL_MODES = CONV_MODES + DW_BF16_MODES
 # the keys of the bf16 loop's launch plan (csrc/sparse_conv_bf16_tile.cuh:run_bf16)
 PLAN_KEYS = sp.BF16_PLAN_KEYS
 SLAB = 16  # rows of one warp's mma slab in K1/K2
@@ -125,6 +141,8 @@ def _lib():
     lib.bevf_sparse_conv_tc_variant_f32.restype = i32
     lib.bevf_sparse_conv_bf16_variant.argtypes = [vp] * 4 + [i32] * 6 + [vp, vp]
     lib.bevf_sparse_conv_bf16_variant.restype = i32
+    lib.bevf_sparse_conv_dw_bf16_variant.argtypes = [vp] * 5 + [i32] * 6 + [vp]
+    lib.bevf_sparse_conv_dw_bf16_variant.restype = i32
     return lib
 
 
@@ -134,7 +152,9 @@ def build_kernels() -> None:
 
 
 def family_of(mode: str) -> str:
-    """The family (``FAMILIES``) a mode belongs to."""
+    """The family (``FAMILIES``, or ``DW_FAMILY``) a mode belongs to."""
+    if mode in DW_BF16_MODES:
+        return DW_FAMILY
     for family, modes in FAMILIES.items():
         if mode in modes:
             return family
@@ -156,6 +176,9 @@ def sparse_conv_variant(feats: torch.Tensor, nbr: torch.Tensor, weight: torch.Te
     kernel launches, ``sparse_conv_variant.launches_by_family`` each
     family's."""
     family = family_of(mode)
+    if family == "dw_bf16":
+        raise ValueError(f"sparse_conv_variant: {mode!r} is a weight-gradient mode "
+                         f"(sparse_conv_dw_variant)")
     tiles = TILES if family == "scalar" else (TC_TILE,)
     if tile not in tiles:
         raise ValueError(f"sparse_conv_variant: tile {tile} for mode {mode!r}, want one of "
@@ -223,6 +246,101 @@ def bf16_plan(c: int, num_offsets: int, cap_out: int, mode: str = "bf16", stages
     return dict(zip(PLAN_KEYS, info))
 
 
+def _hits(nbr: torch.Tensor, cap_in: int) -> torch.Tensor:
+    return (nbr >= 0) & (nbr < cap_in)
+
+
+def sparse_conv_dw_variant_plain(feats: torch.Tensor, nbr: torch.Tensor, dout: torch.Tensor,
+                                 mode: str = "dw_bf16") -> torch.Tensor:
+    """Plain PyTorch version of each ``dw_bf16`` mode, fp32 ``[K, Cin, Cout]``
+    from bf16 ``feats [cap_in, Cin]`` and ``dout [cap_out, Cout]`` (fp32
+    sums; an entry ``>= cap_in`` is a miss):
+
+    - ``dw_bf16``: ``sparse_conv_dw_plain``, the weight gradient;
+    - ``dw_bf16_nogather``: ``dW[k] = sum_o feats[o]^T dout[o]`` over the
+      sites o that hit at offset k and have a row of their own (o < cap_in);
+    - ``dw_bf16_noproduct``, ``dw_bf16_compact``: every element of
+      ``dW[k]`` the number of hit pairs of offset k."""
+    if mode not in DW_BF16_MODES:
+        raise ValueError(f"sparse_conv_dw_variant: mode {mode!r}, want one of {DW_BF16_MODES}")
+    hit = _hits(nbr, feats.shape[0])
+    K, Cin, Cout = nbr.shape[0], feats.shape[1], dout.shape[1]
+    if mode == "dw_bf16":
+        return sp.sparse_conv_dw_plain(feats, torch.where(hit, nbr, -1), dout)
+    if mode == "dw_bf16_nogather":
+        own = torch.arange(nbr.shape[1], device=nbr.device, dtype=nbr.dtype)
+        own = torch.where(hit & (own < feats.shape[0]), own, -1)
+        return sp.sparse_conv_dw_plain(feats, own, dout)
+    counts = hit.sum(1).float()
+    return counts[:, None, None].expand(K, Cin, Cout).contiguous()
+
+
+def sparse_conv_dw_variant(feats: torch.Tensor, nbr: torch.Tensor, dout: torch.Tensor,
+                           mode: str = "dw_bf16") -> torch.Tensor:
+    """K3 bf16's loop in a ``dw_bf16`` mode (``DW_BF16_MODES``; see
+    ``sparse_conv_dw_variant_plain`` for what each computes): bf16 ``feats``
+    and ``dout``, Cin == Cout <= 64, fp32 out. CUDA tensors launch the
+    hand-written kernel on the current stream; CPU tensors take the plain
+    version. Counted in ``sparse_conv_dw_variant.launches``."""
+    if mode not in DW_BF16_MODES:
+        raise ValueError(f"sparse_conv_dw_variant: mode {mode!r}, want one of {DW_BF16_MODES}")
+    if feats.dim() != 2 or dout.dim() != 2 or feats.shape[1] != dout.shape[1] \
+            or feats.shape[1] not in DW_WIDTHS:
+        raise ValueError(f"sparse_conv_dw_variant: the dw_bf16 modes take Cin == Cout in "
+                         f"{DW_WIDTHS}, got feats {tuple(feats.shape)} and dout "
+                         f"{tuple(dout.shape)}")
+    if feats.dtype != torch.bfloat16 or dout.dtype != torch.bfloat16:
+        raise TypeError(f"sparse_conv_dw_variant: bf16 feats and dout, got {feats.dtype} and "
+                        f"{dout.dtype}")
+    if feats.device.type == "cpu":
+        return sparse_conv_dw_variant_plain(feats, nbr, dout, mode)
+    if feats.device.type != "cuda":
+        raise ValueError(f"sparse_conv_dw_variant: unsupported device {feats.device}")
+    K, cap_out, C = nbr.shape[0], nbr.shape[-1], feats.shape[1]
+    sp._check_cuda_args("sparse_conv_dw_variant", feats, nbr, K, C, C, torch.bfloat16,
+                        dout=(dout, (cap_out, C)))
+    dw = torch.empty((K, C, C), dtype=torch.float32, device=feats.device)
+    if cap_out == 0:
+        return dw.zero_()
+    with torch.cuda.device(feats.device):
+        partial = torch.empty((-(-cap_out // sp.DW_CHUNK), K, C, C), dtype=torch.float32,
+                              device=feats.device)
+        rc = _lib().bevf_sparse_conv_dw_bf16_variant(
+            feats.data_ptr(), nbr.data_ptr(), dout.data_ptr(), partial.data_ptr(), dw.data_ptr(),
+            feats.shape[0], cap_out, K, C, sp.DW_CHUNK, DW_BF16_MODES.index(mode),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"sparse_conv_dw_variant: kernel launch failed with cudaError {rc}")
+    sparse_conv_dw_variant.launches += 1
+    return dw
+
+
+sparse_conv_dw_variant.launches = 0
+
+
+def device_ms_by_kernel(fn, iters: int = 20, warmup: int = 3) -> dict:
+    """``fn()`` ``iters`` times under ``torch.profiler`` after ``warmup``
+    calls: each CUDA kernel's device time a call (ms), by kernel name (the
+    part of the name before its template arguments). The card's own times,
+    each kernel alone (pass 1 and pass 2 of a two-launch kernel apart)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            # "void (anonymous namespace)::name<...>(...)" -> "name"
+            name = e.name.split("<")[0].split("::")[-1].split("(")[0].strip()
+            out[name] = out.get(name, 0.0) + e.device_time / 1e3 / iters
+    return out
+
+
 def mode_bound(feats, nbr, weight, out, mode: str):
     """The least time (ms) of one mode on these inputs and what bounds it,
     with each input byte read once and the output written once (the weight
@@ -244,6 +362,20 @@ def mode_bound(feats, nbr, weight, out, mode: str):
     if mode == "tc_1xtf32":
         return bound(2 * hits * Cin * Cout, moved, TF32_FLOPS)
     return bound(2 * hits * Cin * Cout, moved)
+
+
+def dw_mode_bound(feats, nbr, dout, out, mode: str):
+    """The least time (ms) of one ``dw_bf16`` mode on these inputs and what
+    bounds it: the bf16 rows (not read by ``dw_bf16_compact``), the table
+    and the fp32 out once, and per hit pair one bf16 product of Cin x Cout
+    multiply-adds at 989 TFLOP/s (``dw_bf16``, ``dw_bf16_nogather``) or none."""
+    K, Cin, Cout = out.shape
+    hits = int(_hits(nbr, feats.shape[0]).sum())
+    if mode == "dw_bf16_compact":
+        return bound(0, nbytes(nbr, out))
+    if mode == "dw_bf16_noproduct":
+        return bound(0, nbytes(feats, nbr, dout, out))
+    return bound(2 * hits * Cin * Cout, nbytes(feats, nbr, dout, out), BF16_FLOPS)
 
 
 def fma_bound(feats, nbr, weight, out, mode: str) -> float:
@@ -309,7 +441,7 @@ def _max_diff(feats, nbr, w, a: str, b: str, tile: int) -> float:
 
 
 def breakdown(cases, device="cuda", tiles=TILES, iters: int = 20, warmup: int = 5,
-              families=tuple(FAMILIES)):
+              families=(*FAMILIES, DW_FAMILY)):
     """For each case: a row per scalar tile, one tensor-core row and one bf16
     row (``family``; those of ``families``), each with every mode's median
     ms, bound and fp32-FMA bound, and the split: ``gather_ms``,
@@ -358,11 +490,58 @@ def breakdown(cases, device="cuda", tiles=TILES, iters: int = 20, warmup: int = 
                     row["plan"] = bf16_plan(w.shape[1], nbr.shape[0], nbr.shape[1])
                     row["tile"] = TC_TILE * row["plan"]["slabs"]
             rows.append(row)
+        if DW_FAMILY in families:
+            rows.append(_dw_row(label, feats, nbr, dev, iters, warmup))
     return rows
+
+
+def _dw_row(label, feats, nbr, dev, iters, warmup) -> dict:
+    """The dw_bf16 family at one case: the operands rounded to bf16 and a
+    seeded output gradient [cap_out, C]; each mode's median ms and bound;
+    the split: ``gather_ms`` (dw_bf16 - nogather), ``product_ms`` (dw_bf16 -
+    noproduct), ``ring_ms`` (noproduct - compact) and ``compact_ms``; on the
+    card ``kernels_ms``, each kernel's device time a call of ``dw_bf16``
+    (``device_ms_by_kernel``), and ``plan``."""
+    x = feats.bfloat16()
+    g = torch.Generator(device=feats.device).manual_seed(nbr.shape[1])
+    dout = torch.randn(nbr.shape[1], feats.shape[1], generator=g,
+                       device=feats.device).bfloat16()
+    modes = {}
+    for mode in DW_BF16_MODES:
+        y = sparse_conv_dw_variant(x, nbr, dout, mode)
+        b_ms, b_by = dw_mode_bound(x, nbr, dout, y, mode)
+        ms = time_fn(lambda: sparse_conv_dw_variant(x, nbr, dout, mode), iters=iters,
+                     warmup=warmup, device=dev, queue_ahead=True)["median_ms"]
+        modes[mode] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by}
+    ms = {m: v["ms"] for m, v in modes.items()}
+    row = {"shape": label, "family": DW_FAMILY, "tile": None, "modes": modes,
+           "gather_ms": ms["dw_bf16"] - ms["dw_bf16_nogather"],
+           "product_ms": ms["dw_bf16"] - ms["dw_bf16_noproduct"],
+           "ring_ms": ms["dw_bf16_noproduct"] - ms["dw_bf16_compact"],
+           "compact_ms": ms["dw_bf16_compact"]}
+    if dev.type == "cuda":
+        row["kernels_ms"] = device_ms_by_kernel(lambda: sparse_conv_dw_variant(x, nbr, dout),
+                                                iters=iters, warmup=warmup)
+        row["plan"] = sp.sparse_conv_dw_bf16_plan(nbr.shape[1], nbr.shape[0], feats.shape[1],
+                                                  feats.shape[1])
+    return row
 
 
 def print_breakdown(rows) -> None:
     for r in rows:
+        if r["family"] == DW_FAMILY:
+            ms = {m: v["ms"] for m, v in r["modes"].items()}
+            line = (f"{r['shape']} dw_bf16: " + ", ".join(f"{m} {v:.4f}" for m, v in ms.items())
+                    + f" ms; gather {r['gather_ms']:.4f}, product {r['product_ms']:.4f}, ring "
+                    f"{r['ring_ms']:.4f}, compact {r['compact_ms']:.4f} ms; dw_bf16 "
+                    f"{r['modes']['dw_bf16']['bound_ms'] / ms['dw_bf16']:.3f} of its bound")
+            if "kernels_ms" in r:
+                line += "; kernels a call " + ", ".join(f"{k} {v:.4f} ms"
+                                                        for k, v in r["kernels_ms"].items())
+            if "plan" in r:
+                line += "; plan " + ", ".join(f"{k} {v}" for k, v in r["plan"].items())
+            print(line)
+            continue
         ms = {m: v["ms"] for m, v in r["modes"].items()}
         base = FAMILIES[r["family"]][0]
         noskip = "noskip" if base == "current" else f"{base}_noskip"

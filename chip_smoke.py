@@ -5,7 +5,8 @@ Run from the repository root: ``python3 chip_smoke.py``
 (``python3 chip_smoke.py --gate-probe``: only the runs that measure the
 gates of phases 11e, 11e-dp and 13c, ``gate_probe``; ``--long-tail``: phase
 11g alone; ``--sparse-kernels``: phases 5b and 7 alone, the quick check of
-the sparse-conv kernels). Phases:
+the sparse-conv kernels, with K3 bf16's passes apart (``torch.profiler``)
+and K7's dw_bf16 family timed). Phases:
 
 1. device: the card's name and power limit; TF32 off for fp32 parity;
 2. build: compile the eight kernel sources of bevfusion_tpu_torch/csrc (one
@@ -49,8 +50,11 @@ the sparse-conv kernels). Phases:
    printed only), with the bf16 frame's 15 launches summed at the frame's
    launches a shape (``BF16_FRAME_LAUNCHES``, printed only); K1/K2 bf16's
    launch plan at each shape (registers, spills, resident blocks an SM,
-   stages, grid); K7's bf16 family is timed in phase 14, beside the
-   tensor-core family;
+   stages, grid); K3 bf16's times beside its recorded ones before its
+   redesign (``DW_BF16_MS_BEFORE``) and the bf16 train step's 15 launches
+   summed (the shapes' ``step_launches``), each printed only, and its plan
+   at each shape (teams, stages, resident blocks an SM); K7's bf16 family is
+   timed in phase 14, beside the tensor-core family;
 6. the memory probes' kernels vs plain (``tools/bench_tile_micro.py``): K5,
    the copy ``x + 1``, at [65536, 1024] bf16, and K6, the tile gather, on
    both engines (TMA bulk copies, and its first form, ``cp.async``) at the
@@ -69,6 +73,10 @@ the sparse-conv kernels). Phases:
    family's four modes (K1/K2 bf16's loop) within one bf16 rounding of
    plain, ``bf16`` equal to the bf16 kernel without epilogue and
    ``bf16_noskip`` to ``bf16``, bit for bit; the plain versions' times;
+   the dw_bf16 family's four modes (K3 bf16's kernel), ``dw_bf16`` and
+   ``dw_bf16_nogather`` within 1e-4 of plain and ``dw_bf16`` equal to the
+   bf16 weight-gradient kernel bit for bit, the two counting modes equal to
+   the hit counts (timed by ``--sparse-kernels``, not in phase 14);
 8. the LiDAR slice: TransFusion-L (voxelnet_0p075) at full width with
    seeded random weights, eval forward at batch 1 on the scan; 15 kernel
    launches per forward, every box field finite, heatmap logits within
@@ -435,6 +443,11 @@ BF16_TRAIN_LAUNCHES = {"sparse_conv_bf16": 15 + 14, "sparse_conv_dw_bf16": 15, "
 BF16_MS_BEFORE = {"conv_input 5->16": 0.0783, "stage0 subm 16->16": 0.0519,
                 "stage0 strided 16->32": 0.0570, "stage1 subm 32->32": 0.0863,
                 "stage1 strided 32->64": 0.0843, "stage2 subm 64->64": 0.1603}
+# K3 bf16's times before its redesign (measured on one H100; PERF.md section 6), printed beside
+# phase 5b's; its launches a bf16 train step are phase 5b's `step_launches` (kernel_cases)
+DW_BF16_MS_BEFORE = {"conv_input 5->16": 0.0467, "stage0 subm 16->16": 0.0375,
+                     "stage0 strided 16->32": 0.0347, "stage1 subm 32->32": 0.0875,
+                     "stage1 strided 32->64": 0.0593, "stage2 subm 64->64": 0.1377}
 BF16_FRAME_LAUNCHES = {"conv_input 5->16": 1, "stage0 subm 16->16": 4, "stage0 strided 16->32": 1,
                       "stage1 subm 32->32": 4, "stage1 strided 32->64": 1,
                       "stage2 subm 64->64": 4}
@@ -860,7 +873,7 @@ def variant_checks(kv, sp, cases):
         new = sp.sparse_conv(feats, nbr, w)
         x16, w16 = feats.bfloat16(), w.bfloat16()
         new16 = sp.sparse_conv(x16, nbr, w16)
-        for mode in kv.ALL_MODES:
+        for mode in kv.CONV_MODES:
             bf16 = mode in kv.BF16_MODES
             x, wm = (x16, w16) if bf16 else (feats, w)
             want = kv.sparse_conv_variant_plain(x, nbr, wm, mode)
@@ -910,7 +923,38 @@ def variant_checks(kv, sp, cases):
               f"tc bit for bit; bf16 equal to sparse_conv on bf16 operands without epilogue and "
               f"bf16_noskip to bf16 bit for bit; tc_1xtf32 max|d| / max(|fp32 plain|, 1) "
               f"{one_tf32[label]:.3e}")
+        out.update(dw_variant_checks(kv, sp, label, x16, nbr))
     return out, one_tf32
+
+
+def dw_variant_checks(kv, sp, label, x16, nbr):
+    """K7's dw_bf16 family (K3 bf16's loop) at one case, on the bf16 rows and
+    a seeded bf16 output gradient: ``dw_bf16`` and ``dw_bf16_nogather``
+    within 1e-4 * max(|plain|, 1) of their plain versions, ``dw_bf16`` equal
+    to ``sparse_conv_dw`` bit for bit; ``dw_bf16_noproduct`` and
+    ``dw_bf16_compact`` (hit counts) equal to theirs. Returns {(shape,
+    mode): (max|d|, None)}: the family is timed by ``--sparse-kernels``
+    alone, not in phase 14."""
+    g = torch.Generator(device=DEVICE).manual_seed(nbr.shape[1])
+    dout = torch.randn(nbr.shape[1], x16.shape[1], generator=g, device=DEVICE).bfloat16()
+    out = {}
+    for mode in kv.DW_BF16_MODES:
+        want = kv.sparse_conv_dw_variant_plain(x16, nbr, dout, mode)
+        got = kv.sparse_conv_dw_variant(x16, nbr, dout, mode)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if mode in ("dw_bf16", "dw_bf16_nogather"):
+            scale = max(want.abs().max().item(), 1.0)
+            check(err <= FP32_RTOL_KERNEL * scale,
+                  f"K7 {label} {mode}: max|d| {err} vs plain, scale {scale}")
+        else:
+            check(torch.equal(got, want), f"K7 {label} {mode}: not the hit counts")
+        if mode == "dw_bf16":
+            check(torch.equal(got, sp.sparse_conv_dw(x16, nbr, dout)),
+                  f"K7 {label}: dw_bf16 differs from sparse_conv_dw")
+        out[(label, mode)] = (err, None)
+        print(f"kernel sparse_conv_variants (K7) {label} {mode}: max|d| {err:.3e}")
+    return out
 
 
 def zero_counts(counters) -> None:
@@ -944,7 +988,7 @@ def tools_phase(cfg, model, batch, cases, counters):
     res = {"ew": tm.bench_ew(DEVICE), "copy": tm.bench_copy(device=DEVICE),
            "gathers": [tm.bench_gather(*g, device=DEVICE) for g in tm.GATHERS],
            "matmuls": [tm.bench_matmul(*m, device=DEVICE) for m in tm.MATMULS],
-           "breakdown": kv.breakdown(cases, DEVICE)}
+           "breakdown": kv.breakdown(cases, DEVICE, families=tuple(kv.FAMILIES))}
     model.eval()
     res["stages"], _ = profile_stages.profile_stages(model, batch, DEVICE, TOOL_ITERS,
                                                      flops=True)
@@ -2876,20 +2920,31 @@ def bf16_kernel_phase(sp, cases, fwd32, dw32):
         b_ms, b_by = bound(2 * hits * Cin * Cout, moved, BF16_FLOPS)
         ms = kernel_ms(lambda: sp.sparse_conv_dw(x, nbr, dout))
         plain_ms = kernel_ms(lambda: sp.sparse_conv_dw_plain(x, nbr, dout))
+        plan = sp.sparse_conv_dw_bf16_plan(nbr.shape[1], K, Cin, Cout)
         dw.append({"shape": label, "hits": hits, "max_abs_err": err, "ms": ms,
                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                    "share": b_ms / ms, "fp32_ms": d32 and d32["ms"],
-                   "step_launches": step_launches})
+                   "step_launches": step_launches, "plan": plan})
         fp32 = f" (fp32 {d32['ms']:.4f})" if d32 else ""
         print(f"kernel sparse_conv_dw_bf16 {label}: max|d| {err:.3e} (scale {scale:.3e}), "
               f"kernel {ms:.4f} ms{fp32}, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-              f"{b_ms / ms:.3f} of bound")
+              f"{b_ms / ms:.3f} of bound; plan " + ", ".join(f"{k} {v}" for k, v in plan.items()))
+        print(f"kernel sparse_conv_dw_bf16 {label}: {ms:.4f} ms against "
+              f"{DW_BF16_MS_BEFORE[label]:.4f} ms recorded before its redesign: "
+              f"{DW_BF16_MS_BEFORE[label] / ms:.2f}x")
     frame = sum(BF16_FRAME_LAUNCHES[r["shape"]] * r["ms"] for r in fwd)
     frame_before = sum(BF16_FRAME_LAUNCHES[r["shape"]] * BF16_MS_BEFORE[r["shape"]] for r in fwd)
     frame_bound = sum(BF16_FRAME_LAUNCHES[r["shape"]] * r["bound_ms"] for r in fwd)
     print(f"kernel sparse_conv_bf16: the bf16 frame's {sum(BF16_FRAME_LAUNCHES.values())} launches "
           f"at these shapes (BF16_FRAME_LAUNCHES a shape) {frame:.4f} ms (recorded before the "
           f"redesign {frame_before:.4f} ms, bound {frame_bound:.4f} ms)")
+    step = sum(r["step_launches"] * r["ms"] for r in dw)
+    step_before = sum(r["step_launches"] * DW_BF16_MS_BEFORE[r["shape"]] for r in dw)
+    step_bound = sum(r["step_launches"] * r["bound_ms"] for r in dw)
+    print(f"kernel sparse_conv_dw_bf16: the bf16 train step's {sum(r['step_launches'] for r in dw)} "
+          f"launches at these shapes (step_launches a shape) {step:.4f} ms")
+    print(f"kernel sparse_conv_dw_bf16: the same launches recorded before the redesign "
+          f"{step_before:.4f} ms, bound {step_bound:.4f} ms")
     return fwd, dw
 
 
@@ -3955,13 +4010,34 @@ def sparse_kernels_only() -> int:
     cases = kernel_cases(enc, vox.feats[0], vox.coords[0], vox.mask[0], sp)
     k7_cases = kv.stage_cases(enc, vox.coords[0], vox.mask[0])
     fwd, dw = bf16_kernel_phase(sp, cases, None, None)
+    passes = dw_bf16_kernels(sp, kv, cases)
     checks, _ = variant_checks(kv, sp, k7_cases)
-    rows = kv.breakdown(k7_cases, DEVICE, families=("bf16",))
+    rows = kv.breakdown(k7_cases, DEVICE, families=("bf16", "dw_bf16"))
     kv.print_breakdown(rows)
     finite_rows([m for r in rows for m in r["modes"].values()], "bf16 breakdown")
-    print(json.dumps({"sparse_conv_bf16": fwd, "sparse_conv_dw_bf16": dw, "bf16_breakdown": rows,
+    print(json.dumps({"sparse_conv_bf16": fwd, "sparse_conv_dw_bf16": dw,
+                      "sparse_conv_dw_bf16_kernels": passes, "bf16_breakdown": rows,
                       "k7_max_abs_err": {f"{k[0]} {k[1]}": v[0] for k, v in checks.items()}}))
     return 0
+
+
+def dw_bf16_kernels(sp, kv, cases):
+    """K3 bf16 at the six shapes of phase 5b (the same operands): each CUDA
+    kernel's device time a call of ``sparse_conv_dw`` from a
+    ``torch.profiler`` trace of 20 calls (``kv.device_ms_by_kernel``: its
+    launches apart, where it makes more than one). Returns {shape: {kernel:
+    ms}}."""
+    out = {}
+    for label, (feats, nbr, w), _, valid, _, _ in cases:
+        hits = int((nbr >= 0).sum())
+        dout = torch.randn(nbr.shape[1], w.shape[2], device=DEVICE,
+                           generator=torch.Generator(device=DEVICE).manual_seed(hits))
+        x, dout = feats.bfloat16(), (dout * valid[:, None]).bfloat16()
+        out[label] = kv.device_ms_by_kernel(lambda: sp.sparse_conv_dw(x, nbr, dout))
+        print(f"kernel sparse_conv_dw_bf16 {label}: device ms a call by kernel "
+              + ", ".join(f"{k} {v:.4f}" for k, v in out[label].items())
+              + f" (sum {sum(out[label].values()):.4f})")
+    return out
 
 
 def ptxas_lines(native, libs) -> None:

@@ -964,6 +964,89 @@ def test_weight_gradient_bf16_kernel_matches_plain(cuda, cin, cout, strided):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,sites", [(16, 16, 40), (64, 64, 300), (5, 16, 900),
+                                             (32, 32, 1000), (3, 5, 700)])
+def test_weight_gradient_bf16_kernel_small_caps(cuda, cin, cout, sites):
+    """Caps of one chunk (DW_CHUNK sites) and not a multiple of the chunk,
+    fewer hit pairs than a block's teams' first stages; P too by 4-byte
+    words (3 -> 5): the kernel against its plain version, equal bits across
+    two calls."""
+    grid = sp.SparseGrid(20, 20, 10)
+    cap = sites + 23
+    ids = _sites(cin + sites, grid, sites, cap)
+    nbr = sp.build_subm_rulebook(ids, grid).to(cuda)
+    g = torch.Generator().manual_seed(sites)
+    feats = torch.randn(cap, cin, generator=g).bfloat16().to(cuda)
+    dout = torch.randn(cap, cout, generator=g).bfloat16().to(cuda)
+    got = sp.sparse_conv_dw(feats, nbr, dout)
+    torch.cuda.synchronize()
+    _close(got, sp.sparse_conv_dw_plain(feats, nbr, dout), tol=1e-4)
+    assert torch.equal(sp.sparse_conv_dw(feats, nbr, dout), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,team,teams", [
+    (5, 16, 1, 4), (16, 16, 1, 4), (16, 32, 1, 4), (32, 32, 1, 4), (32, 64, 2, 2),
+    (64, 64, 4, 2), (3, 70, 4, 2), (128, 128, 8, 1),
+])
+def test_weight_gradient_bf16_kernel_plan(cuda, cin, cout, team, teams):
+    """What pass 1 runs at each width: a block a chunk of DW_CHUNK output
+    sites and offset, teams of 1-8 warps (``sparse_conv_dw_bf16.cuh``'s
+    Layout: 16-row slabs of the wider operand, two a warp where the
+    narrower is 8-32 wide), two teams a block of 4 to 8 warps, at least 2
+    stages, two blocks an SM at the encoder's widths; no spills."""
+    plan = sp.sparse_conv_dw_bf16_plan(60000, 27, cin, cout)
+    assert plan["grid"] == -(-60000 // sp.DW_CHUNK) * 27
+    assert (plan["team_warps"], plan["teams"]) == (team, teams)
+    assert plan["threads"] == 32 * team * teams and plan["stages"] >= 2
+    assert plan["spill_bytes"] == 0 and plan["blocks_per_sm"] >= 1
+    if max(cin, cout) <= 64:
+        assert plan["blocks_per_sm"] >= 2
+
+
+@pytest.mark.cuda
+def test_weight_gradient_bf16_kernel_equal_bits_across_streams(cuda):
+    """Two calls on two streams at once, each with its own output and
+    scratch: equal bits to a call on the default stream."""
+    feats, nbr, _, _, dout = _conv_operands(64, 64, False, seed=5)
+    feats, nbr, dout = feats.to(cuda).bfloat16(), nbr.to(cuda), dout.to(cuda).bfloat16()
+    want = sp.sparse_conv_dw(feats, nbr, dout)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    got = []
+    for st in streams:
+        with torch.cuda.stream(st):
+            got.append(sp.sparse_conv_dw(feats, nbr, dout))
+    torch.cuda.synchronize()
+    for g in got:
+        assert torch.equal(g, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [16, 32, 64])
+def test_dw_bf16_variant_modes_match_plain(cuda, c):
+    """K7's dw_bf16 family (K3 bf16's kernel): ``dw_bf16`` equal to
+    ``sparse_conv_dw`` bit for bit and within 1e-4 of its plain version,
+    ``dw_bf16_nogather`` within 1e-4 of its own, the two counting modes
+    equal to the hit counts; each launch counted."""
+    from bevfusion_tpu_torch.tools import bench_kernel_variants as kv
+
+    feats, nbr, _, _, dout = _conv_operands(c, c, False, seed=6)
+    x, nbr, d = feats.to(cuda).bfloat16(), nbr.to(cuda), dout.to(cuda).bfloat16()
+    for mode in kv.DW_BF16_MODES:
+        before = kv.sparse_conv_dw_variant.launches
+        got = kv.sparse_conv_dw_variant(x, nbr, d, mode)
+        torch.cuda.synchronize()
+        assert kv.sparse_conv_dw_variant.launches == before + 1
+        want = kv.sparse_conv_dw_variant_plain(x, nbr, d, mode)
+        if mode in ("dw_bf16", "dw_bf16_nogather"):
+            _close(got, want, tol=1e-4)
+        else:
+            assert torch.equal(got, want)
+    assert torch.equal(kv.sparse_conv_dw_variant(x, nbr, d), sp.sparse_conv_dw(x, nbr, d))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("cin,cout", [(5, 16), (32, 64), (128, 128)])
 def test_weight_gradient_bf16_kernel_misses(cuda, cin, cout):
     cap_in, cap_out = 3000, 3 * sp.DW_CHUNK + 100

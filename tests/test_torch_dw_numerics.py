@@ -1,4 +1,5 @@
-"""The numerics of the weight-gradient kernel's summation, on the CPU.
+"""The numerics of the weight-gradient kernel's summation, on the CPU: the
+fp32 form (3xTF32) first, then the bf16 form (below).
 
 ``csrc/sparse_conv_dw.cu`` sums ``dW[k] = sum_o feats[nbr[k, o]]^T dout[o]``
 with the output sites as the reduction depth, on the tensor cores in the
@@ -177,3 +178,156 @@ def test_kernel_order_holds_fp32_accuracy(cin, cout, strided, nonnegative):
         assert errs["one accumulator"] > GATE
     else:
         assert errs["one accumulator"] > 4 * errs["kernel"]
+
+
+# ----------------------------------------------------------------------
+# the bf16 form (csrc/sparse_conv_dw_bf16.cuh)
+# ----------------------------------------------------------------------
+#
+# The bf16 form multiplies bf16 rows: each product is exact in fp32, and only
+# the tensor cores' truncating accumulation and the FP32 adds round. A block
+# takes one offset and one chunk of ``sp.DW_CHUNK`` output sites and
+# compacts its hit pairs in site order; its stages of STAGE_HITS hit pairs go
+# to its teams in turn (stage j to team j % G; a team: one to eight warps
+# sharing a ring). A team sums its stages in order, 16 hit pairs a mma step,
+# carried on the tensor cores for RUN steps and then added into its FP32
+# sum (round to nearest); the block adds its teams' sums in team order, and
+# pass 2 the chunks' in chunk order.
+
+BF16_GATE = 1e-4  # chip_smoke.py phase 5b's K3 bf16 gate, of max(|float64 product|, 1)
+RUN = 8  # 16-site mma steps carried on the tensor cores before an FP32 add
+STAGE_HITS = 32  # hit pairs a stage
+
+
+def bf16_layout(cin: int, cout: int):
+    """(warps a team, teams a block) of the bf16 kernel for these widths, as
+    sparse_conv_dw_bf16.cuh's Layout computes them: P the wider of dout and
+    feats padded to 16..128, Q the other to 8..128; a warp holds the sums of
+    H 16-row slabs of P, H = 2 where Q is 8 to 32 wide; a block two teams'
+    warps, 4 to 8."""
+    mp = next(m for m in (16, 32, 64, 128) if m >= max(cin, cout))
+    nq = next(n for n in (8, 16, 32, 64, 128) if n >= min(cin, cout))
+    team = mp // (16 * (2 if mp >= 32 and nq <= 32 else 1))
+    return team, min(max(2 * team, 4), 8) // team
+
+
+def tc_run_sum(a: torch.Tensor, b: torch.Tensor, run) -> torch.Tensor:
+    """sum_s a[..., s] * b[..., s] (bf16 values in fp32 tensors) as a team
+    sums it: the sites in 16-deep mma steps on the tensor cores
+    (``tc_accumulate``), ``run`` steps a run from a zero accumulator, each
+    run added into an fp32 sum; ``run`` None: one accumulator through the
+    whole stream. float64 operands: the exact sum."""
+    if a.dtype == torch.float64:
+        return (a * b).sum(-1)
+    pad = -a.shape[-1] % 16
+    a, b = (torch.nn.functional.pad(t, (0, pad)).double() for t in (a, b))
+    a, b = a.unflatten(-1, (-1, 16)), b.unflatten(-1, (-1, 16))
+    acc = total = torch.zeros(a.shape[:-2])
+    for i in range(a.shape[-2]):
+        acc = tc_accumulate(acc, a[..., i, :] * b[..., i, :])
+        if run is not None and (i + 1) % run == 0:
+            total, acc = total + acc, torch.zeros_like(acc)
+    return total + acc
+
+
+def emulate_dw_bf16(feats, nbr, dout, k, entries, run=RUN, teams=None):
+    """dW[k, ci, co] for the ``entries`` [E, 2] of offset ``k`` as the bf16
+    kernel sums them: ``teams`` a block, by default the kernel's for these
+    widths (1 with a chunk as long as the table: one team taking every hit
+    pair of the offset in one stream)."""
+    cap_in, (cin, cout) = feats.shape[0], (feats.shape[1], dout.shape[1])
+    g = teams or bf16_layout(cin, cout)[1]
+    chunk = nbr.shape[1] if teams == 1 else sp.DW_CHUNK
+    ci, co = entries[:, 0], entries[:, 1]
+    total = None
+    for begin in range(0, nbr.shape[1], chunk):
+        row = nbr[k, begin:begin + chunk].long()
+        o = torch.nonzero((row >= 0) & (row < cap_in)).squeeze(1)
+        x, d = feats[row[o]][:, ci].t(), dout[begin + o][:, co].t()  # [E, hits]
+        stages = -(-len(o) // STAGE_HITS)
+        pad = stages * STAGE_HITS - len(o)
+        x, d = (torch.nn.functional.pad(t, (0, pad)).unflatten(1, (stages, STAGE_HITS))
+                for t in (x, d))  # zeros past the last hit add nothing
+        block = None
+        for t in range(min(g, stages)):  # team t's stages t, t + g, ..., then the teams in order
+            team = tc_run_sum(x[:, t::g].flatten(1), d[:, t::g].flatten(1), run)
+            block = team if block is None else block + team
+        if block is not None:
+            total = block if total is None else total + block
+    return total
+
+
+def _bf16_case(cin, cout, strided, seed, nonnegative):
+    feats, nbr, dout = _case(cin, cout, strided, seed, nonnegative)
+    return feats.bfloat16().float(), nbr, dout.bfloat16().float()
+
+
+def _bf16_errors(feats, nbr, dout, k, entries, **kw):
+    ref = sp.sparse_conv_dw_plain(feats.double(), nbr, dout.double())
+    scale = max(ref.abs().max().item(), 1.0)
+    want = ref[k, entries[:, 0], entries[:, 1]]
+    exact = emulate_dw_bf16(feats.double(), nbr, dout.double(), k, entries, **kw)
+    assert (exact - want).abs().max().item() <= 1e-12 * scale
+    return {mode: (emulate_dw_bf16(feats, nbr, dout, k, entries, run=run, **kw).double()
+                   - want).abs().max().item() / scale
+            for mode, run in (("kernel", RUN), ("one accumulator", None))}
+
+
+def _entries(cin, cout, seed, n=ENTRIES):
+    pairs = np.stack(np.meshgrid(np.arange(cin), np.arange(cout), indexing="ij"), -1)
+    pairs = pairs.reshape(-1, 2)
+    return torch.from_numpy(pairs[np.random.RandomState(seed).permutation(len(pairs))[:n]])
+
+
+@pytest.mark.parametrize("nonnegative", [False, True], ids=["signed", "nonnegative"])
+@pytest.mark.parametrize("cin,cout,strided", SHAPES)
+def test_bf16_kernel_order_holds_the_gate(cin, cout, strided, nonnegative):
+    """The bf16 kernel's order at the encoder's widths (its own teams a
+    block, a block a chunk) within BF16_GATE of float64, with the same
+    numpy-seeded operands rounded to bf16, on signed and same-signed
+    operands, hit counts up to a whole chunk; a team's stream here is at
+    most a chunk over its teams, so a run of RUN steps and one accumulator
+    through each stream nearly agree."""
+    feats, nbr, dout = _bf16_case(cin, cout, strided, cin * cout, nonnegative)
+    k, hits = _deepest(nbr, feats.shape[0])
+    errs = _bf16_errors(feats, nbr, dout, k, _entries(cin, cout, cin + cout))
+    team, g = bf16_layout(cin, cout)
+    print(f"{cin}->{cout}{' strided' if strided else ''}, offset {k}, teams of {team} warps, "
+          f"{g} a block: max|d| / max(|f64|, 1) "
+          + ", ".join(f"{m} {v:.3e}" for m, v in errs.items()))
+    assert errs["kernel"] <= BF16_GATE / 20
+    assert errs["one accumulator"] <= BF16_GATE
+
+
+@pytest.mark.parametrize("sites", [4096, 16384])
+@pytest.mark.parametrize("nonnegative", [False, True], ids=["signed", "nonnegative"])
+def test_bf16_run_length_on_a_long_stream(sites, nonnegative):
+    """One stream of 4,096 hit pairs (twice a chunk: as long as one team's
+    would be with a longer chunk) and four times that: every site of a
+    dense submanifold set hits the centre offset, and one team takes them
+    all. Runs of RUN steps stay 100x inside BF16_GATE. One accumulator
+    carried through the stream grows with its length where the products
+    share a sign (truncation toward zero never cancels): within the gate at
+    4,096 same-signed hits, past it at 16,384; on signed operands it stays
+    well inside."""
+    rng = np.random.RandomState(sites)
+    grid = sp.SparseGrid(32, 32, 16) if sites == 4096 else sp.SparseGrid(64, 64, 16)
+    ids = np.full(sites + 100, grid.size, np.int32)
+    ids[:sites] = np.sort(rng.choice(grid.size, sites, replace=False))
+    nbr = sp.build_subm_rulebook(torch.from_numpy(ids), grid)
+    feats = torch.from_numpy(rng.randn(len(ids), 16).astype(np.float32)).bfloat16().float()
+    dout = torch.from_numpy(rng.randn(len(ids), 16).astype(np.float32)).bfloat16().float()
+    if nonnegative:
+        feats, dout = feats.abs(), dout.abs()
+    k = 13  # the centre offset: every site hits
+    assert int((nbr[k] >= 0).sum()) == sites
+    errs = _bf16_errors(feats, nbr, dout, k, _entries(16, 16, sites, 64), teams=1)
+    print(f"{sites} hits in one stream, {'same-signed' if nonnegative else 'signed'}: "
+          + ", ".join(f"{m} {v:.3e}" for m, v in errs.items()))
+    assert errs["kernel"] <= BF16_GATE / 100
+    if not nonnegative:
+        assert errs["one accumulator"] <= BF16_GATE / 10
+    elif sites == 4096:
+        assert BF16_GATE / 10 < errs["one accumulator"] <= BF16_GATE
+    else:
+        assert errs["one accumulator"] > BF16_GATE

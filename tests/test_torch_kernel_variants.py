@@ -15,7 +15,11 @@ summation order), ``tc_1xtf32``'s with both operands rounded to TF32 first
 sums, one rounding to bf16) are held to the same numpy sums within one bf16
 rounding (2^-7 relative) plus 1e-5 of the scale, and ``bf16``'s to the JAX
 ``subm_gather_gemm`` on bf16 operands (fp32 sums, one rounding) within one
-bf16 rounding plus the fp32 order's 1e-4 of the scale. The JAX tool's own
+bf16 rounding plus the fp32 order's 1e-4 of the scale. The dw_bf16 family
+(K3 bf16's kernel) computes weight gradients: ``dw_bf16``'s plain version is
+``sparse_conv_dw_plain`` and within the fp32 order's 1e-4 of the JAX
+gradient of ``subm_gather_gemm`` on bf16-valued operands; its other modes
+are held to numpy. The JAX tool's own
 ``run_variant(mode="current")`` no longer computes the conv: it decodes
 the int16 window selectors as ``v // 256 - 1``, ``v % 256``, an encoding
 ``build_windowed_rulebook`` no longer emits (``(relp + 1) * 8 + slot``).
@@ -128,15 +132,36 @@ def test_rejects_an_unknown_mode_or_tile():
         kv.sparse_conv_variant(feats, nbr, w, "current", 32)
 
 
-@pytest.mark.parametrize("family", ["tc", "bf16"])
+@pytest.mark.parametrize("family", ["tc", "bf16", "dw_bf16"])
 @pytest.mark.parametrize("bad", ["mode", "tile", "cin_ne_cout", "wide", "dtype"])
 def test_tensor_core_modes_reject_what_they_do_not_take(bad, family):
     """On the CPU too: an unknown mode, a tile other than K1/K2's 64, weights
     other than the submanifold convs' (Cin == Cout <= 64), or operands of the
-    other family's dtype (fp32 for tc, bf16 for bf16)."""
+    other family's dtype (fp32 for tc, bf16 for bf16). The dw_bf16 family
+    (``sparse_conv_dw_variant``): an unknown mode, its modes through the
+    conv's entry (``tile``), dout of another width, a width other than 16,
+    32 and 64, operands other than bf16."""
     feats, nbr, w = _torch(*_scan(16))
-    dtype = torch.bfloat16 if family == "bf16" else torch.float32
+    dtype = torch.bfloat16 if family != "tc" else torch.float32
     feats, w = feats.to(dtype), w.to(dtype)
+    if family == "dw_bf16":
+        dout, mode = feats.clone(), "dw_bf16"
+        if bad == "mode":
+            mode = "dw_bf16_bf8"
+        elif bad == "cin_ne_cout":
+            dout = dout[:, :8].contiguous()
+        elif bad == "wide":
+            feats, dout = feats[:, :12].contiguous(), dout[:, :12].contiguous()
+        elif bad == "dtype":
+            dout = dout.float()
+        launches = kv.sparse_conv_variant.launches
+        with pytest.raises(TypeError if bad == "dtype" else ValueError):
+            if bad == "tile":
+                kv.sparse_conv_variant(feats, nbr, w, mode)
+            else:
+                kv.sparse_conv_dw_variant(feats, nbr, dout, mode)
+        assert kv.sparse_conv_variant.launches == launches
+        return
     mode, tile = family, 64
     if bad == "mode":
         mode = f"{family}_bf8"
@@ -207,6 +232,34 @@ def test_tensor_core_modes_plain_match_numpy(mode):
     assert kv.sparse_conv_variant.launches == launches
 
 
+@pytest.mark.parametrize("mode", kv.DW_BF16_MODES[1:])
+def test_dw_bf16_modes_plain_match_numpy(mode):
+    """The dw_bf16 family's other modes against numpy on a table with
+    entries past cap_in (misses): ``dw_bf16_nogather`` the sum over hit
+    pairs of each site's own feats row times its dout row (float64, within
+    the fp32 order's 1e-5 of the scale), ``dw_bf16_noproduct`` and
+    ``dw_bf16_compact`` every element of dW[k] the hit pairs of offset k,
+    exactly."""
+    feats, nbr, _ = _scan(16, seed=5)
+    nbr = nbr.copy()
+    nbr[4, :300:3] = CAP + 7  # misses: past cap_in
+    dout = torch.from_numpy(np.random.RandomState(6).randn(CAP, 16).astype(np.float32))
+    dout = dout.bfloat16().float().numpy()
+    hit = (nbr >= 0) & (nbr < CAP)
+    if mode == "dw_bf16_nogather":
+        f, d = feats.astype(np.float64), dout.astype(np.float64)
+        want = np.stack([(f * hit[k][:, None]).T @ d for k in range(nbr.shape[0])])
+    else:
+        want = np.broadcast_to(hit.sum(1)[:, None, None], (nbr.shape[0], 16, 16))
+    x16, nbr_t, d16 = _torch(feats, nbr, dout)
+    got = kv.sparse_conv_dw_variant_plain(x16.bfloat16(), nbr_t, d16.bfloat16(), mode).numpy()
+    assert got.shape == want.shape and got.dtype == np.float32
+    if mode == "dw_bf16_nogather":
+        assert np.abs(got - want).max() <= 1e-5 * max(np.abs(want).max(), 1.0)
+    else:
+        assert np.array_equal(got, want)
+
+
 def test_tf32_rounding_is_the_kernels():
     """The tool's TF32 rounding equals the emulation of ``cvt.rna.tf32.f32``
     that tests/test_torch_tf32_split.py pins, ties and carries included,
@@ -220,7 +273,7 @@ def test_tf32_rounding_is_the_kernels():
     assert np.array_equal(got.numpy().view(np.int32), _np_tf32(x.numpy()).view(np.int32))
 
 
-@pytest.mark.parametrize("mode", ["tc", "bf16"])
+@pytest.mark.parametrize("mode", ["tc", "bf16", "dw_bf16"])
 @pytest.mark.parametrize("C", [16, 32])
 def test_tc_plain_matches_the_jax_gather_gemm(C, mode):
     """``tc``'s plain version (K1/K2 without epilogue) against the JAX
@@ -228,8 +281,33 @@ def test_tc_plain_matches_the_jax_gather_gemm(C, mode):
     ``bf16``'s (K1/K2 bf16 without epilogue) against it on the same bf16
     operands (fp32 sums, one rounding to bf16 in both) within one bf16
     rounding plus 1e-4 of the scale: the two fp32 sums differ in order,
-    then each rounds once."""
+    then each rounds once. ``dw_bf16``'s (K3 bf16: an fp32 dW of bf16
+    rows) equal to ``sparse_conv_dw_plain`` and within 1e-4 of the scale of
+    the JAX gradient of ``subm_gather_gemm`` with respect to its weight, on
+    the same bf16-valued operands and output gradient (exact products, the
+    two fp32 sums in different orders)."""
     feats, nbr, w = _scan(C, seed=4)
+    if mode == "dw_bf16":
+        dout = torch.from_numpy(np.random.RandomState(C).randn(CAP, C).astype(np.float32))
+        dout = dout.bfloat16().float().numpy()
+
+        def f(wt):
+            return jnp.sum(jsp.subm_gather_gemm(jnp.asarray(feats), jnp.asarray(nbr.T), wt)
+                           * dout)
+
+        want = np.asarray(jax.grad(f)(jnp.asarray(w)))
+        x16, nbr_t, d16 = _torch(feats, nbr, dout)
+        x16, d16 = x16.bfloat16(), d16.bfloat16()
+        got = kv.sparse_conv_dw_variant_plain(x16, nbr_t, d16, mode)
+        assert got.dtype == torch.float32
+        assert torch.equal(got, sp.sparse_conv_dw_plain(x16, nbr_t, d16))
+        launches = kv.sparse_conv_variant.launches
+        assert torch.equal(kv.sparse_conv_dw_variant(x16, nbr_t, d16, mode), got)  # CPU: plain
+        assert kv.sparse_conv_variant.launches == launches
+        assert np.abs(want).max() > 0.5
+        scale = max(np.abs(want).max(), 1.0)
+        assert np.abs(got.numpy() - want).max() <= 1e-4 * scale
+        return
     dt = jnp.bfloat16 if mode == "bf16" else jnp.float32
     want = np.asarray(jsp.subm_gather_gemm(jnp.asarray(feats, dt), jnp.asarray(nbr.T),
                                            jnp.asarray(w, dt)), np.float32)
@@ -270,7 +348,9 @@ def test_family_of_each_mode():
     assert {kv.family_of(m) for m in kv.MODES} == {"scalar"}
     assert {kv.family_of(m) for m in kv.TC_MODES} == {"tc"}
     assert {kv.family_of(m) for m in kv.BF16_MODES} == {"bf16"}
-    assert kv.ALL_MODES == kv.MODES + kv.TC_MODES + kv.BF16_MODES
+    assert {kv.family_of(m) for m in kv.DW_BF16_MODES} == {"dw_bf16"}
+    assert kv.CONV_MODES == kv.MODES + kv.TC_MODES + kv.BF16_MODES
+    assert kv.ALL_MODES == kv.CONV_MODES + kv.DW_BF16_MODES
     with pytest.raises(ValueError):
         kv.family_of("nohot")
 
@@ -315,7 +395,22 @@ def test_breakdown_on_the_cpu():
     feats, nbr, w = _torch(*_scan(16))
     rows = kv.breakdown([("tiny", feats, nbr, w)], "cpu", iters=1, warmup=0)
     assert [(r["family"], r["tile"]) for r in rows] == [("scalar", t) for t in kv.TILES] + [
-        ("tc", kv.TC_TILE), ("bf16", kv.TC_TILE)]
+        ("tc", kv.TC_TILE), ("bf16", kv.TC_TILE), ("dw_bf16", None)]
+    dw = rows.pop()
+    assert set(dw["modes"]) == set(kv.DW_BF16_MODES) and "plan" not in dw
+    assert all(np.isfinite(m["ms"]) and m["bound_ms"] > 0 for m in dw["modes"].values())
+    ms = {m: v["ms"] for m, v in dw["modes"].items()}
+    assert dw["product_ms"] == ms["dw_bf16"] - ms["dw_bf16_noproduct"]
+    assert dw["ring_ms"] == ms["dw_bf16_noproduct"] - ms["dw_bf16_compact"]
+    x16 = feats.bfloat16()
+    g = torch.Generator().manual_seed(CAP)  # the row's output gradient
+    d16 = torch.randn(CAP, 16, generator=g).bfloat16()
+    y = kv.sparse_conv_dw_variant(x16, nbr, d16)
+    t_dw = 2 * int((nbr >= 0).sum()) * 16 * 16 / 989e12 * 1e3
+    t_dw_bytes = (2 * CAP * 16 * 2 + 27 * CAP * 4 + 27 * 256 * 4) / 3.35e12 * 1e3
+    assert kv.dw_mode_bound(x16, nbr, d16, y, "dw_bf16") == (max(t_dw, t_dw_bytes), "bytes")
+    assert kv.dw_mode_bound(x16, nbr, d16, y, "dw_bf16_compact")[0] == pytest.approx(
+        (27 * CAP * 4 + 27 * 256 * 4) / 3.35e12 * 1e3)
     for r in rows:
         assert set(r["modes"]) == set(kv.FAMILIES[r["family"]])
         assert all(np.isfinite(m["ms"]) and m["bound_ms"] > 0 and m["bound_fp32_fma_ms"] > 0
