@@ -8,7 +8,8 @@ reg, height, dim, rot, vel), each ``num_conv - 1`` 3x3 conv-BN-ReLU and a
 final conv with bias (the heatmap's bias starts at -2.19). ``get_bboxes``
 decodes each task with ``CenterPointBBoxCoder`` (sigmoid heatmap, ``exp``
 of the dims where ``norm_bbox``) and suppresses per task with circle NMS or
-rotated BEV NMS (``ops/nms.py``, one kernel launch a task), keeps the top
+rotated BEV NMS (``ops/nms.py``: the frame's tasks as the problems of one
+launch of each NMS kernel, N1 and N2), keeps the top
 ``post_max_size`` survivors by score, offsets the labels by task and moves
 the boxes' gravity center to the bottom center. ``loss`` draws each task's
 gaussian heatmap targets at the boxes' integer centers and takes the
@@ -206,9 +207,10 @@ class CenterHead(nn.Module):
         return losses
 
     def _decode_task(self, t: int, pred: Dict[str, torch.Tensor]):
-        """Task ``t``'s decode and its NMS's input to the greedy pass:
-        (boxes [B, K, 9] gravity center, scores, labels, valid: the
-        detections the NMS may keep, sup [B, K, K], order [B, K])."""
+        """Task ``t``'s decode and its NMS problems: (boxes [B, K, 9] gravity
+        center, scores, labels, valid: the detections the NMS may keep, N1's
+        rows [B, K, 9] in index order, rotated: the task's NMS mode, its
+        threshold)."""
         tcfg = self.test_cfg
         dim = pred["dim"].float()
         if self.norm_bbox:
@@ -224,32 +226,56 @@ class CenterHead(nn.Module):
         if nms_type == "circle":
             # the reference compares min_radius with the SQUARED center
             # distance (box3d_nms.py:216-218, centerpoint.py:711-713)
-            sup, order = nms.circle_suppression(boxes[..., :2].contiguous(), scores, valid,
-                                                tcfg["min_radius"][t])
-        else:
-            scale = (tcfg.get("nms_scale") or [[1.0] * len(tk) for tk in self.tasks])[t]
-            scales = torch.tensor(scale, dtype=boxes.dtype, device=boxes.device)
-            sc = scales[labels.long().clamp(0, len(scale) - 1)]
-            bev = torch.stack([boxes[..., 0], boxes[..., 1], boxes[..., 3] * sc,
-                               boxes[..., 4] * sc, boxes[..., 6]], -1)
-            valid = valid & (scores >= tcfg.get("score_threshold", 0.0))
-            sup, order = nms.bev_suppression(bev, scores, valid, tcfg["nms_thr"])
-        return boxes, scores, labels, valid, sup, order
+            return (boxes, scores, labels, valid, nms.center_geometry(boxes[..., :2]), False,
+                    tcfg["min_radius"][t])
+        scale = (tcfg.get("nms_scale") or [[1.0] * len(tk) for tk in self.tasks])[t]
+        scales = torch.tensor(scale, dtype=boxes.dtype, device=boxes.device)
+        sc = scales[labels.long().clamp(0, len(scale) - 1)]
+        bev = torch.stack([boxes[..., 0], boxes[..., 1], boxes[..., 3] * sc,
+                           boxes[..., 4] * sc, boxes[..., 6]], -1)
+        valid = valid & (scores >= tcfg.get("score_threshold", 0.0))
+        return boxes, scores, labels, valid, nms.box_geometry(bev), True, tcfg["nms_thr"]
+
+    def _nms_problems(self, preds: List[Dict[str, torch.Tensor]]):
+        """Every task's decode, and the frame's NMS as T * B problems of K
+        detections (task-major): (the decodes, N1's operands geom [T*B, K, 9]
+        in score order, rotated [T*B], thr [T*B], the score order [T*B, K],
+        valid [T*B, K])."""
+        decs = [self._decode_task(t, pred) for t, pred in enumerate(preds)]
+        B, dev = decs[0][0].shape[0], decs[0][0].device
+        scores = torch.cat([d[1] for d in decs])
+        valid = torch.cat([d[3] for d in decs])
+        order = nms.score_order(scores, valid)
+        geom = torch.gather(torch.cat([d[4] for d in decs]), 1,
+                            order[..., None].expand(-1, -1, nms.GEOM)).contiguous()
+        rotated = torch.tensor([d[5] for d in decs for _ in range(B)], device=dev)
+        thr = torch.tensor([float(d[6]) for d in decs for _ in range(B)], dtype=torch.float32,
+                           device=dev)
+        return decs, (geom, rotated, thr), order, valid
+
+    def nms_inputs(self, preds: List[Dict[str, torch.Tensor]]):
+        """What ``get_bboxes`` hands N1, and the score order: (geom, rotated,
+        thr, order), the tasks' problems stacked task-major."""
+        _, words_args, order, _ = self._nms_problems(preds)
+        return (*words_args, order)
 
     def suppressions(self, preds: List[Dict[str, torch.Tensor]]):
-        """Each task's (suppression matrix, score order): what ``get_bboxes``
-        hands the greedy pass."""
-        return [self._decode_task(t, pred)[-2:] for t, pred in enumerate(preds)]
+        """What ``get_bboxes`` hands N2: (words [T*B, K, ceil(K / 64)],
+        the score order [T*B, K])."""
+        _, words_args, order, _ = self._nms_problems(preds)
+        return nms.suppression_words(*words_args), order
 
     def get_bboxes(self, preds: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
         """Decode and per-task NMS. Returns {"bboxes" [B, T*K, 9] bottom
         center, "scores", "labels" (offset by task), "mask"} over the T
-        tasks' K = ``max_num`` decoded boxes each; ``mask`` marks the kept."""
+        tasks' K = ``max_num`` decoded boxes each; ``mask`` marks the kept.
+        The tasks' NMS problems go through one launch of each NMS kernel."""
         post_max = self.test_cfg.get("post_max_size", 83)
+        decs, words_args, order, valid = self._nms_problems(preds)
+        keeps = (nms.greedy_suppress_words(nms.suppression_words(*words_args), order)
+                 & valid).chunk(len(decs))
         outs, flag = [], 0
-        for t, pred in enumerate(preds):
-            boxes, scores, labels, valid, sup, order = self._decode_task(t, pred)
-            keep = nms.greedy_suppress(sup, order) & valid
+        for t, ((boxes, scores, labels, *_), keep) in enumerate(zip(decs, keeps)):
             outs.append((boxes, scores, labels + flag, keep & (_rank(keep, scores) < post_max)))
             flag += len(self.tasks[t])
         boxes = torch.cat([o[0] for o in outs], 1)

@@ -4,13 +4,16 @@ Counterpart of ``bevfusion_tpu/ops/iou3d.py`` (reference mmdet3d/ops/iou3d
 and BboxOverlaps3D(coordinate='lidar')): the overlap of two rotated
 rectangles is one rectangle clipped by the four half-planes of the other
 (Sutherland-Hodgman) in fixed-size vertex buffers (8 vertices, a 16-slot
-emit buffer), batched over all box pairs.
+emit buffer), batched over all box pairs. The shoelace sum runs in a fixed
+pairwise order, the same on every device, so that the NMS kernel
+(``csrc/nms.cu``, N1) repeats it bit for bit.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["box_corners_bev", "rotated_overlap_bev", "iou_bev", "iou_3d"]
+__all__ = ["box_corners_bev", "overlap_corners", "iou_corners", "rotated_overlap_bev", "iou_bev",
+           "iou_3d"]
 
 _V = 8  # most vertices of the running polygon (quad ∩ quad <= 8)
 
@@ -66,30 +69,46 @@ def _poly_area(poly, n):
     nxt = torch.gather(poly, -2, nxt_idx[..., None].expand(*nxt_idx.shape, 2))
     cross = poly[..., 0] * nxt[..., 1] - nxt[..., 0] * poly[..., 1]
     cross = torch.where(idx < n[..., None], cross, 0.0)
-    return cross.sum(-1).abs() / 2
+    # ((c0 + c4) + (c2 + c6)) + ((c1 + c5) + (c3 + c7)): pairwise, in a fixed order
+    for half in (4, 2, 1):
+        cross = cross[..., :half] + cross[..., half:2 * half]
+    return cross[..., 0].abs() / 2
 
 
-def rotated_overlap_bev(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
-    """Pairwise intersection areas [N, M] of rotated BEV boxes [*, 5]."""
-    c1 = box_corners_bev(boxes1.float())[:, None]  # [N, 1, 4, 2]
-    c2 = box_corners_bev(boxes2.float())[None]     # [1, M, 4, 2]
-    N, M = boxes1.shape[0], boxes2.shape[0]
-    poly = c1.new_zeros((N, M, _V, 2))
-    poly[:, :, :4] = c1.expand(N, M, 4, 2)
-    n = torch.full((N, M), 4, dtype=torch.long, device=boxes1.device)
-    c2 = c2.expand(N, M, 4, 2)
+def overlap_corners(c1: torch.Tensor, c2: torch.Tensor) -> torch.Tensor:
+    """Intersection areas [...] of rectangles given by their corners
+    ``[..., 4, 2]`` (broadcast against each other): ``c1`` clipped by the
+    four half-planes of ``c2``."""
+    shape = torch.broadcast_shapes(c1.shape[:-2], c2.shape[:-2])
+    poly = c1.new_zeros(shape + (_V, 2))
+    poly[..., :4, :] = c1.expand(shape + (4, 2))
+    n = torch.full(shape, 4, dtype=torch.long, device=c1.device)
+    c2 = c2.expand(shape + (4, 2))
     for e in range(4):
         poly, n = _clip_halfplane(poly, n, c2[..., e, :], c2[..., (e + 1) % 4, :])
     return _poly_area(poly, n)
 
 
+def iou_corners(c1: torch.Tensor, a1: torch.Tensor, c2: torch.Tensor, a2: torch.Tensor,
+                eps: float = 1e-6) -> torch.Tensor:
+    """Rotated BEV IoU [..., N, M] of rectangles by corners (``c1 [..., N, 4,
+    2]``, ``c2 [..., M, 4, 2]``) and areas (``a1 [..., N]``, ``a2 [..., M]``):
+    the overlap over the union."""
+    inter = overlap_corners(c1[..., :, None, :, :], c2[..., None, :, :, :])
+    return inter / torch.clamp(a1[..., :, None] + a2[..., None, :] - inter, min=eps)
+
+
+def rotated_overlap_bev(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Pairwise intersection areas [N, M] of rotated BEV boxes [*, 5]."""
+    return overlap_corners(box_corners_bev(boxes1.float())[:, None],
+                           box_corners_bev(boxes2.float())[None])
+
+
 def iou_bev(boxes1: torch.Tensor, boxes2: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """Rotated BEV IoU [N, M] of boxes [*, 5] = (cx, cy, dx, dy, yaw): the
     overlap over the union of the two rectangles' areas."""
-    inter = rotated_overlap_bev(boxes1, boxes2)
-    a1 = boxes1[:, 2] * boxes1[:, 3]
-    a2 = boxes2[:, 2] * boxes2[:, 3]
-    return inter / torch.clamp(a1[:, None] + a2[None] - inter, min=eps)
+    return iou_corners(box_corners_bev(boxes1.float()), boxes1[:, 2] * boxes1[:, 3],
+                       box_corners_bev(boxes2.float()), boxes2[:, 2] * boxes2[:, 3], eps)
 
 
 def iou_3d(boxes1: torch.Tensor, boxes2: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -19,7 +19,9 @@ op                       entry point (wrapper)                  kernel
 ``sparse_conv_dw``       ``sparse_conv_dw``                     K3 fp32
 ``sparse_conv_dw_bf16``  ``sparse_conv_dw`` on bf16 rows        K3 bf16
 ``bev_pool``             ``ops/bev_pool.py:bev_pool``           K4
-``greedy_suppress``      ``ops/nms.py:greedy_suppress``         the NMS pass
+``suppression_words``    ``ops/nms.py:suppression_words``       N1 (NMS words)
+``greedy_suppress_       ``ops/nms.py:greedy_suppress_          N2 (NMS greedy
+words``                  words``                                pass)
 ``deform_im2col``        ``ops/deform_conv.py:deform_im2col``   D1
 ``furthest_point_        ``ops/pointnet.py:furthest_point_      D2
 sample``                 sample``
@@ -51,12 +53,13 @@ __all__ = ["NAMESPACE", "OPS", "COUNTERS", "op_counts"]
 
 NAMESPACE = "bevfusion"
 OPS = ("sparse_conv", "sparse_conv_bf16", "sparse_conv_dw", "sparse_conv_dw_bf16", "bev_pool",
-       "greedy_suppress", "deform_im2col", "furthest_point_sample")
+       "suppression_words", "greedy_suppress_words", "deform_im2col", "furthest_point_sample")
 
 # the wrappers whose ``.launches`` each op's CUDA implementation counts, by op
 COUNTERS = {"sparse_conv": sp.sparse_conv, "sparse_conv_bf16": sp.sparse_conv_bf16,
             "sparse_conv_dw": sp.sparse_conv_dw, "sparse_conv_dw_bf16": sp.sparse_conv_dw_bf16,
-            "bev_pool": bp.bev_pool, "greedy_suppress": nms.greedy_suppress,
+            "bev_pool": bp.bev_pool, "suppression_words": nms.suppression_words,
+            "greedy_suppress_words": nms.greedy_suppress_words,
             "deform_im2col": dc.deform_im2col, "furthest_point_sample": pn.furthest_point_sample}
 
 
@@ -180,24 +183,44 @@ def _(depth, ctx, ranks_depth, ranks_feat, interval_starts, interval_lengths, in
 
 
 # ----------------------------------------------------------------------
-# the greedy NMS pass
+# the NMS: N1, the suppression words; N2, the greedy pass on them
 # ----------------------------------------------------------------------
 
-@torch.library.custom_op(f"{NAMESPACE}::greedy_suppress", mutates_args=(), device_types="cpu")
-def greedy_suppress(sup: Tensor, order: Tensor) -> Tensor:
-    return nms.greedy_suppress_plain(sup, order)
+@torch.library.custom_op(f"{NAMESPACE}::suppression_words", mutates_args=(), device_types="cpu")
+def suppression_words(geom: Tensor, rotated: Tensor, thr: Tensor) -> Tensor:
+    return nms.suppression_words_plain(geom, rotated, thr)
 
 
-@greedy_suppress.register_kernel("cuda")
-def _(sup, order):
-    keep, launched = nms._launch_suppress(sup, order)
+@suppression_words.register_kernel("cuda")
+def _(geom, rotated, thr):
+    words, launched = nms._launch_words(geom, rotated, thr)
     if launched:
-        _launched("greedy_suppress")
+        _launched("suppression_words")
+    return words
+
+
+@suppression_words.register_fake
+def _(geom, rotated, thr):
+    P, N = geom.shape[:2]
+    return geom.new_empty((P, N, nms.words_count(N)), dtype=torch.int64)
+
+
+@torch.library.custom_op(f"{NAMESPACE}::greedy_suppress_words", mutates_args=(),
+                         device_types="cpu")
+def greedy_suppress_words(words: Tensor, order: Tensor) -> Tensor:
+    return nms.greedy_suppress_words_plain(words, order)
+
+
+@greedy_suppress_words.register_kernel("cuda")
+def _(words, order):
+    keep, launched = nms._launch_greedy(words, order)
+    if launched:
+        _launched("greedy_suppress_words")
     return keep
 
 
-@greedy_suppress.register_fake
-def _(sup, order):
+@greedy_suppress_words.register_fake
+def _(words, order):
     return order.new_empty(order.shape, dtype=torch.bool)
 
 

@@ -6,7 +6,8 @@ Run from the repository root: ``python3 chip_smoke.py``
 gates of phases 11e, 11e-dp and 13c, ``gate_probe``; ``--long-tail``: phase
 11g alone; ``--sparse-kernels``: phases 5b and 7 alone, the quick check of
 the sparse-conv kernels, with K3 bf16's passes apart (``torch.profiler``)
-and K7's dw_bf16 family timed). Phases:
+and K7's dw_bf16 family timed; ``--nms``: phase 11b's frames and NMS cases
+alone, the quick check of the NMS kernels). Phases:
 
 1. device: the card's name and power limit; TF32 off for fp32 parity;
 2. build: compile the eight kernel sources of bevfusion_tpu_torch/csrc (one
@@ -126,8 +127,9 @@ and K7's dw_bf16 family timed). Phases:
    (each head branch's last conv scaled and shifted per channel so its maps
    on the batch have a moderate mean and spread: at random init they run to
    1e4 and every box falls outside the range), the host pooling LUT, eval
-   forward at batch 1, TF32 off: 0 sparse-conv, 1 BEV-pool and 6 NMS
-   launches per forward (one greedy pass a task); every task's raw head
+   forward at batch 1, TF32 off: 0 sparse-conv, 1 BEV-pool, 1 N1 and 1 N2
+   launch per forward (the six tasks' NMS as the problems of one launch of
+   each NMS kernel); every task's raw head
    maps (a forward hook on ``heads.object``) within 2e-3 relative of the
    same model on the CPU; ``get_bboxes`` on the card and on the CPU on the
    same predictions (the CPU model's): equal keep masks and labels, kept
@@ -135,12 +137,16 @@ and K7's dw_bf16 family timed). Phases:
    and peak device memory with TF32 off and on, and the stages
    (``tools/profile_stages.py``, ``head/forward`` and ``head/decode``
    apart); the decode once under ``torch.profiler`` (the card's kernels
-   and copies, their device time, the NMS kernel's, the idle share of the
-   call's wall time); then the NMS kernel vs ``greedy_suppress_plain`` bit for bit on
-   every suppression matrix of the three frames' decodes, a random one,
-   one with everything suppressed, one with nothing, and one at N = 1000
-   (``pre_max_size``), with the times and the bound of the swint frame's
-   six and the four made ones; and the BEV-pool kernel vs plain at the
+   and copies, their device time, the NMS kernels', the idle share of the
+   call's wall time); then N1 (the suppression words) and N2 (the greedy
+   pass on them) against their plain versions (``nms_kernel_cases``) on
+   every NMS problem of the three frames' decodes and on made ones (random
+   at N = 500, 1000 (``pre_max_size``) and 1300, identical, nested,
+   edge-sharing and zero-size boxes, yaw at +-pi, everything and nothing
+   suppressed): N1's words equal but for bits whose plain IoU lies within
+   2^-20 of the threshold (printed and counted), N2's keep masks bit for
+   bit; the times and bounds of the swint frame's six tasks (one launch of
+   each) and of the made ones; and the BEV-pool kernel vs plain at the
    ResNet configs' shape (C = 64, 128 x 128 cells of 0.8 m) as in phase 9;
 11c. pillar: PointPillars TransFusion
    (configs/nuscenes/det/transfusion/secfpn/lidar/pointpillars.yaml: the
@@ -155,7 +161,7 @@ and K7's dw_bf16 family timed). Phases:
    default.yaml: ResNet-50 + SECONDFPN + LSS at 0.8 m, a 300-point
    45-channel radar scan through four RFN layers and the scatter to 128 x
    128, ConvFuser, GeneralizedResNet + LSSFPN, CenterHead) as each phase-11b
-   frame, head moderated, launches 0 / 1 / 6, the radar branch's stages
+   frame, head moderated, launches 0 / 1 / 1 + 1, the radar branch's stages
    (``radar/voxelize``, ``radar/encoder``) among the stages; last,
    resnet50/dlss.yaml must raise its stride ValueError (the depth branch
    32 x 88 against 16 x 44 features);
@@ -222,7 +228,7 @@ and K7's dw_bf16 family timed). Phases:
 11g. the long tail no served config reaches (``long_tail_phase``, TF32 off;
    each part's launches counted from 0 just before it): the swint camera
    CenterHead config with ``DCNSeparateHead``, one eval frame (K4 1, the
-   deformable im2col D1 twice a task, the greedy pass once a task), every
+   deformable im2col D1 twice a task, N1 and N2 once), every
    task's maps within 2e-3 of the same head on the CPU from the card's head
    input, then D1 against its plain version at that input with random
    offsets (some on integers, some outside the image; bit for bit), its
@@ -232,8 +238,9 @@ and K7's dw_bf16 family timed). Phases:
    bit for bit), and that SA/FP stack on the card (D2 4 launches) against the
    same weights on the CPU (the sampled points equal, the FP output within
    2e-3); the flagship with ``test_cfg.nms_type`` circle and rotate, one
-   frame each (15 + 1 and the greedy pass 2), the keep masks of the kernel
-   and of the plain pass equal, on the frame's boxes and on the same boxes
+   frame each (15 + 1 and N1 and N2 twice, once a group), the keep masks of
+   the kernels and of the plain versions equal, on the frame's boxes and on
+   the same boxes
    clustered into the two NMS groups; the flagship's encoder in
    ``block_type: conv_module`` on the flagship scan (K1/K2 10 launches)
    against the plain versions, the inverse sparse conv (one K1/K2 launch)
@@ -353,7 +360,8 @@ and K7's dw_bf16 family timed). Phases:
    grid, its third the ResNet det configs'; K6's two engines and K7's two
    families each with their ms, plain ms, bound, share and launches; every
    kernel's launches on the seg, det-camera and pillar paths; the NMS
-   kernel's row after K1-K7, then the bf16 forms of K1/K2 and K3, their
+   kernels' rows (N1 ``suppression_words``, N2 ``greedy_suppress_words``)
+   after K1-K7, then the bf16 forms of K1/K2 and K3, their
    launches those of the bf16 train step (13b), then D1 and D2 (11g's DCN
    frame and VoteNet stack; ``launches_long_tail`` each kernel's in every
    run of 11g); every kernel's launches in
@@ -385,8 +393,9 @@ import time
 
 import torch
 
-from bevfusion_tpu_torch.utils.profiler import (BF16_FLOPS, HBM_BYTES_PER_S, TF32_FLOPS, bound,
-                                               card_line, frame_ms, nbytes, time_fn)
+from bevfusion_tpu_torch.utils.profiler import (BF16_FLOPS, FP32_FLOPS, HBM_BYTES_PER_S,
+                                               TF32_FLOPS, bound, card_line, frame_ms, nbytes,
+                                               time_fn)
 
 FP32_RTOL_KERNEL = 1e-4  # kernel vs plain on the card: summation order only
 HEATMAP_RTOL = 2e-3  # full model on the card vs on the CPU, ~40 fp32 layers
@@ -409,11 +418,13 @@ SEG_LAUNCHES = {"fusion-bev256d2-lss": {"sparse_conv": SPARSE_LAUNCHES, "bev_poo
                 "lidar-centerpoint-bev128": {"sparse_conv": SPARSE_LAUNCHES, "bev_pool": 0},
                 "camera-bev256d2": {"sparse_conv": 0, "bev_pool": POOL_LAUNCHES}}
 SEG_MASKS = (1, 6, 200, 200)  # six map classes on the 100 m x 100 m, 0.5 m output grid
-# launches per eval frame of each camera-only CenterHead config (phase 11b): one
-# greedy NMS pass per task group
-DET_LAUNCHES = {"sparse_conv": 0, "bev_pool": POOL_LAUNCHES, "greedy_nms": 6}
+# launches per eval frame of each camera-only CenterHead config (phase 11b): the six task
+# groups' NMS as the problems of one launch of N1 (the suppression words) and one of N2
+NMS_LAUNCHES = {"suppression_words": 1, "greedy_suppress_words": 1}
+DET_LAUNCHES = {"sparse_conv": 0, "bev_pool": POOL_LAUNCHES, **NMS_LAUNCHES}
 DECODE_RTOL = 1e-5  # get_bboxes on the card vs the CPU, on the same predictions
-TRAIN_LAUNCHES = {"sparse_conv": 15 + 14, "sparse_conv_dw": 15, "bev_pool": 1, "greedy_nms": 0}
+TRAIN_LAUNCHES = {"sparse_conv": 15 + 14, "sparse_conv_dw": 15, "bev_pool": 1,
+                  "suppression_words": 0, "greedy_suppress_words": 0}
 # the configs phase 12b trains beside the flagship, in its order (voxelnet.yaml
 # differs from voxelnet_0p075.yaml only in its voxel size), and their launches a step
 _SPARSE_STEP = {"sparse_conv": 15 + 14, "sparse_conv_dw": 15}
@@ -458,8 +469,8 @@ FRAMES = (2, 5)  # a frame time's warmup and timed frames (median of 5)
 STAGE_ITERS = 2  # frames profile_stages times each stage over
 # the tools drive the TransFusion flagship, which has no NMS, at fp32 in this process (their
 # CLIs' bf16 default runs in the benchmark subprocesses)
-TOOLS_ABSENT = {"greedy_nms", "sparse_conv_bf16", "sparse_conv_dw_bf16", "deform_im2col",
-                "furthest_point_sample"}
+TOOLS_ABSENT = {"suppression_words", "greedy_suppress_words", "sparse_conv_bf16",
+                "sparse_conv_dw_bf16", "deform_im2col", "furthest_point_sample"}
 SEG_BENCHMARK = "configs/nuscenes/seg/fusion-bev256d2-lss.yaml"  # the tools phase's second CLI run
 CLI_SAMPLES = 4  # samples of the synthesized nuScenes-format set of phase 11d
 TRAIN_CLI_SAMPLES = 3  # phase 11e's train split: CBGS makes 9 of them, 2 steps an epoch at B = 4
@@ -514,7 +525,8 @@ VOTENET_SA = ((2048, 0.2, 64, (64, 64, 128)), (1024, 0.4, 32, (128, 128, 256)),
               (512, 0.8, 16, (128, 128, 256)), (256, 1.2, 16, (128, 128, 256)))
 VOTENET_FP = ((256, 256), (256, 256))
 VOTENET_POINTS = 20000
-TRANSFUSION_NMS_GROUPS = 2  # nuScenes' class groups with a radius > 0 (TransFusionHead.NMS_TASKS)
+# nuScenes' class groups with a radius > 0 (TransFusionHead.NMS_TASKS): N1 and N2 once a group
+TRANSFUSION_NMS_GROUPS = 2
 # the flagship's encoder in conv_module: the input conv and stages 0-2's three blocks each
 # sparse (stage 3 dense), a launch each at B = 1
 CONV_MODULE_LAUNCHES = 10
@@ -1256,58 +1268,174 @@ def max_sm_clock_hz() -> float:
     return float(out.strip().splitlines()[0]) * 1e6
 
 
-def nms_kernel_cases(nms, frames):
-    """The NMS kernel against ``greedy_suppress_plain`` bit for bit on every
-    (label, suppression matrix, order) of ``frames`` and on four made ones
-    (P = 1): random at N = 500, everything suppressed, nothing suppressed,
-    random at N = 1000 (``pre_max_size``). The timed shapes: the first six
-    of ``frames`` (one frame's tasks) and the made ones, each with its
-    kernel and plain times and its bound: the larger of the bytes (the
-    matrix, the order and the keep mask once) over the memory rate and the
-    N dependent steps of the pass at one SM clock each (``operations``).
-    Returns (the kernel table's shape entries, the number of matrices held)."""
-    g = torch.Generator(device=DEVICE).manual_seed(0)
+@contextlib.contextmanager
+def plain_nms(nms):
+    """N1 and N2 patched to their plain versions in ``ops/nms.py`` (where
+    every NMS function looks them up) for the block's duration."""
+    kernels = nms.suppression_words, nms.greedy_suppress_words
+    nms.suppression_words = nms.suppression_words_plain
+    nms.greedy_suppress_words = nms.greedy_suppress_words_plain
+    try:
+        yield
+    finally:
+        nms.suppression_words, nms.greedy_suppress_words = kernels
 
-    def made(n, density):
-        sup = torch.rand(1, n, n, generator=g, device=DEVICE) < density
-        return sup, torch.randperm(n, generator=g, device=DEVICE)[None]
 
-    cases = list(frames) + [("made random N=500", *made(500, 0.02)),
-                            ("made all suppressed N=500", *made(500, 1.0)),
-                            ("made none suppressed N=500", *made(500, 0.0)),
-                            ("made random N=1000", *made(1000, 0.01))]
-    clock = max_sm_clock_hz()
-    shapes = []
-    for i, (label, sup, order) in enumerate(cases):
-        got = nms.greedy_suppress(sup, order)
-        want = nms.greedy_suppress_plain(sup, order)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), f"NMS kernel {label}: keep mask differs from plain")
-        if i >= 6 and i < len(frames):
+def n1_flops(geom, rotated) -> int:
+    """The FP32 operations N1's code (``csrc/nms.cu``) does on these boxes,
+    counted from this data: 5 a live circle pair (j > i); a live rotated
+    pair, each clip it runs (2 for the edge, 5 a vertex's side, 8 an
+    intersection: its denominator, quotient and point), stopping at an
+    empty polygon, then 3 a vertex of the shoelace sum and 12 (its seven
+    sums, the half, the union and the quotient). The clips are replayed
+    with ``ops/iou3d.py``'s tensor ops."""
+    from bevfusion_tpu_torch.ops import iou3d
+
+    P, N, _ = geom.shape
+    live = torch.ones(N, N, dtype=torch.bool, device=geom.device).triu(1)
+    idx = torch.arange(8, device=geom.device)
+    total = 0
+    for p in range(P):
+        if not bool(rotated[p]):
+            total += 5 * int(live.sum())
             continue
+        c = geom[p, :, :8].view(N, 4, 2)
+        c2 = c[None].expand(N, N, 4, 2)
+        poly = c.new_zeros((N, N, 8, 2))
+        poly[:, :, :4] = c[:, None].expand(N, N, 4, 2)
+        n = torch.full((N, N), 4, dtype=torch.long, device=geom.device)
+        flops = torch.zeros((N, N), dtype=torch.long, device=geom.device)
+        for e in range(4):
+            q0, q1 = c2[..., e, :], c2[..., (e + 1) % 4, :]
+            d = q1 - q0
+            nxt = torch.gather(poly, -2, torch.where(idx + 1 < n[..., None], idx + 1, 0)[
+                ..., None].expand(N, N, 8, 2))
+            side = [d[..., None, 0] * (v[..., 1] - q0[..., None, 1])
+                    - d[..., None, 1] * (v[..., 0] - q0[..., None, 0]) for v in (poly, nxt)]
+            cross = ((idx < n[..., None]) & ((side[0] >= 0) != (side[1] >= 0))).sum(-1)
+            flops += torch.where(n > 0, 2 + 5 * n + 8 * cross, 0)
+            poly, n = iou3d._clip_halfplane(poly, n, q0, q1)
+        total += int(((flops + 3 * n + 12) * live).sum())
+    return total
+
+
+def nms_made_cases(nms):
+    """N1's made problems (P = 1; boxes in score order, a random order for N2's
+    output): random boxes in a 40 m square at N = 500 and in a 60 m square at
+    N = 1000 and N = 1300 (not a multiple of 64), IoU above 0.2; 100 identical
+    boxes; 100 nested ones (one center and yaw, sizes 0.2-1 of the largest);
+    a 10 x 10 grid of unit squares sharing edges, every other one turned by
+    pi / 2, IoU above 0; 100 boxes of which a third have a zero dim or two;
+    100 boxes about one center at yaw pi, -pi and within 1e-6 of them; and
+    N = 500 with every pair suppressed (IoU above -1) and with none (above
+    infinity). Returns [(label, geom, rotated, thr, order)]."""
+    g = torch.Generator().manual_seed(20)
+
+    def rand(*shape, lo=0.0, hi=1.0):
+        return torch.rand(*shape, generator=g) * (hi - lo) + lo
+
+    def boxes(n, spread):
+        return torch.cat([rand(n, 2, lo=-spread, hi=spread), rand(n, 2, lo=0.5, hi=5.0),
+                          rand(n, 1, lo=-math.pi, hi=math.pi)], -1)
+
+    def case(label, b, thr):
+        n = b.shape[0]
+        return (f"made {label} N={n}", nms.box_geometry(b[None].to(DEVICE)),
+                torch.ones(1, dtype=torch.bool, device=DEVICE),
+                torch.tensor([thr], dtype=torch.float32, device=DEVICE),
+                torch.randperm(n, generator=g)[None].to(DEVICE))
+
+    one = boxes(1, 5.0)
+    nested = one.repeat(100, 1)
+    nested[:, 2:4] *= rand(100, 1, lo=0.2, hi=1.0)
+    grid = torch.stack(torch.meshgrid(torch.arange(10.0), torch.arange(10.0), indexing="ij"),
+                       -1).reshape(100, 2)
+    edges = torch.cat([grid, torch.ones(100, 2), (torch.arange(100) % 2)[:, None] * math.pi / 2],
+                      -1)
+    zero = boxes(100, 4.0)
+    zero[:34, 2] = 0.0
+    zero[17:50, 3] = 0.0
+    yaw = boxes(100, 1.0)
+    yaw[:, 4] = torch.tensor([math.pi, -math.pi, math.pi - 1e-6, -math.pi + 1e-6]).repeat(25)
+    return [case("random", boxes(500, 20.0), 0.2), case("random", boxes(1000, 30.0), 0.2),
+            case("random", boxes(1300, 30.0), 0.2), case("identical", one.repeat(100, 1), 0.2),
+            case("nested", nested, 0.2), case("edge-sharing", edges, 0.0),
+            case("zero-size", zero, 0.2), case("yaw +-pi", yaw, 0.2),
+            case("all suppressed", boxes(500, 20.0), -1.0),
+            case("none suppressed", boxes(500, 20.0), float("inf"))]
+
+
+def nms_kernel_cases(nms, frames):
+    """N1 and N2 against their plain versions on every NMS problem of
+    ``frames`` [(label, geom, rotated, thr, order)] (a frame's six tasks, as
+    ``get_bboxes`` hands them to the kernels) and on ``nms_made_cases``. N1's
+    words must equal ``suppression_words_plain``'s but where the plain IoU
+    lies within 2^-20 of the threshold (``nms.near_threshold``; each such bit
+    printed and counted); N2's keep mask on N1's words must equal
+    ``greedy_suppress_words_plain``'s bit for bit, and the plain versions'
+    end to end. Timed: the first frame (the swint frame's six tasks, one
+    launch of each) and the made cases: each kernel's and its plain
+    version's times and bound, N1's the larger of its bytes (boxes, modes,
+    thresholds, words once) over the memory rate and ``n1_flops`` over the
+    FP32 rate, N2's the larger of its bytes (words, order, keep once) and N
+    dependent steps at one SM clock each. Returns (N1's shape entries, N2's,
+    the problems held, the differing bits)."""
+    cases = list(frames) + nms_made_cases(nms)
+    clock = max_sm_clock_hz()
+    n1_shapes, n2_shapes, problems, differing = [], [], 0, 0
+    for i, (label, geom, rotated, thr, order) in enumerate(cases):
         P, N = order.shape
-        ms = kernel_ms(lambda: nms.greedy_suppress(sup, order))
-        plain_ms = time_fn(lambda: nms.greedy_suppress_plain(sup, order), iters=5, warmup=1,
-                           device=DEVICE)["median_ms"]
-        b_bytes = nbytes(sup, order, got) / HBM_BYTES_PER_S * 1e3
-        b_steps = N / clock * 1e3
-        shapes.append({"shape": f"{label} [{P},{N},{N}]", "kept": int(got.sum()),
-                       "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-                       "bound_ms": max(b_bytes, b_steps),
-                       "bound_by": "bytes" if b_bytes >= b_steps else "operations"})
-        r = shapes[-1]
-        print(f"kernel greedy_nms {r['shape']}: {r['kept']} kept, equal to plain bit for bit; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {r['bound_ms']:.5f} ms "
-              f"({r['bound_by']}: bytes {b_bytes:.5f}, {N} steps at {clock / 1e6:.0f} MHz "
-              f"{b_steps:.5f}), {r['bound_ms'] / ms:.4f} of bound")
-    return shapes, len(cases)
+        words = nms.suppression_words(geom, rotated, thr)
+        want = nms.suppression_words_plain(geom, rotated, thr)
+        keep = nms.greedy_suppress_words(words, order)
+        torch.cuda.synchronize()
+        diff = nms.unpack_words(words ^ want, N)
+        near = nms.near_threshold(geom, rotated, thr)
+        bad, loose = int((diff & ~near).sum()), int(diff.sum())
+        for p, r, c in diff.nonzero().tolist():
+            print(f"kernel suppression_words {label}: problem {p} bit ({r}, {c}) differs from "
+                  f"plain, the plain IoU within 2^-20 of the threshold: {bool(near[p, r, c])}")
+        check(bad == 0, f"N1 {label}: {bad} bits differ from plain away from the threshold")
+        check(torch.equal(keep, nms.greedy_suppress_words_plain(words, order))
+              and (loose or torch.equal(keep, nms.greedy_suppress_words_plain(want, order))),
+              f"N2 {label}: keep mask differs from plain")
+        problems, differing = problems + P, differing + loose
+        if 0 < i < len(frames):
+            continue
+        w_args, g_args = (geom, rotated, thr), (words, order)
+        timed = [kernel_ms(lambda: nms.suppression_words(*w_args)),
+                 time_fn(lambda: nms.suppression_words_plain(*w_args), iters=3, warmup=1,
+                         device=DEVICE)["median_ms"],
+                 kernel_ms(lambda: nms.greedy_suppress_words(*g_args)),
+                 time_fn(lambda: nms.greedy_suppress_words_plain(*g_args), iters=3, warmup=1,
+                         device=DEVICE)["median_ms"]]
+        flops = n1_flops(geom, rotated)
+        b1 = (nbytes(geom, rotated, thr, words) / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3)
+        b2 = (nbytes(words, order, keep) / HBM_BYTES_PER_S * 1e3, N / clock * 1e3)
+        shape = f"{label} [{P},{N}]"
+        for shapes, (ms, plain_ms), bounds, extra in (
+                (n1_shapes, timed[:2], b1, {"flops": flops, "differing_bits": loose}),
+                (n2_shapes, timed[2:], b2, {"kept": int(keep.sum())})):
+            shapes.append(dict({"shape": shape, "max_abs_err": float(loose > 0), "ms": ms,
+                                "plain_ms": plain_ms, "bound_ms": max(bounds),
+                                "bound_by": "bytes" if bounds[0] >= bounds[1] else "operations",
+                                "share": max(bounds) / ms}, **extra))
+        for name, r, (bb, bo) in (("suppression_words", n1_shapes[-1], b1),
+                                  ("greedy_suppress_words", n2_shapes[-1], b2)):
+            print(f"kernel {name} {shape}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+                  f"ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}: bytes {bb:.5f}, "
+                  f"operations {bo:.5f}), {r['share']:.4f} of bound; "
+                  + (f"{flops} FP32 operations, {loose} bits differ" if name[0] == "s"
+                     else f"{r['kept']} kept, equal to plain"))
+    return n1_shapes, n2_shapes, problems, differing
 
 
-def traced(fn, mark=None):
+def traced(fn, marks=()):
     """``fn()`` on the card: its wall time (host clock around a synchronised
     call, after one warmup), then the same call once under
     ``torch.profiler``: the card's activities (kernels, copies), their
-    summed device time, the part of it in kernels whose name holds ``mark``,
+    summed device time, the part of it in kernels whose name holds one of
+    ``marks``,
     the share of the wall time the card is idle, and the five kernel names
     with the most device time."""
     from torch.profiler import ProfilerActivity, profile
@@ -1330,15 +1458,16 @@ def traced(fn, mark=None):
         by_name[e.name[:90]] = (n + 1, ms + e.device_time / 1e3)
     top = sorted(by_name.items(), key=lambda kv: kv[1][1], reverse=True)[:5]
     return {"wall_ms": wall_ms, "device_activities": len(acts), "device_busy_ms": busy_ms,
-            "mark_ms": sum(e.device_time for e in acts if mark and mark in e.name) / 1e3,
+            "mark_ms": sum(e.device_time for e in acts
+                           if any(m in e.name for m in marks)) / 1e3,
             "idle_share": 1.0 - busy_ms / wall_ms,
             "top": [{"name": k, "count": n, "ms": ms} for k, (n, ms) in top]}
 
 
 def decode_trace(head, preds):
-    """``head.get_bboxes(preds)`` traced (``traced``), the NMS kernel's
-    device time apart."""
-    r = traced(lambda: head.get_bboxes(preds), "greedy_suppress")
+    """``head.get_bboxes(preds)`` traced (``traced``), the NMS kernels' (N1
+    and N2) device time apart."""
+    r = traced(lambda: head.get_bboxes(preds), ("suppression_words_kernel", "greedy_words_kernel"))
     r["nms_kernel_ms"] = r.pop("mark_ms")
     return r
 
@@ -1359,8 +1488,8 @@ def det_frame(label, path, counters, want):
     after (``want`` the counts a frame must show); its raw head maps against
     the CPU model's; ``get_bboxes`` on the card and the CPU on the same
     predictions; the decode traced; its frame time, peak memory and stages
-    with TF32 off and on. Returns (results, the suppression matrices of its
-    NMS passes, the card's model, its batch)."""
+    with TF32 off and on. Returns (results, its NMS problems as N1 takes them
+    (label, geom, rotated, thr, order), the card's model, its batch)."""
     from bevfusion_tpu_torch.runtime.flagship import batch_to, build_flagship
 
     t0 = time.perf_counter()
@@ -1384,7 +1513,7 @@ def det_frame(label, path, counters, want):
     same = [{k: v.cuda() for k, v in m.items()} for m in cpu_maps]
     with torch.no_grad():
         dec = model.heads["object"].get_bboxes(same)
-        sups = model.heads["object"].suppressions(same)  # what get_bboxes's NMS passes took
+        problems = model.heads["object"].nms_inputs(same)  # what get_bboxes hands N1
     keep = cpu_boxes["mask"]
     check(torch.equal(dec["mask"].cpu(), keep) and torch.equal(dec["labels"].cpu(),
                                                                  cpu_boxes["labels"]),
@@ -1418,34 +1547,35 @@ def det_frame(label, path, counters, want):
         print(f"{label} stages, {key}: " + ", ".join(f"{k} {v:.2f}" for k, v in r[key].items()))
     print(f"{label} decode (get_bboxes, TF32 off): {trace['wall_ms']:.2f} ms wall; traced: "
           f"{trace['device_activities']} kernels and copies on the card, "
-          f"{trace['device_busy_ms']:.3f} ms busy (the NMS kernel "
+          f"{trace['device_busy_ms']:.3f} ms busy (the NMS kernels N1 + N2 "
           f"{trace['nms_kernel_ms']:.3f}), idle {100 * trace['idle_share']:.1f}% of the wall; "
           f"most device time: " + "; ".join(f"{t['name']} x{t['count']} {t['ms']:.3f} ms"
                                             for t in trace["top"]))
-    return r, [(f"{label} task {t}", sup, order) for t, (sup, order) in enumerate(sups)], \
-        model, batch
+    return r, (label, *problems), model, batch
 
 
 def det_phase(counters, bp, nms):
     """Phase 11b: each camera-only CenterHead config's frame (``det_frame``);
-    then the NMS kernel alone on the frames' suppression matrices and four
-    made ones, and the pool kernel at the ResNet configs' shape. Returns
-    ({config: results}, the NMS kernel's shape entries, the pool's shape
+    then N1 and N2 alone on the frames' NMS problems and the made ones
+    (``nms_kernel_cases``), and the pool kernel at the ResNet configs' shape.
+    Returns ({config: results}, N1's and N2's shape entries, the pool's shape
     entry)."""
     from bevfusion_tpu_torch.runtime.flagship import DET_CAMERA_CONFIGS
 
     res, frames, pool_entry = {}, [], None
     for name, path in DET_CAMERA_CONFIGS.items():
-        res[name], sups, model, batch = det_frame(f"det {name}", path, counters, DET_LAUNCHES)
-        frames += sups
+        res[name], problems, model, batch = det_frame(f"det {name}", path, counters,
+                                                      DET_LAUNCHES)
+        frames.append(problems)
         if name == "resnet":
             pool_entry, _ = pool_case("det resnet", bp, model.encoders["camera"]["vtransform"],
                                       batch["pool_lut"])
-        del model, batch, sups
+        del model, batch, problems
         torch.cuda.empty_cache()
-    nms_shapes, held = nms_kernel_cases(nms, frames)
-    print(f"kernel greedy_nms: {held} suppression matrices equal to plain bit for bit")
-    return res, nms_shapes, pool_entry
+    n1_shapes, n2_shapes, held, differing = nms_kernel_cases(nms, frames)
+    print(f"kernels suppression_words and greedy_suppress_words: {held} problems held to plain, "
+          f"{differing} bits differing (each within 2^-20 of its threshold), keep masks equal")
+    return res, (n1_shapes, n2_shapes), pool_entry
 
 
 def pillar_phase(counters):
@@ -2199,7 +2329,7 @@ def counted(counters, fn):
 def dcn_frame(counters, none):
     """11g (i): the swint camera CenterHead config with ``separate_head.type:
     DCNSeparateHead``, one eval frame on the card (launches: the pool once, D1
-    twice a task, the greedy pass once a task); every task's maps against the
+    twice a task, N1 and N2 once); every task's maps against the
     same head on the CPU from the card's head input; then D1 alone against
     its plain version at that head's input with random offsets. Returns
     (results, D1's shape entry)."""
@@ -2222,7 +2352,7 @@ def dcn_frame(counters, none):
         _, launches = counted(counters, lambda: model(batch)["boxes"])
     for h in hooks:
         h.remove()
-    want = dict(none, bev_pool=POOL_LAUNCHES, greedy_nms=6, deform_im2col=2 * 6)
+    want = dict(none, bev_pool=POOL_LAUNCHES, deform_im2col=2 * 6, **NMS_LAUNCHES)
     check(launches == want, f"11g dcn: launches {launches}, want {want}")
     t0 = time.perf_counter()
     cpu_head = copy.deepcopy(head).cpu()
@@ -2339,9 +2469,9 @@ def pointnet_part(counters, none, cpu_batch):
 
 def flagship_nms_part(counters, none, model, batch):
     """11g (iii): the flagship with ``test_cfg.nms_type`` circle, then rotate:
-    one frame each (launches: 15 + 1 and the greedy pass once a class group
-    with a radius), and the keep masks of the kernel against the plain greedy
-    pass on the same predictions."""
+    one frame each (launches: 15 + 1 and N1 and N2 once a class group with a
+    radius), and the keep masks of the kernels against the plain versions
+    on the same predictions."""
     from bevfusion_tpu_torch.ops import nms
 
     head = model.heads["object"]
@@ -2353,15 +2483,12 @@ def flagship_nms_part(counters, none, model, batch):
             head.test_cfg["nms_type"] = nms_type
             boxes, launches = counted(counters, lambda: model(batch)["boxes"])
             want = dict(none, sparse_conv=SPARSE_LAUNCHES, bev_pool=POOL_LAUNCHES,
-                        greedy_nms=TRANSFUSION_NMS_GROUPS)
+                        suppression_words=TRANSFUSION_NMS_GROUPS,
+                        greedy_suppress_words=TRANSFUSION_NMS_GROUPS)
             check(launches == want, f"11g nms {nms_type}: launches {launches}, want {want}")
             keep = head.get_bboxes(preds)["mask"]
-            kernel = nms.greedy_suppress
-            nms.greedy_suppress = nms.greedy_suppress_plain
-            try:
+            with plain_nms(nms):
                 plain = head.get_bboxes(preds)["mask"]
-            finally:
-                nms.greedy_suppress = kernel
             check(torch.equal(keep, plain), f"11g nms {nms_type}: keep masks differ from plain")
             check(bool(torch.isfinite(boxes["bboxes"]).all()), f"11g nms {nms_type}: boxes")
             # at random init the proposals lie apart, few or none in the groups NMS runs on,
@@ -2374,11 +2501,8 @@ def flagship_nms_part(counters, none, model, batch):
             dec["labels"] = 8 + torch.arange(dec["labels"].shape[1],
                                              device=DEVICE).expand_as(dec["labels"]) % 2
             packed = head.suppress(dec)
-            nms.greedy_suppress = nms.greedy_suppress_plain
-            try:
+            with plain_nms(nms):
                 packed_plain = head.suppress(dec)
-            finally:
-                nms.greedy_suppress = kernel
             check(torch.equal(packed, packed_plain) and int(packed.sum()) < int(dec["mask"].sum()),
                   f"11g nms {nms_type}: clustered boxes: keep {int(packed.sum())} of "
                   f"{int(dec['mask'].sum())}, equal to plain {torch.equal(packed, packed_plain)}")
@@ -3376,8 +3500,10 @@ def kernel_counters():
             "sparse_conv_bf16": sp.sparse_conv_bf16,
             "sparse_conv_dw_bf16": sp.sparse_conv_dw_bf16, "bev_pool": bp.bev_pool,
             "tile_copy": tm.copy_add_one, "tile_gather": tm.gather_tiles,
-            "sparse_conv_variants": kv.sparse_conv_variant, "greedy_nms": nms.greedy_suppress,
-            "deform_im2col": dc.deform_im2col, "furthest_point_sample": pn.furthest_point_sample}
+            "sparse_conv_variants": kv.sparse_conv_variant,
+            "suppression_words": nms.suppression_words,
+            "greedy_suppress_words": nms.greedy_suppress_words, "deform_im2col": dc.deform_im2col,
+            "furthest_point_sample": pn.furthest_point_sample}
 
 
 def no_dropout(model) -> None:
@@ -3979,6 +4105,41 @@ def long_tail_only() -> int:
     return 0
 
 
+def nms_only() -> int:
+    """``python3 chip_smoke.py --nms``: the NMS and pool kernels built (one
+    nvcc each, started together) and their ptxas lines, then phase 11b's
+    NMS part alone: each camera CenterHead config's frame (``det_frame``:
+    launches, the decode on the card against the CPU's, its trace) and
+    ``nms_kernel_cases``; the results as a JSON line. A quick check of the
+    NMS kernels."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from bevfusion_tpu_torch import native
+    from bevfusion_tpu_torch.ops import bev_pool as bp
+    from bevfusion_tpu_torch.ops import nms
+    from bevfusion_tpu_torch.runtime.flagship import DET_CAMERA_CONFIGS
+
+    print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card_line()}")
+    t0 = time.perf_counter()
+    builds = {"nms": nms.build_kernels, "bev_pool": bp.build_kernels}
+    with ThreadPoolExecutor(len(builds)) as ex:
+        list(ex.map(lambda build: build(), builds.values()))
+    print(f"build: {time.perf_counter() - t0:.2f} s")
+    ptxas_lines(native, ["nms"])
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    res, frames = {}, []
+    for name, path in DET_CAMERA_CONFIGS.items():
+        res[name], problems, model, batch = det_frame(f"det {name}", path, kernel_counters(),
+                                                      DET_LAUNCHES)
+        frames.append(problems)
+        del model, batch
+        torch.cuda.empty_cache()
+    n1, n2, held, differing = nms_kernel_cases(nms, frames)
+    print(json.dumps({"det_camera": res, "suppression_words": n1, "greedy_suppress_words": n2,
+                      "problems_held": held, "differing_bits": differing,
+                      "seconds": time.perf_counter() - t0}))
+    return 0
+
+
 def sparse_kernels_only() -> int:
     """``python3 chip_smoke.py --sparse-kernels``: the three sparse-conv
     sources built (one nvcc each, started together) and their ptxas lines,
@@ -4061,6 +4222,8 @@ def main() -> int:
         return long_tail_only()
     if sys.argv[1:2] == ["--sparse-kernels"]:
         return sparse_kernels_only()
+    if sys.argv[1:2] == ["--nms"]:
+        return nms_only()
     t_start = time.perf_counter()
     # cuBLAS takes deterministic workspaces only if told before its first call
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -4140,10 +4303,12 @@ def main() -> int:
 
     # 8. the LiDAR slice, eval forward at B=1
     counters = {"sparse_conv": sp.sparse_conv, "bev_pool": bp.bev_pool,
-                "greedy_nms": nms.greedy_suppress}
+                "suppression_words": nms.suppression_words,
+                "greedy_suppress_words": nms.greedy_suppress_words}
+    no_nms = dict.fromkeys(NMS_LAUNCHES, 0)
     lidar_launches, lidar_heat_err, lidar_frames, lidar_peak = run_model(
         "lidar slice", copy.deepcopy(cpu_model).cuda(), batch, cpu_model, cpu_batch, counters,
-        {"sparse_conv": SPARSE_LAUNCHES, "bev_pool": 0, "greedy_nms": 0})
+        {"sparse_conv": SPARSE_LAUNCHES, "bev_pool": 0, **no_nms})
     del cpu_model, cpu_batch, batch
 
     # 9. BEV-pool kernel vs plain at the flagship's shape, on the main path's intervals
@@ -4186,7 +4351,7 @@ def main() -> int:
     model = copy.deepcopy(cpu_model).cuda()
     launches, heat_err, frames, peak = run_model(
         "flagship", model, batch, cpu_model, cpu_batch, counters,
-        {"sparse_conv": SPARSE_LAUNCHES, "bev_pool": POOL_LAUNCHES, "greedy_nms": 0})
+        {"sparse_conv": SPARSE_LAUNCHES, "bev_pool": POOL_LAUNCHES, **no_nms})
     stages = {r["stage"]: r["ms"]
               for r in profile_stages.profile_stages(model, batch, DEVICE, iters=STAGE_ITERS)[0]}
     for stage, ms in stages.items():
@@ -4227,7 +4392,7 @@ def main() -> int:
     t0 = time.perf_counter()
     det, nms_shapes, det_pool = det_phase(all_counters, bp, nms)
     det_s = time.perf_counter() - t0
-    print(f"det: the three configs, the NMS kernel and the pool at C = 64 in {det_s:.1f} s")
+    print(f"det: the three configs, the NMS kernels and the pool at C = 64 in {det_s:.1f} s")
 
     # 11c. the pillar configs, eval forward at B=1: PointPillars, camera + radar; dlss refused
     t0 = time.perf_counter()
@@ -4359,13 +4524,16 @@ def main() -> int:
              tc_1xtf32_rel_err_vs_fp32=k7_one_tf32,
              split=[{k: v for k, v in r.items() if k != "modes"} for r in tools["breakdown"]]),
     ]
-    # not a TPU kernel: the JAX package's greedy pass is a lax.fori_loop
-    kernels.append(dict(summary("greedy_nms", "bevfusion_tpu_torch/csrc/nms.cu",
-                                "bevfusion_tpu/ops/nms.py:25",
-                                sum(r["launches"]["greedy_nms"] for r in det.values()), nms_shapes),
-                        pallas=False, launches_eval=launches["greedy_nms"],
-                        launches_lidar=lidar_launches["greedy_nms"],
-                        launches_tools=tool_launches["greedy_nms"]))
+    # not TPU kernels: the JAX package builds its NMS's suppression matrix with XLA ops (the
+    # circle distances, the IoU of iou3d.py:95) and runs the greedy pass as a lax.fori_loop
+    for op, replaces, also, shapes in (
+            ("suppression_words", "bevfusion_tpu/ops/nms.py:54",
+             ["bevfusion_tpu/ops/nms.py:41", "bevfusion_tpu/ops/iou3d.py:95"], nms_shapes[0]),
+            ("greedy_suppress_words", "bevfusion_tpu/ops/nms.py:25", [], nms_shapes[1])):
+        kernels.append(dict(summary(op, "bevfusion_tpu_torch/csrc/nms.cu", replaces,
+                                    sum(r["launches"][op] for r in det.values()), shapes),
+                            also_replaces=also, pallas=False, launches_eval=launches[op],
+                            launches_lidar=lidar_launches[op], launches_tools=tool_launches[op]))
     # the bf16 forms of K1/K2 and K3: launches in the bf16 train step (phase 13b)
     kernels += [
         dict(summary("sparse_conv_bf16", "bevfusion_tpu_torch/csrc/sparse_conv.cu",
@@ -4414,8 +4582,7 @@ def main() -> int:
         k["launches_train_dp"] = {key: [r[key]["launches"][k["name"]] for r in dp["ranks"]]
                                   for key in ("fp32", "bf16")}
         k["launches_export"] = {dt: r["launches_loaded"][k["name"]] for dt, r in exported.items()}
-        k["launches_longevity"] = longevity["launches_per_step"].get(
-            {"greedy_nms": "greedy_suppress"}.get(k["name"], k["name"]), 0)
+        k["launches_longevity"] = longevity["launches_per_step"].get(k["name"], 0)
         k["launches_long_tail"] = long_tail_launches(long_tail, k["name"])
     print(json.dumps({
         "kernels": kernels, "build_s": build_s, "total_s": time.perf_counter() - t_start,

@@ -76,11 +76,11 @@ def test_greedy_suppress_plain_matches_jax(density):
 
 
 def test_greedy_suppress_on_the_cpu_takes_the_plain_version():
-    before = nms.greedy_suppress.launches
+    before = nms.greedy_suppress_words.launches
     sup = torch.ones(1, 4, 4, dtype=torch.bool)
     keep = nms.greedy_suppress(sup, torch.tensor([[2, 0, 3, 1]]))
     assert keep.tolist() == [[False, False, True, False]]  # the top-scoring one alone
-    assert nms.greedy_suppress.launches == before
+    assert nms.greedy_suppress_words.launches == before
 
 
 def _nms_inputs(case, P=2, N=60):

@@ -721,42 +721,194 @@ def test_tc_variant_rejects_what_it_does_not_take(cuda):
     assert kv.sparse_conv_variant.launches == launches
 
 
+def _nms_boxes(n, seed, spread=20.0):
+    """[n, 5] BEV boxes (cx, cy, dx, dy, yaw) in a 2 * spread square, sizes
+    0.5-5 m, any yaw; made on the CPU from a seed."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.cat([torch.rand(n, 2, generator=g) * 2 * spread - spread,
+                      torch.rand(n, 2, generator=g) * 4.5 + 0.5,
+                      (torch.rand(n, 1, generator=g) * 2 - 1) * np.pi], -1)
+
+
+def _words_case(kind, n, seed):
+    """N1's operands for one problem: ``kind`` random, identical, nested,
+    edges (unit squares sharing edges, every other turned by pi / 2),
+    zero (a third with a zero dim) or yaw (yaw at +-pi and within 1e-6)."""
+    from bevfusion_tpu_torch.ops import nms
+
+    b = _nms_boxes(n, seed, spread=20.0 if kind == "random" else 2.0)
+    thr = 0.2
+    if kind == "identical":
+        b[:] = b[0]
+    elif kind == "nested":
+        b[:, :2], b[:, 4] = b[0, :2], b[0, 4]
+    elif kind == "edges":
+        k = torch.arange(n)
+        b = torch.stack([(k % 10).float(), (k // 10).float(), torch.ones(n), torch.ones(n),
+                         (k % 2).float() * np.pi / 2], -1)
+        thr = 0.0
+    elif kind == "zero":
+        b[: n // 3, 2] = 0.0
+        b[n // 6: n // 2, 3] = 0.0
+    elif kind == "yaw":
+        b[:, 4] = torch.tensor([np.pi, -np.pi, np.pi - 1e-6, -np.pi + 1e-6]).repeat(n)[:n]
+    return nms.box_geometry(b[None]), torch.tensor([True]), torch.tensor([thr])
+
+
+def _assert_words(got, want, geom, rotated, thr):
+    """N1's words equal the plain version's but where the plain IoU lies
+    within 2^-20 of the threshold (``nms.near_threshold``)."""
+    from bevfusion_tpu_torch.ops import nms
+
+    diff = nms.unpack_words(got.cpu() ^ want.cpu(), geom.shape[1])
+    assert not (diff & ~nms.near_threshold(geom.cpu(), rotated.cpu(), thr.cpu())).any(), \
+        diff.nonzero().tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,n", [("random", 1), ("random", 63), ("random", 64), ("random", 65),
+                                    ("random", 500), ("random", 1300), ("identical", 100),
+                                    ("nested", 100), ("edges", 100), ("zero", 100),
+                                    ("yaw", 100)])
+def test_nms_words_kernel_matches_plain(cuda, kind, n):
+    """N1 (``csrc/nms.cu``) against ``suppression_words_plain`` on the same
+    CUDA tensors, one launch for one problem."""
+    from bevfusion_tpu_torch.ops import nms
+
+    args = [t.to(cuda) for t in _words_case(kind, n, seed=n)]
+    want = nms.suppression_words_plain(*args)
+    launches = nms.suppression_words.launches
+    got = nms.suppression_words(*args)
+    torch.cuda.synchronize()
+    assert nms.suppression_words.launches == launches + 1
+    assert got.dtype == torch.int64 and got.shape == want.shape
+    _assert_words(got, want, *args)
+    assert kind != "identical" or nms.unpack_words(want, n)[0, 0, 1:].all()
+
+
+@pytest.mark.cuda
+def test_nms_words_kernel_mixes_problems_in_one_launch(cuda):
+    """Six problems in one launch, circle and rotated mixed with their own
+    thresholds (a camera CenterHead frame's shape at N = 200), and each
+    problem's IoU bits exact: with the threshold set to a pair's plain IoU,
+    and to the float below it, the kernel's bit for that pair is the plain
+    version's both times."""
+    from bevfusion_tpu_torch.ops import nms
+    from bevfusion_tpu_torch.ops.iou3d import iou_corners
+
+    b = torch.stack([_nms_boxes(200, seed, spread=8.0) for seed in range(6)]).to(cuda)
+    rotated = torch.tensor([False, True, True, False, True, True], device=cuda)
+    geom = torch.where(rotated[:, None, None], nms.box_geometry(b),
+                       nms.center_geometry(b[..., :2]))
+    thr = torch.tensor([4.0, 0.2, 0.1, 1.0, 0.3, 0.2], device=cuda)
+    got = nms.suppression_words(geom, rotated, thr)
+    _assert_words(got, nms.suppression_words_plain(geom, rotated, thr), geom, rotated, thr)
+    corners, area = geom[1, :, :8].view(200, 4, 2), geom[1, :, 8]
+    iou = iou_corners(corners, area, corners, area).triu(1)
+    pairs = (iou > 0.05).nonzero()[:16]
+    assert len(pairs) == 16
+    at = iou[pairs[:, 0], pairs[:, 1]]
+    thr = torch.cat([at, torch.nextafter(at, torch.zeros_like(at))]).contiguous()
+    P = len(thr)
+    g = geom[1:2].expand(P, -1, -1).contiguous()
+    r = torch.ones(P, dtype=torch.bool, device=cuda)
+    got = nms.unpack_words(nms.suppression_words(g, r, thr), 200)
+    want = nms.unpack_words(nms.suppression_words_plain(g, r, thr), 200)
+    i, j = pairs.repeat(2, 1).unbind(-1)
+    p = torch.arange(P, device=cuda)
+    assert torch.equal(got[p, i, j], want[p, i, j])
+    assert not want[p[:16], i[:16], j[:16]].any() and want[p[16:], i[16:], j[16:]].all()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,density", [(1, 0.5), (37, 0.1), (500, 0.0), (500, 0.02), (500, 1.0),
                                        (1000, 0.005), (1300, 0.3)])
 def test_nms_kernel_equals_plain(cuda, n, density):
-    """The greedy pass of NMS (``csrc/nms.cu``) equal to its plain version
-    bit for bit: P = 3 problems, every row density from nothing suppressed
-    to everything, N below and above the block's 256 threads."""
+    """N2, the greedy pass on words (``csrc/nms.cu``), equal to its plain
+    version bit for bit: P = 3 problems, every row density from nothing
+    suppressed to everything, N from one word to 21 (1300: not a multiple of
+    64); the lower triangle's bits set too, which the pass ignores."""
     from bevfusion_tpu_torch.ops import nms
 
     g = torch.Generator().manual_seed(n)
     sup = torch.rand(3, n, n, generator=g) < density
     order = torch.stack([torch.randperm(n, generator=g) for _ in range(3)])
     want = nms.greedy_suppress_plain(sup, order)
-    launches = nms.greedy_suppress.launches
+    launches = nms.greedy_suppress_words.launches
     got = nms.greedy_suppress(sup.to(cuda), order.to(cuda))
     torch.cuda.synchronize()
-    assert nms.greedy_suppress.launches == launches + 1
+    assert nms.greedy_suppress_words.launches == launches + 1
     assert got.dtype == torch.bool and torch.equal(got.cpu(), want)
+
+
+def _greedy_words_np(words, order):
+    """The greedy pass on one problem's words in numpy, a row at a time
+    (bits at or below the diagonal masked off): keep in index order."""
+    w = words.view(np.uint64)
+    n = w.shape[0]
+    removed, kept = np.zeros(w.shape[1], np.uint64), np.zeros(n, bool)
+    for i in range(n):
+        b, s = divmod(i, 64)
+        if (int(removed[b]) >> s) & 1:
+            continue
+        kept[i] = True
+        row = w[i].copy()
+        row[:b] = 0
+        row[b] &= np.uint64(~((1 << (s + 1)) - 1) & (2**64 - 1))
+        removed |= row
+    keep = np.zeros(n, bool)
+    keep[order] = kept
+    return keep
+
+
+@pytest.mark.cuda
+def test_nms_greedy_kernel_streams_large_n(cuda):
+    """N2 at N = 20,000 (313 words a row: 32-row chunks of words) and at the
+    largest N, 49,152 (768 words: 16-row chunks), on words of three random
+    bits a row (below the diagonal too), against the pass in numpy; above
+    the largest N the wrapper raises."""
+    from bevfusion_tpu_torch.ops import nms
+
+    for n in (20000, nms.MAX_N):
+        g = torch.Generator(device=cuda).manual_seed(n)
+        words = torch.zeros(1, n, nms.words_count(n), dtype=torch.int64, device=cuda)
+        cols = torch.randint(0, n, (n, 3), generator=g, device=cuda)
+        words[0].scatter_(1, cols // 64, torch.ones_like(cols) << (cols % 64))
+        order = torch.randperm(n, generator=g, device=cuda)[None]
+        got = nms.greedy_suppress_words(words, order)
+        torch.cuda.synchronize()
+        want = _greedy_words_np(words[0].cpu().numpy(), order[0].cpu().numpy())
+        assert 0 < want.sum() < n and np.array_equal(got[0].cpu().numpy(), want)
+    with pytest.raises(ValueError):
+        nms.greedy_suppress_words(torch.zeros(1, nms.MAX_N + 1, nms.words_count(nms.MAX_N + 1),
+                                              dtype=torch.int64, device=cuda),
+                                  torch.arange(nms.MAX_N + 1, device=cuda)[None])
 
 
 @pytest.mark.cuda
 def test_nms_kernel_rejects_what_it_does_not_take(cuda):
+    """N1's and N2's wrappers refuse wrong dtypes, shapes, devices and
+    non-contiguous operands, and launch nothing."""
     from bevfusion_tpu_torch.ops import nms
 
-    sup = torch.zeros(2, 8, 8, dtype=torch.bool, device=cuda)
+    words = torch.zeros(2, 8, 1, dtype=torch.int64, device=cuda)
     order = torch.arange(8, device=cuda).repeat(2, 1)
-    launches = nms.greedy_suppress.launches
-    with pytest.raises(TypeError):
-        nms.greedy_suppress(sup.float(), order)
-    with pytest.raises(TypeError):
-        nms.greedy_suppress(sup, order.int())
-    with pytest.raises(ValueError):
-        nms.greedy_suppress(sup[:, :4], order)
-    with pytest.raises(ValueError):
-        nms.greedy_suppress(sup.transpose(1, 2), order)
-    assert nms.greedy_suppress.launches == launches
+    geom = torch.zeros(2, 8, nms.GEOM, device=cuda)
+    rotated, thr = torch.ones(2, dtype=torch.bool, device=cuda), torch.zeros(2, device=cuda)
+    launches = nms.suppression_words.launches, nms.greedy_suppress_words.launches
+    for bad in ((words.int(), order), (words, order.int()), (words[:, :4], order),
+                (torch.zeros(2, 8, 2, dtype=torch.int64, device=cuda), order),
+                (torch.zeros(2, 8, 2, dtype=torch.int64, device=cuda)[..., :1], order),
+                (words, order.cpu())):
+        with pytest.raises(ValueError):
+            nms.greedy_suppress_words(*bad)
+    for bad in ((geom.double(), rotated, thr), (geom, rotated.to(torch.uint8), thr),
+                (geom, rotated, thr[:1]), (geom[..., :8], rotated, thr),
+                (geom.transpose(0, 1).contiguous().transpose(0, 1), rotated, thr),
+                (geom, rotated, thr.cpu()), (geom, rotated, thr.double())):
+        with pytest.raises(ValueError):
+            nms.suppression_words(*bad)
+    assert (nms.suppression_words.launches, nms.greedy_suppress_words.launches) == launches
 
 
 @pytest.mark.cuda
@@ -779,10 +931,12 @@ def test_centerhead_decode_on_card_matches_cpu(cuda):
                                      generator=g) * s + m
                       for k, (m, s) in DET_HEAD_MODERATE.items()})
     want = head.get_bboxes(preds)
-    launches = nms.greedy_suppress.launches
+    launches = nms.suppression_words.launches, nms.greedy_suppress_words.launches
     got = head.get_bboxes([{k: v.to(cuda) for k, v in p.items()} for p in preds])
     torch.cuda.synchronize()
-    assert nms.greedy_suppress.launches == launches + 6
+    # the six tasks' two samples: twelve problems, one launch of each kernel
+    assert (nms.suppression_words.launches, nms.greedy_suppress_words.launches) == \
+        (launches[0] + 1, launches[1] + 1)
     assert torch.equal(got["mask"].cpu(), want["mask"]) and want["mask"].sum() > 100
     assert torch.equal(got["labels"].cpu(), want["labels"])
     _close(got["scores"].cpu(), want["scores"])
@@ -790,18 +944,20 @@ def test_centerhead_decode_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,want", [("pointpillars", (0, 0, 0)), ("camera+radar", (0, 1, 6))])
+@pytest.mark.parametrize("name,want", [("pointpillars", (0, 0, 0, 0)),
+                                       ("camera+radar", (0, 1, 1, 1))])
 def test_pillar_config_frame_launches(cuda, name, want):
     """One eval frame of each pillar config at full width on the card: its
-    launches of the sparse-conv, BEV-pool and NMS kernels (PointPillars runs
-    no hand kernel; camera + radar pools once and runs one NMS pass a task);
+    launches of the sparse-conv, BEV-pool and NMS kernels N1 and N2
+    (PointPillars runs no hand kernel; camera + radar pools once and runs its
+    six tasks' NMS as one launch of each);
     PointPillars' box fields finite (CenterHead's maps at random init run
     to where ``exp(dim)`` overflows: chip_smoke.py moderates them first)."""
     from bevfusion_tpu_torch.ops import nms
     from bevfusion_tpu_torch.runtime.flagship import PILLAR_CONFIGS, build_flagship
 
     _, model, batch = build_flagship(cuda, config_path=PILLAR_CONFIGS[name])
-    kernels = (sp.sparse_conv, bp.bev_pool, nms.greedy_suppress)
+    kernels = (sp.sparse_conv, bp.bev_pool, nms.suppression_words, nms.greedy_suppress_words)
     before = [k.launches for k in kernels]
     with torch.no_grad():
         boxes = model(batch)["boxes"]
@@ -1123,13 +1279,17 @@ def test_custom_ops_fake_is_the_cuda_implementations_meta_and_counts_its_launche
     depth, ctx = torch.rand(1, 2, 4, 3, 5, device=cuda), torch.randn(1, 2, 3, 5, 6, device=cuda)
     cells = torch.randint(0, 20, (1, 2, 4, 3, 5), device=cuda)
     iv = bp.build_intervals(cells, torch.ones_like(cells, dtype=torch.bool), 20)
-    sup = torch.rand(3, 40, 40, device=cuda) > 0.7
+    words = torch.randint(-2**62, 2**62, (3, 40, 1), device=cuda)
     order = torch.stack([torch.randperm(40, device=cuda) for _ in range(3)])
+    geom = torch.randn(3, 40, 9, device=cuda)
     cases = {"sparse_conv": (feats, nbr, w, None, None, None, False),
              "sparse_conv_bf16": (feats.bfloat16(), nbr, w.bfloat16(), None, None, None, True),
              "sparse_conv_dw": (feats, nbr, dout),
              "sparse_conv_dw_bf16": (feats.bfloat16(), nbr, dout.bfloat16()),
-             "bev_pool": (depth, ctx, *iv, 1, 4, 5), "greedy_suppress": (sup, order),
+             "bev_pool": (depth, ctx, *iv, 1, 4, 5),
+             "suppression_words": (geom, torch.tensor([True, False, True], device=cuda),
+                                   torch.tensor([0.2, 4.0, 0.5], device=cuda)),
+             "greedy_suppress_words": (words, order),
              "deform_im2col": (torch.randn(1, 5, 6, 4, device=cuda),
                                torch.randn(1, 5, 6, 18, device=cuda), None, 3, 1, 1),
              "furthest_point_sample": (torch.randn(2, 50, 3, device=cuda), 10, None)}
@@ -1144,7 +1304,8 @@ def test_custom_ops_fake_is_the_cuda_implementations_meta_and_counts_its_launche
             fake = op(*(mode.from_tensor(a) if isinstance(a, torch.Tensor) else a for a in args))
         assert (fake.shape, fake.dtype, fake.stride(), fake.device.type) == (
             real.shape, real.dtype, real.stride(), real.device.type), name
-    assert library.COUNTERS["greedy_suppress"] is nms.greedy_suppress
+    assert library.COUNTERS["suppression_words"] is nms.suppression_words
+    assert library.COUNTERS["greedy_suppress_words"] is nms.greedy_suppress_words
 
 
 @pytest.mark.cuda

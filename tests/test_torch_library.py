@@ -65,6 +65,19 @@ def _suppress_args(seed=0, P=3, N=40):
     return sup, order
 
 
+def _words_args(seed=0, P=3, N=40):
+    """N1's operands: P problems of N boxes in a 12 m square (score order is
+    theirs), rotated and circle problems mixed."""
+    g = torch.Generator().manual_seed(seed)
+    boxes = torch.cat([torch.rand(P, N, 2, generator=g) * 12 - 6,
+                       torch.rand(P, N, 2, generator=g) * 3.5 + 0.5,
+                       torch.rand(P, N, 1, generator=g) * 6.3 - 3.15], -1)
+    rotated = torch.arange(P) % 2 == 0
+    geom = torch.where(rotated[:, None, None], nms.box_geometry(boxes),
+                       nms.center_geometry(boxes[..., :2]))
+    return geom, rotated, torch.where(rotated, 0.2, 4.0).float()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
 @pytest.mark.parametrize("epilogue", [True, False])
 def test_sparse_conv_op_is_the_plain_function(dtype, epilogue):
@@ -115,8 +128,13 @@ def test_bev_pool_and_suppress_ops_are_the_plain_functions():
     assert got.stride() == want.stride() and torch.equal(got, want)
     sup, order = _suppress_args()
     want = nms.greedy_suppress_plain(sup, order)
-    for got in (library.greedy_suppress(sup, order), nms.greedy_suppress(sup, order)):
+    words = nms.pack_words(sup)
+    for got in (library.greedy_suppress_words(words, order), nms.greedy_suppress(sup, order)):
         assert torch.equal(got, want)
+    args = _words_args()
+    want = nms.suppression_words_plain(*args)
+    assert want.any() and torch.equal(library.suppression_words(*args), want)
+    assert torch.equal(nms.suppression_words(*args), want)
 
 
 def _im2col_args(seed=0, B=2, H=5, W=6, C=3):
@@ -143,7 +161,8 @@ def _all_cases():
         "sparse_conv_dw": (feats, nbr, dout),
         "sparse_conv_dw_bf16": (bf[0], bf[1], dout.bfloat16()),
         "bev_pool": (depth, ctx, *iv, Z, X, Y),
-        "greedy_suppress": _suppress_args(),
+        "suppression_words": _words_args(),
+        "greedy_suppress_words": (nms.pack_words(_suppress_args()[0]), _suppress_args()[1]),
         "deform_im2col": _im2col_args(),
         "furthest_point_sample": _fps_args(),
     }
