@@ -162,6 +162,8 @@ class SparseEncoder(nn.Module):
     # the strided conv between stages (its padding is per block,
     # ``encoder_paddings``)
     DOWN_KERNEL, DOWN_STRIDE = 3, 2
+    # ``conv_out``: folds z into channels (padding 0)
+    OUT_KERNEL, OUT_STRIDE = (1, 1, 3), (1, 1, 2)
     BLOCK_TYPES = ("conv_module", "basicblock")
 
     def __init__(self, in_channels: int, sparse_shape: Sequence[int],
@@ -210,7 +212,7 @@ class SparseEncoder(nn.Module):
                     self.level_channels.append(cout)
                 cin = cout
             self.encoder_layers.add_module(f"encoder_layer{i + 1}", layer)
-        self.conv_out = _conv_bn(cin, output_channels, (1, 1, 3), eps, momentum)
+        self.conv_out = _conv_bn(cin, output_channels, self.OUT_KERNEL, eps, momentum)
 
     def _runs_sparse(self, target: int) -> bool:
         """Whether a strided conv into stage ``target`` runs sparse (the
@@ -326,7 +328,7 @@ class SparseEncoder(nn.Module):
                                  lambda: _subm_rulebooks(stage))
 
         conv, bn = self.conv_out
-        k_out, s_out = (1, 1, 3), (1, 1, 2)
+        k_out, s_out = self.OUT_KERNEL, self.OUT_STRIDE
         name = f"conv_out {tuple(conv.weight.shape[-2:])}"
         if dense is not None:
             active = _dilate(active, k_out, s_out, 0)

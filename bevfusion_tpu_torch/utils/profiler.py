@@ -16,6 +16,9 @@ way:
   launch, which that counter cannot see); peak device memory on the card;
 - ``frame_ms``: the host-clock times of synchronised calls with their
   peak device memory;
+- ``device_trace``: one call under ``torch.profiler``: the card's busy
+  time, its idle share of the call's wall time, and the kernels that took
+  the most of it;
 - ``op_timer`` / ``untimed``: a ``timed(name, fn)`` hook that the model's
   forwards call around each piece; ``untimed`` (their default) just runs
   it, ``op_timer`` times it (one row a piece);
@@ -37,8 +40,8 @@ import torch
 
 from ..devices import resolve_device
 
-__all__ = ["trace", "time_fn", "flops_of", "frame_ms", "op_timer", "untimed", "bound",
-           "nbytes", "synchronize", "card_line", "FP32_FLOPS", "TF32_FLOPS", "BF16_FLOPS",
+__all__ = ["trace", "time_fn", "flops_of", "frame_ms", "device_trace", "op_timer", "untimed",
+           "bound", "nbytes", "synchronize", "card_line", "FP32_FLOPS", "TF32_FLOPS", "BF16_FLOPS",
            "HBM_BYTES_PER_S"]
 
 # NVIDIA H100 SXM, dense rates without sparsity, at the full 700 W power
@@ -119,6 +122,50 @@ def frame_ms(fn: Callable, warmup: int = 5, iters: int = 20,
         synchronize(device)
         frames.append((time.perf_counter() - t0) * 1e3)
     return frames, torch.cuda.max_memory_allocated() if cuda else None
+
+
+def device_trace(fn: Callable, marks=(), device="cuda", sessions: int = 3) -> dict:
+    """``fn()`` on ``device``: its wall time (host clock around a
+    synchronised call, after one warmup), then the same call under
+    ``torch.profiler``: the card's activities (kernels, copies), their
+    summed device time, the part of it in kernels whose name holds one of
+    ``marks``, the share of the wall time the card is idle, and the five
+    names with the most device time. The profiler can lose some of the
+    card's activities of a session, or all of a short one's (seen on an
+    H100 in a long process and after the card sat idle), and a loss only
+    ever lowers the count, so the call is traced in ``sessions`` sessions
+    and the one that saw the most activities is read; every session's
+    count is returned (``activities_per_session``). On the CPU nothing runs
+    on a card: busy 0, idle 1."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = resolve_device(device)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    fn()
+    synchronize(dev)
+    t0 = time.perf_counter()
+    fn()
+    synchronize(dev)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    seen = []
+    for _ in range(sessions):
+        with profile(activities=acts) as prof:
+            fn()
+            synchronize(dev)
+        seen.append([e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA])
+    events = max(seen, key=len)
+    busy_ms = sum(e.device_time for e in events) / 1e3
+    by_name = {}
+    for e in events:
+        n, ms = by_name.get(e.name[:90], (0, 0.0))
+        by_name[e.name[:90]] = (n + 1, ms + e.device_time / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: kv[1][1], reverse=True)[:5]
+    return {"wall_ms": wall_ms, "device_activities": len(events), "device_busy_ms": busy_ms,
+            "mark_ms": sum(e.device_time for e in events
+                           if any(m in e.name for m in marks)) / 1e3,
+            "idle_share": 1.0 - busy_ms / wall_ms,
+            "activities_per_session": [len(e) for e in seen],
+            "top": [{"name": k, "count": n, "ms": ms} for k, (n, ms) in top]}
 
 
 def time_fn(fn: Callable, *args, iters: int = 20, warmup: int = 3,

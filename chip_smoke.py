@@ -7,7 +7,8 @@ gates of phases 11e, 11e-dp and 13c, ``gate_probe``; ``--long-tail``: phase
 11g alone; ``--sparse-kernels``: phases 5b and 7 alone, the quick check of
 the sparse-conv kernels, with K3 bf16's passes apart (``torch.profiler``)
 and K7's dw_bf16 family timed; ``--nms``: phase 11b's frames and NMS cases
-alone, the quick check of the NMS kernels). Phases:
+alone, the quick check of the NMS kernels; ``--decision-tools``: phase 14d
+alone). Phases:
 
 1. device: the card's name and power limit; TF32 off for fp32 parity;
 2. build: compile the eight kernel sources of bevfusion_tpu_torch/csrc (one
@@ -337,6 +338,19 @@ alone, the quick check of the NMS kernels). Phases:
    bevfusion_tpu_torch.tools.dryrun_flagship_sharded --ranks 2
    --dist-backend gloo --steps 0``: both ranks build the flagship and
    hold rank 0's weights (13c runs and holds their steps);
+14d. the decision tools (``decision_tools_phase``, after phase 14 on the same
+   flagship): ``bench_tiled_proto``'s engine chain (the rulebook, then 4 K1
+   bf16 convs) at each of its three stages and ``profile_encoder2``'s bf16
+   encoder forward, each driven once with every launch count set to 0 just
+   before and read just after (4 a stage, 12 in all; 15; no other kernel);
+   then ``bench_tiled_proto`` (its parity on the card within 2e-3 in fp32;
+   at stage 0 one tiled conv and one K1 bf16 conv within one bf16 rounding
+   + 1e-4 of the scale of fp32 ``sparse_conv_plain`` on the valid sites;
+   each stage's tiled and engine ms a conv beside their bounds),
+   ``bench_mxu_micro`` (its packed and 1-D scatters building equal tables),
+   ``profile_encoder2`` (the meta chain and the bf16 encoder, queued ahead
+   and on the host clock, beside ``profile_encoder``'s rows) and
+   ``measure_tiles``, few iterations each; every time finite and positive;
 14a. export: ``tools/export.py`` (its body, ``export.run``) on the flagship at
    bf16, the config's dtype, then at fp32: ``torch.export`` of the eval
    forward's boxes with every hand kernel a ``bevfusion::`` custom op
@@ -369,7 +383,8 @@ alone, the quick check of the NMS kernels). Phases:
    phases 12 and 12b; their launches in each run of phase 11d and of phase
    11e; ``launches_train_dp``, each rank's in 13c at fp32 and bf16;
    ``launches_export``, a frame of each loaded program of 14a;
-   ``launches_longevity``, a step of 14b), the seg,
+   ``launches_longevity``, a step of 14b; ``launches_decision_tools``, 14d's
+   engine chains and bf16 encoder forward), the seg,
    det-camera, pillar, cli, train-cli, train-config, data-parallel, export
    and longevity results
    and the script's total time, a line with the card's name and
@@ -394,8 +409,8 @@ import time
 import torch
 
 from bevfusion_tpu_torch.utils.profiler import (BF16_FLOPS, FP32_FLOPS, HBM_BYTES_PER_S,
-                                               TF32_FLOPS, bound, card_line, frame_ms, nbytes,
-                                               time_fn)
+                                               TF32_FLOPS, bound, card_line, device_trace,
+                                               frame_ms, nbytes, time_fn)
 
 FP32_RTOL_KERNEL = 1e-4  # kernel vs plain on the card: summation order only
 HEATMAP_RTOL = 2e-3  # full model on the card vs on the CPU, ~40 fp32 layers
@@ -423,6 +438,7 @@ SEG_MASKS = (1, 6, 200, 200)  # six map classes on the 100 m x 100 m, 0.5 m outp
 NMS_LAUNCHES = {"suppression_words": 1, "greedy_suppress_words": 1}
 DET_LAUNCHES = {"sparse_conv": 0, "bev_pool": POOL_LAUNCHES, **NMS_LAUNCHES}
 DECODE_RTOL = 1e-5  # get_bboxes on the card vs the CPU, on the same predictions
+BOX_FIELDS = ("x", "y", "z", "dx", "dy", "dz", "yaw", "vx", "vy")  # a decoded box's columns
 TRAIN_LAUNCHES = {"sparse_conv": 15 + 14, "sparse_conv_dw": 15, "bev_pool": 1,
                   "suppression_words": 0, "greedy_suppress_words": 0}
 # the configs phase 12b trains beside the flagship, in its order (voxelnet.yaml
@@ -1099,6 +1115,116 @@ def tools_phase(cfg, model, batch, cases, counters):
     return res, launches, parts
 
 
+def decision_tools_phase(model, batch, counters):
+    """Phase 14d: the four decision tools (``measure_tiles``,
+    ``bench_tiled_proto``, ``profile_encoder2``, ``bench_mxu_micro``) on the
+    flagship held by phase 13 (at eval). First their paths driven once, each
+    with every launch count set to 0 just before and read just after:
+    ``bench_tiled_proto``'s engine chain at each of its stages, on the
+    operands its run then times (4 K1 bf16 launches a stage, 12 in all),
+    and ``profile_encoder2``'s bf16 encoder forward (15); no other kernel.
+    Then each tool at full width with few iterations:
+    ``bench_tiled_proto``'s parity on the card (fp32, TF32 off, within the
+    JAX tool's 2e-3), at stage 0 one tiled conv and one K1 bf16 conv against
+    the fp32 ``sparse_conv_plain`` on the valid sites (one bf16 rounding +
+    1e-4 of the scale), the stage rows and the closing table;
+    ``bench_mxu_micro``'s rows, its packed and 1-D scatters building equal
+    tables; ``profile_encoder2``'s meta chain and whole bf16 encoder, each
+    queued ahead and on the host clock, beside ``profile_encoder``'s rows;
+    ``measure_tiles``' four stages. Every time finite and positive; the
+    traces' readings (the engine chain's and the encoder's busy time, a
+    lower bound where the profiler lost activities) finite. Returns (the
+    results, the launches of the two driven paths)."""
+    from bevfusion_tpu_torch.ops import sparse_conv as sp
+    from bevfusion_tpu_torch.tools import bench_mxu_micro as mm
+    from bevfusion_tpu_torch.tools import bench_tiled_proto as tp
+    from bevfusion_tpu_torch.tools import measure_tiles as mt
+    from bevfusion_tpu_torch.tools import profile_encoder2 as pe2
+
+    t0 = time.perf_counter()
+    model.eval()
+    enc = model.encoders["lidar"]["backbone"]
+    with torch.no_grad():
+        vox = model.lidar_voxelize(batch["points"], batch["points_mask"])
+        t = time.perf_counter()
+        prepared = tp.prepare(DEVICE)
+        prepare_s = time.perf_counter() - t
+    feats, coords, mask = vox.feats[0], vox.coords[0], vox.mask[0]
+    inputs = [s for *_, s in prepared["stages"]]
+    launches = {}
+    want_engine = dict(dict.fromkeys(counters, 0), sparse_conv_bf16=tp.NCONV * len(inputs))
+    want_encoder = dict(dict.fromkeys(counters, 0), sparse_conv_bf16=SPARSE_LAUNCHES)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        zero_counts(counters)
+        per_stage = []
+        for s in inputs:
+            before = sp.sparse_conv_bf16.launches
+            tp.engine_chain(s.feats, s.weights.bfloat16(), s.scales, s.shifts, s.ids, s.grid)
+            per_stage.append(sp.sparse_conv_bf16.launches - before)
+        torch.cuda.synchronize()
+        launches["engine_chains"] = {k: c.launches for k, c in counters.items()}
+        zero_counts(counters)
+        pe2.encoder_forward(enc, feats, coords, mask, torch.bfloat16, DEVICE)
+        torch.cuda.synchronize()
+        launches["encoder_bf16"] = {k: c.launches for k, c in counters.items()}
+    print(f"decision tools: launches of the engine chains {per_stage} a stage "
+          f"({launches['engine_chains']['sparse_conv_bf16']} K1 bf16), of one bf16 encoder "
+          f"forward {launches['encoder_bf16']['sparse_conv_bf16']} K1/K2 bf16")
+    check(per_stage == [tp.NCONV] * len(inputs) and launches["engine_chains"] == want_engine,
+          f"decision tools: the engine chains launched {per_stage}, {launches['engine_chains']}")
+    check(launches["encoder_bf16"] == want_encoder,
+          f"decision tools: the bf16 encoder launched {launches['encoder_bf16']}")
+
+    res = {}
+    with torch.no_grad():
+        t = time.perf_counter()
+        res["tiled_proto"] = tp.run(DEVICE, iters=TOOL_ITERS, warmup=2, prepared=prepared)
+        res["tiled_proto"]["seconds"] = prepare_s + time.perf_counter() - t
+        t = time.perf_counter()
+        res["mxu_micro"] = mm.run(DEVICE, iters=2)
+        mm.print_rows(res["mxu_micro"])
+        packed, split, _, _ = mm.table_scatters(mm.TABLE_ROWS, mm.GATHER_ROWS, DEVICE)
+        one = torch.ones((), dtype=torch.int64, device=DEVICE)
+        scatters_equal = torch.equal(packed(one), torch.stack(split(one), 1))
+        res["mxu_micro_seconds"] = time.perf_counter() - t
+        t = time.perf_counter()
+        res["encoder2"] = pe2.profile_encoder2(enc, feats, coords, mask, DEVICE, torch.bfloat16,
+                                               iters=TOOL_ITERS, warmup=2)
+        pe2.print_result(res["encoder2"])
+        res["encoder2"]["seconds"] = time.perf_counter() - t
+    t = time.perf_counter()
+    res["tiles"] = mt.measure(mt.stage_sites())
+    res["tiles_seconds"] = time.perf_counter() - t
+    res["seconds"] = time.perf_counter() - t0
+
+    tiled = res["tiled_proto"]
+    check(tiled["parity_max_err"] < tp.PARITY_TOL,
+          f"bench_tiled_proto parity: max err {tiled['parity_max_err']}")
+    for name, g in tiled["gaps"].items():
+        check(g["bad"] == 0, f"bench_tiled_proto stage0 {name}: {g['bad']} elements past one bf16 "
+                             f"rounding of fp32 plain (max|d| {g['max_abs_err']})")
+    check(scatters_equal, "bench_mxu_micro: the packed and 1-D scatters build other tables")
+    times = ([r[k] for r in tiled["stages"] for k in ("tiled_ms", "engine_ms", "rulebook_ms",
+                                                      "k1_ms")]
+             + [v for r in tiled["stages"] for v in r["tiled_parts_ms"].values()]
+             + [r["us"] for r in res["mxu_micro"]]
+             + [res["encoder2"][k] for k in ("meta_ms", "meta_host_ms", "meta_ops_ms",
+                                             "encoder_ms", "encoder_host_ms", "encoder_ops_ms")]
+             + [res["encoder2"][k]["wall_ms"] for k in ("meta_trace", "encoder_trace")])
+    check(all(math.isfinite(v) and v > 0 for v in times), f"decision tools: times {times}")
+    # the traces' readings (the profiler may lose a session's activities: a lower bound)
+    traced = ([r["engine_split"][k] for r in tiled["stages"]
+               for k in ("busy_ms", "k1_busy_ms", "rulebook_busy_ms")]
+              + [res["encoder2"][k][m] for k in ("meta_trace", "encoder_trace")
+                 for m in ("device_busy_ms", "mark_ms")])
+    check(all(math.isfinite(v) and v >= 0 for v in traced), f"decision tools: traced {traced}")
+    print(f"decision tools: bench_tiled_proto {tiled['seconds']:.1f} s, bench_mxu_micro "
+          f"{res['mxu_micro_seconds']:.1f} s, profile_encoder2 {res['encoder2']['seconds']:.1f} s, "
+          f"measure_tiles {res['tiles_seconds']:.1f} s; {res['seconds']:.1f} s in all")
+    return res, launches
+
+
 def pool_case(label, bp, vt, lut):
     """The BEV-pool kernel against its plain version on the intervals of
     ``lut`` (the pooling LUT of the vtransform ``vt``'s grid for the six-camera
@@ -1430,44 +1556,12 @@ def nms_kernel_cases(nms, frames):
     return n1_shapes, n2_shapes, problems, differing
 
 
-def traced(fn, marks=()):
-    """``fn()`` on the card: its wall time (host clock around a synchronised
-    call, after one warmup), then the same call once under
-    ``torch.profiler``: the card's activities (kernels, copies), their
-    summed device time, the part of it in kernels whose name holds one of
-    ``marks``,
-    the share of the wall time the card is idle, and the five kernel names
-    with the most device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with torch.no_grad():
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-    acts = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.device_time for e in acts) / 1e3
-    by_name = {}
-    for e in acts:
-        n, ms = by_name.get(e.name[:90], (0, 0.0))
-        by_name[e.name[:90]] = (n + 1, ms + e.device_time / 1e3)
-    top = sorted(by_name.items(), key=lambda kv: kv[1][1], reverse=True)[:5]
-    return {"wall_ms": wall_ms, "device_activities": len(acts), "device_busy_ms": busy_ms,
-            "mark_ms": sum(e.device_time for e in acts
-                           if any(m in e.name for m in marks)) / 1e3,
-            "idle_share": 1.0 - busy_ms / wall_ms,
-            "top": [{"name": k, "count": n, "ms": ms} for k, (n, ms) in top]}
-
-
 def decode_trace(head, preds):
-    """``head.get_bboxes(preds)`` traced (``traced``), the NMS kernels' (N1
-    and N2) device time apart."""
-    r = traced(lambda: head.get_bboxes(preds), ("suppression_words_kernel", "greedy_words_kernel"))
+    """``head.get_bboxes(preds)`` traced (``device_trace``), the NMS kernels'
+    (N1 and N2) device time apart."""
+    with torch.no_grad():
+        r = device_trace(lambda: head.get_bboxes(preds),
+                         ("suppression_words_kernel", "greedy_words_kernel"))
     r["nms_kernel_ms"] = r.pop("mark_ms")
     return r
 
@@ -1480,6 +1574,15 @@ def det_forward(model, batch):
         boxes = model(batch)["boxes"]
     hook.remove()
     return boxes, maps[0]
+
+
+def largest_box_gap(card: torch.Tensor, cpu: torch.Tensor) -> dict:
+    """Where two decodes' kept boxes [n, 7 or 9] differ most: the box, its
+    field, both values and the absolute gap."""
+    gaps = (card - cpu).abs()
+    box, col = divmod(int(gaps.argmax()), gaps.shape[1])
+    return {"box": box, "field": BOX_FIELDS[col], "card": float(card[box, col]),
+            "cpu": float(cpu[box, col]), "abs": float(gaps[box, col])}
 
 
 def det_frame(label, path, counters, want):
@@ -1520,6 +1623,10 @@ def det_frame(label, path, counters, want):
           f"{label}: keep masks or labels differ from the CPU's")
     box_err = rel_err(dec["bboxes"].cpu()[keep], cpu_boxes["bboxes"][keep])
     score_err = rel_err(dec["scores"].cpu(), cpu_boxes["scores"])
+    box_gap = largest_box_gap(dec["bboxes"].cpu()[keep], cpu_boxes["bboxes"][keep])
+    print(f"{label}: decode's largest kept-box gap {box_gap['abs']:.3e} at kept box "
+          f"{box_gap['box']}, field {box_gap['field']}: card {box_gap['card']!r}, CPU "
+          f"{box_gap['cpu']!r} (box rel err {box_err:.3e})")
     check(box_err <= DECODE_RTOL and score_err <= DECODE_RTOL,
           f"{label}: decode rel err boxes {box_err}, scores {score_err}")
     trace = decode_trace(model.heads["object"], same)
@@ -1530,6 +1637,7 @@ def det_frame(label, path, counters, want):
           and bool(torch.isfinite(boxes["bboxes"][kept]).all()),
           f"{label}: no box kept, or a kept box not finite")
     r = {"launches": launches, "head_maps_rel_err": map_err, "decode_boxes_rel_err": box_err,
+         "decode_largest_box_gap": box_gap,
          "decode_scores_rel_err": score_err, "kept_same_predictions": int(keep.sum()),
          "kept_own_forward": int(kept.sum()),
          "kept_per_task": keep.view(6, -1).sum(1).tolist(), "cpu_forward_s": cpu_s,
@@ -2418,7 +2526,9 @@ def votenet_forward(stack, xyz, feats):
 
 def pointnet_part(counters, none, cpu_batch):
     """11g (ii): D2 against its plain version (bit-equal indices) at the four
-    SA levels' sampling, then the VoteNet stack on 20,000 points of the
+    SA levels' sampling (its bound the larger of its operations over the
+    fp32 rate, its bytes, and its npoint - 1 dependent rounds at one SM clock
+    each), then the VoteNet stack on 20,000 points of the
     flagship scan on the card (launches: D2 once a level) against the same
     weights on the CPU. Returns (results, D2's shape entries)."""
     from bevfusion_tpu_torch.ops import pointnet as pn
@@ -2443,7 +2553,7 @@ def pointnet_part(counters, none, cpu_batch):
     out_err = rel_err(out.cpu(), cpu_out)
     check(tuple(out.shape) == (VOTENET_SA[1][0], VOTENET_FP[1][-1]) and out_err <= HEATMAP_RTOL
           and bool(torch.isfinite(out).all()), f"11g votenet: {tuple(out.shape)}, rel err {out_err}")
-    shapes, src = [], xyz
+    shapes, src, clock = [], xyz, max_sm_clock_hz()
     for (num, *_), nxt in zip(VOTENET_SA, xyzs):
         got = pn.furthest_point_sample(src, num)
         plain = pn.furthest_point_sample_plain(src[None], num)[0]
@@ -2452,8 +2562,11 @@ def pointnet_part(counters, none, cpu_batch):
         ms = kernel_ms(lambda: pn.furthest_point_sample(src, num))
         plain_ms = time_fn(lambda: pn.furthest_point_sample_plain(src[None], num), iters=3,
                            warmup=1, device=DEVICE, queue_ahead=True)["median_ms"]
-        # a round: 3 differences, 3 products, 2 sums, a min and a compare per point
+        # a round: 3 differences, 3 products, 2 sums, a min and a compare per point; and the
+        # num - 1 rounds depend one on the next: at least an SM clock each, as N2's steps
         bound_ms, bound_by = bound(10 * src.shape[0] * (num - 1), nbytes(src, got))
+        if (num - 1) / clock * 1e3 > bound_ms:
+            bound_ms, bound_by = (num - 1) / clock * 1e3, "operations"
         shapes.append({"shape": f"N {src.shape[0]} -> {num}", "ms": ms, "plain_ms": plain_ms,
                        "bound_ms": bound_ms, "bound_by": bound_by, "share": bound_ms / ms,
                        "max_abs_err": 0.0, "rounds": num - 1})
@@ -3086,7 +3199,7 @@ def bf16_eval_phase(model, batch, counters):
     ``BF16_EVAL_GAP`` relative in norm; then ms a frame (median of 5) and
     the peak at fp32 and bf16 in turns (fp32, bf16, bf16, fp32) with the
     fp32 runs' TF32 switches (``runtime/precision.py``), the bf16 stages,
-    and one frame of each dtype traced (``traced``). Returns the results;
+    and one frame of each dtype traced (``device_trace``). Returns the results;
     the model is fp32 again after."""
     from bevfusion_tpu_torch.runtime import precision
     from bevfusion_tpu_torch.tools import profile_stages
@@ -3139,7 +3252,8 @@ def bf16_eval_phase(model, batch, counters):
     traces = {}
     for dtype in (torch.float32, torch.bfloat16):
         model.compute_dtype = dtype
-        traces[precision.dtype_name(dtype)] = t = traced(lambda: model(batch))
+        with torch.no_grad():
+            traces[precision.dtype_name(dtype)] = t = device_trace(lambda: model(batch))
         print(f"{precision.dtype_name(dtype)} flagship frame traced: {t['wall_ms']:.2f} ms wall, "
               f"{t['device_activities']} kernels and copies on the card, "
               f"{t['device_busy_ms']:.2f} ms busy, idle {100 * t['idle_share']:.1f}% of the "
@@ -4140,6 +4254,27 @@ def nms_only() -> int:
     return 0
 
 
+def decision_tools_only() -> int:
+    """``python3 chip_smoke.py --decision-tools``: the sparse-conv source
+    built, the flagship on the card at eval, then phase 14d alone; the
+    results as a JSON line. A quick check of the four decision tools."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from bevfusion_tpu_torch.ops import sparse_conv as sp
+    from bevfusion_tpu_torch.runtime import precision
+    from bevfusion_tpu_torch.runtime.flagship import build_flagship
+
+    print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card_line()}")
+    t0 = time.perf_counter()
+    sp.build_kernels()
+    print(f"build: {time.perf_counter() - t0:.2f} s")
+    precision.apply_tf32_defaults()
+    _, model, batch = build_flagship(DEVICE, num_points=120000, seed=0)
+    res, launches = decision_tools_phase(model, batch, kernel_counters())
+    print(json.dumps({"decision_tools": {k: v for k, v in res.items() if k != "tiles"},
+                      "launches": launches}))
+    return 0
+
+
 def sparse_kernels_only() -> int:
     """``python3 chip_smoke.py --sparse-kernels``: the three sparse-conv
     sources built (one nvcc each, started together) and their ptxas lines,
@@ -4224,6 +4359,8 @@ def main() -> int:
         return sparse_kernels_only()
     if sys.argv[1:2] == ["--nms"]:
         return nms_only()
+    if sys.argv[1:2] == ["--decision-tools"]:
+        return decision_tools_only()
     t_start = time.perf_counter()
     # cuBLAS takes deterministic workspaces only if told before its first call
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -4463,6 +4600,10 @@ def main() -> int:
 
     # 14. the measurement tools: this path's entry points
     tools, tool_launches, tool_parts = tools_phase(cfg, model, batch, k7_cases, all_counters)
+
+    # 14d. the decision tools: the tiled prototype against the engine, the bf16 encoder's meta
+    # chain and forward as chains, the matmul / gather / scatter rates, the tile occupancy
+    decision, decision_launches = decision_tools_phase(model, batch, all_counters)
     del model, batch
     torch.cuda.empty_cache()
 
@@ -4584,6 +4725,7 @@ def main() -> int:
         k["launches_export"] = {dt: r["launches_loaded"][k["name"]] for dt, r in exported.items()}
         k["launches_longevity"] = longevity["launches_per_step"].get(k["name"], 0)
         k["launches_long_tail"] = long_tail_launches(long_tail, k["name"])
+        k["launches_decision_tools"] = {path: n[k["name"]] for path, n in decision_launches.items()}
     print(json.dumps({
         "kernels": kernels, "build_s": build_s, "total_s": time.perf_counter() - t_start,
         "flagship": {"frame_ms_median": statistics.median(frames), "peak_mem_bytes": peak,
@@ -4604,6 +4746,7 @@ def main() -> int:
         "longevity": {k: v for k, v in longevity.items() if k != "losses"},
         "long_tail": long_tail,
         "tools": {k: v for k, v in tools.items() if k not in ("copy", "gathers")},
+        "decision_tools": {k: v for k, v in decision.items() if k != "tiles"},
         "lidar_slice": {"launches": lidar_launches,
                         "frame_ms_median": statistics.median(lidar_frames),
                         "peak_mem_bytes": lidar_peak, "heatmap_rel_err": lidar_heat_err}}))

@@ -163,3 +163,18 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     path = tmp_path / "tr" / "trace.json"
     assert path.exists() and path.stat().st_size > 0
     assert any("mm" in e.key for e in prof.key_averages())
+
+
+def test_device_trace_on_the_cpu_sees_no_card():
+    """``device_trace`` runs the call a warmup, a timed call and one a
+    session, and counts only the card's activities: on the CPU none, busy 0,
+    idle 1."""
+    calls = []
+    r = profiler.device_trace(lambda: calls.append(torch.ones(64, 64) @ torch.ones(64, 64)),
+                              ("mm",), device="cpu", sessions=2)
+    assert len(calls) == 4
+    assert set(r) == {"wall_ms", "device_activities", "device_busy_ms", "mark_ms", "idle_share",
+                      "activities_per_session", "top"}
+    assert r["wall_ms"] > 0 and r["device_activities"] == 0 and r["top"] == []
+    assert r["activities_per_session"] == [0, 0]
+    assert r["device_busy_ms"] == r["mark_ms"] == 0 and r["idle_share"] == 1

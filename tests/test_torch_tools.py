@@ -29,7 +29,8 @@ from tests.test_bevfusion_model import make_batch, tiny_fused_config
 torch.set_num_threads(2)
 
 TOOLS = ["bench_tile_micro", "bench_kernel_variants", "profile_meta", "profile_encoder",
-         "profile_vtransform", "profile_stages", "bench_train_step", "benchmark", "bench_iou"]
+         "profile_vtransform", "profile_stages", "bench_train_step", "benchmark", "bench_iou",
+         "measure_tiles", "bench_tiled_proto", "profile_encoder2", "bench_mxu_micro"]
 
 
 def _batch(training=False):
