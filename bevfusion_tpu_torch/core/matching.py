@@ -3,70 +3,23 @@ auction-algorithm assignment.
 
 Counterpart of ``bevfusion_tpu/core/matching.py`` (reference
 HungarianAssigner3D, mmdet3d/core/bbox/assigners/hungarian_assigner.py:
-85-143, which ships the cost to scipy on the host). The auction runs on
-the tensors' device with the JAX package's single eps phase, bids and
-tie-breaks, so both packages return the same assignment; a scipy matcher
-could pick another optimum.
+85-143, which ships the cost to scipy on the host). The auction runs with
+the JAX package's single eps phase, bids and tie-breaks, so both packages
+return the same assignment; a scipy matcher could pick another optimum.
 
-The JAX ``while_loop`` is a Python loop here. Whether a row is still
-unassigned is read on the host every ``_CHECK_EVERY`` rounds (one device
-sync each); a round in which no row bids changes nothing, so the
-assignment is the one the JAX loop returns.
+The JAX ``lax.while_loop`` is one hand-written kernel on the card
+(``csrc/auction.cu`` through ``ops/auction.py``, re-exported here): every
+round of a problem in one block, the stop test on the device, one launch a
+call and no host sync. CPU tensors take its plain version
+(``auction_assignment_plain``), a Python loop of tensor ops.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["auction_assignment", "hungarian_costs"]
+from ..ops.auction import auction_assignment, auction_assignment_plain
 
-_BIG = 1e9
-_CHECK_EVERY = 8  # auction rounds between two host reads of the stop flag
-
-
-def auction_assignment(cost: torch.Tensor, row_valid: torch.Tensor, col_valid: torch.Tensor,
-                       eps_scale: float = 0.002, max_iters: int = 2000) -> torch.Tensor:
-    """Minimise sum of cost[r, assign[r]] over valid rows and columns.
-
-    cost [R, C] (R = ground truths, C = proposals). Returns assign [R]
-    int64, the column of each row or -1 (unassigned or invalid). Forward
-    auction on v = -cost from zero prices with one eps = spread *
-    eps_scale / R: within spread * eps_scale of the optimum."""
-    R, C = cost.shape
-    dev = cost.device
-    value = -torch.where(row_valid[:, None] & col_valid[None, :], cost.float(),
-                         torch.tensor(_BIG, device=dev))
-    finite = torch.where(value > -_BIG / 2, value, torch.tensor(float("inf"), device=dev))
-    spread = torch.clamp(value.max() - finite.min(), min=1.0)
-    eps = spread * eps_scale / max(R, 1)
-    rows = torch.arange(R, device=dev)
-    cols = torch.arange(C, device=dev)
-    price = torch.zeros(C, device=dev)
-    owner = torch.full((C,), -1, dtype=torch.long, device=dev)
-    assign = torch.full((R,), -1, dtype=torch.long, device=dev)
-    neg_inf = torch.tensor(float("-inf"), device=dev)
-    it = 0
-    while it < max_iters and bool(((assign < 0) & row_valid).any()):
-        for _ in range(min(_CHECK_EVERY, max_iters - it)):
-            net = value - price[None, :]
-            best_v, best_j = net.max(1)
-            second_v = net.scatter(1, best_j[:, None], float("-inf")).max(1).values
-            bid = best_v - second_v + eps
-            bidding = (assign < 0) & row_valid
-            bid_amt = torch.where(bidding, bid, neg_inf)
-            col_best_bid = torch.full((C + 1,), float("-inf"), device=dev).scatter_reduce(
-                0, torch.where(bidding, best_j, C), bid_amt, "amax")[:C]
-            is_winner = bidding & (bid_amt == col_best_bid[best_j])
-            win_row = torch.full((C + 1,), R, dtype=torch.long, device=dev).scatter_reduce(
-                0, torch.where(is_winner, best_j, C), torch.where(is_winner, rows, R),
-                "amin")[:C]
-            got_bid = win_row < R
-            owner = torch.where(got_bid, win_row, owner)
-            price = torch.where(got_bid, price + col_best_bid, price)
-            assign = torch.full((R + 1,), -1, dtype=torch.long, device=dev)
-            assign[torch.where(owner >= 0, owner, R)] = cols
-            assign = assign[:R]
-            it += 1
-    return torch.where(row_valid, assign, -1)
+__all__ = ["auction_assignment", "auction_assignment_plain", "hungarian_costs"]
 
 
 def hungarian_costs(cls_score: torch.Tensor, boxes_norm_xy: torch.Tensor,

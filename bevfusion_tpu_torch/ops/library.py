@@ -25,6 +25,9 @@ words``                  words``                                pass)
 ``deform_im2col``        ``ops/deform_conv.py:deform_im2col``   D1
 ``furthest_point_        ``ops/pointnet.py:furthest_point_      D2
 sample``                 sample``
+``auction``              ``ops/auction.py:auction_rounds``      the auction
+                         (``core/matching.py:auction_           matcher
+                         assignment`` counts its launches)
 =======================  =====================================  ===============
 
 The wrappers call these ops and nothing else, so eager runs, training
@@ -38,11 +41,12 @@ of a program that holds them needs first.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import Tensor
 
+from . import auction as au
 from . import bev_pool as bp
 from . import deform_conv as dc
 from . import nms
@@ -53,14 +57,16 @@ __all__ = ["NAMESPACE", "OPS", "COUNTERS", "op_counts"]
 
 NAMESPACE = "bevfusion"
 OPS = ("sparse_conv", "sparse_conv_bf16", "sparse_conv_dw", "sparse_conv_dw_bf16", "bev_pool",
-       "suppression_words", "greedy_suppress_words", "deform_im2col", "furthest_point_sample")
+       "suppression_words", "greedy_suppress_words", "deform_im2col", "furthest_point_sample",
+       "auction")
 
 # the wrappers whose ``.launches`` each op's CUDA implementation counts, by op
 COUNTERS = {"sparse_conv": sp.sparse_conv, "sparse_conv_bf16": sp.sparse_conv_bf16,
             "sparse_conv_dw": sp.sparse_conv_dw, "sparse_conv_dw_bf16": sp.sparse_conv_dw_bf16,
             "bev_pool": bp.bev_pool, "suppression_words": nms.suppression_words,
             "greedy_suppress_words": nms.greedy_suppress_words,
-            "deform_im2col": dc.deform_im2col, "furthest_point_sample": pn.furthest_point_sample}
+            "deform_im2col": dc.deform_im2col, "furthest_point_sample": pn.furthest_point_sample,
+            "auction": au.auction_assignment}
 
 
 def _launched(name: str) -> None:
@@ -291,6 +297,36 @@ def _(xyz, npoint, mask):
 @furthest_point_sample.register_fake
 def _(xyz, npoint, mask):
     return xyz.new_empty((xyz.shape[0], npoint), dtype=torch.int32)
+
+
+# ----------------------------------------------------------------------
+# the auction matcher (assignments: no gradient)
+# ----------------------------------------------------------------------
+
+@torch.library.custom_op(f"{NAMESPACE}::auction", mutates_args=(), device_types="cpu")
+def auction(value: Tensor, row_valid: Tensor, eps: Tensor,
+            max_iters: int) -> Tuple[Tensor, Tensor, Tensor]:
+    """One problem: value [R, C] fp32, row_valid [R] bool, eps 0-dim fp32 ->
+    (assign [R] int64, price [C] fp32, rounds 0-dim int32)."""
+    return au.auction_rounds_plain(value, row_valid, eps, max_iters)
+
+
+@auction.register_kernel("cuda")
+def _(value, row_valid, eps, max_iters):
+    R, C = value.shape
+    (assign, price, rounds), launched = au._launch_auction(
+        value.reshape(1, R, C).contiguous(), row_valid.reshape(1, R).contiguous(), eps.reshape(1),
+        max_iters)
+    if launched:
+        _launched("auction")
+    return assign[0], price[0], rounds[0]
+
+
+@auction.register_fake
+def _(value, row_valid, eps, max_iters):
+    R, C = value.shape
+    return (value.new_empty((R,), dtype=torch.int64), value.new_empty((C,)),
+            value.new_empty((), dtype=torch.int32))
 
 
 def op_counts(graph_module: torch.nn.Module) -> dict:

@@ -8,10 +8,11 @@ gates of phases 11e, 11e-dp and 13c, ``gate_probe``; ``--long-tail``: phase
 the sparse-conv kernels, with K3 bf16's passes apart (``torch.profiler``)
 and K7's dw_bf16 family timed; ``--nms``: phase 11b's frames and NMS cases
 alone, the quick check of the NMS kernels; ``--decision-tools``: phase 14d
-alone). Phases:
+alone; ``--matcher``: phase 12, 12b's TransFusion-L and PointPillars steps and
+phase 12c alone, the quick check of the auction kernel). Phases:
 
 1. device: the card's name and power limit; TF32 off for fp32 parity;
-2. build: compile the eight kernel sources of bevfusion_tpu_torch/csrc (one
+2. build: compile the nine kernel sources of bevfusion_tpu_torch/csrc (one
    nvcc per source, started together); the ptxas register and spill lines;
    the count of tensor-core instructions (``HMMA``) in the SASS
    (``cuobjdump -sass``) of the sparse-conv, weight-gradient and cost
@@ -205,7 +206,7 @@ alone). Phases:
    epoch as two processes (gloo, samples_per_gpu 2 each, every dropout
    rate 0) against one process at 4 run twice: the same steps on both
    ranks, rank 0 alone writes ``epoch_1``, each rank launches K1/K2 58, K3
-   30 and K4 1 a step, the first step's loss within 2x the one-process
+   30, K4 1 and the auction 2 a step, the first step's loss within 2x the one-process
    run-to-run gap, theirs or the largest measured (``TRAIN_CLI_DP_RTOL``);
    then the same runs A, B, A', A''
    and C at the config's own precision, bf16
@@ -214,7 +215,7 @@ alone). Phases:
    (fusion-bev256d2-lss, fp32) for 1 epoch with the loop's per-epoch
    ``map`` eval (the map metrics' keys, finite). Every run's
    launches equal the count the code predicts: a step 4 x (29 sparse conv,
-   15 weight gradient) and one BEV pool (the batch's intervals together),
+   15 weight gradient, 1 auction) and one BEV pool (the batch's intervals together),
    a val frame 15 and 1 (at bf16 the same counts on the bf16 kernels);
    losses finite; ms a step (median, host clock
    around a synchronised step), ms a step waiting on the loader, the
@@ -268,8 +269,11 @@ alone). Phases:
    rounding moves an input across a ReLU's or a top-k's tie, and B' shows
    how far each gradient moves so); pass A launches the sparse-conv
    kernel 15 + 14 times (forward, backward-data: the input conv's voxel
-   features need no gradient), the weight-gradient kernel 15 times and
-   the BEV-pool kernel once, pass C the forward's 15 + 1;
+   features need no gradient), the weight-gradient kernel 15 times,
+   the BEV-pool kernel once and the auction kernel twice (the forward's
+   match, then the pass's own match after the backward), pass C the
+   forward's 15 + 1 and one auction (its forward replays A's targets), the
+   plain passes none (their matcher is ``auction_assignment_plain``);
 12b. the train steps of nine more configs (``TRAIN_CONFIG_LAUNCHES``: the three seg
    configs, TransFusion-L voxelnet_0p075, PointPillars, the three camera
    CenterHead configs and camera + radar), each at full width, B = 1, with
@@ -279,7 +283,9 @@ alone). Phases:
    ``moderate_head`` on the training forward), held as phase 12 holds the
    flagship, TF32 off: pass A's launches equal ``TRAIN_CONFIG_LAUNCHES``
    (sparse conv 29 and weight gradient 15 where a sparse encoder runs, the
-   pool once where a camera does, the NMS never), every loss of A within
+   pool once where a camera does, the auction once where TransFusion's
+   head matches, and once more after, as in phase 12; the NMS never), every
+   loss of A within
    1e-4 of B's, every gradient of A within 5e-3 in norm of C's, the B' gate
    where a kernel runs (B' the sparse convs in fp32 where they run, else
    the pool in float64: the camera configs, where a gradient past it is
@@ -288,6 +294,19 @@ alone). Phases:
    the matcher's targets replayed
    where TransFusion's head runs; then 1 timed step after 1 warmup with
    TF32 on: ms a step (forward, backward, optimizer) and the peak memory;
+12c. the matcher (``matcher_phase``): the auction kernel (``csrc/auction.cu``)
+   against ``auction_rounds_plain`` on the same CUDA tensors, on made
+   problems (``auction_made_cases``: random, tied, near-equal costs that
+   run out of ``max_iters``, invalid rows and columns, R > C, R = 1, C = 1
+   with R = 2 (inf, then NaN bids), the from-files shape R = 140 with 14-16
+   valid) and on the problems that phase 12's flagship step and 12b's
+   TransFusion-L and PointPillars steps built (pass A's, recorded): assign,
+   price (bits) and rounds equal in both of the kernel's forms (value in
+   shared memory and read from global memory), and two problems in one
+   launch; each shape's kernel ms a call (CUDA events, queued ahead), the
+   global form's, the plain loop's ms on the card, the rounds, the bound
+   (bytes, or the rounds at one SM clock each) and its share; library ms
+   none;
 13. two timed train steps with TF32 on (``tools/bench_train_step.py`` on
    ``runtime/train.py``: AdamW, clip 35, the config's cosine lr with linear
    warmup and cyclic momentum): losses finite, parameters changed; median
@@ -310,7 +329,8 @@ alone). Phases:
    B = 2 on the same weights and batch, fp32 with TF32 off and bf16, every
    dropout rate 0, the one-process step's proposals and Hungarian targets
    replayed: each rank launches K1/K2 29, K3 15 and K4 once (the bf16 forms
-   at bf16); the losses within 1e-4, the gradients by phase 12's rule with
+   at bf16) and no auction (the one process's first pass, R, matches its
+   two samples: 2); the losses within 1e-4, the gradients by phase 12's rule with
    B' from R' and R_b (float64 BatchNorm moments), ``dp_gates``, which
    must refuse two controls (the loss normalisers' and the BatchNorm sums
    over the ranks patched out), the BatchNorm statistics and the
@@ -366,7 +386,7 @@ alone). Phases:
    --scenes 8``, the flagship at bf16 over one whole schedule of 12 steps,
    the resume probe at step 12 (under deterministic algorithms, bit for
    bit, or the rule the tool states): every loss finite, a step's launches
-   29 bf16 K1/K2, 15 bf16 K3 and 1 K4, no fp32 sparse conv;
+   29 bf16 K1/K2, 15 bf16 K3, 1 K4 and 1 auction, no fp32 sparse conv;
 14c. counters at run time: phase 14a's eager frame and the loaded
    program's frame each read 15 + 1 launches from the counters, which the
    custom ops' CUDA implementations add to;
@@ -378,7 +398,8 @@ alone). Phases:
    after K1-K7, then the bf16 forms of K1/K2 and K3, their
    launches those of the bf16 train step (13b), then D1 and D2 (11g's DCN
    frame and VoteNet stack; ``launches_long_tail`` each kernel's in every
-   run of 11g); every kernel's launches in
+   run of 11g), then the auction (12c's shapes; its launches phase 12's pass
+   A); every kernel's launches in
    each train step of
    phases 12 and 12b; their launches in each run of phase 11d and of phase
    11e; ``launches_train_dp``, each rank's in 13c at fp32 and bf16;
@@ -441,12 +462,18 @@ DECODE_RTOL = 1e-5  # get_bboxes on the card vs the CPU, on the same predictions
 BOX_FIELDS = ("x", "y", "z", "dx", "dy", "dz", "yaw", "vx", "vy")  # a decoded box's columns
 TRAIN_LAUNCHES = {"sparse_conv": 15 + 14, "sparse_conv_dw": 15, "bev_pool": 1,
                   "suppression_words": 0, "greedy_suppress_words": 0}
+# TransFusion's Hungarian matcher: one auction kernel launch a sample and decoder layer (the
+# configs' num_decoder_layers is 1) where a step computes its own targets; 0 where a pass
+# replays recorded ones and in every eval frame
+AUCTION_LAUNCHES = 1
+AUCTION_MAX_ITERS = 2000  # the head's (core/matching.py:auction_assignment's default)
 # the configs phase 12b trains beside the flagship, in its order (voxelnet.yaml
 # differs from voxelnet_0p075.yaml only in its voxel size), and their launches a step
 _SPARSE_STEP = {"sparse_conv": 15 + 14, "sparse_conv_dw": 15}
 TRAIN_CONFIG_LAUNCHES = {
     "seg-fused": dict(_SPARSE_STEP, bev_pool=1), "seg-lidar": _SPARSE_STEP,
-    "seg-camera": {"bev_pool": 1}, "transfusion-l": _SPARSE_STEP, "pointpillars": {},
+    "seg-camera": {"bev_pool": 1}, "transfusion-l": dict(_SPARSE_STEP, auction=AUCTION_LAUNCHES),
+    "pointpillars": {"auction": AUCTION_LAUNCHES},
     "det-swint": {"bev_pool": 1}, "det-resnet": {"bev_pool": 1}, "det-bevdepth": {"bev_pool": 1},
     "camera+radar": {"bev_pool": 1}}
 DEVICE = "cuda"
@@ -597,16 +624,41 @@ def bev_pool_reversed(bp):
 
 @contextlib.contextmanager
 def plain_kernels(sp, bp, conv=None, pool=None):
-    """Every kernel wrapper replaced by its plain version (on CUDA tensors
-    too) for the duration, the sparse conv by ``conv`` and the pool by
-    ``pool`` where given; the wrappers' launch counts are untouched."""
-    saved = sp.sparse_conv, sp.sparse_conv_dw, bp.bev_pool
-    sp.sparse_conv, sp.sparse_conv_dw, bp.bev_pool = (
-        conv or sp.sparse_conv_plain, sp.sparse_conv_dw_plain, pool or bp.bev_pool_plain)
+    """Every kernel wrapper of a train step replaced by its plain version (on
+    CUDA tensors too) for the duration, the sparse conv by ``conv`` and the
+    pool by ``pool`` where given, TransFusion's matcher by
+    ``auction_assignment_plain``; the wrappers' launch counts are untouched."""
+    from bevfusion_tpu_torch.models.heads import transfusion
+    from bevfusion_tpu_torch.ops import auction as au
+
+    saved = sp.sparse_conv, sp.sparse_conv_dw, bp.bev_pool, transfusion.auction_assignment
+    sp.sparse_conv, sp.sparse_conv_dw, bp.bev_pool, transfusion.auction_assignment = (
+        conv or sp.sparse_conv_plain, sp.sparse_conv_dw_plain, pool or bp.bev_pool_plain,
+        au.auction_assignment_plain)
     try:
         yield
     finally:
-        sp.sparse_conv, sp.sparse_conv_dw, bp.bev_pool = saved
+        sp.sparse_conv, sp.sparse_conv_dw, bp.bev_pool, transfusion.auction_assignment = saved
+
+
+@contextlib.contextmanager
+def recorded_auctions(store: list):
+    """Each call of TransFusion's matcher recorded into ``store`` as (cost,
+    row_valid, col_valid) clones, then passed on: the problems a train step
+    builds, for the matcher phase (12c)."""
+    from bevfusion_tpu_torch.models.heads import transfusion
+
+    auction = transfusion.auction_assignment
+
+    def recording(cost, row_valid, col_valid):
+        store.append((cost.clone(), row_valid.clone(), col_valid.clone()))
+        return auction(cost, row_valid, col_valid)
+
+    transfusion.auction_assignment = recording
+    try:
+        yield
+    finally:
+        transfusion.auction_assignment = auction
 
 
 @contextlib.contextmanager
@@ -2098,7 +2150,8 @@ def train_cli_dp(run, root, lidar, fp32, per_step, smi, probe=False):
                           per_step)
         torch.cuda.empty_cache()
     steps = dp["o1"]["steps"]
-    per_rank = {k: v * (TRAIN_CLI_BATCH // DP_WORLD) * steps for k, v in _SPARSE_STEP.items()}
+    per_rank = {k: v * (TRAIN_CLI_BATCH // DP_WORLD) * steps
+                for k, v in dict(_SPARSE_STEP, auction=AUCTION_LAUNCHES).items()}
     per_rank["bev_pool"] = POOL_LAUNCHES * steps
 
     def ranks_run(name, sync=None):
@@ -2176,11 +2229,11 @@ import json, sys
 sys.path.insert(0, sys.argv[1])
 import torch
 from bevfusion_tpu_torch import parallel
-from bevfusion_tpu_torch.ops import bev_pool as bp, sparse_conv as sp
+from bevfusion_tpu_torch.ops import auction as au, bev_pool as bp, sparse_conv as sp
 from bevfusion_tpu_torch.tools import train
 kernels = {"sparse_conv": sp.sparse_conv, "sparse_conv_dw": sp.sparse_conv_dw,
            "sparse_conv_bf16": sp.sparse_conv_bf16, "sparse_conv_dw_bf16": sp.sparse_conv_dw_bf16,
-           "bev_pool": bp.bev_pool}
+           "bev_pool": bp.bev_pool, "auction": au.auction_assignment}
 if sys.argv[3] == "count_sum":  # the probe's control: each rank's own loss normalisers
     parallel.count_sum = lambda t: t.detach()
 out = train.main(json.loads(sys.argv[2]))
@@ -2390,16 +2443,17 @@ def train_cli_phase(counters, smi, bp, probe=False):
 
     per_step = {k: v * TRAIN_CLI_BATCH for k, v in _SPARSE_STEP.items()}
     per_step["bev_pool"] = POOL_LAUNCHES  # one pool a step: the batch's intervals together
+    matcher = {"auction": AUCTION_LAUNCHES * TRAIN_CLI_BATCH}  # the flagship's, a sample each
     fp32 = ["precision.compute_dtype=float32"]  # the config's own is bf16
-    flagship_runs(res, "", fp32, per_step, True)
+    flagship_runs(res, "", fp32, dict(per_step, **matcher), True)
     torch.cuda.empty_cache()
 
-    res["dp"] = train_cli_dp(run, root, lidar, fp32, per_step, smi, probe)
+    res["dp"] = train_cli_dp(run, root, lidar, fp32, dict(per_step, **matcher), smi, probe)
     # again at the config's own precision, bf16: the bf16 kernels' launches
     res["bf16"] = {}
     per_step_bf16 = {k: v * TRAIN_CLI_BATCH for k, v in BF16_TRAIN_LAUNCHES.items()}
     per_step_bf16["bev_pool"] = POOL_LAUNCHES
-    flagship_runs(res["bf16"], " bf16", [], per_step_bf16, False)
+    flagship_runs(res["bf16"], " bf16", [], dict(per_step_bf16, **matcher), False)
     torch.cuda.empty_cache()
     if probe:
         shutil.rmtree(root, ignore_errors=True)
@@ -2820,14 +2874,18 @@ def grad_gaps(grads, ref, global_norm):
     return gaps, worst
 
 
-def train_step_parity(label, model, batch, sp, bp, counters, want, ties=()):
+def train_step_parity(label, model, batch, sp, bp, counters, want, ties=(), problems=None):
     """One config's train step held to the plain path (phases 12 and 12b):
     passes of one forward + backward, same weights and batch, a freshly
     seeded dropout generator each; where the object head is TransFusion's
     (the auction matcher), every later pass takes the first one's proposals
     and Hungarian targets (``recorded_proposals``, ``recorded_targets``), and
-    whether its own would differ is reported. ``want``: the launches of pass
-    A by name (every other counter 0).
+    whether its own would differ is reported. ``want``: the launches of a
+    step by name (every other counter 0); with the matcher each pass also
+    matches once more after its backward, so A launches the auction kernel
+    once more than ``want`` and C once (its forward replays the targets).
+    Where ``problems`` (a dict) is given, the first matcher problem of pass
+    A (its cost and masks) goes in under ``label``.
 
     - A: through the kernels (launches counted);
     - B: through the plain versions, the sparse convs in float64 rounded
@@ -2904,8 +2962,15 @@ def train_step_parity(label, model, batch, sp, bp, counters, want, ties=()):
         return out, launches, seconds
 
     none = dict.fromkeys(counters, 0)
-    (losses, total, grads, preds, own), launches, kernel_s = counted(
-        fwd_bwd, dict(none, **want), "A, forward + backward through the kernels")
+    own_match = {"auction": AUCTION_LAUNCHES} if matcher else {}  # ``compute(0, ...)`` above
+    want_a = dict(none, **want)
+    want_a.update({k: want_a[k] + v for k, v in own_match.items()})
+    recorded = []
+    with recorded_auctions(recorded) if matcher else contextlib.nullcontext():
+        (losses, total, grads, preds, own), launches, kernel_s = counted(
+            fwd_bwd, want_a, "A, forward + backward through the kernels")
+    if problems is not None and recorded:
+        problems[label] = recorded[0]
     missing = sorted(set(params) - set(grads))
     check(not missing, f"{label}: parameters without a gradient {missing[:5]}")
     check(math.isfinite(total), f"{label}: loss {total}")
@@ -2919,7 +2984,7 @@ def train_step_parity(label, model, batch, sp, bp, counters, want, ties=()):
         with plain_kernels(sp, bp, exact, bev_pool_exact(bp)):
             (_, _, grads_p32, _, _), _, _ = counted(fwd_bwd, none, "B', B with the pool in float64")
     forward_only = dict(none, sparse_conv=SPARSE_LAUNCHES if sparse else 0,
-                        bev_pool=want.get("bev_pool", 0))
+                        bev_pool=want.get("bev_pool", 0), **own_match)
     (_, _, grads_c, preds_c, _), _, _ = counted(
         lambda: fwd_bwd(plain_backward=True), forward_only,
         "C, the kernels' forward and the plain versions' backward")
@@ -3033,15 +3098,16 @@ def prepare_train_model(model, batch) -> None:
         moderate_head(model, batch)
 
 
-def train_configs_phase(sp, bp, counters):
-    """Phase 12b: each config of ``TRAIN_CONFIG_LAUNCHES`` built for training at full
-    width (B = 1, 64 random boxes or seeded map masks and the depth images of
-    ``add_train_targets``), its head moderated, held to the plain path by
+def train_configs_phase(sp, bp, counters, problems=None, names=None):
+    """Phase 12b: each config of ``TRAIN_CONFIG_LAUNCHES`` (or of ``names``) built
+    for training at full width (B = 1, 64 random boxes or seeded map masks and
+    the depth images of ``add_train_targets``), its head moderated, held to the plain path by
     ``train_step_parity`` with TF32 off; then 1 timed step after 1 warmup
     with TF32 on (``tools/bench_train_step.py``): ms a step split into
     forward, backward and optimizer, the peak memory less what was allocated
-    before the config was built (the flagship's model). Returns {config:
-    results}."""
+    before the config was built (the flagship's model). The matcher problems
+    of the TransFusion configs' pass A go into ``problems`` (``train_step_parity``).
+    Returns {config: results}."""
     from bevfusion_tpu_torch.runtime.flagship import (DET_CAMERA_CONFIGS, LIDAR_SLICE_CONFIG,
                                                       PILLAR_CONFIGS, SEG_CONFIGS, build_flagship)
     from bevfusion_tpu_torch.tools.bench_train_step import train_steps
@@ -3054,6 +3120,8 @@ def train_configs_phase(sp, bp, counters):
              "camera+radar": PILLAR_CONFIGS["camera+radar"]}
     res = {}
     for name, want in TRAIN_CONFIG_LAUNCHES.items():
+        if names is not None and name not in names:
+            continue
         t0 = time.perf_counter()
         resident = torch.cuda.memory_allocated()  # the flagship's, held for phases 13-14
         cfg, model, batch = build_flagship("cuda", num_points=120000, seed=0, training=True,
@@ -3063,7 +3131,7 @@ def train_configs_phase(sp, bp, counters):
                   f"train {name}: masks {tuple(batch['gt_masks_bev'].shape)}")
         prepare_train_model(model, batch)
         r = train_step_parity(f"train {name}", model, batch, sp, bp, counters, want,
-                              CAMERA_TIES.get(name, ()))
+                              CAMERA_TIES.get(name, ()), problems)
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
         steps = train_steps(cfg, model, batch, DEVICE, steps=1, warmup=1)
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
@@ -3079,6 +3147,116 @@ def train_configs_phase(sp, bp, counters):
         del cfg, model, batch
         torch.cuda.empty_cache()
     return res
+
+
+def auction_made_cases():
+    """The matcher's made problems, on the card: [(label, cost, row_valid,
+    col_valid, max_iters)]. At the flagship's shape (R = 64 ground truths, C
+    = 200 proposals): random costs; integer costs with rows copies of three
+    and columns of 100 (ties); every row after the same three columns, the
+    costs within 1e-6 of each other, below eps (runs out of ``max_iters``, as
+    at random init); 30% of rows and columns invalid; R > C (40 columns;
+    runs out too); R = 1; C = 1 with R = 2 (an infinite bid, then NaN bids
+    until ``max_iters``); and the from-files shape, 140 rows
+    (``max_gt_boxes``) with 14, 15 and 16 valid."""
+    g = torch.Generator().manual_seed(22)
+
+    def case(label, cost, row_valid=None, col_valid=None):
+        R, C = cost.shape
+        row_valid = torch.ones(R, dtype=torch.bool) if row_valid is None else row_valid
+        col_valid = torch.ones(C, dtype=torch.bool) if col_valid is None else col_valid
+        return (f"made {label}", cost.to(DEVICE), row_valid.to(DEVICE), col_valid.to(DEVICE),
+                AUCTION_MAX_ITERS)
+
+    R, C = 64, 200
+    base = torch.randint(0, 4, (3, C // 2), generator=g).float()
+    ties = base[torch.randint(0, 3, (R,), generator=g)][
+        :, torch.randint(0, C // 2, (C,), generator=g)]
+    contested = torch.rand(R, C, generator=g) * 1e-6 + (torch.arange(C) >= 3).float() * 0.5
+    cases = [case("random", torch.rand(R, C, generator=g)), case("ties", ties),
+             case("max_iters", contested),
+             case("invalid rows and columns", torch.rand(R, C, generator=g),
+                  torch.rand(R, generator=g) > 0.3, torch.rand(C, generator=g) > 0.3),
+             case("R > C", torch.rand(R, 40, generator=g)),
+             case("R = 1", torch.rand(1, C, generator=g)),
+             case("C = 1, R = 2", torch.rand(2, 1, generator=g))]
+    for valid in (14, 15, 16):
+        cases.append(case(f"from files, {valid} valid", torch.rand(140, C, generator=g),
+                          torch.arange(140) < valid))
+    return cases
+
+
+def matcher_phase(au, recorded):
+    """Phase 12c: the auction kernel (``csrc/auction.cu``) against
+    ``auction_rounds_plain`` on the same CUDA tensors (the torch prologue's
+    value and eps), on ``auction_made_cases`` and on ``recorded``, the
+    problems the TransFusion train steps of phases 12 and 12b built ({label:
+    (cost, row_valid, col_valid)}): assign, price (bits) and rounds equal in
+    both of the kernel's forms, value staged in shared memory (where it fits)
+    and read from global memory; then two problems in one launch. Each
+    shape's kernel ms a call (CUDA events, queued ahead) through the op, the
+    global form's, the plain loop's ms on the card, the rounds, and the bound:
+    the larger of the bytes (value, masks, eps, assign, price and rounds
+    once) over the memory rate and the rounds as dependent steps at one SM
+    clock each. No PyTorch call computes an auction (library ms none).
+    Returns the shape entries."""
+    t0 = time.perf_counter()
+    cases = auction_made_cases() + [(f"recorded {label}", *p, AUCTION_MAX_ITERS)
+                                    for label, p in recorded.items()]
+    clock = max_sm_clock_hz()
+    shapes = []
+    for label, cost, row_valid, col_valid, iters in cases:
+        value, eps = au.auction_value(cost, row_valid, col_valid)
+        R, C = value.shape
+        want = au.auction_rounds_plain(value, row_valid, eps, iters)
+        got = {"op": au.auction_rounds(value, row_valid, eps, iters)}
+        for form, staged in (("shared", True), ("global", False)):
+            out, _ = au._launch_auction(value[None], row_valid[None], eps[None], iters, staged)
+            got[form] = tuple(t[0] for t in out)
+        torch.cuda.synchronize()
+        for form, (a, p, r) in got.items():
+            check(torch.equal(a, want[0]) and torch.equal(r, want[2])
+                  and torch.equal(p.view(torch.int32), want[1].view(torch.int32)),
+                  f"12c {label} ({form}): the kernel's assign, price or rounds differ from "
+                  f"plain: rounds {int(r)} / {int(want[2])}, assign equal "
+                  f"{torch.equal(a, want[0])}")
+        rounds = int(want[2])
+        ms = kernel_ms(lambda: au.auction_rounds(value, row_valid, eps, iters))
+        ms_global = kernel_ms(lambda: au._launch_auction(value[None], row_valid[None],
+                                                         eps[None], iters, False))
+        plain_ms = time_fn(lambda: au.auction_rounds_plain(value, row_valid, eps, iters),
+                           iters=2, warmup=0, device=DEVICE)["median_ms"]  # warm: held above
+        b_bytes = nbytes(value, row_valid, eps, *want) / HBM_BYTES_PER_S * 1e3
+        b_rounds = rounds / clock * 1e3
+        entry = {"shape": f"{label} [{R},{C}]", "max_abs_err": 0.0, "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": max(b_bytes, b_rounds),
+                 "bound_by": "bytes" if b_bytes >= b_rounds else "operations",
+                 "share": max(b_bytes, b_rounds) / ms, "rounds": rounds,
+                 "max_iters": iters, "staged": au.value_staged(R, C), "ms_global": ms_global,
+                 "valid_rows": int(row_valid.sum()), "assigned": int((want[0] >= 0).sum())}
+        shapes.append(entry)
+        print(f"kernel auction {entry['shape']}: kernel {ms:.4f} ms (value in "
+              f"{'shared' if entry['staged'] else 'global'} memory; the global-memory form "
+              f"{ms_global:.4f} ms), plain {plain_ms:.2f} ms; {rounds} rounds of {iters}, "
+              f"{entry['assigned']} of {entry['valid_rows']} valid rows assigned; bound "
+              f"{entry['bound_ms']:.5f} ms ({entry['bound_by']}: bytes {b_bytes:.5f}, rounds "
+              f"{b_rounds:.5f}), {entry['share']:.4f} of bound; library ms: none; assign, price "
+              f"and rounds equal to plain in both forms")
+    # two problems of one shape in one launch (the entry's N > 1)
+    pair = [c for c in cases if c[1].shape == (64, 200)][:2]
+    prologue = [au.auction_value(cost, rv, cv) for _, cost, rv, cv, _ in pair]
+    out, _ = au._launch_auction(torch.stack([v for v, _ in prologue]),
+                                torch.stack([c[2] for c in pair]),
+                                torch.stack([e for _, e in prologue]), AUCTION_MAX_ITERS)
+    for k, ((v, e), c) in enumerate(zip(prologue, pair)):
+        a, p, r = au.auction_rounds_plain(v, c[2], e, AUCTION_MAX_ITERS)
+        check(torch.equal(out[0][k], a) and torch.equal(out[2][k], r)
+              and torch.equal(out[1][k].view(torch.int32), p.view(torch.int32)),
+              f"12c: problem {k} of a two-problem launch differs from plain")
+    print(f"12c matcher: {len(cases)} problems ({len(recorded)} recorded from the train steps) "
+          f"equal to plain in both forms, and two in one launch; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return shapes
 
 
 def bf16_kernel_phase(sp, cases, fwd32, dw32):
@@ -3570,8 +3748,8 @@ def longevity_phase():
     ``LONGEVITY_ARGS``: the flagship at bf16 over one whole schedule of 12
     steps on 8 scenes, the resume probe at step 6. Gates: the tool's own
     (finite losses, the probe by the rule it states), every loss finite in
-    its JSON, and a step's launches 29 bf16 K1/K2, 15 bf16 K3 and 1 K4, no
-    fp32 sparse conv and no NMS."""
+    its JSON, and a step's launches 29 bf16 K1/K2, 15 bf16 K3, 1 K4 and 1
+    auction (the matcher), no fp32 sparse conv and no NMS."""
     from bevfusion_tpu_torch.tools import train_longevity
 
     t0 = time.perf_counter()
@@ -3585,7 +3763,7 @@ def longevity_phase():
     with open(out) as f:
         res = json.load(f)
     want = dict(dict.fromkeys(res["launches_per_step"], 0), sparse_conv_bf16=29,
-                sparse_conv_dw_bf16=15, bev_pool=1)
+                sparse_conv_dw_bf16=15, bev_pool=1, auction=AUCTION_LAUNCHES)
     check(res["launches_per_step"] == want,
           f"longevity: a step launched {res['launches_per_step']}, want {want}")
     check(all(map(math.isfinite, res["losses"])), "longevity: a loss is not finite")
@@ -3602,6 +3780,7 @@ def longevity_phase():
 
 def kernel_counters():
     """Every kernel wrapper of the JSON line, by its name there."""
+    from bevfusion_tpu_torch.ops import auction as au
     from bevfusion_tpu_torch.ops import bev_pool as bp
     from bevfusion_tpu_torch.ops import deform_conv as dc
     from bevfusion_tpu_torch.ops import nms
@@ -3617,7 +3796,7 @@ def kernel_counters():
             "sparse_conv_variants": kv.sparse_conv_variant,
             "suppression_words": nms.suppression_words,
             "greedy_suppress_words": nms.greedy_suppress_words, "deform_im2col": dc.deform_im2col,
-            "furthest_point_sample": pn.furthest_point_sample}
+            "furthest_point_sample": pn.furthest_point_sample, "auction": au.auction_assignment}
 
 
 def no_dropout(model) -> None:
@@ -3960,14 +4139,17 @@ def dp_phase(counters):
             passes[name] = dp_pass(cfg, model, one, state0, dtype, store, tops, counters, plain)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     # a rank's launches a step (B = 1), and one process's at B = 2: the sparse convs run
-    # sample by sample, the pool once on the batch's intervals together
+    # sample by sample, the pool once on the batch's intervals together; every pass but R
+    # replays R's Hungarian targets, so only R runs the matcher, once a sample
     per_rank = {"fp32": dict(dict.fromkeys(counters, 0), **TRAIN_LAUNCHES),
                 "bf16": dict(dict.fromkeys(counters, 0), **BF16_TRAIN_LAUNCHES)}
     want = {key: {k: DP_WORLD * v if k.startswith("sparse") else v for k, v in w.items()}
             for key, w in per_rank.items()}
     for name, key in (("R", "fp32"), ("R16", "bf16")):
-        check(passes[name]["launches"] == want[key],
-              f"13c one process {name}: launches {passes[name]['launches']}, want {want[key]}")
+        own = {"auction": DP_WORLD * AUCTION_LAUNCHES} if name == "R" else {}
+        check(passes[name]["launches"] == dict(want[key], **own),
+              f"13c one process {name}: launches {passes[name]['launches']}, want "
+              f"{dict(want[key], **own)}")
     grads_r = passes["R"]["grads"]
     norm_r = math.sqrt(sum(float(g.double().square().sum()) for g in grads_r.values()))
 
@@ -4254,6 +4436,48 @@ def nms_only() -> int:
     return 0
 
 
+def matcher_only() -> int:
+    """``python3 chip_smoke.py --matcher``: the kernels a TransFusion train step
+    runs built (one nvcc per source, started together) and the auction's
+    ptxas lines, then phase 12's flagship step and 12b's TransFusion-L and
+    PointPillars steps held to the plain path (their launches, the matcher's
+    among them), and phase 12c on the made problems and the three steps' own;
+    the results as a JSON line. A quick check of the auction kernel."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    from bevfusion_tpu_torch import native
+    from bevfusion_tpu_torch.ops import auction as au
+    from bevfusion_tpu_torch.ops import bev_pool as bp
+    from bevfusion_tpu_torch.ops import sparse_conv as sp
+    from bevfusion_tpu_torch.runtime.flagship import build_flagship
+
+    print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card_line()}")
+    t0 = time.perf_counter()
+    builds = {"auction": au.build_kernels, "sparse_conv": sp.build_kernels,
+              "sparse_conv_dw": sp.build_dw_kernels, "bev_pool": bp.build_kernels}
+    with ThreadPoolExecutor(len(builds)) as ex:
+        list(ex.map(lambda build: build(), builds.values()))
+    print(f"build: {time.perf_counter() - t0:.2f} s")
+    ptxas_lines(native, ["auction"])
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    counters, recorded = kernel_counters(), {}
+    _, model, batch = build_flagship(DEVICE, num_points=120000, seed=0, training=True)
+    prepare_train_model(model, batch)
+    parity = train_step_parity("train step", model, batch, sp, bp, counters,
+                               dict(TRAIN_LAUNCHES, auction=AUCTION_LAUNCHES), problems=recorded)
+    del model, batch
+    torch.cuda.empty_cache()
+    cfgs = train_configs_phase(sp, bp, counters, recorded, ("transfusion-l", "pointpillars"))
+    check(len(recorded) == 3, f"12c: matcher problems recorded from {sorted(recorded)}")
+    shapes = matcher_phase(au, recorded)
+    print(json.dumps({"auction": shapes, "launches_train": {
+        "flagship": parity["launches"], **{k: r["launches"] for k, r in cfgs.items()}},
+        "steps_tf32_on": {k: r["steps_tf32_on"]["ms_median"] for k, r in cfgs.items()},
+        "auction_ms_in_steps": {k: r["steps_tf32_on"]["auction_ms"] for k, r in cfgs.items()},
+        "seconds": time.perf_counter() - t0}))
+    return 0
+
+
 def decision_tools_only() -> int:
     """``python3 chip_smoke.py --decision-tools``: the sparse-conv source
     built, the flagship on the card at eval, then phase 14d alone; the
@@ -4361,12 +4585,15 @@ def main() -> int:
         return nms_only()
     if sys.argv[1:2] == ["--decision-tools"]:
         return decision_tools_only()
+    if sys.argv[1:2] == ["--matcher"]:
+        return matcher_only()
     t_start = time.perf_counter()
     # cuBLAS takes deterministic workspaces only if told before its first call
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from bevfusion_tpu_torch import native
     from bevfusion_tpu_torch.models.vtransforms import build_pool_lut
+    from bevfusion_tpu_torch.ops import auction as au
     from bevfusion_tpu_torch.ops import bev_pool as bp
     from bevfusion_tpu_torch.ops import deform_conv as dc
     from bevfusion_tpu_torch.ops import nms
@@ -4393,7 +4620,8 @@ def main() -> int:
     builds = {"sparse_conv": sp.build_kernels, "sparse_conv_dw": sp.build_dw_kernels,
               "bev_pool": bp.build_kernels, "tile_micro": tm.build_kernels,
               "sparse_conv_variants": kv.build_kernels, "nms": nms.build_kernels,
-              "deform_conv": dc.build_kernels, "pointnet": pn.build_kernels}
+              "deform_conv": dc.build_kernels, "pointnet": pn.build_kernels,
+              "auction": au.build_kernels}
     with ThreadPoolExecutor(len(builds)) as ex:  # one nvcc per source, started together
         list(ex.map(lambda build: build(), builds.values()))
     build_s = time.perf_counter() - t0
@@ -4441,8 +4669,9 @@ def main() -> int:
     # 8. the LiDAR slice, eval forward at B=1
     counters = {"sparse_conv": sp.sparse_conv, "bev_pool": bp.bev_pool,
                 "suppression_words": nms.suppression_words,
-                "greedy_suppress_words": nms.greedy_suppress_words}
-    no_nms = dict.fromkeys(NMS_LAUNCHES, 0)
+                "greedy_suppress_words": nms.greedy_suppress_words,
+                "auction": au.auction_assignment}
+    no_nms = dict.fromkeys([*NMS_LAUNCHES, "auction"], 0)  # no NMS and no matcher at eval
     lidar_launches, lidar_heat_err, lidar_frames, lidar_peak = run_model(
         "lidar slice", copy.deepcopy(cpu_model).cuda(), batch, cpu_model, cpu_batch, counters,
         {"sparse_conv": SPARSE_LAUNCHES, "bev_pool": 0, **no_nms})
@@ -4563,14 +4792,20 @@ def main() -> int:
     # 12. the flagship's training step, B=1, host LUT, TF32 off: kernels vs plain
     cfg, model, batch = build_flagship("cuda", num_points=120000, seed=0, training=True)
     prepare_train_model(model, batch)
-    parity = train_step_parity("train step", model, batch, sp, bp, all_counters, TRAIN_LAUNCHES)
+    recorded = {}  # the matcher problems the TransFusion steps build, for 12c
+    parity = train_step_parity("train step", model, batch, sp, bp, all_counters,
+                               dict(TRAIN_LAUNCHES, auction=AUCTION_LAUNCHES), problems=recorded)
 
     # 12b. the train steps of nine more configs, each held to the plain path, then timed
     t0 = time.perf_counter()
-    train_cfgs = train_configs_phase(sp, bp, all_counters)
+    train_cfgs = train_configs_phase(sp, bp, all_counters, recorded)
     train_cfgs_s = time.perf_counter() - t0
     print(f"train configs: {len(train_cfgs)} configs' steps held and timed in "
           f"{train_cfgs_s:.1f} s")
+
+    # 12c. the auction kernel against the plain loop: made problems and the steps' own
+    check(len(recorded) == 3, f"12c: matcher problems recorded from {sorted(recorded)}")
+    auction_shapes = matcher_phase(au, recorded)
 
     # 13. two timed train steps, TF32 on
     torch.backends.cudnn.allow_tf32 = True
@@ -4701,6 +4936,14 @@ def main() -> int:
                      "bevfusion_tpu/ops/pointnet.py:64",
                      long_tail["votenet"]["launches"]["furthest_point_sample"], d2_shapes),
              pallas=False)]
+    # not a TPU kernel: the JAX package's auction is a lax.while_loop; its launches in the
+    # flagship's train step (phase 12, pass A: the forward's match and one more after it)
+    kernels.append(dict(summary("auction", "bevfusion_tpu_torch/csrc/auction.cu",
+                                "bevfusion_tpu/core/matching.py:93",
+                                parity["launches"]["auction"], auction_shapes),
+                        pallas=False, launches_eval=launches["auction"],
+                        launches_lidar=lidar_launches["auction"],
+                        launches_tools=tool_launches["auction"]))
     for k in kernels[:3]:
         k["launches_tools"] = tool_launches[k["name"]]
     for k in kernels:

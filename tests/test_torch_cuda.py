@@ -1292,7 +1292,10 @@ def test_custom_ops_fake_is_the_cuda_implementations_meta_and_counts_its_launche
              "greedy_suppress_words": (words, order),
              "deform_im2col": (torch.randn(1, 5, 6, 4, device=cuda),
                                torch.randn(1, 5, 6, 18, device=cuda), None, 3, 1, 1),
-             "furthest_point_sample": (torch.randn(2, 50, 3, device=cuda), 10, None)}
+             "furthest_point_sample": (torch.randn(2, 50, 3, device=cuda), 10, None),
+             "auction": (torch.rand(6, 9, device=cuda), torch.ones(6, dtype=torch.bool,
+                                                                    device=cuda),
+                         torch.tensor(0.01, device=cuda), 50)}
     assert set(cases) == set(library.OPS)
     for name, args in cases.items():
         op = getattr(torch.ops.bevfusion, name)
@@ -1302,8 +1305,9 @@ def test_custom_ops_fake_is_the_cuda_implementations_meta_and_counts_its_launche
         assert library.COUNTERS[name].launches == before + 1, name
         with FakeTensorMode() as mode:
             fake = op(*(mode.from_tensor(a) if isinstance(a, torch.Tensor) else a for a in args))
-        assert (fake.shape, fake.dtype, fake.stride(), fake.device.type) == (
-            real.shape, real.dtype, real.stride(), real.device.type), name
+        real, fake = ((x,) if isinstance(x, torch.Tensor) else x for x in (real, fake))
+        assert [(f.shape, f.dtype, f.stride(), f.device.type) for f in fake] == [
+            (r.shape, r.dtype, r.stride(), r.device.type) for r in real], name
     assert library.COUNTERS["suppression_words"] is nms.suppression_words
     assert library.COUNTERS["greedy_suppress_words"] is nms.greedy_suppress_words
 
@@ -1358,3 +1362,56 @@ def test_furthest_point_sample_kernel_matches_plain(cuda, N, npoint, masked):
     assert torch.equal(got, want)
     with pytest.raises(ValueError):
         pn.furthest_point_sample(torch.randn(1, 40000, 3, device=cuda), 4)
+
+
+def _auction_problem(kind, R, C, seed):
+    """A made matcher problem on the CPU: (cost [R, C], row_valid, col_valid)."""
+    g = torch.Generator().manual_seed(seed)
+    cost = torch.rand(R, C, generator=g)
+    row_valid, col_valid = torch.ones(R, dtype=torch.bool), torch.ones(C, dtype=torch.bool)
+    if kind == "ties":  # integer costs, rows copies of three, columns of C // 2
+        base = torch.randint(0, 4, (3, C // 2), generator=g).float()
+        cost = base[torch.randint(0, 3, (R,), generator=g)][
+            :, torch.randint(0, C // 2, (C,), generator=g)]
+    elif kind == "contested":  # every row wants the same three near-equal columns
+        cost = cost * 1e-3 + (torch.arange(C) >= 3).float() * 0.5
+    elif kind == "invalid":
+        row_valid = torch.rand(R, generator=g) > 0.3
+        col_valid = torch.rand(C, generator=g) > 0.3
+    elif kind == "from files":
+        row_valid[15:] = False
+    return cost, row_valid, col_valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,R,C,iters", [
+    ("random", 64, 200, 2000), ("ties", 64, 200, 2000), ("contested", 64, 200, 300),
+    ("invalid", 40, 90, 2000), ("random", 9, 5, 100), ("random", 1, 33, 2000),
+    ("random", 2, 1, 30), ("from files", 140, 200, 2000), ("contested", 300, 400, 200)])
+def test_auction_kernel_equals_plain(cuda, kind, R, C, iters):
+    """The auction kernel (``csrc/auction.cu``) against its plain version on
+    the card: assign, price (bits) and rounds equal, with value in shared
+    memory and read from global memory; one launch a call through the op;
+    two problems in one launch of the entry."""
+    from bevfusion_tpu_torch.ops import auction as au
+
+    cost, row_valid, col_valid = (t.to(cuda) for t in _auction_problem(kind, R, C, R * C))
+    value, eps = au.auction_value(cost, row_valid, col_valid)
+    want = au.auction_rounds_plain(value, row_valid, eps, iters)
+    before = au.auction_assignment.launches
+    got = au.auction_rounds(value, row_valid, eps, iters)
+    assert au.auction_assignment.launches == before + 1
+    forms = [au._launch_auction(value[None], row_valid[None], eps[None], iters, staged)[0]
+             for staged in (True, False)]
+    torch.cuda.synchronize()
+    for a, p, r in [got] + [(f[0][0], f[1][0], f[2][0]) for f in forms]:
+        assert torch.equal(a, want[0]) and torch.equal(r, want[2])
+        assert torch.equal(p.view(torch.int32), want[1].view(torch.int32))
+    two = au._launch_auction(torch.stack([value, value.flip(0)]),
+                             torch.stack([row_valid, row_valid.flip(0)]), eps.repeat(2), iters)[0]
+    flipped = au.auction_rounds_plain(value.flip(0), row_valid.flip(0), eps, iters)
+    for k, w in enumerate((want, flipped)):
+        assert torch.equal(two[0][k], w[0]) and torch.equal(two[2][k], w[2])
+        assert torch.equal(two[1][k].view(torch.int32), w[1].view(torch.int32))
+    assert torch.equal(au.auction_assignment(cost, row_valid, col_valid, max_iters=iters),
+                       want[0])

@@ -106,7 +106,7 @@ def test_every_port_module_imports_no_jax():
                  "core.box_np_ops", "core.box_modes", "core.anchors", "core.assign_sample",
                  "ops.deform_conv", "ops.pointnet", "models.vovnet", "models.dla",
                  "models.pointnet_modules", "tools.measure_tiles", "tools.bench_tiled_proto",
-                 "tools.profile_encoder2", "tools.bench_mxu_micro"):
+                 "tools.profile_encoder2", "tools.bench_mxu_micro", "ops.auction"):
         assert f"bevfusion_tpu_torch.{name}" in walked, name
     assert len(walked) >= 40
     _assert_no_jax(mods)

@@ -20,6 +20,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 from bevfusion_tpu_torch.config import Config
 from bevfusion_tpu_torch.models import build_model
+from bevfusion_tpu_torch.ops import auction as au
 from bevfusion_tpu_torch.ops import bev_pool as bp
 from bevfusion_tpu_torch.ops import library
 from bevfusion_tpu_torch.ops import nms
@@ -150,6 +151,14 @@ def _fps_args(seed=0, B=2, N=50):
     return torch.randn(B, N, 3, generator=g), 12, torch.rand(B, N, generator=g) > 0.2
 
 
+def _auction_args(seed=0, R=6, C=9):
+    g = torch.Generator().manual_seed(seed)
+    row_valid = torch.rand(R, generator=g) > 0.2
+    value, eps = au.auction_value(torch.rand(R, C, generator=g), row_valid,
+                                  torch.ones(C, dtype=torch.bool))
+    return value, row_valid, eps, 50
+
+
 def _all_cases():
     feats, nbr, weight, scale, shift, residual, relu = _conv_args()
     bf = _conv_args(torch.bfloat16)
@@ -165,6 +174,7 @@ def _all_cases():
         "greedy_suppress_words": (nms.pack_words(_suppress_args()[0]), _suppress_args()[1]),
         "deform_im2col": _im2col_args(),
         "furthest_point_sample": _fps_args(),
+        "auction": _auction_args(),
     }
 
 
@@ -175,7 +185,9 @@ def test_fake_gives_the_real_shapes_and_dtypes(name):
     real = op(*args)
     with FakeTensorMode() as mode:
         fake = op(*(mode.from_tensor(a) if isinstance(a, torch.Tensor) else a for a in args))
-    assert (fake.shape, fake.dtype, fake.stride()) == (real.shape, real.dtype, real.stride())
+    real, fake = ((x,) if isinstance(x, torch.Tensor) else x for x in (real, fake))
+    assert [(f.shape, f.dtype, f.stride()) for f in fake] == \
+        [(r.shape, r.dtype, r.stride()) for r in real]
 
 
 @pytest.mark.parametrize("name", library.OPS)
