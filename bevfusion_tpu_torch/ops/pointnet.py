@@ -23,7 +23,8 @@ from .. import native
 
 __all__ = ["square_distance", "ball_query", "knn", "furthest_point_sample",
            "furthest_point_sample_plain", "gather_points", "group_points", "three_nn",
-           "three_interpolate", "interpolation_weights", "assign_score_withk", "FPS_MAX_POINTS"]
+           "three_interpolate", "interpolation_weights", "assign_score_withk", "FPS_MAX_POINTS",
+           "fps_plan"]
 
 FPS_MAX_POINTS = 32768  # the kernel keeps each point's running distance in a register
 
@@ -89,23 +90,48 @@ def furthest_point_sample_plain(xyz: torch.Tensor, npoint: int,
     return out.int()
 
 
+FPS_PLAN_KEYS = ("threads", "points", "smem_bytes", "cluster")
+_FPS_THREADS = 1024
+_FPS_BLOCK_POINTS = 8 * _FPS_THREADS  # a block's points at most: 8 a thread, in registers
+_FPS_CLUSTER = 4  # the blocks of a sample past 8,192 points
+
+
+def fps_plan(n: int) -> dict:
+    """The launch of the kernel for a sample of ``n`` points: ``threads`` a
+    block, ``points`` a thread (all in registers), the static shared bytes
+    a block (``csrc/pointnet.cu``'s two parity buffers of warp slots, and
+    of block slots in a cluster), and ``cluster``, the blocks of a sample
+    (a thread block cluster): one up to 8,192 points, four past that, each
+    block with its share. A block's threads keep min(ceil(its points /
+    512), 8) points each, the block sized to its points. Raises ValueError
+    on a size the kernel refuses."""
+    if not 1 <= n <= FPS_MAX_POINTS:
+        raise ValueError(f"fps_plan: n {n} (1..{FPS_MAX_POINTS})")
+    cl = _FPS_CLUSTER if n > _FPS_BLOCK_POINTS else 1
+    local = -(-n // cl)
+    points = min(-(-local // 512), 8)
+    threads = -(-(-(-local // points)) // 32) * 32
+    return dict(zip(FPS_PLAN_KEYS, (threads, points, 2 * (32 + (cl if cl > 1 else 0)) * 24, cl)))
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel_fn():
-    fn = native.load_library("pointnet").bevf_furthest_point_sample
+def _library():
+    lib = native.load_library("pointnet")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, i32, i32, i32, vp]
-    fn.restype = i32
-    return fn
+    lib.bevf_furthest_point_sample.argtypes = [vp, vp, vp] + [i32] * 6 + [vp]
+    lib.bevf_furthest_point_sample.restype = i32
+    return lib
 
 
 def build_kernels() -> None:
     """Compile and load the kernel library (done anyway at first launch)."""
-    _kernel_fn()
+    _library()
 
 
 def _launch_fps(xyz: torch.Tensor, npoint: int, mask: Optional[torch.Tensor]):
     """Check the operands, allocate the output and launch the kernel on the
-    current stream; returns (idx [B, npoint] int32, whether it launched)."""
+    current stream (as ``fps_plan`` gives it); returns (idx [B, npoint]
+    int32, whether it launched)."""
     if xyz.dim() != 3 or xyz.shape[-1] != 3 or xyz.dtype != torch.float32:
         raise ValueError(f"furthest_point_sample: want fp32 xyz [B, N, 3], got "
                          f"{tuple(xyz.shape)} {xyz.dtype}")
@@ -115,6 +141,7 @@ def _launch_fps(xyz: torch.Tensor, npoint: int, mask: Optional[torch.Tensor]):
         raise ValueError(f"furthest_point_sample: mask must be bool [B, N] on {xyz.device}")
     if not 1 <= N <= FPS_MAX_POINTS or npoint < 1:
         raise ValueError(f"furthest_point_sample: N {N} (1..{FPS_MAX_POINTS}), npoint {npoint}")
+    plan = fps_plan(N)
     out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
     if B == 0:
         return out, False
@@ -122,8 +149,10 @@ def _launch_fps(xyz: torch.Tensor, npoint: int, mask: Optional[torch.Tensor]):
     soa = xyz.transpose(1, 2).contiguous()
     m = None if mask is None else mask.to(torch.uint8).contiguous()
     with torch.cuda.device(xyz.device):
-        rc = _kernel_fn()(soa.data_ptr(), None if m is None else m.data_ptr(), out.data_ptr(),
-                          B, N, npoint, torch.cuda.current_stream().cuda_stream)
+        rc = _library().bevf_furthest_point_sample(
+            soa.data_ptr(), None if m is None else m.data_ptr(), out.data_ptr(), B, N, npoint,
+            plan["threads"], plan["points"], plan["cluster"],
+            torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"furthest_point_sample: kernel launch failed with cudaError {rc}")
     return out, True
@@ -138,7 +167,8 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int,
 
     The op ``bevfusion::furthest_point_sample`` (``ops/library.py``): CUDA
     tensors launch the hand-written kernel (one block a sample, fp32, N <=
-    ``FPS_MAX_POINTS``) on the current stream; CPU tensors take the plain
+    ``FPS_MAX_POINTS``, one barrier a round: ``fps_plan``) on the current
+    stream; CPU tensors take the plain
     version. Both compute each distance with the same rounded operations
     and break ties alike, so they give the same indices.
     ``furthest_point_sample.launches`` counts kernel launches."""

@@ -237,7 +237,8 @@ phase 12c alone, the quick check of the auction kernel). Phases:
    time, bound (bytes) and share; furthest point sampling D2 against its
    plain version at the four sampling levels of VoteNet's PointNet2SASSG
    (20,000 points of the flagship scan -> 2048 -> 1024 -> 512 -> 256; indices
-   bit for bit), and that SA/FP stack on the card (D2 4 launches) against the
+   bit for bit; its plan, ``fps_plan``; its time beside ``FPS_MS_BEFORE``
+   and us a round), and that SA/FP stack on the card (D2 4 launches) against the
    same weights on the CPU (the sampled points equal, the FP output within
    2e-3); the flagship with ``test_cfg.nms_type`` circle and rotate, one
    frame each (15 + 1 and N1 and N2 twice, once a group), the keep masks of
@@ -303,10 +304,14 @@ phase 12c alone, the quick check of the auction kernel). Phases:
    TransFusion-L and PointPillars steps built (pass A's, recorded): assign,
    price (bits) and rounds equal in both of the kernel's forms (value in
    shared memory and read from global memory), and two problems in one
-   launch; each shape's kernel ms a call (CUDA events, queued ahead), the
-   global form's, the plain loop's ms on the card, the rounds, the bound
-   (bytes, or the rounds at one SM clock each) and its share; library ms
-   none;
+   launch; each shape's plan (``auction_plan``), kernel ms a call (CUDA
+   events, queued ahead; a problem that settles in a few rounds timed
+   ``SETTLED_REPEATS`` times, every reading printed) beside
+   ``AUCTION_MS_BEFORE`` and us a round, the global form's, the plain loop's
+   ms on the card, the rounds, the bound (bytes, or the rounds at one SM
+   clock each) and its share; library ms none; the recorded problems also
+   under the probe form (``auction_probe_summary``: cycles a round by phase,
+   bidders a round, beside ``AUCTION_PROBE_BEFORE``);
 13. two timed train steps with TF32 on (``tools/bench_train_step.py`` on
    ``runtime/train.py``: AdamW, clip 35, the config's cosine lr with linear
    warmup and cyclic momentum): losses finite, parameters changed; median
@@ -467,6 +472,28 @@ TRAIN_LAUNCHES = {"sparse_conv": 15 + 14, "sparse_conv_dw": 15, "bev_pool": 1,
 # replays recorded ones and in every eval frame
 AUCTION_LAUNCHES = 1
 AUCTION_MAX_ITERS = 2000  # the head's (core/matching.py:auction_assignment's default)
+# the auction kernel's first form (four barriers a round, a warp a bidding row) on the same
+# problems, NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6): its ms a call by 12c's label and,
+# under the probe, its median cycles a round by phase and its bidding rows a round. 12c prints
+# both beside its own; neither enters the results
+AUCTION_MS_BEFORE = {
+    "made random [64,200]": 0.0142, "made ties [64,200]": 0.0819,
+    "made max_iters [64,200]": 7.6374, "made invalid rows and columns [64,200]": 0.0139,
+    "made R > C [64,40]": 4.4587, "made R = 1 [1,200]": 0.0077,
+    "made C = 1, R = 2 [2,1]": 2.3283, "made from files, 14 valid [140,200]": 0.0100,
+    "made from files, 15 valid [140,200]": 0.0099, "made from files, 16 valid [140,200]": 0.0121,
+    "recorded train step [64,200]": 4.0109, "recorded train transfusion-l [64,200]": 3.9404,
+    "recorded train pointpillars [64,200]": 0.2278}
+AUCTION_PROBE_BEFORE = {
+    "train step": "3702 cycles a round (stop test 461, bids 444, bid barrier 51, winners 2184, "
+                  "columns 464); bidders 4-7: 1246, 8-15: 706, 16-31: 41, 32-63: 6, 64: 1",
+    "train transfusion-l": "3510 cycles a round (stop test 460, bids 444, bid barrier 50, "
+                           "winners 2119, columns 454); bidders 1: 86, 2-3: 1130, 4-7: 261, "
+                           "8-15: 461, 16-31: 58, 32-63: 3, 64: 1",
+    "train pointpillars": "3299 cycles a round (stop test 448, bids 436, bid barrier 52, "
+                          "winners 1851, columns 489); bidders 1: 114, 2-3: 9, 4-7: 3, 8-15: 3, "
+                          "16-31: 1, 32-63: 1, 64: 1"}
+SETTLED_REPEATS = 5  # 12c times a problem under 0.05 ms a call this many times (median reported)
 # the configs phase 12b trains beside the flagship, in its order (voxelnet.yaml
 # differs from voxelnet_0p075.yaml only in its voxel size), and their launches a step
 _SPARSE_STEP = {"sparse_conv": 15 + 14, "sparse_conv_dw": 15}
@@ -568,6 +595,10 @@ VOTENET_SA = ((2048, 0.2, 64, (64, 64, 128)), (1024, 0.4, 32, (128, 128, 256)),
               (512, 0.8, 16, (128, 128, 256)), (256, 1.2, 16, (128, 128, 256)))
 VOTENET_FP = ((256, 256), (256, 256))
 VOTENET_POINTS = 20000
+# D2's first form (a power-of-two ladder of points a thread, two barriers a round) at the four
+# levels, NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6); 11g prints it beside its own
+FPS_MS_BEFORE = {"N 20000 -> 2048": 9.4480, "N 2048 -> 1024": 0.7908, "N 1024 -> 512": 0.3607,
+                 "N 512 -> 256": 0.1762}
 # nuScenes' class groups with a radius > 0 (TransFusionHead.NMS_TASKS): N1 and N2 once a group
 TRANSFUSION_NMS_GROUPS = 2
 # the flagship's encoder in conv_module: the input conv and stages 0-2's three blocks each
@@ -2609,24 +2640,31 @@ def pointnet_part(counters, none, cpu_batch):
           and bool(torch.isfinite(out).all()), f"11g votenet: {tuple(out.shape)}, rel err {out_err}")
     shapes, src, clock = [], xyz, max_sm_clock_hz()
     for (num, *_), nxt in zip(VOTENET_SA, xyzs):
+        n = src.shape[0]
+        plan = pn.fps_plan(n)
         got = pn.furthest_point_sample(src, num)
         plain = pn.furthest_point_sample_plain(src[None], num)[0]
         torch.cuda.synchronize()
-        check(torch.equal(got, plain), f"11g D2: indices at N {src.shape[0]} differ from plain")
+        check(torch.equal(got, plain), f"11g D2: indices at N {n} differ from plain")
         ms = kernel_ms(lambda: pn.furthest_point_sample(src, num))
         plain_ms = time_fn(lambda: pn.furthest_point_sample_plain(src[None], num), iters=3,
                            warmup=1, device=DEVICE, queue_ahead=True)["median_ms"]
         # a round: 3 differences, 3 products, 2 sums, a min and a compare per point; and the
         # num - 1 rounds depend one on the next: at least an SM clock each, as N2's steps
-        bound_ms, bound_by = bound(10 * src.shape[0] * (num - 1), nbytes(src, got))
+        bound_ms, bound_by = bound(10 * n * (num - 1), nbytes(src, got))
         if (num - 1) / clock * 1e3 > bound_ms:
             bound_ms, bound_by = (num - 1) / clock * 1e3, "operations"
-        shapes.append({"shape": f"N {src.shape[0]} -> {num}", "ms": ms, "plain_ms": plain_ms,
+        label = f"N {n} -> {num}"
+        shapes.append({"shape": label, "ms": ms, "plain_ms": plain_ms,
                        "bound_ms": bound_ms, "bound_by": bound_by, "share": bound_ms / ms,
-                       "max_abs_err": 0.0, "rounds": num - 1})
-        print(f"kernel furthest_point_sample (D2) at {shapes[-1]['shape']}: {ms:.4f} ms (plain "
-              f"{plain_ms:.4f} ms), bound {bound_ms:.5f} ms ({bound_by}), {ms * 1e3 / (num - 1):.2f}"
-              f" us a round; indices bit-equal")
+                       "max_abs_err": 0.0, "rounds": num - 1, "plan": plan,
+                       "us_per_round": ms * 1e3 / (num - 1)})
+        before = FPS_MS_BEFORE.get(label)
+        print(f"kernel furthest_point_sample (D2) at {label}: {ms:.4f} ms"
+              + ("" if before is None else f" against {before:.4f} ms recorded before its "
+                 f"redesign: {before / ms:.2f}x")
+              + f" (plain {plain_ms:.4f} ms), bound {bound_ms:.5f} ms ({bound_by}), "
+              f"{ms * 1e3 / (num - 1):.3f} us a round; plan {plan}; indices bit-equal")
         src = nxt
     print(f"11g votenet: PointNet2SASSG on {VOTENET_POINTS} points, launches {launches}; the FP "
           f"output {tuple(out.shape)} vs the CPU: rel err {out_err:.3e}, sampled points equal "
@@ -3186,6 +3224,61 @@ def auction_made_cases():
     return cases
 
 
+BIDDER_BINS = (1, 2, 4, 8, 16, 32, 64, 128)  # the bidder histogram's bins: [1], [2, 3], ...
+
+
+def auction_probe_summary(au, label, cost, row_valid, col_valid, want):
+    """The kernel's probe form (``au.auction_probe``) on one recorded
+    problem: its outputs held to ``want``, the plain version's (assign,
+    price, rounds) on it, then the median cycles a round in
+    each phase (block 0's thread 0's ``clock64()``), the median and mean
+    cycles a round, the round's record (medians over rounds: the last
+    bidding row's moments, the longest scan, merge and key, the last warp
+    at each barrier), and the histogram of bidding rows a round (bins
+    ``BIDDER_BINS``, a bin holding [lo, next lo)). Printed; returned."""
+    value, eps = au.auction_value(cost, row_valid, col_valid)
+    (a, p, r), cycles, warps, rows = au.auction_probe(value, row_valid, eps, AUCTION_MAX_ITERS)
+    check(torch.equal(a, want[0]) and torch.equal(r, want[2])
+          and torch.equal(p.view(torch.int32), want[1].view(torch.int32)),
+          f"12c probe {label}: the probe form differs from plain")
+    rounds = cycles.sum(1)
+    bidding = rows[..., 0] >= 0
+    bidders = bidding.sum(1)
+    edges = list(BIDDER_BINS) + [BIDDER_BINS[-1] * 8]
+    hist = {f"{lo}-{hi - 1}" if hi - 1 > lo else str(lo):
+            int(((bidders >= lo) & (bidders < hi)).sum()) for lo, hi in zip(edges, edges[1:])}
+    def med(x):  # the median over rounds of a round's largest
+        return float(x.max(-1).values.double().median())
+
+    # cycles from thread 0's round start as each warp reads its own clock: where the last
+    # bidding row starts its scan and ends it, its merge and its key, the last warp at each
+    # barrier, thread 0's release from the bid barrier; and the longest scan, merge and key
+    # (a warp's own differences, the only durations that do not need the warps' clocks to agree)
+    span = rows[..., 1:] - rows[..., :-1]
+    slowest = {f"last {name}": med(torch.where(bidding, rows[..., k], -1))
+               for k, name in enumerate(au.PROBE_ROW)}
+    slowest.update({f"longest {name}": med(torch.where(bidding, span[..., k], -1))
+                    for k, name in enumerate(("scan", "merge", "key"))})
+    slowest["last warp at the bid barrier"] = med(warps[:, 0])
+    slowest["bid barrier released"] = float(cycles[:, :3].sum(1).double().median())
+    slowest["last warp at the column barrier"] = med(warps[:, 1])
+    out = {"rounds": int(r), "phase_cycles": {
+        name: float(cycles[:, k].double().median()) for k, name in enumerate(au.PROBE_PHASES)},
+        "round_cycles_median": float(rounds.double().median()),
+        "round_cycles_mean": float(rounds.double().mean()),
+        "slowest_cycles": slowest, "bidders": {k: v for k, v in hist.items() if v}}
+    before = AUCTION_PROBE_BEFORE.get(label)
+    print(f"12c probe {label}: {out['rounds']} rounds, cycles a round median "
+          f"{out['round_cycles_median']:.0f} (mean {out['round_cycles_mean']:.1f}); by phase "
+          + ", ".join(f"{k} {v:.0f}" for k, v in out["phase_cycles"].items())
+          + f"; the round's record (cycles from thread 0's start on each warp's clock, "
+          f"medians) {slowest}"
+          + f"; bidding rows a round {out['bidders']}"
+          + ("" if before is None else f"; before the redesign (the first form's round, recorded): "
+                                         f"{before}"))
+    return out
+
+
 def matcher_phase(au, recorded):
     """Phase 12c: the auction kernel (``csrc/auction.cu``) against
     ``auction_rounds_plain`` on the same CUDA tensors (the torch prologue's
@@ -3204,7 +3297,7 @@ def matcher_phase(au, recorded):
     cases = auction_made_cases() + [(f"recorded {label}", *p, AUCTION_MAX_ITERS)
                                     for label, p in recorded.items()]
     clock = max_sm_clock_hz()
-    shapes = []
+    shapes, wants = [], {}  # wants: plain's outputs on the recorded problems, for the probe
     for label, cost, row_valid, col_valid, iters in cases:
         value, eps = au.auction_value(cost, row_valid, col_valid)
         R, C = value.shape
@@ -3221,7 +3314,13 @@ def matcher_phase(au, recorded):
                   f"plain: rounds {int(r)} / {int(want[2])}, assign equal "
                   f"{torch.equal(a, want[0])}")
         rounds = int(want[2])
+        plan = au.auction_plan(R, C)
         ms = kernel_ms(lambda: au.auction_rounds(value, row_valid, eps, iters))
+        readings = [ms]
+        if ms < 0.05:  # settled in a few rounds: a reading's spread is its own finding
+            readings += [kernel_ms(lambda: au.auction_rounds(value, row_valid, eps, iters))
+                         for _ in range(SETTLED_REPEATS - 1)]
+            ms = statistics.median(readings)
         ms_global = kernel_ms(lambda: au._launch_auction(value[None], row_valid[None],
                                                          eps[None], iters, False))
         plain_ms = time_fn(lambda: au.auction_rounds_plain(value, row_valid, eps, iters),
@@ -3232,16 +3331,25 @@ def matcher_phase(au, recorded):
                  "plain_ms": plain_ms, "bound_ms": max(b_bytes, b_rounds),
                  "bound_by": "bytes" if b_bytes >= b_rounds else "operations",
                  "share": max(b_bytes, b_rounds) / ms, "rounds": rounds,
-                 "max_iters": iters, "staged": au.value_staged(R, C), "ms_global": ms_global,
+                 "us_per_round": ms * 1e3 / max(rounds, 1), "max_iters": iters,
+                 "staged": bool(plan["staged"]), "plan": plan, "ms_global": ms_global,
                  "valid_rows": int(row_valid.sum()), "assigned": int((want[0] >= 0).sum())}
+        if len(readings) > 1:
+            entry["ms_readings"] = readings
+        if label.startswith("recorded"):
+            wants[label[len("recorded "):]] = want
         shapes.append(entry)
-        print(f"kernel auction {entry['shape']}: kernel {ms:.4f} ms (value in "
-              f"{'shared' if entry['staged'] else 'global'} memory; the global-memory form "
-              f"{ms_global:.4f} ms), plain {plain_ms:.2f} ms; {rounds} rounds of {iters}, "
+        before = AUCTION_MS_BEFORE.get(entry["shape"])
+        print(f"kernel auction {entry['shape']}: kernel {ms:.4f} ms"
+              + ("" if before is None else f" against {before:.4f} ms recorded before its "
+                 f"redesign: {before / ms:.2f}x")
+              + f"; {entry['us_per_round']:.3f} us a round; plan {plan}; the global-memory form "
+              f"{ms_global:.4f} ms; plain {plain_ms:.2f} ms; {rounds} rounds of {iters}, "
               f"{entry['assigned']} of {entry['valid_rows']} valid rows assigned; bound "
               f"{entry['bound_ms']:.5f} ms ({entry['bound_by']}: bytes {b_bytes:.5f}, rounds "
               f"{b_rounds:.5f}), {entry['share']:.4f} of bound; library ms: none; assign, price "
-              f"and rounds equal to plain in both forms")
+              f"and rounds equal to plain in both forms"
+              + (f"; ms readings {readings}" if len(readings) > 1 else ""))
     # two problems of one shape in one launch (the entry's N > 1)
     pair = [c for c in cases if c[1].shape == (64, 200)][:2]
     prologue = [au.auction_value(cost, rv, cv) for _, cost, rv, cv, _ in pair]
@@ -3253,10 +3361,12 @@ def matcher_phase(au, recorded):
         check(torch.equal(out[0][k], a) and torch.equal(out[2][k], r)
               and torch.equal(out[1][k].view(torch.int32), p.view(torch.int32)),
               f"12c: problem {k} of a two-problem launch differs from plain")
+    probes = {label: auction_probe_summary(au, label, *p, wants[label])
+              for label, p in recorded.items()}
     print(f"12c matcher: {len(cases)} problems ({len(recorded)} recorded from the train steps) "
           f"equal to plain in both forms, and two in one launch; "
           f"{time.perf_counter() - t0:.1f} s")
-    return shapes
+    return shapes, probes
 
 
 def bf16_kernel_phase(sp, cases, fwd32, dw32):
@@ -4389,10 +4499,7 @@ def long_tail_only() -> int:
     with ThreadPoolExecutor(len(builds)) as ex:
         list(ex.map(lambda build: build(), builds))
     print(f"build: {time.perf_counter() - t0:.2f} s")
-    for lib in ("deform_conv", "pointnet"):
-        for line in native.build_log(lib).read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {lib}: {line.strip()}")
+    ptxas_lines(native, ["deform_conv", "pointnet"])
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     cfg, cpu_model, cpu_batch = build_flagship("cpu", num_points=120000, seed=0)
     model, batch = copy.deepcopy(cpu_model).to(DEVICE), batch_to(cpu_batch, DEVICE)
@@ -4469,8 +4576,8 @@ def matcher_only() -> int:
     torch.cuda.empty_cache()
     cfgs = train_configs_phase(sp, bp, counters, recorded, ("transfusion-l", "pointpillars"))
     check(len(recorded) == 3, f"12c: matcher problems recorded from {sorted(recorded)}")
-    shapes = matcher_phase(au, recorded)
-    print(json.dumps({"auction": shapes, "launches_train": {
+    shapes, probes = matcher_phase(au, recorded)
+    print(json.dumps({"auction": shapes, "auction_probe": probes, "launches_train": {
         "flagship": parity["launches"], **{k: r["launches"] for k, r in cfgs.items()}},
         "steps_tf32_on": {k: r["steps_tf32_on"]["ms_median"] for k, r in cfgs.items()},
         "auction_ms_in_steps": {k: r["steps_tf32_on"]["auction_ms"] for k, r in cfgs.items()},
@@ -4805,7 +4912,7 @@ def main() -> int:
 
     # 12c. the auction kernel against the plain loop: made problems and the steps' own
     check(len(recorded) == 3, f"12c: matcher problems recorded from {sorted(recorded)}")
-    auction_shapes = matcher_phase(au, recorded)
+    auction_shapes, auction_probes = matcher_phase(au, recorded)
 
     # 13. two timed train steps, TF32 on
     torch.backends.cudnn.allow_tf32 = True
@@ -4943,7 +5050,7 @@ def main() -> int:
                                 parity["launches"]["auction"], auction_shapes),
                         pallas=False, launches_eval=launches["auction"],
                         launches_lidar=lidar_launches["auction"],
-                        launches_tools=tool_launches["auction"]))
+                        launches_tools=tool_launches["auction"], probe=auction_probes))
     for k in kernels[:3]:
         k["launches_tools"] = tool_launches[k["name"]]
     for k in kernels:

@@ -8,10 +8,12 @@ on the CPU.
   (an infinite bid, then NaN bids), and the from-files shape (R = 140 with
   15 valid);
 - a numpy transcription of the CUDA kernel's round (``csrc/auction.cu``: a
-  lane's top-2 over its columns and the butterfly merge with their tie
-  rules, the max of the bids on their int bits, the lowest winning row, the
-  in-place column pass) equals the plain version in ``assign``, ``price``
-  and the rounds on the same problems;
+  G-lane group's top-2 over its columns and the butterfly merge with their
+  tie rules, the column's 64-bit key of bid and row, the column pass with
+  the exact count of unassigned rows as the stop test) equals the plain
+  version in ``assign``, ``price`` and the rounds on the same problems, and
+  at every group width the plan gives (chosen by R); the key's order; the
+  launch plans (``auction_plan``, ``fps_plan``) within a block's limits;
 - the op ``bevfusion::auction``: its CPU form is the plain version, its fake
   form gives the three outputs' shapes and dtypes, and a CPU call counts no
   launch.
@@ -95,80 +97,99 @@ def test_cases_reach_what_they_are_for():
     assert (assign[:15] >= 0).all() and (assign[15:] == -1).all() and 0 < int(rounds) < 2000
 
 
-def _lane_top2(net):
-    """The kernel's lanes: lane l takes columns l, l + 32, ... in order;
-    its first column sets (best, j), then a larger value moves best to
-    second, an equal or smaller one competes for second. net [R, C] ->
-    best, j, second [R, 32] (a lane with no column: -inf, INT_MAX, -inf)."""
+def _lane_top2(net, G=32, w=1):
+    """The kernel's lanes of a G-lane row group: lane l takes its columns
+    in order, w at a time (w = 4: the kernel's four-column loads), chunks
+    l, l + G, ...; its first column sets (best, j), then a larger value
+    moves best to second, an equal or smaller one competes for second.
+    net [R, C] -> best, j, second [R, G] (a lane with no column: -inf,
+    INT_MAX, -inf)."""
     R, C = net.shape
-    best = np.full((R, 32), -np.inf, np.float32)
-    j = np.full((R, 32), np.iinfo(np.int32).max, np.int64)
-    second = np.full((R, 32), -np.inf, np.float32)
-    for k in range(0, C, 32):
-        lanes = np.arange(min(32, C - k))
-        v = net[:, k + lanes]
-        if k == 0:
-            best[:, lanes], j[:, lanes] = v, k + lanes
-            continue
-        b, s = best[:, lanes], second[:, lanes]
-        up = v > b
-        second[:, lanes] = np.where(up, b, np.where(v > s, v, s))
-        best[:, lanes] = np.where(up, v, b)
-        j[:, lanes] = np.where(up, k + lanes, j[:, lanes])
+    best = np.full((R, G), -np.inf, np.float32)
+    j = np.full((R, G), np.iinfo(np.int32).max, np.int64)
+    second = np.full((R, G), -np.inf, np.float32)
+    first = np.ones(G, bool)
+    for c0 in range(0, C, G * w):
+        for e in range(w):
+            cols = c0 + np.arange(G) * w + e  # each lane's next column
+            lanes = np.nonzero(cols < C)[0]
+            v, c = net[:, cols[lanes]], cols[lanes]
+            b, s = best[:, lanes], second[:, lanes]
+            up = (v > b) | first[lanes]
+            second[:, lanes] = np.where(first[lanes], s, np.where(up, b, np.where(v > s, v, s)))
+            best[:, lanes] = np.where(up, v, b)
+            j[:, lanes] = np.where(up, c, j[:, lanes])
+            first[lanes] = False
     return best, j, second
 
 
 def _merge(best, j, second):
-    """The butterfly of shuffles (xor 16, 8, 4, 2, 1): the larger best, of
-    equal ones the lower index; second the largest of both seconds and the
-    other best. Every lane ends with the same; lane 0's is returned."""
-    lanes = np.arange(32)
-    for off in (16, 8, 4, 2, 1):
+    """The group's butterfly of shuffles (xor G/2, ..., 1): the larger best,
+    of equal ones the lower index; second the largest of both seconds and
+    the other best. Every lane ends with the same; lane 0's is returned."""
+    G = best.shape[1]
+    lanes = np.arange(G)
+    off = G // 2
+    while off:
         ob, oj, os_ = best[:, lanes ^ off], j[:, lanes ^ off], second[:, lanes ^ off]
         theirs = (ob > best) | ((ob == best) & (oj < j))
         lost = np.where(theirs, best, ob)
         s = np.where(second > os_, second, os_)
         second = np.where(s > lost, s, lost)
         best, j = np.where(theirs, ob, best), np.where(theirs, oj, j)
+        off //= 2
     return best[:, 0], j[:, 0], second[:, 0]
+
+
+def column_key(bid, rows):
+    """The column's 64-bit key of ``csrc/auction.cu``: (bid bits << 32) |
+    (0xFFFFFFFF - row), for fp32 ``bid`` and int ``rows`` (arrays)."""
+    bits = np.asarray(bid, np.float32).view(np.uint32).astype(np.uint64)
+    return (bits << np.uint64(32)) | (np.uint64(0xFFFFFFFF) - np.asarray(rows, np.uint64))
 
 
 def kernel_transcription(value, row_valid, eps, max_iters):
     """``csrc/auction.cu``'s block, step for step, in numpy fp32: value [R,
-    C], row_valid [R], eps fp32 -> (assign [R], price [C], rounds)."""
+    C], row_valid [R], eps fp32 -> (assign [R], price [C], rounds). Every
+    bidding row's G-lane group (G = ``auction_plan``'s lanes) takes its top-2 (four columns a load where the staged form does) and
+    merges it; each bid goes to its column's key by a
+    64-bit max; the column pass takes the winner from the key and keeps the
+    count of unassigned valid rows exact, the stop test."""
     R, C = value.shape
+    G = au.auction_plan(R, C)["lanes"]
+    width = 4 if C % 4 == 0 and G >= 4 else 1  # the staged form's four-column loads
     price = np.zeros(C, np.float32)
     owner = np.full(C, -1, np.int64)
-    assign = np.full(R, -1, np.int64)
-    int_min = np.iinfo(np.int32).min
+    assign = np.where(row_valid, -1, -2).astype(np.int64)  # -2: never bids
+    unassigned = int(row_valid.sum())
     it = 0
-    while True:
-        bidding = (assign < 0) & row_valid
-        if not bidding.any() or it >= max_iters:
-            break
-        rows = np.nonzero(bidding)[0]
+    while it < max_iters and unassigned > 0:
+        rows = np.nonzero(assign == -1)[0]
         net = (value[rows] - price[None, :]).astype(np.float32)
-        best, j, second = _merge(*_lane_top2(net))
+        best, j, second = _merge(*_lane_top2(net, G, width))
         bid = ((best - second).astype(np.float32) + eps).astype(np.float32)
-        col_best = np.full(C, int_min, np.int64)
-        np.maximum.at(col_best, j, bid.view(np.int32).astype(np.int64))
-        win = np.full(C, R, np.int64)
-        wins = col_best[j].astype(np.int32).view(np.float32) == bid
-        np.minimum.at(win, j[wins], rows[wins])
-        for c in np.nonzero(win < R)[0]:  # the column pass
-            price[c] = np.float32(price[c] + col_best[c].astype(np.int32).view(np.float32))
+        keys = np.zeros(C, np.uint64)
+        np.maximum.at(keys, j, column_key(bid, rows))
+        for c in np.nonzero(keys)[0]:  # the column pass
+            bits = np.uint32(keys[c] >> np.uint64(32))
+            if bits > 0x7F800000:  # a NaN bid: no winner
+                continue
+            w = int(np.uint64(0xFFFFFFFF) - (keys[c] & np.uint64(0xFFFFFFFF)))
+            price[c] = np.float32(price[c] + bits.view(np.float32))
             if owner[c] >= 0:
                 assign[owner[c]] = -1
-            assign[win[c]] = c
-            owner[c] = win[c]
+            else:
+                unassigned -= 1
+            assign[w] = c
+            owner[c] = w
         it += 1
-    return np.where(row_valid, assign, -1), price, it
+    assert unassigned == int(((assign == -1) & row_valid).sum())  # the count stayed exact
+    return np.where(assign >= 0, assign, -1), price, it
 
 
-@pytest.mark.parametrize("name", CASES)
-def test_kernel_transcription_equals_plain(name):
-    (assign, price, rounds), (cost, row_valid, col_valid), iters = _plain(name)
+def _transcription_against_plain(cost, row_valid, col_valid, iters):
     value, eps = au.auction_value(cost, row_valid, col_valid)
+    assign, price, rounds = au.auction_rounds_plain(value, row_valid, eps, iters)
     with np.errstate(invalid="ignore"):  # C = 1: inf - inf
         got = kernel_transcription(value.numpy(), row_valid.numpy(), eps.numpy(), iters)
     np.testing.assert_array_equal(got[0], assign.numpy())
@@ -176,16 +197,41 @@ def test_kernel_transcription_equals_plain(name):
     assert got[2] == int(rounds)
 
 
-def test_lane_merge_keeps_the_first_index_and_counts_a_tie_as_second():
+@pytest.mark.parametrize("name", CASES)
+def test_kernel_transcription_equals_plain(name):
+    """At the plan's lanes a row: equal to plain in assign, price bits and
+    rounds."""
+    _, t, iters = _plain(name)
+    _transcription_against_plain(*t, iters)
+
+
+@pytest.mark.parametrize("kind", ["random", "contested"])
+@pytest.mark.parametrize("R,C,lanes", [(1, 200, 32), (33, 200, 16), (63, 31, 16), (65, 200, 8),
+                                       (140, 33, 4), (300, 48, 2), (600, 40, 1),
+                                       (1100, 36, 1)])
+def test_kernel_transcription_at_other_widths(R, C, lanes, kind):
+    """At every lanes-a-row width the plan gives, chosen by R (32 lanes at R
+    = 1, 16 past 32 rows, 8 past 64, 4 at 140, 2, then 1; past 1024 rows
+    strided over the groups), on random and near-equal costs: equal to
+    plain all the same."""
+    rng = np.random.RandomState(R * C)
+    cost = rng.rand(R, C).astype(np.float32)
+    if kind == "contested":  # every row wants the same three near-equal columns
+        cost = (cost * 1e-3 + np.where(np.arange(C) < 3, 0.0, 0.5)).astype(np.float32)
+    assert au.auction_plan(R, C)["lanes"] == lanes
+    _transcription_against_plain(torch.from_numpy(cost), torch.ones(R, dtype=torch.bool),
+                                 torch.ones(C, dtype=torch.bool), 60)
+
+
+def _merge_case(G, w=1):
     """Rows whose best value repeats across lanes and within a lane, and a
-    row of -inf: the merge returns torch.max's first index and the plain
-    version's second value."""
+    row of -inf, merged by G-lane groups; checked against torch.max."""
     net = np.full((4, 70), -3.0, np.float32)
-    net[0, [5, 37, 69]] = 2.0  # one lane (5), twice more in lane 5's columns
-    net[1, [40, 9]] = 2.0  # lane 8 has it at 40, lane 9 at 9: the first index is 9
-    net[2, 33], net[2, 1] = 2.0, 1.5  # the same lane: best at 33, second 1.5 earlier
+    net[0, [5, 37, 69]] = 2.0  # one lane (5), twice more in lane 5's columns (G = 32)
+    net[1, [40, 9]] = 2.0  # lane 8 has it at 40, lane 9 at 9: the first index is 9 (G = 32)
+    net[2, 33], net[2, 1] = 2.0, 1.5  # the same lane: best at 33, second 1.5 earlier (G = 32)
     net[3] = -np.inf
-    best, j, second = _merge(*_lane_top2(net))
+    best, j, second = _merge(*_lane_top2(net, G, w))
     t = torch.from_numpy(net)
     want_v, want_j = t.max(1)
     want_s = t.scatter(1, want_j[:, None], float("-inf")).max(1).values
@@ -193,6 +239,41 @@ def test_lane_merge_keeps_the_first_index_and_counts_a_tie_as_second():
     np.testing.assert_array_equal(best, want_v.numpy())
     np.testing.assert_array_equal(second, want_s.numpy())
     assert j.tolist() == [5, 9, 33, 0] and second.tolist()[:3] == [2.0, 2.0, 1.5]
+
+
+def test_lane_merge_keeps_the_first_index_and_counts_a_tie_as_second():
+    """The merge returns torch.max's first index and the plain version's
+    second value (a warp's 32 lanes)."""
+    _merge_case(32)
+
+
+@pytest.mark.parametrize("G,w", [(2, 1), (4, 1), (16, 1), (4, 4), (16, 4), (32, 4)])
+def test_lane_merge_at_group_widths(G, w):
+    """The same at the narrower groups a row may have, and with four
+    columns a load."""
+    _merge_case(G, w)
+
+
+def test_column_key_orders_bids_then_the_lowest_row():
+    """The key's unsigned order: the larger bid first (its bits' order is
+    the float order over bids > 0, +inf and NaN, NaN on top), of equal bids
+    the lowest row; a NaN bid's key is one the column pass refuses; no real
+    bid packs to key 0 ("no bid")."""
+    rng = np.random.RandomState(23)
+    bids = np.concatenate([rng.rand(200).astype(np.float32) * 10.0 ** rng.randint(-40, 30, 200),
+                           [np.float32(1.4e-45), np.float32(3.4e38), np.inf]]).astype(np.float32)
+    bids = bids[bids > 0]
+    rows = rng.randint(0, 300, bids.size)
+    keys = column_key(bids, rows)
+    ranked = keys[np.lexsort((rows, -bids.astype(np.float64)))]  # larger bid, then lower row
+    assert (ranked[:-1] >= ranked[1:]).all()
+    assert (keys > 0).all() and column_key(np.float32(1.4e-45), 0xFFFFFFFF) > 0
+    tied = column_key(np.full(5, 0.25, np.float32), [7, 3, 9, 4, 3])
+    assert int(np.argmax(tied)) == 1 and tied[1] == tied[4]
+    nan = column_key(np.float32(np.nan), 0)
+    assert nan > column_key(np.float32(np.inf), 0)
+    assert np.uint32(nan >> np.uint64(32)) > 0x7F800000  # refused: no winner
+    assert np.uint32(column_key(np.float32(np.inf), 5) >> np.uint64(32)) == 0x7F800000
 
 
 def _bits(t):
@@ -233,4 +314,46 @@ def test_kernel_launch_refuses_what_it_does_not_take():
             au._launch_auction(value, bad["row_valid"], bad["eps"], 10)
     with pytest.raises(ValueError):
         au._launch_auction(torch.zeros(1, 4, 20000), ok["row_valid"], ok["eps"], 10)
-    assert au.value_staged(140, 200) and not au.value_staged(200, 300)
+    assert au.auction_plan(140, 200)["staged"] and not au.auction_plan(200, 300)["staged"]
+
+
+def test_launch_plans_stay_within_a_block():
+    """``auction_plan`` at R 1..256, C 1..512 (staged or not) and ``fps_plan``
+    at N 1..32,768: at most 1024 threads in whole warps and 232,448 bytes
+    of shared memory; the auction's rows each get their lanes (the largest
+    power of two <= 32 with R * lanes <= 1024), its staged rows padded to
+    ``lanes`` mod 32; D2's slots cover N with fewer than two dead slots a
+    thread (no power-of-two ladder)."""
+    from bevfusion_tpu_torch.ops import pointnet as pn
+
+    for R in range(1, 257):
+        lanes = 32
+        while R * lanes > au.MAX_THREADS:
+            lanes //= 2
+        for C in range(1, 513):
+            for staged in (True, False):
+                p = au.auction_plan(R, C, staged)
+                assert p["lanes"] == lanes and 32 <= p["threads"] <= au.MAX_THREADS
+                assert p["threads"] % 32 == 0 and p["threads"] >= R * lanes
+                assert p["scratch_bytes"] <= p["smem_bytes"] <= au.MAX_SMEM
+                assert p["ldv"] == C if not p["staged"] else (
+                    C <= p["ldv"] < C + 32 and p["ldv"] % 32 == lanes % 32)
+                assert p["staged"] <= staged
+    assert au.auction_plan(64, 200) == {"threads": 1024, "lanes": 16, "ldv": 208, "staged": 1,
+                                        "smem_bytes": 3472 + 64 * 208 * 4,
+                                        "scratch_bytes": 3472}
+    assert au.auction_plan(140, 200)["lanes"] == 4 and au.auction_plan(1, 200)["threads"] == 32
+    assert au.auction_plan(1100, 36)["lanes"] == 1 and au.auction_plan(1100, 36)["threads"] == 1024
+    for n in range(1, pn.FPS_MAX_POINTS + 1):
+        p = pn.fps_plan(n)
+        cl, slots = p["cluster"], p["points"]
+        assert p["threads"] <= 1024 and p["threads"] % 32 == 0 and p["smem_bytes"] <= au.MAX_SMEM
+        assert 0 <= slots * p["threads"] * cl - n < cl * (32 * slots + 1)
+        assert 1 <= slots <= 8 and cl == (1 if n <= 8192 else 4)
+    assert pn.fps_plan(20000) == {"threads": 640, "points": 8, "smem_bytes": 1728, "cluster": 4}
+    assert [pn.fps_plan(n)["threads"] for n in (2048, 1024, 512, 256)] == [512, 512, 512, 256]
+    assert {pn.fps_plan(n)["points"] for n in (512, 513, 1300, 2048, 2049, 3000, 3500, 8192)} \
+        == set(range(1, 9))  # every points-a-thread form is some N's
+    for n in (0, 32769):
+        with pytest.raises(ValueError):
+            pn.fps_plan(n)

@@ -1342,13 +1342,17 @@ def test_deform_im2col_kernel_matches_plain(cuda, B, H, W, C, stride, modulated)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,npoint,masked", [(20000, 2048, False), (2048, 1024, True),
-                                              (700, 256, False), (9000, 64, True),
-                                              (30000, 16, False)])
+@pytest.mark.parametrize("N,npoint,masked", [
+    (20000, 2048, False), (2048, 1024, True), (700, 256, False), (9000, 64, True),
+    (30000, 16, False), (256, 255, True), (8192, 64, False), (8193, 64, True),
+    (4096, 64, False), (4097, 64, True), (32768, 24, False), (20000, 48, True),
+    (1, 3, False), (33, 33, True)])
 def test_furthest_point_sample_kernel_matches_plain(cuda, N, npoint, masked):
-    """D2 against its plain version: the same indices bit for bit, at every
-    points-per-thread form (1 .. 32), with ties (points on a lattice) and
-    masked points; one launch a batch."""
+    """D2 against its plain version: the same indices bit for bit, at the
+    edges of its forms (``fps_plan``: one block up to 8,192 points, 8 a
+    thread past 4,096, four blocks a sample past 8,192; one point past
+    each), VoteNet's 20,000 and the largest N, with ties (points
+    on a lattice) and masked points; one launch a batch."""
     from bevfusion_tpu_torch.ops import pointnet as pn
 
     g = torch.Generator(device=cuda).manual_seed(N)
@@ -1362,6 +1366,25 @@ def test_furthest_point_sample_kernel_matches_plain(cuda, N, npoint, masked):
     assert torch.equal(got, want)
     with pytest.raises(ValueError):
         pn.furthest_point_sample(torch.randn(1, 40000, 3, device=cuda), 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,points,cluster", [
+    (20, 1, 1), (512, 1, 1), (1000, 2, 1), (1300, 3, 1), (2048, 4, 1), (2049, 5, 1),
+    (3000, 6, 1), (3500, 7, 1), (8192, 8, 1), (8193, 5, 4), (12000, 6, 4), (20000, 8, 4)])
+def test_furthest_point_sample_forms_agree(cuda, N, points, cluster):
+    """Every form the plan launches (1-8 points a thread, chosen by N; one
+    or four blocks a sample) gives plain's indices, on two samples."""
+    from bevfusion_tpu_torch.ops import pointnet as pn
+
+    plan = pn.fps_plan(N)
+    assert (plan["points"], plan["cluster"]) == (points, cluster)
+    g = torch.Generator(device=cuda).manual_seed(N)
+    xyz = torch.randint(-10, 11, (2, N, 3), generator=g, device=cuda).float() * 0.5
+    want = pn.furthest_point_sample_plain(xyz, min(N, 300))
+    got, launched = pn._launch_fps(xyz, min(N, 300), None)
+    torch.cuda.synchronize()
+    assert launched and torch.equal(got, want)
 
 
 def _auction_problem(kind, R, C, seed):
@@ -1387,12 +1410,16 @@ def _auction_problem(kind, R, C, seed):
 @pytest.mark.parametrize("kind,R,C,iters", [
     ("random", 64, 200, 2000), ("ties", 64, 200, 2000), ("contested", 64, 200, 300),
     ("invalid", 40, 90, 2000), ("random", 9, 5, 100), ("random", 1, 33, 2000),
-    ("random", 2, 1, 30), ("from files", 140, 200, 2000), ("contested", 300, 400, 200)])
+    ("random", 2, 1, 30), ("from files", 140, 200, 2000), ("contested", 300, 400, 200),
+    *[(kind, R, C, 400) for kind in ("random", "contested") for R in (1, 63, 64, 65, 140)
+      for C in (1, 31, 32, 33, 200)]])
 def test_auction_kernel_equals_plain(cuda, kind, R, C, iters):
     """The auction kernel (``csrc/auction.cu``) against its plain version on
-    the card: assign, price (bits) and rounds equal, with value in shared
-    memory and read from global memory; one launch a call through the op;
-    two problems in one launch of the entry."""
+    the card, at the edges of its row groups (R 1 / 63 / 64 / 65 / 140: 32,
+    16, 16, 8 and 4 lanes a row) and of a lane's columns (C 1 / 31 / 32 /
+    33 / 200), on random and near-equal costs: assign, price (bits) and
+    rounds equal, with value in shared memory and read from global memory;
+    one launch a call through the op; two problems in one launch."""
     from bevfusion_tpu_torch.ops import auction as au
 
     cost, row_valid, col_valid = (t.to(cuda) for t in _auction_problem(kind, R, C, R * C))
@@ -1415,3 +1442,33 @@ def test_auction_kernel_equals_plain(cuda, kind, R, C, iters):
         assert torch.equal(two[1][k].view(torch.int32), w[1].view(torch.int32))
     assert torch.equal(au.auction_assignment(cost, row_valid, col_valid, max_iters=iters),
                        want[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,C,lanes", [(1, 200, 32), (63, 200, 16), (65, 200, 8),
+                                       (140, 200, 4), (300, 400, 2), (600, 40, 1),
+                                       (1100, 36, 1)])
+def test_auction_kernel_at_every_width(cuda, R, C, lanes):
+    """Every lanes-a-row form the plan launches, chosen by R (rows strided
+    over the groups past 1024), equals plain on near-equal costs in both
+    forms, as does its probe form, whose cycles and bidders cover each
+    round."""
+    from bevfusion_tpu_torch.ops import auction as au
+
+    assert au.auction_plan(R, C)["lanes"] == lanes
+    cost, row_valid, col_valid = (t.to(cuda) for t in _auction_problem("contested", R, C, 7))
+    value, eps = au.auction_value(cost, row_valid, col_valid)
+    want = au.auction_rounds_plain(value, row_valid, eps, 300)
+    forms = [au._launch_auction(value[None], row_valid[None], eps[None], 300, staged)[0]
+             for staged in (True, False)]
+    (pa, pp, pr), cycles, warps, rows = au.auction_probe(value, row_valid, eps, 300)
+    torch.cuda.synchronize()
+    for aa, ppp, rr in [(a[0], p[0], r[0]) for a, p, r in forms] + [(pa, pp, pr)]:
+        assert torch.equal(aa, want[0]) and torch.equal(rr, want[2])
+        assert torch.equal(ppp.view(torch.int32), want[1].view(torch.int32))
+    assert cycles.shape == (int(want[2]), len(au.PROBE_PHASES)) and (cycles >= 0).all()
+    bidders = (rows[..., 0] >= 0).sum(1)
+    assert ((bidders >= 1) & (bidders <= R)).all() and (warps.amax((1, 2)) > 0).all()
+    assert rows.shape == (int(want[2]), R, len(au.PROBE_ROW))
+    bid = rows[..., 0] >= 0  # a bidding row's moments in order
+    assert (rows[..., 1:] >= rows[..., :-1])[bid].all()

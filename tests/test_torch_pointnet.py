@@ -70,6 +70,57 @@ def test_furthest_point_sample_batch_is_each_sample():
                                       pn.furthest_point_sample(_t(xyz[b]), 20, _t(mask[b])))
 
 
+def fps_kernel_transcription(xyz, npoint, mask=None):
+    """``csrc/pointnet.cu``'s blocks in numpy fp32 on the form ``fps_plan``
+    gives: the points dealt to the sample's T threads (a cluster's blocks
+    one after the other; j = t + k T, slots past N at -inf), each round the
+    distance update rounded op by op, a thread's first slot of its largest
+    distance, the warp's largest distance as an ordered int and the lowest
+    index holding it, then the sample's from the warps' slots, whose
+    coordinates are the next round's. xyz [N, 3], mask [N] or None ->
+    [npoint] int."""
+    n = xyz.shape[0]
+    plan = pn.fps_plan(n)
+    T, P = plan["threads"] * plan["cluster"], plan["points"]
+    j = np.arange(T)[:, None] + np.arange(P)[None, :] * T  # [T, P]
+    inside = j < n
+    pts = np.where(inside[..., None], xyz[np.minimum(j, n - 1)], 0).astype(np.float32)
+    valid = np.ones(n, bool) if mask is None else mask
+    dist = np.where(inside, np.where(valid[np.minimum(j, n - 1)], 1e10, -1.0),
+                    -np.inf).astype(np.float32)
+    out, last = [0], xyz[0]
+    for _ in range(1, npoint):
+        dx, dy, dz = np.moveaxis(pts - last, -1, 0)
+        dist = np.minimum(dist, (dx * dx + dy * dy) + dz * dz)
+        bk = dist.argmax(1)  # the first slot of the thread's largest
+        bits = dist[np.arange(T), bk].view(np.int32)
+        key = (bits ^ ((bits >> 31) & 0x7FFFFFFF)).reshape(-1, 32)
+        idx = (np.arange(T) + bk * T).reshape(-1, 32)
+        wkey = key.max(1)
+        wj = np.where(key == wkey[:, None], idx, np.iinfo(np.int32).max).min(1)
+        bj = int(np.where(wkey == wkey.max(), wj, np.iinfo(np.int32).max).min())
+        out.append(bj)
+        last = xyz[bj]
+    return np.array(out)
+
+
+@pytest.mark.parametrize("n,npoint,masked", [
+    (96, 40, False), (96, 90, True), (700, 64, True), (1300, 64, False), (2048, 48, True),
+    (9000, 24, False), (8193, 24, True), (20000, 8, True), (32768, 6, False)])
+def test_fps_kernel_transcription_equals_plain(n, npoint, masked):
+    """The kernel's blocks on the lattice (ties across threads, warps and
+    blocks), masked or not, one block a sample (1, 2, 3 and 4 points a
+    thread) and clusters of four blocks (past 8,192 points): the plain
+    version's indices."""
+    rng = np.random.RandomState(n)
+    xyz = (rng.randint(-6, 7, (n, 3)) * 0.5).astype(np.float32)
+    mask = rng.rand(n) > 0.3 if masked else None
+    got = fps_kernel_transcription(xyz, npoint, mask)
+    want = pn.furthest_point_sample_plain(_t(xyz)[None], npoint,
+                                          None if mask is None else _t(mask)[None])[0]
+    np.testing.assert_array_equal(got, want.numpy())
+
+
 def test_square_distance_matches_jax():
     a, b = _cloud(4, 30, lattice=False)[0], _cloud(5, 20, lattice=False)[0]
     assert rel_err(pn.square_distance(_t(a), _t(b)).numpy(),
