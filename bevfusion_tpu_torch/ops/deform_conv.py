@@ -34,7 +34,15 @@ import torch.nn as nn
 
 from .. import native
 
-__all__ = ["deform_im2col", "deform_im2col_plain", "deform_conv2d", "DeformConv2dPack"]
+__all__ = ["deform_im2col", "deform_im2col_plain", "deform_im2col_plan", "deform_conv2d",
+           "DeformConv2dPack"]
+
+DEFORM_PLAN_KEYS = ("positions", "threads", "vec", "smem_bytes")
+_D1_POSITIONS = 16  # output positions of one row a block, at most
+_D1_THREADS = 512  # threads a block, at most (the kernel's launch bounds)
+_D1_ENTRY_BYTES = 36  # a (position, tap)'s table entry: four corner offsets, weights, the mask
+_D1_MAX_SMEM = 48 * 1024
+_INT32_MAX = 2 ** 31 - 1
 
 
 def _out_size(n: int, k: int, stride: int, padding: int) -> int:
@@ -76,11 +84,32 @@ def deform_im2col_plain(x: torch.Tensor, offset: torch.Tensor, mask: Optional[to
     return col.reshape(B * Ho * Wo, K * C)
 
 
+def deform_im2col_plan(B: int, Ho: int, Wo: int, C: int, K: int, aligned: bool = True) -> dict:
+    """The launch of the kernel (``csrc/deform_conv.cu``) for an output of
+    B x Ho x Wo positions, C channels and K taps: ``positions`` neighbouring
+    outputs of one row a block (up to 16, at most Wo, fewer where their
+    table of (position, tap) entries would pass 48 KB of shared memory),
+    ``threads`` a block (whole warps, up to 512, no more than the block's
+    channel vectors need), ``vec`` floats a channel vector (4 where C % 4
+    == 0 and x is 16-byte ``aligned``, else 1) and the shared bytes a block
+    (the table). Raises ValueError on a size the kernel refuses."""
+    if min(B, Ho, Wo, C, K) < 1 or max(B, Ho) > 65535 or C >= 2 ** 16:
+        raise ValueError(f"deform_im2col_plan: B {B}, Ho {Ho} (1..65535), Wo {Wo}, C {C} "
+                         f"(1..65535), K {K}")
+    positions = min(_D1_POSITIONS, Wo, _D1_MAX_SMEM // (K * _D1_ENTRY_BYTES))
+    if positions < 1:
+        raise ValueError(f"deform_im2col_plan: {K} taps' table does not fit a block")
+    vec = 4 if C % 4 == 0 and aligned else 1
+    threads = min(_D1_THREADS, -(-positions * K * (C // vec) // 32) * 32)
+    return dict(zip(DEFORM_PLAN_KEYS, (positions, threads, vec,
+                                       positions * K * _D1_ENTRY_BYTES)))
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_fn():
     fn = native.load_library("deform_conv").bevf_deform_im2col
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp] + [i32] * 9 + [vp]
+    fn.argtypes = [vp, vp, vp, vp] + [i32] * 12 + [vp]
     fn.restype = i32
     return fn
 
@@ -92,13 +121,18 @@ def build_kernels() -> None:
 
 def _launch_im2col(x, offset, mask, kernel_size: int, stride: int, padding: int):
     """Check the operands, allocate col and launch the kernel on the current
-    stream; returns (col, whether it launched: nothing to sample, no launch)."""
+    stream as ``deform_im2col_plan`` gives it; returns (col, whether it
+    launched: nothing to sample, no launch). Sizes past int32 (x's, the
+    offsets' or the column's elements) raise before anything is allocated."""
     if x.dim() != 4 or x.dtype != torch.float32:
         raise ValueError(f"deform_im2col: want fp32 x [B, H, W, C], got {tuple(x.shape)} "
                          f"{x.dtype}")
     B, H, W, C = x.shape
     k, K = kernel_size, kernel_size * kernel_size
     Ho, Wo = _out_size(H, k, stride, padding), _out_size(W, k, stride, padding)
+    if max(B * H * W * C, B * Ho * Wo * 2 * K, B * Ho * Wo * K * C) > _INT32_MAX:
+        raise ValueError(f"deform_im2col: x {tuple(x.shape)} with {K} taps has more elements "
+                         f"than the kernel's 32-bit indices reach")
     named = {"offset": (offset, (B, Ho, Wo, 2 * K)),
              "mask": (mask, None if mask is None else (B, Ho, Wo, K))}
     for name, (t, shape) in (("x", (x, tuple(x.shape))),) + tuple(named.items()):
@@ -111,11 +145,12 @@ def _launch_im2col(x, offset, mask, kernel_size: int, stride: int, padding: int)
     col = torch.empty((B * Ho * Wo, K * C), dtype=torch.float32, device=x.device)
     if col.numel() == 0:
         return col, False
+    plan = deform_im2col_plan(B, Ho, Wo, C, K, aligned=x.data_ptr() % 16 == 0)
     with torch.cuda.device(x.device):
         rc = _kernel_fn()(x.data_ptr(), offset.data_ptr(),
                           None if mask is None else mask.data_ptr(), col.data_ptr(),
-                          B, H, W, C, Ho, Wo, k, stride, padding,
-                          torch.cuda.current_stream().cuda_stream)
+                          B, H, W, C, Ho, Wo, k, stride, padding, plan["positions"],
+                          plan["threads"], plan["vec"], torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"deform_im2col: kernel launch failed with cudaError {rc}")
     return col, True
@@ -126,10 +161,12 @@ def deform_im2col(x: torch.Tensor, offset: torch.Tensor, mask: Optional[torch.Te
     """The column buffer [B*Ho*Wo, K*C] of ``deform_im2col_plain``.
 
     The op ``bevfusion::deform_im2col`` (``ops/library.py``): CUDA tensors
-    launch the hand-written kernel (fp32, contiguous; one warp a position and
-    tap, the channels across its lanes) on the current stream; CPU tensors
-    take the plain version; its gradient is autograd of the plain version.
-    ``deform_im2col.launches`` counts kernel launches."""
+    launch the hand-written kernel (fp32, contiguous; a block a run of one
+    output row, each tap's corners once into shared memory, then the
+    channels in 16-byte vectors where C % 4 == 0: ``deform_im2col_plan``)
+    on the current stream; CPU tensors take the plain version; its gradient
+    is autograd of the plain version. ``deform_im2col.launches`` counts
+    kernel launches."""
     return torch.ops.bevfusion.deform_im2col(x, offset, mask, kernel_size, stride, padding)
 
 

@@ -233,9 +233,12 @@ phase 12c alone, the quick check of the auction kernel). Phases:
    deformable im2col D1 twice a task, N1 and N2 once), every
    task's maps within 2e-3 of the same head on the CPU from the card's head
    input, then D1 against its plain version at that input with random
-   offsets (some on integers, some outside the image; bit for bit), its
-   time, bound (bytes) and share; furthest point sampling D2 against its
-   plain version at the four sampling levels of VoteNet's PointNet2SASSG
+   offsets (some on integers, some outside the image; bit for bit) and at
+   two ragged shapes (its vector and scalar forms), its plan
+   (``deform_im2col_plan``), time, bound (bytes) and share, its SASS
+   instructions a kernel, and the deformable conv's split at TF32 off and on
+   (D1, the product, the pair, one ``DeformConv2dPack``); furthest point
+   sampling D2 against its plain version at the four sampling levels of VoteNet's PointNet2SASSG
    (20,000 points of the flagship scan -> 2048 -> 1024 -> 512 -> 256; indices
    bit for bit; its plan, ``fps_plan``; its time beside ``FPS_MS_BEFORE``
    and us a round), and that SA/FP stack on the card (D2 4 launches) against the
@@ -426,6 +429,7 @@ import json
 from concurrent.futures import ThreadPoolExecutor
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -2519,13 +2523,62 @@ def counted(counters, fn):
     return out, {k: c.launches for k, c in counters.items()}
 
 
+def sass_counts(sass: str) -> dict:
+    """Per kernel function of ``cuobjdump -sass`` output: its instructions
+    and its subroutine calls (``CALL``: a 64-bit division is one)."""
+    out, fn = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ")[1].strip()
+            out[fn] = {"instructions": 0, "calls": 0}
+        elif fn and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", line):
+            out[fn]["instructions"] += 1
+            out[fn]["calls"] += " CALL" in line
+    return out
+
+
+def deform_random_offsets(x, seed, K=9):
+    """Offsets of a few pixels for x [B, H, W, C] at stride 1, some taps on
+    integers, some wholly outside the image."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    off = torch.rand(*x.shape[:3], 2 * K, generator=g, device=DEVICE) * 6 - 3
+    off = torch.where(torch.rand(off.shape, generator=g, device=DEVICE) < 0.3, off.round(), off)
+    return torch.where(torch.rand(off.shape, generator=g, device=DEVICE) < 0.05, 40.0, off)
+
+
+def deform_split(dc, x, off, module):
+    """The deformable conv at the DCN head's shape in parts, TF32 off then
+    on (ms, CUDA-event medians): D1 alone, the ``col @ weight`` product
+    alone, the two back to back (``deform_conv2d``), and one
+    ``DeformConv2dPack`` forward with its ``conv_offset`` on the NCHW input."""
+    k = module.kernel_size
+    w = module.weight.detach().permute(2, 3, 1, 0).reshape(k * k, x.shape[-1], -1).contiguous()
+    w2d = w.reshape(-1, w.shape[-1])
+    col = dc.deform_im2col(x, off, None, k, 1, k // 2)
+    nchw = x.permute(0, 3, 1, 2).contiguous()
+    out, flags = {}, (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    with torch.no_grad():
+        for tf32 in (False, True):
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+            out["tf32_on" if tf32 else "tf32_off"] = {
+                "im2col_ms": kernel_ms(lambda: dc.deform_im2col(x, off, None, k, 1, k // 2)),
+                "product_ms": kernel_ms(lambda: col @ w2d),
+                "pair_ms": kernel_ms(lambda: dc.deform_conv2d(x, off, w, None, 1, k // 2)),
+                "module_ms": kernel_ms(lambda: module(nchw))}
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    return out
+
+
 def dcn_frame(counters, none):
     """11g (i): the swint camera CenterHead config with ``separate_head.type:
     DCNSeparateHead``, one eval frame on the card (launches: the pool once, D1
     twice a task, N1 and N2 once); every task's maps against the
     same head on the CPU from the card's head input; then D1 alone against
-    its plain version at that head's input with random offsets. Returns
-    (results, D1's shape entry)."""
+    its plain version, bit for bit, at that head's input with random offsets
+    and at two ragged shapes (the vector form modulated, the scalar form at
+    stride 2), D1's plan, its SASS, and the deformable conv's split
+    (``deform_split``). Returns (results, D1's shape entry)."""
+    from bevfusion_tpu_torch import native
     from bevfusion_tpu_torch.config import load_config
     from bevfusion_tpu_torch.models import build_model
     from bevfusion_tpu_torch.ops import deform_conv as dc
@@ -2555,30 +2608,48 @@ def dcn_frame(counters, none):
     cpu_s = time.perf_counter() - t0
     map_err = max(rel_err(m[k].cpu(), c[k]) for m, c in zip(seen["maps"], cpu_maps) for k in c)
     check(map_err <= HEATMAP_RTOL, f"11g dcn: head maps rel err {map_err} > {HEATMAP_RTOL}")
-    # D1 alone: offsets of a few pixels, some taps on integers, some wholly outside
-    g = torch.Generator(device=DEVICE).manual_seed(3)
-    off = torch.rand(*x.shape[:3], 18, generator=g, device=DEVICE) * 6 - 3
-    off = torch.where(torch.rand(off.shape, generator=g, device=DEVICE) < 0.3, off.round(), off)
-    off = torch.where(torch.rand(off.shape, generator=g, device=DEVICE) < 0.05, 40.0, off)
+    # D1 alone, at the head's input and two ragged shapes, each bit-equal to plain
+    off = deform_random_offsets(x, 3)
     got = dc.deform_im2col(x, off, None, 3, 1, 1)
     plain = dc.deform_im2col_plain(x, off, None, 3, 1, 1)
     torch.cuda.synchronize()
     err = (got - plain).abs().max().item()
-    check(err <= FP32_RTOL_KERNEL * max(plain.abs().max().item(), 1.0),
-          f"11g D1: max|d| {err} against its plain version")
+    check(bits_equal(got, plain), f"11g D1: max|d| {err} against its plain version")
+    ragged = {}
+    for (B, H, W, C), stride, modulated in (((2, 45, 45, 64), 1, True),
+                                            ((1, 45, 37, 33), 2, False)):
+        g = torch.Generator(device=DEVICE).manual_seed(H * W + C)
+        xr = torch.randn(B, H, W, C, generator=g, device=DEVICE)
+        offr = deform_random_offsets(xr, C)[:, ::stride, ::stride].contiguous()
+        mr = torch.rand(*offr.shape[:3], 9, generator=g, device=DEVICE) if modulated else None
+        got_r = dc.deform_im2col(xr, offr, mr, 3, stride, 1)
+        want_r = dc.deform_im2col_plain(xr, offr, mr, 3, stride, 1)
+        key = f"x {(B, H, W, C)} stride {stride}{' modulated' if modulated else ''}"
+        ragged[key] = {"plan": dc.deform_im2col_plan(B, *offr.shape[1:3], C, 9),
+                       "bit_equal": bits_equal(got_r, want_r)}
+        check(ragged[key]["bit_equal"], f"11g D1 at {key}: differs from plain")
     ms = kernel_ms(lambda: dc.deform_im2col(x, off, None, 3, 1, 1))
     plain_ms = kernel_ms(lambda: dc.deform_im2col_plain(x, off, None, 3, 1, 1))
     # per column element 4 products and 3 sums of the corners; bytes: x, offsets, columns
     bound_ms, bound_by = bound(7 * got.numel(), nbytes(x, off, got))
+    plan = dc.deform_im2col_plan(*x.shape[:3], x.shape[3], 9)
+    sass = sass_counts(native.sass("deform_conv"))
+    split = deform_split(dc, x, off, head.task_heads[0].feature_adapt_cls)
     shape = {"shape": f"x {tuple(x.shape)} NHWC, K 9, col {tuple(got.shape)}", "ms": ms,
              "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-             "share": bound_ms / ms, "max_abs_err": err, "bit_equal": bits_equal(got, plain)}
+             "share": bound_ms / ms, "max_abs_err": err, "bit_equal": bits_equal(got, plain),
+             "plan": plan}
     print(f"11g dcn: swint CenterHead with DCNSeparateHead, launches {launches}; head maps vs "
           f"the CPU head on the card's head input: rel err {map_err:.3e} (CPU {cpu_s:.1f} s)")
     print(f"kernel deform_im2col (D1) at {shape['shape']}: {ms:.4f} ms (plain {plain_ms:.4f} "
           f"ms), bound {bound_ms:.4f} ms ({bound_by}), share {shape['share']:.3f}, max|d| "
-          f"{err:.3e}, bit-equal {shape['bit_equal']}")
-    return {"launches": launches, "head_maps_rel_err": map_err, "cpu_head_s": cpu_s}, shape
+          f"{err:.3e}, bit-equal {shape['bit_equal']}; plan {plan}")
+    print(f"11g D1 ragged, bit-equal to plain: {ragged}")
+    for fn, n in sass.items():
+        print(f"11g D1 SASS {fn}: {n['instructions']} instructions, {n['calls']} calls")
+    print(f"11g deformable conv split at the head's input (ms): {split}")
+    return {"launches": launches, "head_maps_rel_err": map_err, "cpu_head_s": cpu_s,
+            "d1_ragged": ragged, "d1_sass": sass, "split": split}, shape
 
 
 def votenet_stack(in_channels):

@@ -1312,16 +1312,8 @@ def test_custom_ops_fake_is_the_cuda_implementations_meta_and_counts_its_launche
     assert library.COUNTERS["greedy_suppress_words"] is nms.greedy_suppress_words
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("modulated", [False, True])
-@pytest.mark.parametrize("B,H,W,C,stride", [(1, 32, 40, 64, 1), (2, 9, 11, 5, 2), (1, 7, 7, 33, 1)])
-def test_deform_im2col_kernel_matches_plain(cuda, B, H, W, C, stride, modulated):
-    """D1 against its plain version on the same CUDA tensors: offsets of a few
-    pixels, some taps on integers, some wholly outside the image; the kernel
-    keeps the plain version's operations in its order, so the columns are
-    equal bit for bit."""
-    from bevfusion_tpu_torch.ops import deform_conv as dc
-
+def _deform_inputs(cuda, B, H, W, C, stride, modulated):
+    """Offsets of a few pixels, some taps on integers, some wholly outside."""
     g = torch.Generator(device=cuda).manual_seed(B * H + C)
     Ho, Wo = (H + 2 - 3) // stride + 1, (W + 2 - 3) // stride + 1
     x = torch.randn(B, H, W, C, generator=g, device=cuda)
@@ -1330,6 +1322,28 @@ def test_deform_im2col_kernel_matches_plain(cuda, B, H, W, C, stride, modulated)
     off = torch.where(on_int, off.round(), off)
     off = torch.where(torch.rand(off.shape, generator=g, device=cuda) < 0.05, 40.0, off)
     mask = torch.rand(B, Ho, Wo, 9, generator=g, device=cuda) if modulated else None
+    return x, off, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("modulated", [False, True])
+@pytest.mark.parametrize("B,H,W,C,stride", [
+    (1, 32, 40, 64, 1), (2, 9, 11, 5, 2), (1, 7, 7, 33, 1), (1, 9, 17, 4, 1), (2, 20, 45, 64, 2),
+    (1, 5, 32, 5, 1), (1, 128, 128, 64, 1)])
+def test_deform_im2col_kernel_matches_plain(cuda, B, H, W, C, stride, modulated):
+    """D1 against its plain version on the same CUDA tensors, every form of
+    ``deform_im2col_plan`` reached by the shape: channel vectors (C 64, 4) and
+    scalars (C 5, 33); rows shorter than a block's 16 positions (7, 6 at
+    stride 2), of exactly two blocks (32), of one more than a block (17),
+    ragged (40, 23 at stride 2);
+    B = 2; the DCN head's input. The kernel keeps the plain version's
+    operations in its order, so the columns are equal bit for bit."""
+    from bevfusion_tpu_torch.ops import deform_conv as dc
+
+    x, off, mask = _deform_inputs(cuda, B, H, W, C, stride, modulated)
+    Ho, Wo = off.shape[1:3]
+    plan = dc.deform_im2col_plan(B, Ho, Wo, C, 9)
+    assert plan["vec"] == (4 if C % 4 == 0 else 1)
     before = dc.deform_im2col.launches
     got = dc.deform_im2col(x, off, mask, 3, stride, 1)
     torch.cuda.synchronize()
@@ -1339,6 +1353,36 @@ def test_deform_im2col_kernel_matches_plain(cuda, B, H, W, C, stride, modulated)
     assert torch.equal(got, want)
     with pytest.raises(ValueError):
         dc.deform_im2col(x.double(), off.double(), None, 3, stride, 1)
+
+
+@pytest.mark.cuda
+def test_deform_im2col_kernel_scalar_form_on_an_unaligned_input(cuda):
+    """x contiguous but 4 bytes past a 16-byte boundary: the plan takes the
+    scalar form at C % 4 == 0, still equal to plain bit for bit."""
+    from bevfusion_tpu_torch.ops import deform_conv as dc
+
+    _, off, mask = _deform_inputs(cuda, 1, 9, 21, 8, 1, True)
+    x = torch.randn(1 + 9 * 21 * 8, device=cuda)[1:].view(1, 9, 21, 8)
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    before = dc.deform_im2col.launches
+    got = dc.deform_im2col(x, off, mask, 3, 1, 1)
+    torch.cuda.synchronize()
+    assert dc.deform_im2col.launches == before + 1
+    assert torch.equal(got, dc.deform_im2col_plain(x, off, mask, 3, 1, 1))
+
+
+@pytest.mark.cuda
+def test_deform_im2col_kernel_refuses_sizes_past_int32(cuda):
+    """x [1, 1024, 1024, 16] with 13 x 13 taps: a 2.8 G-element column, past
+    the kernel's 32-bit indices; the wrapper raises before allocating it and
+    launches nothing."""
+    from bevfusion_tpu_torch.ops import deform_conv as dc
+
+    x = torch.zeros(1, 1024, 1024, 16, device=cuda)
+    before = dc.deform_im2col.launches
+    with pytest.raises(ValueError, match="32-bit"):
+        dc.deform_im2col(x, torch.zeros(1, device=cuda), None, 13, 1, 6)
+    assert dc.deform_im2col.launches == before
 
 
 @pytest.mark.cuda
